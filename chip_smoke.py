@@ -1,6 +1,7 @@
 """Card check of the PyTorch/CUDA port: builds its kernels, holds each
-against its plain PyTorch version, holds a trace against the committed
-JAX reference fixture, and renders the main path through the CLI.
+against its plain PyTorch version, holds a trace and its gradients
+against the committed JAX reference fixtures, renders the main path
+through the CLI and trains through the inverse-rendering entry point.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -20,13 +21,34 @@ Phases (each prints a line before the next starts):
    in ``tests/goldens/torch_port_random_spheres.npz`` (depth 10: 1e-3, at
    most 1% of rays outside);
 6. ``pathtrace_tpu_torch.cli.main`` renders random_spheres at 1280x720,
-   4 spp, depth 10, 3 progressive frames; both kernels must have launched
-   and the plain versions never run.
+   4 spp, depth 10, 3 progressive frames; K1 and K2 must have launched
+   and the plain versions never run;
+7. K6 (the closest hit's backward) against its plain version on the
+   winners of phase 3: per-ray g_ro and g_rd equal bit for bit (at most
+   ``K6_MAX_ULP`` ULPs allowed), per-sphere sums within relative L2 1e-4
+   (atomics sum in another order);
+8. the port's CUDA ``trace_fast_diff`` (depth 4) of the gradient
+   fixture's rays: radiance under the lane contract and per-leaf
+   gradients within ``FIXTURE_GRAD_TOL`` (``tests/torch_port_util.py``)
+   of JAX's in
+   ``tests/goldens/torch_port_grad_small.npz``;
+9. ``python -m pathtrace_tpu_torch.examples.inverse_render``'s ``main``
+   trains random_spheres at 1280x720, 4 spp, depth 4, 5 Adam steps,
+   twice: every default-trainable leaf (the full configuration), then the
+   texture colours only (the example's own problem). Each run must give
+   finite losses, move the parameters and launch K1 and K6 with no plain
+   version run; the colour run's loss must be lower at step 5 than at
+   step 1 (with the geometry leaves the loss need not fall: see the
+   phase).
 
-The second-to-last line is a JSON object with each kernel's launches in
-phase 6, its largest difference from the plain version, and both times;
-the last line is ``{"ok": true, "device": {...}}``. Any failure raises:
-the script then exits non-zero and prints no result.
+The line before the last two is a JSON object with, per kernel, its
+launches on its path (phase 6 for the render kernels, phase 9 for the
+trainer's), its largest difference from the plain version, its time,
+the plain version's time, its bound (the larger of bytes over 3.35 TB/s
+and operations over 67 TFLOP/s fp32, from this run's shapes) and
+``library_ms`` (null: no single PyTorch call computes any of them). Then
+comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
+Any failure raises: the script then exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -43,10 +65,20 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_random_spheres.npz")
+GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                            "torch_port_grad_small.npz")
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
+TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
 # of rays allowed outside is 0.5% per bounce, 1% after ten bounces
 RTOL = ATOL = 1e-3
+# K6 per-ray gradients repeat autograd's operations one for one (bitwise
+# expected); per-sphere sums are atomics in another order
+K6_MAX_ULP = 4
+K6_SPHERE_RTOL = 1e-4
+# the card's published peaks (H100 SXM data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
 
 
 def phase(msg: str) -> None:
@@ -76,6 +108,30 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    fp32 operations over the fp32 peak."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_FLOP_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ulp_distance(a, b) -> int:
+    """Largest distance in float32 ULPs between two float tensors."""
+    import torch
+
+    def ordered(x):
+        i = x.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() else 0
+
+
+def rel_l2(a, b) -> float:
+    a64, b64 = a.double(), b.double()
+    return float((a64 - b64).norm() / max(float(b64.norm()), 1e-30))
+
+
 def main() -> int:
     import torch
 
@@ -85,6 +141,7 @@ def main() -> int:
     import numpy as np
 
     from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.examples import inverse_render
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.convert import scene_from_numpy
     from pathtrace_tpu_torch.models.types import SceneFeatures
@@ -92,7 +149,13 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.parallel.inverse import split_scene
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+
+    # the tests' helpers, by path: a ``tests`` package installed elsewhere
+    # would shadow the repository's directory
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import FIXTURE_GRAD_TOL
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -173,6 +236,17 @@ def main() -> int:
     k2_plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args0), 3)
     phase(f"[4] K2 time at {R} lanes: kernel {k2_ms:.3f} ms, "
           f"plain {k2_plain_ms:.3f} ms")
+    n_live = int(scene.spheres.mask.sum())
+    # K1: ~20 fp32 operations per (ray, live sphere) pair; 24 B in and
+    # 8 B out per ray, 20 B per sphere
+    k1_bound = bound(R * 32 + tables.soa.numel() * 4, R * n_live * 20)
+    # K2: per lane 65 B in (12 planes, time, alive, lane, t, idx) and 49 B
+    # out (12 planes, alive), the winner table once; ~300 operations
+    k2_bound = bound(R * 114 + tables.table.numel() * 4, R * 300)
+    # phase 7's winners: [R, 3] rays with their (t, idx)
+    winners = [(st.planes[0:3].T.contiguous(), st.planes[3:6].T.contiguous(),
+                t_, idx_) for st, t_, idx_ in ((st0, t0_, idx0),
+                                              (st1, t1_, idx1))]
     del st0, st1, planes1, out, out_p
 
     # ---- 5: against the committed JAX reference ----
@@ -238,17 +312,147 @@ def main() -> int:
               f"{rays / ms / 1e3:.2f} Mrays/s, {rb} readbacks")
     phase(f"[6] image mean {mean:.6f}, finite")
 
+    # ---- 7: K6 against its plain version on phase 3's winners ----
+    sp = scene.spheres
+    g_gen = torch.Generator(device=dev)
+    g_gen.manual_seed(1)
+    k6_err, k6_ulp, k6_sph = 0.0, 0, 0.0
+    for label, (ro_, rd_, t_, idx_) in zip(("primary", "scattered"), winners):
+        g_t = torch.rand(R, generator=g_gen, device=dev) + 0.5
+        got = k1.sphere_nearest_bwd(sp.center, sp.radius, ro_, rd_, t_, idx_,
+                                    g_t)
+        ref_ = k1.sphere_nearest_bwd_plain(sp.center, sp.radius, ro_, rd_, t_,
+                                           idx_, g_t)
+        torch.cuda.synchronize()
+        ulp = max(ulp_distance(got[k], ref_[k]) for k in (2, 3))
+        n_diff = sum(int((got[k] != ref_[k]).sum()) for k in (2, 3))
+        err = max(float((got[k] - ref_[k]).abs().max()) for k in (2, 3))
+        sph = max(rel_l2(got[k], ref_[k]) for k in (0, 1))
+        phase(f"[7] K6 {label}: per-ray g_ro/g_rd {n_diff} of {6 * R} values "
+              f"differ from plain (max {ulp} ULP, max |diff| {err}); "
+              f"per-sphere g_center/g_radius rel L2 {sph:.3e}")
+        if not all(bool(torch.isfinite(x).all()) for x in got):
+            raise AssertionError(f"K6 gave non-finite gradients ({label})")
+        if ulp > K6_MAX_ULP or sph > K6_SPHERE_RTOL:
+            raise AssertionError(f"K6 differs from its plain version ({label})")
+        k6_err, k6_ulp, k6_sph = max(k6_err, err), max(k6_ulp, ulp), max(k6_sph, sph)
+    ro_, rd_, t_, idx_ = winners[0]
+    k6_args = (sp.center, sp.radius, ro_, rd_, t_, idx_, g_t)
+    k6_ms = time_ms(lambda: k1.sphere_nearest_bwd(*k6_args), 20)
+    k6_plain_ms = time_ms(lambda: k1.sphere_nearest_bwd_plain(*k6_args), 3)
+    # K6: per ray ro, rd, t, idx, g_t in (36 B) and g_ro, g_rd out (24 B),
+    # the sphere leaves in and their gradients out once; ~60 operations
+    k6_bound = bound(R * 60 + sp.center.numel() * 4 * 2 + sp.radius.numel() * 4 * 2,
+                     R * 60)
+    phase(f"[7] K6 time at {R} rays: kernel {k6_ms:.3f} ms, plain "
+          f"{k6_plain_ms:.3f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
+    del winners, got, ref_, k6_args
+
+    # ---- 8: the CUDA trace's gradients against the JAX fixture ----
+    gref = np.load(GRAD_FIXTURE)
+    gscene, _ = presets.random_spheres(WIDTH / HEIGHT)
+    gparams, rebuild, names = split_scene(gscene.to(dev))
+    if names != list(gref["names"]):
+        raise AssertionError(f"trainable leaves {names}")
+    rad, _ = fp.trace_fast_diff(
+        rebuild(gparams), *(torch.from_numpy(gref[k]).to(dev)
+                            for k in ("rays.ro", "rays.rd", "rays.time")),
+        int(gref["seed"]), int(gref["max_depth"]),
+        SceneFeatures.from_scene(gscene))
+    frac = outside_fraction(rad.detach().cpu(), torch.from_numpy(gref["radiance"]))
+    grads = torch.autograd.grad(
+        (torch.from_numpy(gref["w"]).to(dev) * rad).sum(), gparams)
+    errs = {n: rel_l2(g.cpu(), torch.from_numpy(gref[f"grad.{n}"]))
+            for n, g in zip(names, grads)}
+    phase(f"[8] gradient fixture: {rad.shape[0]} rays depth "
+          f"{int(gref['max_depth'])}, {frac:.4%} of values outside 1e-3; "
+          "per-leaf rel L2 vs JAX: "
+          + ", ".join(f"{n} {e:.3e} (<= {FIXTURE_GRAD_TOL[n]})"
+                      for n, e in errs.items()))
+    if frac > 0.005 or any(errs[n] > FIXTURE_GRAD_TOL[n] for n in names):
+        raise AssertionError("trace gradients outside the fixture contract")
+
+    # ---- 9: the trainer through its entry point, twice: every
+    # default-trainable leaf (the full configuration), then the example's
+    # own problem (the perturbed texture colours), whose loss must fall.
+    # With geometry leaves the loss need not fall: their gradients are
+    # interior-only (no silhouette term), and Adam moves every centre and
+    # radius by about the learning rate from the first step; the
+    # reference's trainer does the same (tests/test_torch_grad.py
+    # test_train_steps_track_jax holds the port's losses to its, step by
+    # step, with every default leaf and with the colours alone).
+    runs = {}
+    for trainable in ("default", "color"):
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = ["--preset", "random_spheres", "--width", str(WIDTH),
+                    "--height", str(HEIGHT), "--samples", str(SAMPLES),
+                    "--depth", str(TRAIN_DEPTH), "--steps", str(TRAIN_STEPS),
+                    "--trainable", trainable, "--device", "cuda",
+                    "--out", os.path.join(tmp, "inverse.npy")]
+            k1.LAUNCHES = k2.LAUNCHES = k1.BWD_LAUNCHES = 0
+            k1.PLAIN_CALLS = k2.PLAIN_CALLS = k1.BWD_PLAIN_CALLS = 0
+            buf = io.StringIO()
+            t_start = time.monotonic()
+            with contextlib.redirect_stdout(buf):
+                rc = inverse_render.main(argv)
+            wall = time.monotonic() - t_start
+            counts = (k1.LAUNCHES, k1.BWD_LAUNCHES)
+            plain = (k1.PLAIN_CALLS, k1.BWD_PLAIN_CALLS)
+            log = buf.getvalue()
+            for ln in log.splitlines():
+                phase(f"[9] inverse_render --trainable {trainable}: {ln}")
+            if rc != 0:
+                raise AssertionError(f"inverse_render.main returned {rc}")
+            side = np.load(os.path.join(tmp, "inverse.npy"))
+        steps = [(float(loss), float(ms)) for loss, ms in re.findall(
+            r"step \d+/\d+: loss ([\d.e+-]+|nan|inf), ([\d.]+) ms", log)]
+        moved = [float(x) for x in re.findall(
+            r" ([\d.]+)(?:,|$)",
+            log.split("largest parameter change:")[1].splitlines()[0])]
+        peak = float(re.search(r"peak device memory: ([\d.]+) GiB",
+                               log).group(1))
+        losses = [loss for loss, _ in steps]
+        phase(f"[9] --trainable {trainable}: launches K1 {counts[0]}, K6 "
+              f"{counts[1]}; plain calls {plain[0]}, {plain[1]}; loss "
+              f"{losses[0]:.8f} -> {losses[-1]:.8f}; ms per step "
+              + ", ".join(f"{ms:.2f}" for _, ms in steps)
+              + f" (CUDA events); peak memory {peak:.3f} GiB; wall {wall:.2f} s")
+        if len(steps) != TRAIN_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"bad step lines: {steps}")
+        if not moved or max(moved) <= 0.0:
+            raise AssertionError("the parameters did not move")
+        if min(counts) <= 0 or max(plain) != 0:
+            raise AssertionError("the trainer did not run through K1 and K6")
+        if not (np.isfinite(side).all()
+                and side.shape == (HEIGHT, 2 * WIDTH, 3)):
+            raise AssertionError(f"bad target|optimized image {side.shape}")
+        runs[trainable] = (counts, losses)
+    if not runs["color"][1][-1] < runs["color"][1][0]:
+        raise AssertionError(f"loss did not fall: {runs['color'][1]}")
+    train_launches = runs["default"][0]
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:50",
-         "launches": launches[0], "max_abs_err": max(err_a, err_b),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "launches": launches[0], "train_launches": train_launches[0],
+         "max_abs_err": max(err_a, err_b),
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:92",
          "launches": launches[1], "max_abs_err": k2_err,
-         "lanes_outside": k2_out, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "lanes_outside": k2_out, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
+         "library_ms": None},
+        {"name": "sphere_nearest_bwd", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",
+         "replaces": "pathtrace_tpu/ops/intersect_pallas.py:670",
+         "launches": train_launches[1], "max_abs_err": k6_err,
+         "max_ulp": k6_ulp, "sphere_rel_l2": k6_sph,
+         "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
+         "bound_by": k6_bound[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,11 @@ scenes: numpy scene building and presets, the counter-hash bounce RNG,
 attribute tables, a closest-hit kernel and a fused shade/scatter kernel
 (CUDA C++ for Hopper, ``csrc/``), the stream-compaction ladder, primary
 rays, film output, the progressive driver and the CLI
-(``python -m pathtrace_tpu_torch``).
+(``python -m pathtrace_tpu_torch``). The second adds the inverse-rendering
+trainer on one device: the closest hit made differentiable with a
+hand-written backward kernel, the differentiable trace, and Adam over the
+scene's leaves (``parallel/inverse.py``,
+``python -m pathtrace_tpu_torch.examples.inverse_render``).
 
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA

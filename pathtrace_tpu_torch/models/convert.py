@@ -3,7 +3,7 @@
 The reference's ``Scene`` and ``Camera`` are trees of arrays. Flattened to
 numpy under dotted keys (``"spheres.center"``, ``"materials.kind"``,
 ``"sky"``, ``"camera.origin"``, ...), they load here as the port's
-dataclasses on any device. Nothing here imports jax: the caller does the
+dataclasses, on the card unless the caller names another device. Nothing here imports jax: the caller does the
 flattening (``np.asarray`` per leaf), so a saved ``.npz`` works as well.
 """
 
@@ -29,7 +29,7 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device)
 
 
-def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cpu") -> T.Scene:
+def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene:
     """Build the port's Scene from the reference's flattened leaves."""
     for kind in _ABSENT_KINDS:
         mask = leaves.get(f"{kind}.mask")
@@ -51,7 +51,7 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cpu") -> T.Scene:
     )
 
 
-def camera_from_numpy(leaves: Mapping[str, np.ndarray], device="cpu") -> Camera:
+def camera_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> Camera:
     """Build the port's Camera from ``camera.<field>`` leaves."""
     return Camera(**{
         f.name: _tensor(np.asarray(leaves[f"camera.{f.name}"], np.float32),

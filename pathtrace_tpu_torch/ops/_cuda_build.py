@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels (``csrc/*.cu``) at first use.
 
-One ``nvcc -shared`` build of every source into a shared library with a
-plain C interface, loaded with ``ctypes``. The library lands in
+Every source compiles in its own ``nvcc -c`` process, all started
+together; one ``nvcc -shared`` then links the objects into a shared
+library with a plain C interface, loaded with ``ctypes``. The library lands in
 ``build/pathtrace_tpu_torch/<hash>/`` beside the package, keyed by a hash
 of the sources and flags: a rerun reuses it, an edited source rebuilds.
 Only the repository's sources and the installed CUDA toolkit are used.
@@ -36,9 +37,10 @@ NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "-fmad=false", "-prec-div=true", "-prec-sqrt=true", "-ftz=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-shared")
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_longlong = ctypes.c_longlong
@@ -60,13 +62,21 @@ _SIGNATURES = {
         _c_void_p, _c_int,                       # sky4, flags
         _c_void_p, _c_void_p, _c_void_p,         # planes_out, alive_out, stream
     ],
+    "pt_sphere_nearest_bwd": [
+        _c_void_p, _c_void_p,                    # ro, rd ([R, 3])
+        _c_void_p, _c_void_p, _c_void_p, _c_int,  # t, idx, g_t, n_rays
+        _c_void_p, _c_void_p, _c_int,            # center, radius, n_spheres
+        _c_float, _c_float,                      # t_min, t_max
+        _c_void_p, _c_void_p,                    # g_ro, g_rd
+        _c_void_p, _c_void_p, _c_void_p,         # g_center, g_radius, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 
 
 class BuildInfo(NamedTuple):
     path: Path
-    seconds: float   # nvcc wall time; 0.0 when an earlier build was reused
+    seconds: float   # nvcc wall time (compiles and link); 0.0 when reused
     log: str         # nvcc/ptxas output of this build ("" when reused)
 
 
@@ -94,21 +104,41 @@ def build() -> BuildInfo:
     for p in srcs:
         digest.update(p.name.encode())
         digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_ROOT / digest.hexdigest()[:16]
     lib = out_dir / LIB_NAME
     if lib.is_file():
         return BuildInfo(lib, 0.0, "")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in srcs if p.suffix == ".cu"]]
+    nvcc = find_nvcc()
+    tag = os.getpid()
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (p for p in srcs if p.suffix == ".cu"):
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, obj, proc))
+    logs, failed = [], []
+    for src, obj, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+    tmp = out_dir / f".{LIB_NAME}.{tag}.tmp"
+    link = subprocess.run(
+        [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(o) for _, o, _ in jobs]],
+        capture_output=True, text=True)
     seconds = time.monotonic() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    log += link.stdout + link.stderr
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{log}")
     os.replace(tmp, lib)
     (out_dir / "build.log").write_text(log)
     return BuildInfo(lib, seconds, log)

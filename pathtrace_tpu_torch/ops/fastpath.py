@@ -14,6 +14,13 @@ Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
 them.
 
+The differentiable trace (:func:`trace_fast_diff`, the training path) runs
+every bounce at full width with no compaction: the closest hit goes
+through :class:`~pathtrace_tpu_torch.ops.intersect_kernel.SphereNearest`
+(kernel forward, K6 backward) and one row gather, and the shading is
+plain PyTorch under autograd, as the reference shades its diff path in
+XLA.
+
 Attribute row layout (24 columns, as in the JAX package):
   cols 0-13   shading: mat_kind, fuzz, ref_idx, tex_kind, col_rgb,
               odd_rgb, even_rgb, noise_scale
@@ -36,7 +43,15 @@ import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
-from pathtrace_tpu_torch.ops.intersect_kernel import sphere_nearest
+from pathtrace_tpu_torch.models.types import (
+    MAT_DIELECTRIC,
+    MAT_DIFFUSE_LIGHT,
+    MAT_LAMBERTIAN,
+    MAT_METAL,
+    TEX_CHECKER,
+    TEX_NOISE,
+)
+from pathtrace_tpu_torch.ops.intersect_kernel import SphereNearest, sphere_nearest
 from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
@@ -44,6 +59,7 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_LIGHT,
     FLAG_METAL,
     FLAG_NOISE,
+    TWO_PI,
     shade_from_winners,
 )
 from pathtrace_tpu_torch.render import compact_util
@@ -53,6 +69,7 @@ GEO = 15       # first geometry column of an attribute row
 K_ATTR = 24
 
 _M32 = 0xFFFFFFFF
+_INF = float(MAX_T)
 
 
 # ---------------------------------------------------------------------------
@@ -220,14 +237,15 @@ def _shade_cols(scene: Scene, mat_id: torch.Tensor):
 
 
 def _finish_table(cols, mask, dead_col: int, n_pad: int, k_attr: int):
+    """Stack the columns into rows; dead and padding rows are zero with
+    1e18 in ``dead_col``. Out of place, so gradients reach the leaves."""
     table = torch.stack(cols, dim=1)
-    table = torch.where(mask[:, None], table, 0.0)
-    table[:, dead_col] = torch.where(mask, table[:, dead_col], 1.0e18)
+    is_dead_col = torch.arange(table.shape[1], device=table.device) == dead_col
+    dead_row = torch.where(is_dead_col, 1.0e18, 0.0).to(table.dtype)
+    table = torch.where(mask[:, None], table, dead_row)
     rows = table.shape[0]
     if n_pad > rows:
-        pad = table.new_zeros((n_pad - rows, table.shape[1]))
-        pad[:, dead_col] = 1.0e18
-        table = torch.cat([table, pad], dim=0)
+        table = torch.cat([table, dead_row.expand(n_pad - rows, -1)], dim=0)
     if table.shape[1] < k_attr:
         table = torch.cat(
             [table, table.new_zeros((table.shape[0], k_attr - table.shape[1]))],
@@ -252,13 +270,15 @@ def build_sphere_table(scene: Scene, k_attr: int) -> torch.Tensor:
 
 def build_sphere_soa(scene: Scene) -> torch.Tensor:
     """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask.
-    Padding spheres sit at centre 1e18 with c-term 1e30 and mask 0."""
+    Padding spheres sit at centre 1e18 with c-term 1e30 and mask 0. No
+    gradient flows through it (see ``SphereNearest``)."""
     sp = scene.spheres
     n = sp.count
     n_pad = ((n + TILE_N - 1) // TILE_N) * TILE_N
-    c = sp.center
+    c = sp.center.detach()
+    radius = sp.radius.detach()
     cc_m_r2 = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
-               - sp.radius * sp.radius)
+               - radius * radius)
     soa = torch.stack([c[:, 0], c[:, 1], c[:, 2], cc_m_r2,
                        sp.mask.to(torch.float32)])
     if n_pad > n:
@@ -502,3 +522,189 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
     img = res.radiance.reshape(height, width, samples, 3).mean(dim=2)
     return FrameResult(img, res.ray_count, res.readbacks)
 
+
+
+# ---------------------------------------------------------------------------
+# the differentiable trace (training path)
+# ---------------------------------------------------------------------------
+
+class FastState(NamedTuple):
+    """[R, 3]-form wavefront state of the differentiable trace (twin of
+    the reference's ``FastState`` without the NEE plane)."""
+
+    ro: torch.Tensor          # [R, 3]
+    rd: torch.Tensor          # [R, 3]
+    time: torch.Tensor        # [R]
+    radiance: torch.Tensor    # [R, 3]
+    throughput: torch.Tensor  # [R, 3]
+    alive: torch.Tensor       # [R] bool
+    lane: torch.Tensor        # [R] int32, uint32 bit pattern of the stream id
+
+
+def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
+                      ro: torch.Tensor, rd: torch.Tensor):
+    """Closest hit over the spheres, differentiable in t, and the winner's
+    attribute row by one row gather: (t [R], attrs [R, K]). Twin of the
+    reference's ``nearest_hit_attrs`` (``fastpath.py:242``) for sphere
+    scenes."""
+    sp = scene.spheres
+    t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd)
+    return t, table.index_select(0, idx.long())
+
+
+def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
+                state: FastState, seed: int, depth: int, max_depth: int,
+                features: SceneFeatures) -> FastState:
+    """One differentiable bounce: the twin of the reference's
+    ``fast_bounce`` (``fastpath.py:549-895``) on the branches this port's
+    scenes reach (sphere normal, constant/checker/noise albedo, emission
+    and sky, Lambertian/metal/dielectric scatter). The masked square roots
+    keep the reference's double-where guards, so masked lanes leak no NaN
+    into the gradients."""
+    f = features
+    t, attrs = nearest_hit_attrs(table, soa, scene, state.ro, state.rd)
+    hit = t < _INF
+    t_safe = torch.where(hit, t, 0.0)
+    point = state.ro + t_safe[:, None] * state.rd
+
+    center = attrs[:, GEO:GEO + 3]
+    r = attrs[:, GEO + 8]
+    inv_r = 1.0 / torch.where(torch.abs(r) < 1e-12, 1.0, r)
+    normal = (point - center) * inv_r[:, None]
+
+    tex_kind = attrs[:, 3]
+    rgb = attrs[:, 4:7]
+    if f.has_checker:
+        with torch.no_grad():  # only its sign is used
+            p = point.detach()
+            sines = (torch.sin(10.0 * p[:, 0]) * torch.sin(10.0 * p[:, 1])
+                     * torch.sin(10.0 * p[:, 2]))
+        checker = torch.where(sines[:, None] < 0.0, attrs[:, 7:10],
+                              attrs[:, 10:13])
+        rgb = torch.where((tex_kind == float(TEX_CHECKER))[:, None], checker,
+                          rgb)
+    if f.has_noise:
+        marble = 0.5 * (1.0 + torch.sin(
+            attrs[:, 13] * point[:, 2]
+            + 10.0 * fast_turb_c(point[:, 0], point[:, 1], point[:, 2])))
+        rgb = torch.where((tex_kind == float(TEX_NOISE))[:, None],
+                          marble[:, None], rgb)
+
+    mat_kind = attrs[:, 0]
+    sky_t = 0.5 * (state.rd[:, 1] + 1.0)
+    grad_sky = (1.0 - sky_t)[:, None] + sky_t[:, None] * torch.tensor(
+        [0.15, 0.21, 0.30], dtype=point.dtype, device=point.device)
+    sky_rgb = torch.where(scene.use_gradient_sky > 0.5, grad_sky,
+                          scene.sky.reshape(1, 3))
+    is_light = mat_kind == float(MAT_DIFFUSE_LIGHT)
+    prim_emit = torch.where(is_light[:, None], rgb, 0.0)
+    emit = torch.where(hit[:, None], prim_emit, sky_rgb)
+    alive_f = state.alive.to(point.dtype)[:, None]
+    radiance = state.radiance + state.throughput * emit * alive_f
+
+    u1 = counter_uniform(state.lane, seed, depth, 0)
+    u2 = counter_uniform(state.lane, seed, depth, 1)
+    u3 = counter_uniform(state.lane, seed, depth, 2)
+    uc = counter_uniform(state.lane, seed, depth, 3)
+    zz = u1 * 2.0 - 1.0
+    aa = u2 * TWO_PI
+    rr = torch.sqrt(torch.clamp(1.0 - zz * zz, min=0.0))
+    unit = torch.stack([rr * torch.cos(aa), rr * torch.sin(aa), zz], dim=-1)
+
+    d = state.rd
+    n = normal
+    rdotn = torch.sum(d * n, dim=-1)
+    reflected = d - 2.0 * rdotn[:, None] * n
+    direction = unit
+    ok = torch.ones_like(hit)
+
+    if f.has_dielectric:
+        ref_idx = attrs[:, 2]
+        exiting = rdotn > 0.0
+        outward = torch.where(exiting[:, None], -n, n)
+        ni = torch.where(exiting, ref_idx, 1.0 / ref_idx)
+        cos_in = torch.where(exiting, rdotn, -rdotn)
+        ces = 1.0 - ref_idx * ref_idx * (1.0 - cos_in * cos_in)
+        # double-where guards: sqrt'(0) is infinite and would poison the
+        # gradients of the lanes the outer where masks off
+        cosine = torch.where(
+            exiting, torch.sqrt(torch.where(ces > 0.0, ces, 1.0)), cos_in)
+        dt_ = torch.sum(d * outward, dim=-1)
+        disc = 1.0 - ni * ni * (1.0 - dt_ * dt_)
+        refr_ok = disc > 0.0
+        sq = torch.sqrt(torch.where(refr_ok, disc, 1.0))
+        refr = (ni[:, None] * (d - outward * dt_[:, None])
+                - outward * sq[:, None])
+        r0 = (1.0 - ref_idx) / (1.0 + ref_idx)
+        r0 = r0 * r0
+        omc = 1.0 - cosine
+        omc2 = omc * omc
+        schlick = r0 + (1.0 - r0) * omc2 * omc2 * omc
+        reflect_prob = torch.where(refr_ok, schlick, 1.0)
+        diel_dir = torch.where((uc > reflect_prob)[:, None], refr, reflected)
+        is_diel = mat_kind == float(MAT_DIELECTRIC)
+        direction = torch.where(is_diel[:, None], diel_dir, direction)
+
+    if f.has_metal:
+        rad3 = cbrt_pos(u3)
+        metal_dir = reflected + (attrs[:, 1] * rad3)[:, None] * unit
+        is_metal = mat_kind == float(MAT_METAL)
+        direction = torch.where(is_metal[:, None], metal_dir, direction)
+        ok = torch.where(is_metal, rdotn < 0.0, ok)
+
+    if f.has_lambertian:
+        is_lam = mat_kind == float(MAT_LAMBERTIAN)
+        direction = torch.where(is_lam[:, None], n + unit, direction)
+
+    if f.has_light:
+        ok = ok & ~is_light
+
+    inv_len = torch.rsqrt(torch.clamp(
+        torch.sum(direction * direction, dim=-1), min=1e-38))
+    direction = direction * inv_len[:, None]
+
+    atten = rgb
+    if f.has_dielectric:
+        atten = torch.where(is_diel[:, None], 1.0, rgb)
+
+    can = state.alive & hit & ok & (depth < max_depth)
+    cs = can[:, None]
+    return FastState(
+        ro=torch.where(cs, point, state.ro),
+        rd=torch.where(cs, direction, state.rd),
+        time=state.time,
+        radiance=radiance,
+        throughput=torch.where(cs, state.throughput * atten,
+                               state.throughput),
+        alive=can,
+        lane=state.lane,
+    )
+
+
+def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                    time: torch.Tensor, seed: int, max_depth: int,
+                    features: SceneFeatures):
+    """Differentiable fast trace: all ``max_depth + 1`` bounces at full
+    width, no compaction (twin of the reference's ``trace_fast_diff``,
+    ``fastpath.py:1568``). Gradients flow to the scene's leaves through
+    the attribute table and the closest hit's backward. Returns
+    (radiance [R, 3], segments [] int64 on the device)."""
+    fastpath_supported(features)
+    table = build_sphere_table(scene, attr_width(features))
+    soa = build_sphere_soa(scene)
+    R = ro.shape[0]
+    dev = ro.device
+    state = FastState(
+        ro=ro, rd=rd, time=time,
+        radiance=torch.zeros((R, 3), dtype=ro.dtype, device=dev),
+        throughput=torch.ones((R, 3), dtype=ro.dtype, device=dev),
+        alive=torch.ones(R, dtype=torch.bool, device=dev),
+        lane=torch.arange(R, dtype=torch.int32, device=dev),
+    )
+    seed = int(seed)
+    segs = torch.zeros((), dtype=torch.int64, device=dev)
+    for depth in range(max_depth + 1):
+        segs = segs + state.alive.sum()
+        state = fast_bounce(table, soa, scene, state, seed, depth, max_depth,
+                            features)
+    return state.radiance, segs

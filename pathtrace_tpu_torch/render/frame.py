@@ -43,3 +43,26 @@ def accumulate(acc_image: torch.Tensor, new_image: torch.Tensor,
     n = torch.tensor(float(frame_num), dtype=new_image.dtype)
     mix_prev = n / (n + 1.0)
     return acc_image * mix_prev.item() + new_image * (1.0 - mix_prev).item()
+
+
+def render_frame_diff(scene, camera: Camera, width: int, height: int,
+                      samples: int, max_depth: int,
+                      generator, seed: int, features, rays=None):
+    """Differentiable whole-frame render: primary rays, then
+    :func:`~pathtrace_tpu_torch.ops.fastpath.trace_fast_diff`, then the
+    per-pixel sample mean. The one-device case of the reference's
+    ``render_frame_sharded(..., differentiable=True, mode="fast")``
+    (``parallel/mesh.py:148-228``); one device needs no padding lanes.
+    ``generator`` draws the primary-ray jitter, unless ``rays`` (ro, rd
+    [H*W*S, 3], time [H*W*S], in [H, W, S] order) gives the rays; ``seed``
+    keys the bounce RNG. Returns (image [H, W, 3], segments [] int64 on
+    the device)."""
+    from pathtrace_tpu_torch.ops.fastpath import trace_fast_diff
+
+    R = height * width * samples
+    if rays is None:
+        ro, rd, t = generate_primary_rays(camera, width, height, samples,
+                                          generator)
+        rays = (ro.reshape(R, 3), rd.reshape(R, 3), t.reshape(R))
+    radiance, segs = trace_fast_diff(scene, *rays, seed, max_depth, features)
+    return radiance.reshape(height, width, samples, 3).mean(dim=2), segs

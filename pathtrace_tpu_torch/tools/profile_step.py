@@ -1,0 +1,208 @@
+"""Where one step's device time goes, on the card.
+
+    python -m pathtrace_tpu_torch.tools.profile_step --what train
+    python -m pathtrace_tpu_torch.tools.profile_step --what frame
+
+``train``: the inverse-rendering trainer on random_spheres (every
+default-trainable leaf, perturbed albedos, as
+``examples/inverse_render.py --trainable default``), 1280x720, 4 spp,
+depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
+depth 10). After warm-up steps, ``--reps`` unprofiled steps are timed
+with CUDA events, then one step runs under ``torch.profiler``: the device
+time of every kernel, summed by kind, the forward's share, and the device busy and idle share of the profiled
+step's wall time. The last line of the output is a JSON object with the
+same numbers; ``--out`` writes it to a file too.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from typing import Optional, Sequence
+
+# kernel-name fragments -> kind, first match wins
+_SCATTER = "scatter-adds and index copies (index_add_, index_copy_)"
+_GATHER = "gathers (index_select and indexing)"
+_COPY = "copies, concatenations and fills"
+KINDS = (
+    ("sphere_nearest_bwd", "K6 closest-hit backward"),
+    ("sphere_nearest_kernel", "K1 closest hit"),
+    ("shade_kernel", "K2 fused shade"),
+    ("indexFuncLargeIndex", _SCATTER),
+    ("indexFuncSmallIndex", _SCATTER),
+    ("index_elementwise", _GATHER),
+    ("gather", _GATHER),
+    ("scatter", _SCATTER),
+    ("multi_tensor_apply", "optimizer (Adam)"),
+    ("reduce_kernel", "reductions (sum, mean, any)"),
+    ("CatArray", _COPY),
+    ("direct_copy", _COPY),
+    ("FillFunctor", _COPY),
+    ("Memcpy", _COPY),
+    ("Memset", _COPY),
+    ("<long", "int64 elementwise (the counter-hash RNG)"),
+    ("elementwise", "float elementwise (shading, forward and backward)"),
+)
+
+
+def _kind(name: str) -> str:
+    for frag, kind in KINDS:
+        if frag in name:
+            return kind
+    return "other"
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0)))
+
+
+def _total_device_us(evt) -> float:
+    return float(getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0)))
+
+
+def _setup_train(dev):
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
+
+    scene, cam = presets.random_spheres(1280 / 720)
+    renderer, state, names = make_inverse_renderer(
+        scene, cam, 1280, 720, samples=4, max_depth=4, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    with torch.no_grad():
+        target = renderer.render(state.params, gen)
+        for i, name in enumerate(names):
+            if name == "textures.color":
+                state.params[i].copy_((state.params[i] + 0.2).clamp(0.0, 1.0))
+    box = {"state": state}
+
+    def step():
+        from torch.profiler import record_function
+
+        st = box["state"]
+        st.optimizer.zero_grad(set_to_none=True)
+        with record_function("forward"):
+            loss = renderer.loss(st.params, target, gen)
+        loss.backward()
+        st.optimizer.step()
+        box["state"] = st._replace(step=st.step + 1)
+
+    return step
+
+
+def _setup_frame(dev):
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
+
+    scene, cam = presets.random_spheres(1280 / 720)
+    scene, cam = scene.to(dev), cam.to(dev)
+    feats = SceneFeatures.from_scene(scene)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    box = {"frame": 0}
+
+    def step():
+        box["frame"] += 1
+        render_frame_fast(scene, cam, 1280, 720, 4, 10, gen, box["frame"],
+                          feats)
+
+    return step
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    ap = argparse.ArgumentParser(prog="profile_step")
+    ap.add_argument("--what", choices=("train", "frame"), default="train")
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_step: needs a CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    step = (_setup_train if args.what == "train" else _setup_frame)(dev)
+    for _ in range(args.warmup):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(args.reps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        step()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    kinds, kernels, regions = {}, [], {}
+    for evt in prof.key_averages():
+        if evt.key == "forward":
+            # the range's device time: the kernels launched inside it (the
+            # backward's run on autograd's own thread, so it gets no range)
+            regions["forward"] = _total_device_us(evt) / 1e3
+        elif str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = _device_us(evt)
+            kernels.append((us, evt.count, evt.key))
+            k = _kind(evt.key)
+            kinds[k] = kinds.get(k, 0.0) + us / 1e3
+    busy_ms = sum(us for us, _, _ in kernels) / 1e3
+    if regions:
+        regions["backward and optimizer"] = busy_ms - regions["forward"]
+    kernels.sort(reverse=True)
+    result = {
+        "what": args.what, "card": smi, "torch": torch.__version__,
+        "step_ms_median": statistics.median(times), "step_ms": times,
+        "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "idle_share": 1.0 - busy_ms / wall_ms, "peak_gib": peak_gib,
+        "regions_device_ms": regions,
+        "kinds_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [{"name": n[:160], "launches": c, "ms": us / 1e3}
+                        for us, c, n in kernels[:15]],
+    }
+    print(f"{args.what} on {smi} (torch {torch.__version__})")
+    print("step ms (CUDA events, unprofiled): "
+          + ", ".join(f"{t:.3f}" for t in times))
+    print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
+          f"ms, idle {result['idle_share']:.1%}, peak memory {peak_gib:.3f} GiB")
+    for name, ms in regions.items():
+        print(f"  region {name}: {ms:.3f} ms of device time")
+    for kind, ms in result["kinds_ms"].items():
+        print(f"  {ms:9.3f} ms {ms / busy_ms:6.1%}  {kind}")
+    for k in result["top_kernels"]:
+        print(f"  {k['ms']:9.3f} ms x{k['launches']:<5d} {k['name'][:110]}")
+    line = json.dumps(result)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

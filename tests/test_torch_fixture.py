@@ -79,7 +79,7 @@ def test_port_cpu_trace_holds_fixture():
     from pathtrace_tpu_torch.ops.fastpath import trace_fast
 
     ref = np.load(FIXTURE)
-    scene = scene_from_numpy(ref)
+    scene = scene_from_numpy(ref, device="cpu")
     res = trace_fast(scene, torch.from_numpy(ref["rays.ro"]),
                      torch.from_numpy(ref["rays.rd"]),
                      torch.from_numpy(ref["rays.time"]), int(ref["seed"]),

@@ -116,23 +116,23 @@ class TestSceneState:
     def test_scene_from_numpy_round_trip(self):
         jscene, jcam = jpresets.random_spheres(16 / 9)
         leaves = jax_scene_leaves(jscene)
-        scene = convert.scene_from_numpy(leaves)
+        scene = convert.scene_from_numpy(leaves, device="cpu")
         for key, val in convert.scene_to_numpy(scene).items():
             assert _bits_equal(leaves[key], val), key
         cam_leaves = jax_camera_leaves(jcam)
-        cam = convert.camera_from_numpy(cam_leaves)
+        cam = convert.camera_from_numpy(cam_leaves, device="cpu")
         for key, val in convert.camera_to_numpy(cam).items():
             assert _bits_equal(cam_leaves[key], val), key
 
     def test_scene_from_numpy_refuses_unported_kinds(self):
         jscene, _ = jpresets.cornell(1.0)
         with pytest.raises(ValueError, match="rects"):
-            convert.scene_from_numpy(jax_scene_leaves(jscene))
+            convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
 
     def test_fastpath_refuses_moving_spheres(self):
         jscene, _ = jpresets.random(1.0)
         leaves = jax_scene_leaves(jscene)
-        scene = convert.scene_from_numpy(leaves)
+        scene = convert.scene_from_numpy(leaves, device="cpu")
         with pytest.raises(ValueError, match="moving spheres"):
             tfp.fastpath_supported(SceneFeatures.from_scene(scene))
 
