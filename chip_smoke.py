@@ -39,14 +39,35 @@ Phases (each prints a line before the next starts):
    finite losses, move the parameters and launch K1 and K6 with no plain
    version run; the colour run's loss must be lower at step 5 than at
    step 1 (with the geometry leaves the loss need not fall: see the
-   phase).
+   phase);
+10. K4 (the flat cull) on the cover scene at half_extent 20 (1604
+    spheres, 13 tiles) and 11. K5 (the two-level cull) on
+    random_spheres_xl (4100 spheres in 6144 slots, 48 tiles in
+    supertiles of 16), each on the 1280x720x4 primary rays in 64x64
+    tile order and on once-scattered rays: t and idx equal to the plain
+    version and to K1's kernel, the (warp, tile) sweep count equal to
+    the plain version's, the share of sweeps skipped, and the times of
+    the kernel, of K1 on the same rays and of the plain version; phase
+    10 then renders 3 frames of its scene through ``render_progressive``
+    (K4's path: K4 launched, K1, K5 and every plain version not);
+12. the port's CUDA trace of the xl fixture's tile-ordered rays against
+    JAX's radiance in ``tests/goldens/torch_port_random_spheres_xl.npz``
+    (depth 10, ``XL_DEPTH10_BUDGET`` of the rays outside 1e-3);
+13. ``cli.main`` renders random_spheres_xl at 1280x720, 4 spp, depth 10,
+    3 frames (K5 launched, K1, K4 and every plain version not), then the
+    same frames with the cull and the tile order off (``CULL_MIN_TILES``
+    patched high: K1 brute force); both frame times are printed.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
-trainer's), its largest difference from the plain version, its time,
-the plain version's time, its bound (the larger of bytes over 3.35 TB/s
-and operations over 67 TFLOP/s fp32, from this run's shapes) and
-``library_ms`` (null: no single PyTorch call computes any of them). Then
+trainer's, phase 10 for K4, phase 13 for K5), its largest difference
+from the plain version, its time, the plain version's time, its bound
+(the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
+from this run's shapes; for K4 and K5 the operations of the sweeps this
+run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test)
+and ``library_ms`` (null: no single PyTorch call computes any of them).
+K4 and K5 also carry the share of sweeps skipped and K1's time on the
+same rays. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -67,6 +88,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_random_spheres.npz")
 GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                             "torch_port_grad_small.npz")
+XL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                          "torch_port_random_spheres_xl.npz")
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
 TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
@@ -116,6 +139,18 @@ def bound(bytes_moved: float, ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def rays_outside(radiance, ref_radiance):
+    """(rays outside, their share): rays whose radiance [R, 3] leaves the
+    reference's (numpy) by more than ATOL + RTOL * |ref| in a channel."""
+    import torch
+
+    a64 = radiance.cpu().double()
+    b64 = torch.from_numpy(ref_radiance).double()
+    close = ((a64 - b64).abs() <= ATOL + RTOL * b64.abs()).all(dim=1)
+    n_out = int((~close).sum())
+    return n_out, n_out / close.numel()
+
+
 def ulp_distance(a, b) -> int:
     """Largest distance in float32 ULPs between two float tensors."""
     import torch
@@ -130,6 +165,23 @@ def ulp_distance(a, b) -> int:
 def rel_l2(a, b) -> float:
     a64, b64 = a.double(), b.double()
     return float((a64 - b64).norm() / max(float(b64.norm()), 1e-30))
+
+
+def reset_counts(k1, k2) -> None:
+    """Every launch and plain-call counter of the kernel wrappers to 0."""
+    for name in ("LAUNCHES", "PLAIN_CALLS", "BWD_LAUNCHES", "BWD_PLAIN_CALLS",
+                 "FLAT_LAUNCHES", "FLAT_PLAIN_CALLS", "HIER_LAUNCHES",
+                 "HIER_PLAIN_CALLS"):
+        setattr(k1, name, 0)
+    k2.LAUNCHES = k2.PLAIN_CALLS = 0
+
+
+def read_counts(k1, k2) -> dict:
+    """Launches per kernel, and the plain versions' calls summed."""
+    return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K4": k1.FLAT_LAUNCHES,
+            "K5": k1.HIER_LAUNCHES, "K6": k1.BWD_LAUNCHES,
+            "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
+                      + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS)}
 
 
 def main() -> int:
@@ -155,7 +207,7 @@ def main() -> int:
     # the tests' helpers, by path: a ``tests`` package installed elsewhere
     # would shadow the repository's directory
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_port_util import FIXTURE_GRAD_TOL
+    from torch_port_util import FIXTURE_GRAD_TOL, XL_DEPTH10_BUDGET
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -258,14 +310,9 @@ def main() -> int:
         torch.from_numpy(ref["rays.time"]).to(dev), int(ref["seed"]),
         int(ref["max_depth"]), SceneFeatures.from_scene(fscene),
         min_size=128)
-    rad = res.radiance.cpu()
-    ref_rad = torch.from_numpy(ref["radiance"])
-    a64, b64 = rad.double(), ref_rad.double()
-    close = ((a64 - b64).abs() <= ATOL + RTOL * b64.abs()).all(dim=1)
-    n_out = int((~close).sum())
-    frac = n_out / close.numel()
+    n_out, frac = rays_outside(res.radiance, ref["radiance"])
     count, ref_count = int(res.ray_count), int(ref["ray_count"])
-    phase(f"[5] fixture: {close.numel()} rays depth {int(ref['max_depth'])}, "
+    phase(f"[5] fixture: {len(res.radiance)} rays depth {int(ref['max_depth'])}, "
           f"{frac:.4%} of rays outside 1e-3 (budget 1%), segments {count} vs "
           f"JAX {ref_count}")
     if frac > 0.01 or abs(count - ref_count) > n_out * int(ref["max_depth"]):
@@ -277,15 +324,14 @@ def main() -> int:
         argv = ["-P", "random_spheres", "-W", str(WIDTH), "-H", str(HEIGHT),
                 "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", str(FRAMES),
                 "--out", out_path]
-        k1.LAUNCHES = k2.LAUNCHES = 0
-        k1.PLAIN_CALLS = k2.PLAIN_CALLS = 0
+        reset_counts(k1, k2)
         buf = io.StringIO()
         t_start = time.monotonic()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         wall = time.monotonic() - t_start
-        launches = (k1.LAUNCHES, k2.LAUNCHES)
-        plain = (k1.PLAIN_CALLS, k2.PLAIN_CALLS)
+        c6 = read_counts(k1, k2)
+        launches = (c6["K1"], c6["K2"])
         log = buf.getvalue()
         for ln in log.splitlines():
             phase(f"[6] cli: {ln}")
@@ -295,10 +341,11 @@ def main() -> int:
     frames = [(float(ms), int(rays), int(rb)) for ms, rays, rb in re.findall(
         r"frame \d+/\d+: ([\d.]+) ms, (\d+) rays, [\d.]+ Mrays/s, (\d+) readbacks",
         log)]
-    phase(f"[6] launches K1 {launches[0]}, K2 {launches[1]}; plain calls "
-          f"{plain[0]}, {plain[1]}; wall {wall:.2f} s")
-    if min(launches) <= 0 or max(plain) != 0:
+    phase(f"[6] launches {c6}; wall {wall:.2f} s")
+    if min(launches) <= 0 or c6["plain"] != 0:
         raise AssertionError("the main path did not run through both kernels")
+    if c6["K4"] or c6["K5"]:
+        raise AssertionError("random_spheres (4 tiles) took a culled kernel")
     if len(frames) != FRAMES:
         raise AssertionError(f"expected {FRAMES} frame lines, got {frames}")
     mean = float(image.mean())
@@ -389,15 +436,14 @@ def main() -> int:
                     "--depth", str(TRAIN_DEPTH), "--steps", str(TRAIN_STEPS),
                     "--trainable", trainable, "--device", "cuda",
                     "--out", os.path.join(tmp, "inverse.npy")]
-            k1.LAUNCHES = k2.LAUNCHES = k1.BWD_LAUNCHES = 0
-            k1.PLAIN_CALLS = k2.PLAIN_CALLS = k1.BWD_PLAIN_CALLS = 0
+            reset_counts(k1, k2)
             buf = io.StringIO()
             t_start = time.monotonic()
             with contextlib.redirect_stdout(buf):
                 rc = inverse_render.main(argv)
             wall = time.monotonic() - t_start
-            counts = (k1.LAUNCHES, k1.BWD_LAUNCHES)
-            plain = (k1.PLAIN_CALLS, k1.BWD_PLAIN_CALLS)
+            c9 = read_counts(k1, k2)
+            counts = (c9["K1"], c9["K6"])
             log = buf.getvalue()
             for ln in log.splitlines():
                 phase(f"[9] inverse_render --trainable {trainable}: {ln}")
@@ -413,7 +459,7 @@ def main() -> int:
                                log).group(1))
         losses = [loss for loss, _ in steps]
         phase(f"[9] --trainable {trainable}: launches K1 {counts[0]}, K6 "
-              f"{counts[1]}; plain calls {plain[0]}, {plain[1]}; loss "
+              f"{counts[1]}; plain calls {c9['plain']}; loss "
               f"{losses[0]:.8f} -> {losses[-1]:.8f}; ms per step "
               + ", ".join(f"{ms:.2f}" for _, ms in steps)
               + f" (CUDA events); peak memory {peak:.3f} GiB; wall {wall:.2f} s")
@@ -421,7 +467,7 @@ def main() -> int:
             raise AssertionError(f"bad step lines: {steps}")
         if not moved or max(moved) <= 0.0:
             raise AssertionError("the parameters did not move")
-        if min(counts) <= 0 or max(plain) != 0:
+        if min(counts) <= 0 or c9["plain"] != 0:
             raise AssertionError("the trainer did not run through K1 and K6")
         if not (np.isfinite(side).all()
                 and side.shape == (HEIGHT, 2 * WIDTH, 3)):
@@ -430,6 +476,171 @@ def main() -> int:
     if not runs["color"][1][-1] < runs["color"][1][0]:
         raise AssertionError(f"loss did not fall: {runs['color'][1]}")
     train_launches = runs["default"][0]
+
+    # ---- 10-11: K4 on the 13-tile cover scene, K5 on random_spheres_xl ----
+    def cull_check(tag, label, tables_c, st):
+        """K4/K5 on one state's rays: kernel == plain (t, idx, sweeps) and
+        == K1's kernel (t, idx). Returns (t, idx, max |dt|, skipped share,
+        sweeps, box tests)."""
+        rays = st.planes[:6]
+        t, idx, sweeps = k1.sphere_nearest_culled(tables_c.soa, rays,
+                                                  tables_c.cull,
+                                                  count_sweeps=True)
+        t_p, idx_p, sweeps_p, tests = k1.sphere_nearest_culled_plain(
+            tables_c.soa, rays, tables_c.cull)
+        t_1, idx_1 = k1.sphere_nearest(tables_c.soa, rays)
+        torch.cuda.synchronize()
+        hit = t < 1e30
+        err = (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
+        same_p = torch.equal(t, t_p) and torch.equal(idx, idx_p)
+        same_1 = torch.equal(t, t_1) and torch.equal(idx, idx_1)
+        brute = (R + 31) // 32 * tables_c.cull.tiles.shape[1]
+        skipped = 1.0 - int(sweeps) / brute
+        phase(f"[{tag}] {label}: {R} rays, hit {hit.float().mean().item():.4f}; "
+              f"t and idx equal to plain: {same_p}, to K1: {same_1}; sweeps "
+              f"{int(sweeps)} (plain {int(sweeps_p)}) of {brute} (warp, tile) "
+              f"pairs, {skipped:.4%} skipped; {int(tests)} ray-box tests")
+        if not (same_p and same_1 and int(sweeps) == int(sweeps_p)):
+            raise AssertionError(f"culled kernel differs ({tag} {label})")
+        return t, idx, err, skipped, int(sweeps), int(tests)
+
+    def cull_phase(tag, name, scene_c, camera_c, hier):
+        feats_c = SceneFeatures.from_scene(scene_c)
+        tables_c = fp.prep_tables(scene_c, feats_c, cull=True)
+        if (tables_c.cull.supers is not None) != hier:
+            raise AssertionError(f"{name}: expected hier={hier}")
+        n_tiles = tables_c.cull.tiles.shape[1]
+        phase(f"[{tag}] {name}: {int(scene_c.spheres.mask.sum())} spheres in "
+              f"{tables_c.soa.shape[1]} slots, {n_tiles} tiles"
+              + (f" in supertiles of {tables_c.cull.s_tiles}" if hier else ""))
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        ro_, rd_, tm_ = generate_primary_rays(camera_c, WIDTH, HEIGHT, SAMPLES, g)
+        order, _ = fp._tile_perm(HEIGHT, WIDTH, dev)
+        st = fp.make_state(*fp.permute_rays(ro_.reshape(R, 3), rd_.reshape(R, 3),
+                                            tm_.reshape(R), order, SAMPLES))
+        t_, idx_, err0, skip0, sw0, tests0 = cull_check(
+            tag, "primary, tile order", tables_c, st)
+        planes_, alive_ = k2.shade_from_winners(
+            tables_c.table, idx_, t_, st.planes, st.time, st.alive, st.lane, 7,
+            0, DEPTH, tables_c.sky4, fp.feature_flags(feats_c))
+        st1_ = fp.FastStateP(planes_, st.time, alive_, st.lane)
+        _, _, err1, skip1, _, _ = cull_check(tag, "scattered", tables_c, st1_)
+        rays = st.planes[:6]
+        ms = time_ms(lambda: k1.sphere_nearest_culled(tables_c.soa, rays,
+                                                      tables_c.cull), 20)
+        k1_ms_ = time_ms(lambda: k1.sphere_nearest(tables_c.soa, rays), 5)
+        plain_ms = time_ms(lambda: k1.sphere_nearest_culled_plain(
+            tables_c.soa, rays, tables_c.cull), 1)
+        # 24 B in and 8 B out per ray, the operand and boxes once; ~20
+        # operations per pair of the sweeps run (32 x 128 pairs each) and
+        # ~30 per ray-box test
+        box_bytes = sum(b.numel() * 4 for b in tables_c.cull[:2] if b is not None)
+        bnd = bound(R * 32 + tables_c.soa.numel() * 4 + box_bytes,
+                    sw0 * 32 * 128 * 20 + tests0 * 30)
+        phase(f"[{tag}] time on primary rays: kernel {ms:.3f} ms, K1 "
+              f"{k1_ms_:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]})")
+        return {"max_abs_err": max(err0, err1), "skipped_share": skip0,
+                "skipped_share_scattered": skip1, "ms": ms, "k1_ms": k1_ms_,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+
+    def render_counts(tag, scene_c, camera_c, frames):
+        """Launch counts of ``render_progressive`` at the smoke's film."""
+        from pathtrace_tpu_torch.config import Params
+        from pathtrace_tpu_torch.render.progressive import render_progressive
+
+        reset_counts(k1, k2)
+        res_ = render_progressive(
+            scene_c, camera_c, Params(WIDTH, HEIGHT, SAMPLES, DEPTH), frames,
+            dev, log=lambda ln: phase(f"[{tag}] {ln}"))
+        if not (np.isfinite(res_.image).all() and 0.0 < res_.image.mean() <= 1.0):
+            raise AssertionError(f"[{tag}] bad image")
+        return read_counts(k1, k2)
+
+    cover20, cam20 = presets._random_impl(WIDTH / HEIGHT, True, 0, half_extent=20)
+    cover20 = cover20.to(dev)
+    k4 = cull_phase("10", "cover scene, half_extent 20 (K4)", cover20, cam20, False)
+    # K4's path: frames of this scene through render_progressive
+    c10 = render_counts("10", cover20, cam20, FRAMES)
+    phase(f"[10] render_progressive: launches {c10}")
+    if c10["K4"] <= 0 or c10["K1"] or c10["K5"] or c10["plain"]:
+        raise AssertionError("the 13-tile frame did not run through K4 alone")
+    k4["launches"] = c10["K4"]
+    del cover20
+
+    xl, cam_xl = presets.random_spheres_xl(WIDTH / HEIGHT)
+    xl = xl.to(dev)
+    k5 = cull_phase("11", "random_spheres_xl (K5)", xl, cam_xl, True)
+
+    # ---- 12: the CUDA trace against the committed xl fixture ----
+    xref = np.load(XL_FIXTURE)
+    reset_counts(k1, k2)
+    res = fp.trace_fast(xl, *(torch.from_numpy(xref[k]).to(dev)
+                              for k in ("rays.ro", "rays.rd", "rays.time")),
+                        int(xref["seed"]), int(xref["max_depth"]),
+                        SceneFeatures.from_scene(xl), min_size=128)
+    c12 = read_counts(k1, k2)
+    n_out, frac = rays_outside(res.radiance, xref["radiance"])
+    count, ref_count = int(res.ray_count), int(xref["ray_count"])
+    phase(f"[12] xl fixture: {len(res.radiance)} tile-ordered rays depth "
+          f"{int(xref['max_depth'])}, {frac:.4%} of rays outside 1e-3 (budget "
+          f"{XL_DEPTH10_BUDGET:.0%}), segments {count} vs JAX {ref_count}; "
+          f"launches {c12}")
+    if (frac > XL_DEPTH10_BUDGET or c12["K5"] != int(xref["max_depth"]) + 1
+            or c12["K1"] or c12["plain"]
+            or abs(count - ref_count) > n_out * int(xref["max_depth"])):
+        raise AssertionError("xl trace outside the slice contract")
+
+    # ---- 13: the scene-scale path through the CLI, culled and brute force ----
+    def cli_frames(tag, argv):
+        reset_counts(k1, k2)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+        counts = read_counts(k1, k2)
+        log = buf.getvalue()
+        for ln in log.splitlines():
+            phase(f"[{tag}] cli: {ln}")
+        if rc != 0:
+            raise AssertionError(f"cli.main returned {rc}")
+        got = [(float(ms), int(rays), int(rb)) for ms, rays, rb in re.findall(
+            r"frame \d+/\d+: ([\d.]+) ms, (\d+) rays, [\d.]+ Mrays/s, "
+            r"(\d+) readbacks", log)]
+        if len(got) != FRAMES or min(r for _, r, _ in got) < R:
+            raise AssertionError(f"bad frame lines: {got}")
+        return counts, got
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "xl.npy")
+        argv = ["-P", "random_spheres_xl", "-W", str(WIDTH), "-H", str(HEIGHT),
+                "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", str(FRAMES),
+                "--out", out_path]
+        c13, xl_frames = cli_frames("13", argv)
+        image = np.load(out_path)
+        if c13["K5"] <= 0 or c13["K1"] or c13["K4"] or c13["plain"]:
+            raise AssertionError(f"the xl path did not run through K5 alone: {c13}")
+        if not (np.isfinite(image).all() and image.shape == (HEIGHT, WIDTH, 3)
+                and 0.0 < float(image.mean()) <= 1.0):
+            raise AssertionError("bad xl image")
+        k5["launches"] = c13["K5"]
+        # the same frames with the cull and the tile order off: K1 brute force
+        cull_min = fp.CULL_MIN_TILES
+        fp.CULL_MIN_TILES = 1 << 30
+        try:
+            c13b, brute_frames = cli_frames("13 brute", argv)
+        finally:
+            fp.CULL_MIN_TILES = cull_min
+        if c13b["K1"] <= 0 or c13b["K5"] or c13b["plain"]:
+            raise AssertionError(f"the brute-force run took a culled kernel: {c13b}")
+    phase(f"[13] launches culled {c13}, brute force {c13b}")
+    for i, ((ms, rays, rb), (bms, brays, brb)) in enumerate(zip(xl_frames,
+                                                              brute_frames)):
+        phase(f"[13] xl frame {i + 1}: culled {ms:.2f} ms, {rays / ms / 1e3:.2f} "
+              f"Mrays/s, {rb} readbacks; brute force {bms:.2f} ms, "
+              f"{brays / bms / 1e3:.2f} Mrays/s, {brb} readbacks (CUDA events; "
+              f"{smi})")
+    del xl
 
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
@@ -453,6 +664,14 @@ def main() -> int:
          "max_ulp": k6_ulp, "sphere_rel_l2": k6_sph,
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
          "bound_by": k6_bound[1], "library_ms": None},
+        {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
+         "replaces": "pathtrace_tpu/ops/intersect_pallas.py:111",
+         **k4, "library_ms": None},
+        {"name": "sphere_nearest_culled (K5, two-level)", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
+         "replaces": "pathtrace_tpu/ops/intersect_pallas.py:212",
+         **k5, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,8 +1,9 @@
 """Preset scenes of the slice (counterpart of
 ``pathtrace_tpu/models/presets.py``): ``random_spheres`` (the Shirley cover
-scene, static spheres), ``small`` and ``two_perlin_spheres`` (the CLI
-default). Each builds its scene with the same numpy generator calls as the
-JAX preset, so both packages produce identical leaves."""
+scene, static spheres), its 64x64-grid variant ``random_spheres_xl``,
+``small`` and ``two_perlin_spheres`` (the CLI default). Each builds its
+scene with the same numpy generator calls as the JAX preset, so both
+packages produce identical leaves."""
 
 from __future__ import annotations
 
@@ -16,8 +17,7 @@ from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this slice cannot render
 NOT_PORTED = ("aras", "cornell", "cornell_smoke", "earth", "final",
-              "final_full", "random", "random_spheres_xl", "simple_light",
-              "smallpt")
+              "final_full", "random", "simple_light", "smallpt")
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -29,16 +29,23 @@ def _standard_camera(aspect: float, time1: float = 1.0,
     )
 
 
-def random_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
-    """Shirley cover scene with static spheres: 488 spheres padded to 512."""
+def _random_impl(aspect: float, only_spheres: bool, seed: int,
+                 half_extent: int = 11) -> Tuple[Scene, Camera]:
+    """Shirley cover scene on a ``2 * half_extent`` square grid of small
+    spheres (11: the reference's 22x22, 488 spheres; 32: the 64x64
+    scene-scale variant, 4100 spheres). ``only_spheres=False`` is the
+    motion-blurred ``random`` preset, whose moving spheres are not ported
+    yet."""
+    if not only_spheres:
+        raise ValueError("moving spheres (the 'random' preset): not ported yet")
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     checker = b.checker_texture(
         b.constant_texture((0.2, 0.3, 0.1)), b.constant_texture((0.9, 0.9, 0.9))
     )
     b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(checker))
-    for a in range(-11, 11):
-        for c in range(-11, 11):
+    for a in range(-half_extent, half_extent):
+        for c in range(-half_extent, half_extent):
             choose = rng.random()
             centre = np.array(
                 [a + 0.9 * rng.random(), 0.2, c + 0.9 * rng.random()], np.float32
@@ -49,8 +56,9 @@ def random_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
                     rng.random() * rng.random(),
                     rng.random() * rng.random(),
                 )
-                # the moving-sphere variant's end point: drawn (and unused)
-                # so the generator stays in step with the JAX preset
+                # the moving variant's end point (0.5 * u up): drawn in
+                # both variants, so the generator stays in step with the
+                # JAX preset
                 rng.random()
                 b.sphere(centre, 0.2, b.lambertian_color(albedo))
             elif choose < 0.95:
@@ -66,6 +74,17 @@ def random_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     b.sphere((-4.0, 1.0, 0.0), 1.0, b.lambertian_color((0.4, 0.2, 0.1)))
     b.sphere((4.0, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
     return b.finish(pad_multiple=128, spatial_sort=True), _standard_camera(aspect)
+
+
+def random_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Shirley cover scene with static spheres: 488 spheres padded to 512."""
+    return _random_impl(aspect, only_spheres=True, seed=seed)
+
+
+def random_spheres_xl(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """The cover scene on a 64x64 grid: 4100 static spheres padded to 4224
+    (33 tiles of 128), the scene-scale preset of the tile-culled path."""
+    return _random_impl(aspect, only_spheres=True, seed=seed, half_extent=32)
 
 
 def small(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
@@ -97,6 +116,7 @@ def two_perlin_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
     "random_spheres": random_spheres,
+    "random_spheres_xl": random_spheres_xl,
     "small": small,
     "two_perlin_spheres": two_perlin_spheres,
 }

@@ -70,6 +70,15 @@ _SIGNATURES = {
         _c_void_p, _c_void_p,                    # g_ro, g_rd
         _c_void_p, _c_void_p, _c_void_p,         # g_center, g_radius, stream
     ],
+    "pt_sphere_nearest_culled": [
+        _c_void_p, _c_longlong, _c_int,          # rays, row stride, n_rays
+        _c_void_p, _c_int,                       # soa, n_spheres (row stride)
+        _c_void_p, _c_int,                       # tile boxes, n_tiles
+        _c_void_p, _c_int,                       # supertile boxes or NULL, s_tiles
+        _c_float, _c_float,                      # t_min, t_max
+        _c_void_p, _c_void_p,                    # t_out, idx_out
+        _c_void_p, _c_void_p,                    # sweep counter or NULL, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 

@@ -5,14 +5,19 @@ Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour, static
 sphere scenes). One bounce is two kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
-  closest hit over every sphere, giving (t, idx) per ray;
+  closest hit over every sphere, giving (t, idx) per ray; scenes of at
+  least ``CULL_MIN_TILES`` sphere tiles take
+  :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest_culled`
+  instead (the flat cull K4, or the two-level cull K5 for scenes of two
+  supertiles or more), which gives the same (t, idx) bit for bit;
 * :func:`~pathtrace_tpu_torch.ops.shade_kernel.shade_from_winners` — reads
   each lane's winner row of the attribute table itself and runs texture,
   emission, sky and scatter in one pass.
 
 Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
-them.
+them. Frames of culled scenes trace in 64x64 pixel-tile order, so that a
+warp's rays form a narrow frustum the culls can prune.
 
 The differentiable trace (:func:`trace_fast_diff`, the training path) runs
 every bounce at full width with no compaction: the closest hit goes
@@ -37,8 +42,10 @@ int64 product overflows.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+import functools
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
@@ -51,7 +58,16 @@ from pathtrace_tpu_torch.models.types import (
     TEX_CHECKER,
     TEX_NOISE,
 )
-from pathtrace_tpu_torch.ops.intersect_kernel import SphereNearest, sphere_nearest
+from pathtrace_tpu_torch.ops.intersect_kernel import (
+    TILE_N,
+    CullBoxes,
+    SphereNearest,
+    cull_boxes,
+    cull_mode,
+    cull_slots,
+    sphere_nearest,
+    sphere_nearest_culled,
+)
 from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
@@ -64,7 +80,6 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
 )
 from pathtrace_tpu_torch.render import compact_util
 
-TILE_N = 128   # sphere tables pad to a multiple of this
 GEO = 15       # first geometry column of an attribute row
 K_ATTR = 24
 
@@ -268,13 +283,15 @@ def build_sphere_table(scene: Scene, k_attr: int) -> torch.Tensor:
     return _finish_table(cols, sp.mask, GEO, n_pad, k_attr)
 
 
-def build_sphere_soa(scene: Scene) -> torch.Tensor:
-    """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask.
+def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None) -> torch.Tensor:
+    """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask, with
+    ``n_pad`` slots (default: the spheres padded to whole tiles of 128).
     Padding spheres sit at centre 1e18 with c-term 1e30 and mask 0. No
     gradient flows through it (see ``SphereNearest``)."""
     sp = scene.spheres
     n = sp.count
-    n_pad = ((n + TILE_N - 1) // TILE_N) * TILE_N
+    if n_pad is None:
+        n_pad = ((n + TILE_N - 1) // TILE_N) * TILE_N
     c = sp.center.detach()
     radius = sp.radius.detach()
     cc_m_r2 = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
@@ -291,18 +308,43 @@ def build_sphere_soa(scene: Scene) -> torch.Tensor:
 
 class FastTables(NamedTuple):
     table: torch.Tensor   # [Npad, 24] winner rows
-    soa: torch.Tensor     # [5, Npad] closest-hit operand
+    soa: torch.Tensor     # [5, Nslots] closest-hit operand
     sky4: torch.Tensor    # [4] sky rgb + use_gradient_sky
+    cull: Optional[CullBoxes] = None  # the culls' boxes (None: K1)
 
 
-def prep_tables(scene: Scene, features: SceneFeatures) -> FastTables:
-    """Per-trace tables, on the scene's device."""
+def sphere_tiles(scene: Scene) -> int:
+    """Tiles of 128 sphere slots the scene spans."""
+    return (scene.spheres.count + TILE_N - 1) // TILE_N
+
+
+def cull_scene(scene: Scene, features: SceneFeatures) -> bool:
+    """Static sphere scenes of at least ``CULL_MIN_TILES`` tiles take the
+    culled closest hit and tile-order frames (the reference's rule,
+    ``fastpath.py:1993-1998``; the port has no BVH)."""
+    return (features.has_spheres and not features.has_motion
+            and sphere_tiles(scene) >= CULL_MIN_TILES)
+
+
+def prep_tables(scene: Scene, features: SceneFeatures,
+                cull: bool = False) -> FastTables:
+    """Per-trace tables, on the scene's device. ``cull``: build the boxes
+    of the cull :func:`cull_mode` picks, and pad the closest-hit operand
+    to its tiles (and supertiles)."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
+    boxes, n_slots = None, None
+    if cull:
+        sp = scene.spheres
+        hier, s_tiles = cull_mode(sphere_tiles(scene))
+        n_slots = cull_slots(sp.count, hier, s_tiles)
+        boxes = cull_boxes(sp.center, sp.radius, sp.mask, n_slots, hier,
+                           s_tiles)
     return FastTables(
         table=build_sphere_table(scene, attr_width(features)).contiguous(),
-        soa=build_sphere_soa(scene),
+        soa=build_sphere_soa(scene, n_slots),
         sky4=sky4.contiguous(),
+        cull=boxes,
     )
 
 
@@ -353,8 +395,13 @@ def make_state(ro: torch.Tensor, rd: torch.Tensor,
 def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
                       depth: int, max_depth: int,
                       features: SceneFeatures) -> FastStateP:
-    """One bounce: closest hit, then the fused shade/scatter pass."""
-    t, idx = sphere_nearest(tables.soa, state.planes[:6], MIN_T, MAX_T)
+    """One bounce: closest hit (culled when the tables carry boxes), then
+    the fused shade/scatter pass."""
+    if tables.cull is not None and (depth == 0 or CULL_ALL_DEPTHS):
+        t, idx, _ = sphere_nearest_culled(tables.soa, state.planes[:6],
+                                          tables.cull, MIN_T, MAX_T)
+    else:
+        t, idx = sphere_nearest(tables.soa, state.planes[:6], MIN_T, MAX_T)
     planes, alive = shade_from_winners(
         tables.table, idx, t, state.planes, state.time, state.alive,
         state.lane, seed, depth, max_depth, tables.sky4,
@@ -389,6 +436,12 @@ ROW_SHRINK = 0.75
 SMALL_SHRINK = 0.6
 # Bounces between alive-count readbacks.
 GROUP = 1
+# Static sphere scenes spanning at least this many 128-sphere tiles take
+# the culled closest hit and tile-order frames. Patchable.
+CULL_MIN_TILES = 8
+# Cull every bounce of such scenes, not only depth 0: tile-order frames
+# keep later bounces' warps pixel-coherent enough to skip tiles. Patchable.
+CULL_ALL_DEPTHS = True
 
 
 class _AliveCounts:
@@ -486,7 +539,7 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     bit pattern); lane id ``i`` keys ray i's stream, so compaction never
     changes a ray's result."""
     fastpath_supported(features)
-    tables = prep_tables(scene, features)
+    tables = prep_tables(scene, features, cull=cull_scene(scene, features))
     seed = int(seed)
 
     def step(state, depth, g, segs):
@@ -505,6 +558,82 @@ class FrameResult(NamedTuple):
     readbacks: int
 
 
+@functools.lru_cache(maxsize=16)
+def _tile_perm_np(height: int, width: int, tile: int = 64):
+    """Pixel permutation into ``tile x tile`` screen tiles, and its
+    inverse (the reference's ``_tile_perm_np``, ``fastpath.py:1769``).
+    In raster order a warp's rays span a sliver of a scanline and a block
+    of them the image's width; in tile order they form a compact pixel
+    tile, whose narrow frustum is what the culls prune against."""
+    i = np.arange(height * width, dtype=np.int64)
+    x = i % width
+    y = i // width
+    tiles_x = (width + tile - 1) // tile
+    key = (((y // tile) * tiles_x + (x // tile)) << 20) \
+        + (y % tile) * tile + (x % tile)
+    order = np.argsort(key, kind="stable").astype(np.int32)
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.size, dtype=np.int32)
+    return order, inv
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_perm(height: int, width: int, device: torch.device):
+    """:func:`_tile_perm_np` as int64 index tensors on ``device``, kept
+    for the frames that follow."""
+    return tuple(torch.from_numpy(a).to(device=device, dtype=torch.int64)
+                 for a in _tile_perm_np(height, width))
+
+
+def tile_layout(scene: Scene, features: SceneFeatures, height: int,
+                width: int) -> bool:
+    """Frames of culled scenes trace in tile order (the reference's rule,
+    ``fastpath.py:1866-1869``), when the film holds a whole tile."""
+    return cull_scene(scene, features) and height >= 64 and width >= 64
+
+
+def permute_rays(ro: torch.Tensor, rd: torch.Tensor, t: torch.Tensor,
+                 order: torch.Tensor, samples: int):
+    """Permute the pixel axis of a [H*W*S]-flat ray set by ``order`` with
+    one packed [hw, 7S] row gather (``_permute_rays_jit``)."""
+    S = samples
+    hw = order.shape[0]
+    pack = torch.cat([ro.reshape(hw, 3 * S), rd.reshape(hw, 3 * S),
+                      t.reshape(hw, S)], dim=1).index_select(0, order)
+    R = hw * S
+    return (pack[:, :3 * S].reshape(R, 3), pack[:, 3 * S:6 * S].reshape(R, 3),
+            pack[:, 6 * S:].reshape(R))
+
+
+def unpermute_image(radiance: torch.Tensor, inv: torch.Tensor, height: int,
+                    width: int, samples: int) -> torch.Tensor:
+    """Tile-ordered radiance [H*W*S, 3] -> the [H, W, 3] sample mean
+    (``_unpermute_image_jit``)."""
+    rows = radiance.reshape(height * width, 3 * samples).index_select(0, inv)
+    return rows.reshape(height, width, samples, 3).mean(dim=2)
+
+
+def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                t: torch.Tensor, width: int, height: int, samples: int,
+                max_depth: int, seed: int,
+                features: SceneFeatures) -> FrameResult:
+    """A frame's rays (ro, rd [H*W*S, 3], t [H*W*S], in [H, W, S] order)
+    to its image: permuted into tile order when :func:`tile_layout` says
+    so, traced, un-permuted and averaged over the samples. Lane ids key
+    the bounce RNG, so tile order renames lanes and renders the same
+    estimator."""
+    tiled = tile_layout(scene, features, height, width)
+    if tiled:
+        order, inv = _tile_perm(height, width, ro.device)
+        ro, rd, t = permute_rays(ro, rd, t, order, samples)
+    res = trace_fast(scene, ro, rd, t, seed, max_depth, features)
+    if tiled:
+        img = unpermute_image(res.radiance, inv, height, width, samples)
+    else:
+        img = res.radiance.reshape(height, width, samples, 3).mean(dim=2)
+    return FrameResult(img, res.ray_count, res.readbacks)
+
+
 def render_frame_fast(scene: Scene, camera, width: int, height: int,
                       samples: int, max_depth: int,
                       generator: torch.Generator, seed: int,
@@ -517,11 +646,9 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
     ro, rd, t = generate_primary_rays(camera, width, height, samples,
                                       generator)
     R = height * width * samples
-    res = trace_fast(scene, ro.reshape(R, 3), rd.reshape(R, 3), t.reshape(R),
-                     seed, max_depth, features)
-    img = res.radiance.reshape(height, width, samples, 3).mean(dim=2)
-    return FrameResult(img, res.ray_count, res.readbacks)
-
+    return trace_frame(scene, ro.reshape(R, 3), rd.reshape(R, 3),
+                       t.reshape(R), width, height, samples, max_depth, seed,
+                       features)
 
 
 # ---------------------------------------------------------------------------

@@ -28,9 +28,21 @@ counterpart of the reference's custom VJP (``_sphere_nearest_vjp``,
 backward is the kernel ``csrc/sphere_nearest_bwd.cu`` (K6), which
 recomputes the winner's root from (t, idx) and differentiates it in O(R).
 Static scenes only: ray time and the motion leaves get no gradient.
+
+:func:`sphere_nearest_culled` is the same closest hit with per-tile AABB
+culls, the kernel ``csrc/sphere_nearest_culled.cu``: K4, the flat cull
+(the reference's ``_kernel_static_culled``, ``intersect_pallas.py:111``),
+and K5, the two-level cull (``_kernel_static_culled2``, ``:212``). A warp
+of 32 rays skips a 128-sphere tile when no ray of it can beat its running
+best inside the tile's box (K5: first the supertile's box); the sweeps it
+does run are K1's, so the result equals K1's bit for bit. The plain
+version mirrors the skip unit, group of 32 rays by group, and counts the
+same (warp, tile) sweeps.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,10 +52,41 @@ LAUNCHES = 0     # kernel launches (CUDA tensors)
 PLAIN_CALLS = 0  # calls the wrapper served with the plain version (CPU)
 BWD_LAUNCHES = 0     # K6 launches (CUDA tensors)
 BWD_PLAIN_CALLS = 0  # K6 calls served with the plain version (CPU)
+FLAT_LAUNCHES = 0     # K4 (flat cull) launches
+FLAT_PLAIN_CALLS = 0  # K4 calls served with the plain version
+HIER_LAUNCHES = 0     # K5 (two-level cull) launches
+HIER_PLAIN_CALLS = 0  # K5 calls served with the plain version
+
+TILE_N = 128       # spheres per cull tile
+SUPER_TILES = 16   # member tiles per supertile of the two-level cull
+WARP = 32          # rays per skip decision of the culled kernels
 
 # rays per plain-version chunk: each [chunk, N] temporary takes
 # chunk * N * 4 bytes whatever the wavefront size
 PLAIN_CHUNK = 1 << 15
+
+
+def _nearest_plain(cx, cy, cz, cc_m_r2, smask, rays, t_min, t_max):
+    """K1's arithmetic on one chunk: ``rays`` [6, r] against the spheres'
+    [1, n] rows; (t [r], first index of the minimum [r] int64)."""
+    ox, oy, oz, dx, dy, dz = (rays[k][:, None] for k in range(6))
+    ro_d = ox * dx + oy * dy + oz * dz
+    ro_ro = ox * ox + oy * oy + oz * oz
+    b = ro_d - (cx * dx + cy * dy + cz * dz)
+    c = ro_ro - 2.0 * (cx * ox + cy * oy + cz * oz) + cc_m_r2
+    disc = b * b - c
+    valid = (disc > 0.0) & smask
+    # float64 root rounded once = the correctly rounded float32 sqrt
+    # (what the kernel's IEEE sqrtf gives; torch's CPU float32 sqrt
+    # can be one ULP off)
+    sq = torch.sqrt(torch.clamp(disc, min=0.0).double()).float()
+    t0 = -b - sq
+    t1 = -b + sq
+    t0_ok = valid & (t0 > t_min) & (t0 < t_max)
+    t1_ok = valid & (t1 > t_min) & (t1 < t_max)
+    inf = torch.tensor(t_max, dtype=torch.float32, device=rays.device)
+    t = torch.where(t0_ok, t0, torch.where(t1_ok, t1, inf))
+    return torch.min(t, dim=1)  # first index of the minimum
 
 
 def sphere_nearest_plain(soa: torch.Tensor, rays: torch.Tensor,
@@ -51,31 +94,13 @@ def sphere_nearest_plain(soa: torch.Tensor, rays: torch.Tensor,
     """Plain PyTorch version, in ray chunks. ``soa``: [5, N] (cx, cy, cz,
     |c|^2 - r^2, mask); ``rays``: [6, R] (ro xyz, rd xyz, |rd| = 1).
     Returns (t [R] f32, idx [R] int32)."""
-    cx, cy, cz, cc_m_r2 = (soa[k][None, :] for k in range(4))
-    smask = soa[4][None, :] > 0
+    spheres = [soa[k][None, :] for k in range(4)] + [soa[4][None, :] > 0]
     R = rays.shape[1]
     t_out = torch.empty(R, dtype=torch.float32, device=rays.device)
     i_out = torch.empty(R, dtype=torch.int32, device=rays.device)
-    inf = torch.tensor(t_max, dtype=torch.float32, device=rays.device)
     for lo in range(0, R, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, R)
-        ox, oy, oz, dx, dy, dz = (rays[k, lo:hi][:, None] for k in range(6))
-        ro_d = ox * dx + oy * dy + oz * dz
-        ro_ro = ox * ox + oy * oy + oz * oz
-        b = ro_d - (cx * dx + cy * dy + cz * dz)
-        c = ro_ro - 2.0 * (cx * ox + cy * oy + cz * oz) + cc_m_r2
-        disc = b * b - c
-        valid = (disc > 0.0) & smask
-        # float64 root rounded once = the correctly rounded float32 sqrt
-        # (what the kernel's IEEE sqrtf gives; torch's CPU float32 sqrt
-        # can be one ULP off)
-        sq = torch.sqrt(torch.clamp(disc, min=0.0).double()).float()
-        t0 = -b - sq
-        t1 = -b + sq
-        t0_ok = valid & (t0 > t_min) & (t0 < t_max)
-        t1_ok = valid & (t1 > t_min) & (t1 < t_max)
-        t = torch.where(t0_ok, t0, torch.where(t1_ok, t1, inf))
-        tmin, imin = torch.min(t, dim=1)  # first index of the minimum
+        tmin, imin = _nearest_plain(*spheres, rays[:, lo:hi], t_min, t_max)
         t_out[lo:hi] = tmin
         i_out[lo:hi] = imin.to(torch.int32)
     return t_out, i_out
@@ -251,3 +276,228 @@ class SphereNearest(torch.autograd.Function):
         g_center, g_radius, g_ro, g_rd = sphere_nearest_bwd(
             center, radius, ro, rd, t, idx, g_t.contiguous())
         return None, g_center, g_radius, g_ro, g_rd
+
+
+# ---------------------------------------------------------------------------
+# the culled closest hit: K4 (flat) and K5 (two-level)
+# ---------------------------------------------------------------------------
+
+_EPS = 1e-12   # |d| at or below this: the ray is parallel to that axis
+_BIG = 1e30    # its reciprocal stand-in and its slab interval's ends
+
+
+class CullBoxes(NamedTuple):
+    """Boxes of the culled closest hit, built once per trace.
+
+    ``tiles``: [6, T] per 128-sphere tile (lo x, y, z, hi x, y, z);
+    ``supers``: [6, T / s_tiles] supertile boxes of the two-level cull
+    (K5), or None for the flat cull (K4)."""
+
+    tiles: torch.Tensor
+    supers: Optional[torch.Tensor]
+    s_tiles: int  # member tiles per supertile (1 for the flat cull)
+
+
+def cull_mode(n_tiles: int):
+    """The reference's automatic choice (``intersect_pallas.py:442-449``):
+    (hier, s_tiles). The two-level cull when the scene spans at least two
+    supertiles of ``SUPER_TILES`` tiles (of 32 above 1024 tiles), else the
+    flat cull."""
+    s_tiles = SUPER_TILES
+    if n_tiles > 1024:
+        s_tiles = max(s_tiles, 32)
+    return n_tiles >= 2 * s_tiles, s_tiles
+
+
+def cull_slots(n: int, hier: bool, s_tiles: int) -> int:
+    """Sphere slots of the culled operand: ``n`` padded to whole tiles, and
+    for the two-level cull to whole supertiles (``:467-470``)."""
+    mult = TILE_N * (s_tiles if hier else 1)
+    return ((n + mult - 1) // mult) * mult
+
+
+def cull_boxes(center: torch.Tensor, radius: torch.Tensor,
+               mask: torch.Tensor, n_slots: int, hier: bool,
+               s_tiles: int) -> CullBoxes:
+    """Conservative boxes (``intersect_pallas.py:518-549``): per tile of
+    128 slots, the masked min/max of centre -/+ |radius|, padded by 1e-3.
+    A tile with no live sphere gets an inverted box (lo = f32 max, hi =
+    -f32 max), which the kernels skip. A supertile's box is the union of
+    its member tiles' boxes. ``n_slots``: slots of the padded operand."""
+    n = center.shape[0]
+    c = center.detach().to(torch.float32)
+    r_abs = radius.detach().to(torch.float32).abs()[:, None]
+    lo = torch.where(mask[:, None], c - r_abs, MAX_T)
+    hi = torch.where(mask[:, None], c + r_abs, -MAX_T)
+    if n_slots > n:
+        lo = torch.cat([lo, lo.new_full((n_slots - n, 3), MAX_T)])
+        hi = torch.cat([hi, hi.new_full((n_slots - n, 3), -MAX_T)])
+    n_tiles = n_slots // TILE_N
+    lo_t = lo.T.reshape(3, n_tiles, TILE_N).amin(dim=2) - 1e-3
+    hi_t = hi.T.reshape(3, n_tiles, TILE_N).amax(dim=2) + 1e-3
+    tiles = torch.cat([lo_t, hi_t]).contiguous()
+    if not hier:
+        return CullBoxes(tiles, None, 1)
+    supers = torch.cat([lo_t.reshape(3, -1, s_tiles).amin(dim=2),
+                        hi_t.reshape(3, -1, s_tiles).amax(dim=2)])
+    return CullBoxes(tiles, supers.contiguous(), s_tiles)
+
+
+def _slab(lo, hi, o, inv, par):
+    """``axis_interval`` of the reference (``intersect_pallas.py:153``)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    tn = torch.minimum(t0, t1)
+    tx = torch.maximum(t0, t1)
+    inside = (o >= lo) & (o <= hi)
+    tn = torch.where(par, torch.where(inside, -_BIG, _BIG), tn)
+    tx = torch.where(par, torch.where(inside, _BIG, -_BIG), tx)
+    return tn, tx
+
+
+def _box_want(box, k, origin, inv, par, best_t, t_min, t_max):
+    """Per ray: may a hit inside box ``k`` beat ``best_t`` (``want``,
+    ``intersect_pallas.py:169-175``)?"""
+    tn, tx = zip(*(_slab(box[a, k], box[3 + a, k], origin[a], inv[a],
+                         par[a]) for a in range(3)))
+    tenter = torch.maximum(torch.maximum(tn[0], tn[1]), tn[2])
+    texit = torch.minimum(torch.minimum(tx[0], tx[1]), tx[2])
+    return ((texit >= tenter) & (texit > t_min)
+            & (tenter < torch.clamp(best_t, max=t_max)))
+
+
+def sphere_nearest_culled_plain(soa: torch.Tensor, rays: torch.Tensor,
+                                cull: CullBoxes, t_min: float = MIN_T,
+                                t_max: float = MAX_T):
+    """Plain PyTorch version of K4/K5, with the kernel's skip unit: rays
+    in groups of 32 in index order (the kernel's warps), tiles (and
+    supertiles) in index order; per tile the slab test against each ray's
+    running best, ``any`` per group, K1's arithmetic on the groups that
+    want the tile. Returns (t [R] f32, idx [R] int32, sweeps, box tests):
+    the (group, tile) sweeps run and the (ray, box) tests made, 0-d int64
+    tensors."""
+    R = rays.shape[1]
+    dev = rays.device
+    G = (R + WARP - 1) // WARP
+    if G * WARP > R:
+        rays = torch.cat([rays, rays.new_zeros((6, G * WARP - R))], dim=1)
+    live = torch.arange(G * WARP, device=dev) < R
+    origin = rays[0:3]
+    d = rays[3:6]
+    inv = torch.where(d.abs() > _EPS, 1.0 / d, _BIG)
+    par = d.abs() <= _EPS
+    best_t = torch.full((G * WARP,), t_max, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(G * WARP, dtype=torch.int32, device=dev)
+    sweeps = torch.zeros((), dtype=torch.int64, device=dev)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    lanes = torch.arange(WARP, device=dev)
+    n_tiles = cull.tiles.shape[1]
+    tile_live = (cull.tiles[0] <= cull.tiles[3]).tolist()
+    supers = cull.supers
+    n_inner = 1 if supers is None else cull.s_tiles
+    super_live = (supers[0] <= supers[3]).tolist() if supers is not None else []
+    for s in range(n_tiles // n_inner):
+        tested = live
+        if supers is not None:
+            if not super_live[s]:
+                continue
+            want = live & _box_want(supers, s, origin, inv, par, best_t,
+                                    t_min, t_max)
+            tests += live.sum()
+            group_super = want.view(G, WARP).any(dim=1)
+            tested = live & group_super.repeat_interleave(WARP)
+        for m in range(n_inner):
+            k = s * n_inner + m
+            if not tile_live[k]:
+                continue
+            want = tested & _box_want(cull.tiles, k, origin, inv, par,
+                                      best_t, t_min, t_max)
+            tests += tested.sum()
+            groups = want.view(G, WARP).any(dim=1).nonzero()[:, 0]
+            sweeps += groups.numel()
+            rows = (groups[:, None] * WARP + lanes).reshape(-1)
+            rows = rows[rows < R]
+            sl = slice(k * TILE_N, (k + 1) * TILE_N)
+            spheres = ([soa[j, sl][None, :] for j in range(4)]
+                       + [soa[4, sl][None, :] > 0])
+            for lo in range(0, rows.numel(), 4 * PLAIN_CHUNK):
+                sel = rows[lo:lo + 4 * PLAIN_CHUNK]
+                tmin, imin = _nearest_plain(*spheres, rays[:, sel], t_min,
+                                            t_max)
+                cur = best_t[sel]
+                better = tmin < cur
+                best_t[sel] = torch.where(better, tmin, cur)
+                best_i[sel] = torch.where(better, (imin + k * TILE_N).int(),
+                                          best_i[sel])
+    return best_t[:R], best_i[:R], sweeps, tests
+
+
+def _check_cull(soa: torch.Tensor, rays: torch.Tensor,
+                cull: CullBoxes) -> None:
+    _check(soa, rays)
+    n_tiles = cull.tiles.shape[1]
+    if soa.shape[1] != n_tiles * TILE_N:
+        raise ValueError(f"soa has {soa.shape[1]} slots for {n_tiles} tiles")
+    boxes = [("tiles", cull.tiles, n_tiles)]
+    if cull.supers is not None:
+        if cull.s_tiles < 1 or n_tiles % cull.s_tiles:
+            raise ValueError(f"{n_tiles} tiles in supertiles of {cull.s_tiles}")
+        boxes.append(("supers", cull.supers, n_tiles // cull.s_tiles))
+    for name, box, n in boxes:
+        if box.device != rays.device or box.dtype != torch.float32:
+            raise ValueError(f"{name} boxes must be float32 on {rays.device}")
+        if tuple(box.shape) != (6, n) or not box.is_contiguous():
+            raise ValueError(f"{name} boxes must be contiguous [6, {n}], "
+                             f"got {tuple(box.shape)}")
+
+
+def sphere_nearest_culled(soa: torch.Tensor, rays: torch.Tensor,
+                          cull: CullBoxes, t_min: float = MIN_T,
+                          t_max: float = MAX_T, count_sweeps: bool = False):
+    """Closest hit with the per-tile AABB cull: K5 (two-level) when
+    ``cull.supers`` is set, else K4 (flat). ``soa`` is the [5, 128 * T]
+    operand of ``cull``'s tiles. Returns (t [R] f32, idx [R] int32,
+    sweeps): equal to :func:`sphere_nearest` bit for bit; ``sweeps`` (a 0-d
+    int64 tensor when ``count_sweeps``, else None) counts the (warp, tile)
+    sweeps run.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (raising if it cannot launch)."""
+    global FLAT_LAUNCHES, FLAT_PLAIN_CALLS, HIER_LAUNCHES, HIER_PLAIN_CALLS
+    _check_cull(soa, rays, cull)
+    hier = cull.supers is not None
+    if rays.device.type == "cpu":
+        if hier:
+            HIER_PLAIN_CALLS += 1
+        else:
+            FLAT_PLAIN_CALLS += 1
+        t, idx, sweeps, _ = sphere_nearest_culled_plain(soa, rays, cull,
+                                                        t_min, t_max)
+        return t, idx, sweeps if count_sweeps else None
+    if rays.device.type != "cuda":
+        raise ValueError(
+            f"sphere_nearest_culled: unsupported device {rays.device}")
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.library()
+    R, N = rays.shape[1], soa.shape[1]
+    t_out = torch.empty(R, dtype=torch.float32, device=rays.device)
+    i_out = torch.empty(R, dtype=torch.int32, device=rays.device)
+    sweeps = (torch.zeros((), dtype=torch.int64, device=rays.device)
+              if count_sweeps else None)
+    if R == 0:
+        return t_out, i_out, sweeps
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    code = lib.pt_sphere_nearest_culled(
+        rays.data_ptr(), rays.stride(0), R, soa.data_ptr(), N,
+        cull.tiles.data_ptr(), cull.tiles.shape[1],
+        cull.supers.data_ptr() if hier else None, cull.s_tiles,
+        float(t_min), float(t_max), t_out.data_ptr(), i_out.data_ptr(),
+        sweeps.data_ptr() if count_sweeps else None, stream,
+    )
+    _cuda_build.check(code, "sphere_nearest_culled launch")
+    if hier:
+        HIER_LAUNCHES += 1
+    else:
+        FLAT_LAUNCHES += 1
+    return t_out, i_out, sweeps

@@ -2,12 +2,13 @@
 
     python -m pathtrace_tpu_torch.tools.profile_step --what train
     python -m pathtrace_tpu_torch.tools.profile_step --what frame
+    python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random_spheres_xl
 
 ``train``: the inverse-rendering trainer on random_spheres (every
 default-trainable leaf, perturbed albedos, as
 ``examples/inverse_render.py --trainable default``), 1280x720, 4 spp,
 depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
-depth 10). After warm-up steps, ``--reps`` unprofiled steps are timed
+depth 10) of ``--preset`` (default random_spheres). After warm-up steps, ``--reps`` unprofiled steps are timed
 with CUDA events, then one step runs under ``torch.profiler``: the device
 time of every kernel, summed by kind, the forward's share, and the device busy and idle share of the profiled
 step's wall time. The last line of the output is a JSON object with the
@@ -30,6 +31,8 @@ _GATHER = "gathers (index_select and indexing)"
 _COPY = "copies, concatenations and fills"
 KINDS = (
     ("sphere_nearest_bwd", "K6 closest-hit backward"),
+    ("sphere_nearest_culled_kernel<false>", "K4 closest hit, flat cull"),
+    ("sphere_nearest_culled_kernel<true>", "K5 closest hit, two-level cull"),
     ("sphere_nearest_kernel", "K1 closest hit"),
     ("shade_kernel", "K2 fused shade"),
     ("indexFuncLargeIndex", _SCATTER),
@@ -98,14 +101,14 @@ def _setup_train(dev):
     return step
 
 
-def _setup_frame(dev):
+def _setup_frame(dev, preset):
     import torch
 
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
 
-    scene, cam = presets.random_spheres(1280 / 720)
+    scene, cam = presets.from_name(preset, 1280 / 720)
     scene, cam = scene.to(dev), cam.to(dev)
     feats = SceneFeatures.from_scene(scene)
     gen = torch.Generator(device=dev)
@@ -123,6 +126,8 @@ def _setup_frame(dev):
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="profile_step")
     ap.add_argument("--what", choices=("train", "frame"), default="train")
+    ap.add_argument("--preset", default="random_spheres",
+                    help="scene of --what frame")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
@@ -138,7 +143,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    step = (_setup_train if args.what == "train" else _setup_frame)(dev)
+    step = (_setup_train(dev) if args.what == "train"
+            else _setup_frame(dev, args.preset))
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
@@ -176,7 +182,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         regions["backward and optimizer"] = busy_ms - regions["forward"]
     kernels.sort(reverse=True)
     result = {
-        "what": args.what, "card": smi, "torch": torch.__version__,
+        "what": args.what,
+        "preset": "random_spheres" if args.what == "train" else args.preset,
+        "card": smi, "torch": torch.__version__,
         "step_ms_median": statistics.median(times), "step_ms": times,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms, "peak_gib": peak_gib,
@@ -185,7 +193,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "top_kernels": [{"name": n[:160], "launches": c, "ms": us / 1e3}
                         for us, c, n in kernels[:15]],
     }
-    print(f"{args.what} on {smi} (torch {torch.__version__})")
+    print(f"{args.what} of {result['preset']} on {smi} "
+          f"(torch {torch.__version__})")
     print("step ms (CUDA events, unprofiled): "
           + ", ".join(f"{t:.3f}" for t in times))
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "

@@ -25,7 +25,18 @@ from torch_port_util import (  # noqa: E402
     jax_camera_leaves, jax_scene_leaves, numpy_uniforms, scene_pair,
 )
 
-PORTED = ["random_spheres", "small", "two_perlin_spheres"]
+PORTED = presets.names()
+# the cover scene at half_extent 20: 1604 spheres, 13 tiles (the flat cull)
+COVER_20 = "half_extent=20"
+
+
+def _preset_pair(name, aspect):
+    """((JAX scene, camera), (port scene, camera)) of a ported preset or
+    of ``COVER_20``."""
+    if name == COVER_20:
+        return (jpresets._random_impl(aspect, True, 0, half_extent=20),
+                presets._random_impl(aspect, True, 0, half_extent=20))
+    return jpresets.from_name(name, aspect), presets.from_name(name, aspect)
 
 
 def _bits_equal(a, b):
@@ -75,11 +86,10 @@ class TestHash:
 
 
 class TestSceneState:
-    @pytest.mark.parametrize("name", PORTED)
+    @pytest.mark.parametrize("name", PORTED + [COVER_20])
     def test_presets_equal_reference_leaf_for_leaf(self, name):
         for aspect in (16 / 9, 1.0):
-            jscene, jcam = jpresets.from_name(name, aspect)
-            scene, cam = presets.from_name(name, aspect)
+            (jscene, jcam), (scene, cam) = _preset_pair(name, aspect)
             ref = jax_scene_leaves(jscene)
             got = convert.scene_to_numpy(scene)
             for key, val in got.items():

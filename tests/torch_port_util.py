@@ -118,6 +118,15 @@ def assert_lanes_close(a, b, outlier_budget=0.005, rtol=1e-3, atol=1e-3,
 # still drift past 1e-3.
 DEPTH10_BUDGET = 0.01
 
+# The same contract on random_spheres_xl (the 64x64 grid of 0.2-radius
+# spheres, tests/goldens/torch_port_random_spheres_xl.npz): nearly every
+# bounce there meets a small sphere, so the divergence compounds further.
+# Measured on the fixture's 9216 tile-ordered rays against JAX (CPU, both
+# with the cull on and off, which are bit-identical in each package):
+# 0.26% of rays outside after 1 bounce (inside the 0.5% of one bounce),
+# 0.55% after 2, 0.72% after 3, 0.94% after 5 and 1.14% after 10.
+XL_DEPTH10_BUDGET = 0.02
+
 
 def check_slice_contract(radiance, ray_count, ref_radiance, ref_count,
                          max_depth, budget=0.005):
