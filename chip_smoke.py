@@ -19,7 +19,7 @@ Phases (each prints a line before the next starts):
    the lane contract (1e-3, at most 0.5% of lanes outside);
 5. the port's CUDA trace of the fixture's rays against the JAX radiance
    in ``tests/goldens/torch_port_random_spheres.npz`` (depth 10: 1e-3, at
-   most 1% of rays outside);
+   most 1% of rays outside; K1 at every bounce, no plain version);
 6. ``pathtrace_tpu_torch.cli.main`` renders random_spheres at 1280x720,
    4 spp, depth 10, 3 progressive frames; K1 and K2 must have launched
    and the plain versions never run;
@@ -52,19 +52,45 @@ Phases (each prints a line before the next starts):
     (K4's path: K4 launched, K1, K5 and every plain version not);
 12. the port's CUDA trace of the xl fixture's tile-ordered rays against
     JAX's radiance in ``tests/goldens/torch_port_random_spheres_xl.npz``
-    (depth 10, ``XL_DEPTH10_BUDGET`` of the rays outside 1e-3);
+    (depth 10, ``XL_DEPTH10_BUDGET`` of the rays outside 1e-3; K5 at
+    every bounce);
 13. ``cli.main`` renders random_spheres_xl at 1280x720, 4 spp, depth 10,
     3 frames (K5 launched, K1, K4 and every plain version not), then the
     same frames with the cull and the tile order off (``CULL_MIN_TILES``
-    patched high: K1 brute force); both frame times are printed.
+    patched high: K1 brute force); both frame times are printed;
+14. K3 (the moving-sphere closest hit) against its plain version on the
+    primary rays of ``random`` at 1280x720x4 (camera times in [0, 1)) and
+    on once-scattered rays: t and idx must be equal; K3 on random_spheres
+    with its zero motion operand must equal K1 bit for bit; the times of
+    K3, of its plain version and of K1 on the same rays, and the bound;
+15. K2 with the motion flag against its plain version on phase 14's
+    winners, under the lane contract;
+16. the port's CUDA trace of the rays in ``tests/goldens/torch_port_random.npz``
+    against JAX's radiance (depth 10, ``DEPTH10_BUDGET``), through K3 at
+    every bounce;
+17. ``cli.main`` renders random at 1280x720, 4 spp, depth 10, 3 frames:
+    K3 and K2 launched, K1, K4, K5 and every plain version not;
+18. K6 for moving spheres against its plain version on phase 14's
+    winners: per-ray g_ro, g_rd and g_time within ``K6_MAX_ULP``, the
+    per-sphere sums of all nine components (centre, delta, time0,
+    inv_dt, radius) within relative L2 ``K6_SPHERE_RTOL``;
+19. the CUDA ``trace_fast_diff`` (depth 4) of
+    ``tests/goldens/torch_port_grad_random.npz``: per-leaf gradients,
+    ``spheres.center_delta`` included, within ``MOTION_FIXTURE_GRAD_TOL``;
+20. ``examples.inverse_render.main`` trains random at 1280x720, 4 spp,
+    depth 4, 5 Adam steps, every default-trainable leaf: finite losses,
+    every leaf moves (``spheres.center_delta`` included), K3 and K6
+    launched and no plain version run.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
-trainer's, phase 10 for K4, phase 13 for K5), its largest difference
+trainer's, phase 10 for K4, phase 13 for K5, phases 17 and 20 for K3
+and the motion runs of K2 and K6), its largest difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 from this run's shapes; for K4 and K5 the operations of the sweeps this
-run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test)
+run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test;
+for K3 ~42 per pair)
 and ``library_ms`` (null: no single PyTorch call computes any of them).
 K4 and K5 also carry the share of sweeps skipped and K1's time on the
 same rays. Then
@@ -90,6 +116,9 @@ GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                             "torch_port_grad_small.npz")
 XL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                           "torch_port_random_spheres_xl.npz")
+RANDOM_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_random.npz")
+RANDOM_GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                                   "torch_port_grad_random.npz")
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
 TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
@@ -171,17 +200,19 @@ def reset_counts(k1, k2) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
     for name in ("LAUNCHES", "PLAIN_CALLS", "BWD_LAUNCHES", "BWD_PLAIN_CALLS",
                  "FLAT_LAUNCHES", "FLAT_PLAIN_CALLS", "HIER_LAUNCHES",
-                 "HIER_PLAIN_CALLS"):
+                 "HIER_PLAIN_CALLS", "MOVING_LAUNCHES", "MOVING_PLAIN_CALLS"):
         setattr(k1, name, 0)
     k2.LAUNCHES = k2.PLAIN_CALLS = 0
 
 
 def read_counts(k1, k2) -> dict:
     """Launches per kernel, and the plain versions' calls summed."""
-    return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K4": k1.FLAT_LAUNCHES,
-            "K5": k1.HIER_LAUNCHES, "K6": k1.BWD_LAUNCHES,
+    return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k1.MOVING_LAUNCHES,
+            "K4": k1.FLAT_LAUNCHES, "K5": k1.HIER_LAUNCHES,
+            "K6": k1.BWD_LAUNCHES,
             "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
-                      + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS)}
+                      + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
+                      + k1.MOVING_PLAIN_CALLS)}
 
 
 def main() -> int:
@@ -207,7 +238,10 @@ def main() -> int:
     # the tests' helpers, by path: a ``tests`` package installed elsewhere
     # would shadow the repository's directory
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from torch_port_util import FIXTURE_GRAD_TOL, XL_DEPTH10_BUDGET
+    from torch_port_util import (
+        DEPTH10_BUDGET, FIXTURE_GRAD_TOL, MOTION_FIXTURE_GRAD_TOL,
+        XL_DEPTH10_BUDGET,
+    )
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -239,27 +273,37 @@ def main() -> int:
     R = WIDTH * HEIGHT * SAMPLES
     st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
 
-    def k1_check(st, label):
+    def nearest_check(tag, name, soa, st, label, moving=False):
+        """K1 (K3 when ``moving``) against its plain version on one state's
+        rays: t and idx must be equal. Returns (t, idx, max |dt|)."""
         rays = st.planes[:6]
-        t, idx = k1.sphere_nearest(tables.soa, rays)
-        t_p, idx_p = k1.sphere_nearest_plain(tables.soa, rays)
+        if moving:
+            t, idx = k1.sphere_nearest_moving(soa, rays, st.time)
+        else:
+            t, idx = k1.sphere_nearest(soa, rays)
+        t_p, idx_p = k1.sphere_nearest_plain(soa, rays,
+                                             time=st.time if moving else None)
         torch.cuda.synchronize()
         hit = t < 1e30
         err = (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
         same = torch.equal(t, t_p) and torch.equal(idx, idx_p)
-        phase(f"[3] K1 {label}: {R} rays, hit {hit.float().mean().item():.4f}, "
-              f"t and idx equal to plain: {same}, max |dt| {err}")
+        phase(f"[{tag}] {name} {label}: {R} rays, hit "
+              f"{hit.float().mean().item():.4f}, t and idx equal to plain: "
+              f"{same}, max |dt| {err}")
         if not same:
-            raise AssertionError(f"K1 differs from its plain version ({label})")
+            raise AssertionError(f"{name} differs from its plain version ({label})")
         return t, idx, err
 
-    t0_, idx0, err_a = k1_check(st0, "primary")
-    # once-scattered rays: one bounce through the kernels
-    planes1, alive1 = k2.shade_from_winners(
-        tables.table, idx0, t0_, st0.planes, st0.time, st0.alive, st0.lane,
-        7, 0, DEPTH, tables.sky4, flags)
-    st1 = fp.FastStateP(planes1, st0.time, alive1, st0.lane)
-    t1_, idx1, err_b = k1_check(st1, "scattered")
+    def scattered(tables_, flags_, st, t_, idx_):
+        """The state after one bounce through K2 from the winners (t_, idx_)."""
+        planes, alive = k2.shade_from_winners(
+            tables_.table, idx_, t_, st.planes, st.time, st.alive, st.lane, 7,
+            0, DEPTH, tables_.sky4, flags_)
+        return fp.FastStateP(planes, st.time, alive, st.lane)
+
+    t0_, idx0, err_a = nearest_check("3", "K1", tables.soa, st0, "primary")
+    st1 = scattered(tables, flags, st0, t0_, idx0)
+    t1_, idx1, err_b = nearest_check("3", "K1", tables.soa, st1, "scattered")
     k1_ms = time_ms(lambda: k1.sphere_nearest(tables.soa, st0.planes[:6]), 20)
     k1_plain_ms = time_ms(
         lambda: k1.sphere_nearest_plain(tables.soa, st0.planes[:6]), 2)
@@ -267,27 +311,37 @@ def main() -> int:
           f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
 
     # ---- 4: K2 on the same winners ----
-    k2_err, k2_out = 0.0, 0.0
-    for label, st, t_, idx_, depth in (("primary", st0, t0_, idx0, 0),
-                                       ("scattered", st1, t1_, idx1, 1)):
-        args = (tables.table, idx_, t_, st.planes, st.time, st.alive,
-                st.lane, 7, depth, DEPTH, tables.sky4, flags)
-        out, alive = k2.shade_from_winners(*args)
-        out_p, alive_p = k2.shade_from_winners_plain(*args)
-        frac = max(outside_fraction(out[k], out_p[k]) for k in range(12))
-        agree = (alive == alive_p).float().mean().item()
-        err = (out - out_p).abs().max().item()
-        phase(f"[4] K2 {label}: worst plane {frac:.6f} of lanes outside 1e-3, "
-              f"alive agreement {agree:.6f}, max |diff| {err}")
-        if frac > 0.005 or agree < 0.995:
-            raise AssertionError(f"K2 outside the lane contract ({label})")
-        k2_err, k2_out = max(k2_err, err), max(k2_out, frac)
-    args0 = (tables.table, idx0, t0_, st0.planes, st0.time, st0.alive,
-             st0.lane, 7, 0, DEPTH, tables.sky4, flags)
-    k2_ms = time_ms(lambda: k2.shade_from_winners(*args0), 20)
-    k2_plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args0), 3)
-    phase(f"[4] K2 time at {R} lanes: kernel {k2_ms:.3f} ms, "
-          f"plain {k2_plain_ms:.3f} ms")
+    def shade_check(tag, name, tables_, flags_, cases):
+        """K2 against its plain version on each (label, state, t, idx,
+        depth) case, under the lane contract, then both timed on the
+        first case. Returns (max |diff|, worst share outside, ms,
+        plain ms)."""
+        worst_err, worst_out = 0.0, 0.0
+        for label, st, t_, idx_, depth in cases:
+            args = (tables_.table, idx_, t_, st.planes, st.time, st.alive,
+                    st.lane, 7, depth, DEPTH, tables_.sky4, flags_)
+            out, alive = k2.shade_from_winners(*args)
+            out_p, alive_p = k2.shade_from_winners_plain(*args)
+            frac = max(outside_fraction(out[k], out_p[k]) for k in range(12))
+            agree = (alive == alive_p).float().mean().item()
+            err = (out - out_p).abs().max().item()
+            phase(f"[{tag}] {name} {label}: worst plane {frac:.6f} of lanes "
+                  f"outside 1e-3, alive agreement {agree:.6f}, max |diff| {err}")
+            if frac > 0.005 or agree < 0.995:
+                raise AssertionError(f"{name} outside the lane contract ({label})")
+            worst_err, worst_out = max(worst_err, err), max(worst_out, frac)
+        _, st, t_, idx_, depth = cases[0]
+        args = (tables_.table, idx_, t_, st.planes, st.time, st.alive,
+                st.lane, 7, depth, DEPTH, tables_.sky4, flags_)
+        ms = time_ms(lambda: k2.shade_from_winners(*args), 20)
+        plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args), 3)
+        phase(f"[{tag}] {name} time at {R} lanes: kernel {ms:.3f} ms, "
+              f"plain {plain_ms:.3f} ms")
+        return worst_err, worst_out, ms, plain_ms
+
+    k2_err, k2_out, k2_ms, k2_plain_ms = shade_check(
+        "4", "K2", tables, flags, (("primary", st0, t0_, idx0, 0),
+                                   ("scattered", st1, t1_, idx1, 1)))
     n_live = int(scene.spheres.mask.sum())
     # K1: ~20 fp32 operations per (ray, live sphere) pair; 24 B in and
     # 8 B out per ray, 20 B per sphere
@@ -295,28 +349,40 @@ def main() -> int:
     # K2: per lane 65 B in (12 planes, time, alive, lane, t, idx) and 49 B
     # out (12 planes, alive), the winner table once; ~300 operations
     k2_bound = bound(R * 114 + tables.table.numel() * 4, R * 300)
-    # phase 7's winners: [R, 3] rays with their (t, idx)
-    winners = [(st.planes[0:3].T.contiguous(), st.planes[3:6].T.contiguous(),
-                t_, idx_) for st, t_, idx_ in ((st0, t0_, idx0),
-                                              (st1, t1_, idx1))]
-    del st0, st1, planes1, out, out_p
+    def winners_of(cases):
+        """K6's inputs per state: [R, 3] rays, time and the (t, idx)."""
+        return [(st.planes[0:3].T.contiguous(), st.planes[3:6].T.contiguous(),
+                 st.time, t_, idx_) for st, t_, idx_ in cases]
+
+    winners = winners_of(((st0, t0_, idx0), (st1, t1_, idx1)))
+    del st0, st1
 
     # ---- 5: against the committed JAX reference ----
+    def fixture_trace(tag, name, scene_, ref, budget, kernel):
+        """The CUDA trace of a fixture's rays against JAX's radiance: at
+        most ``budget`` of the rays outside 1e-3, the segment counts
+        within max_depth per ray outside, ``kernel`` launched at every
+        bounce and no other closest hit or plain version."""
+        depth = int(ref["max_depth"])
+        reset_counts(k1, k2)
+        res = fp.trace_fast(scene_, *(torch.from_numpy(ref[k]).to(dev) for k in
+                                      ("rays.ro", "rays.rd", "rays.time")),
+                            int(ref["seed"]), depth,
+                            SceneFeatures.from_scene(scene_), min_size=128)
+        counts = read_counts(k1, k2)
+        n_out, frac = rays_outside(res.radiance, ref["radiance"])
+        count, ref_count = int(res.ray_count), int(ref["ray_count"])
+        phase(f"[{tag}] {name}: {len(res.radiance)} rays depth {depth}, "
+              f"{frac:.4%} of rays outside 1e-3 (budget {budget:.0%}), segments "
+              f"{count} vs JAX {ref_count}; launches {counts}")
+        others = [counts[k] for k in ("K1", "K3", "K4", "K5") if k != kernel]
+        if (frac > budget or counts[kernel] != depth + 1 or any(others)
+                or counts["plain"] or abs(count - ref_count) > n_out * depth):
+            raise AssertionError(f"{name}: trace outside the slice contract")
+
     ref = np.load(FIXTURE)
-    fscene = scene_from_numpy(ref, device=dev)
-    res = fp.trace_fast(
-        fscene, torch.from_numpy(ref["rays.ro"]).to(dev),
-        torch.from_numpy(ref["rays.rd"]).to(dev),
-        torch.from_numpy(ref["rays.time"]).to(dev), int(ref["seed"]),
-        int(ref["max_depth"]), SceneFeatures.from_scene(fscene),
-        min_size=128)
-    n_out, frac = rays_outside(res.radiance, ref["radiance"])
-    count, ref_count = int(res.ray_count), int(ref["ray_count"])
-    phase(f"[5] fixture: {len(res.radiance)} rays depth {int(ref['max_depth'])}, "
-          f"{frac:.4%} of rays outside 1e-3 (budget 1%), segments {count} vs "
-          f"JAX {ref_count}")
-    if frac > 0.01 or abs(count - ref_count) > n_out * int(ref["max_depth"]):
-        raise AssertionError("port trace outside the slice contract")
+    fixture_trace("5", "fixture", scene_from_numpy(ref, device=dev), ref,
+                  DEPTH10_BUDGET, "K1")
 
     # ---- 6: the main path through the CLI ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -360,64 +426,93 @@ def main() -> int:
     phase(f"[6] image mean {mean:.6f}, finite")
 
     # ---- 7: K6 against its plain version on phase 3's winners ----
+    def k6_check(tag, name, sp_, winners_, seed, moving=False):
+        """K6 (with motion when ``moving``) against its plain version on
+        each winners set: per-ray gradients within ``K6_MAX_ULP``, every
+        per-sphere sum non-zero and within ``K6_SPHERE_RTOL``; then both
+        timed on the first set. Returns (max |diff|, max ULP, worst rel
+        L2, ms, plain ms)."""
+        gen_ = torch.Generator(device=dev)
+        gen_.manual_seed(seed)
+        per_ray = (2, 3, 7) if moving else (2, 3)
+        per_sphere = (0, 1, 4, 5, 6) if moving else (0, 1)
+        worst = (0.0, 0, 0.0)
+        for label, (ro_, rd_, tm_, t_, idx_) in zip(("primary", "scattered"),
+                                                    winners_):
+            g_t = torch.rand(R, generator=gen_, device=dev) + 0.5
+            args = (sp_.center, sp_.radius, ro_, rd_, t_, idx_, g_t)
+            motion = ((sp_.center_delta, sp_.time0, sp_.inv_time_delta, tm_)
+                      if moving else None)
+            got = k1.sphere_nearest_bwd(*args, motion=motion)
+            ref_ = k1.sphere_nearest_bwd_plain(*args, motion=motion)
+            torch.cuda.synchronize()
+            ulp = max(ulp_distance(got[k], ref_[k]) for k in per_ray)
+            n_diff = sum(int((got[k] != ref_[k]).sum()) for k in per_ray)
+            err = max(float((got[k] - ref_[k]).abs().max()) for k in per_ray)
+            sph = [rel_l2(got[k], ref_[k]) for k in per_sphere]
+            n_vals = sum(got[k].numel() for k in per_ray)
+            phase(f"[{tag}] {name} {label}: per-ray gradients {n_diff} of "
+                  f"{n_vals} values differ "
+                  f"from plain (max {ulp} ULP, max |diff| {err}); per-sphere "
+                  "sums rel L2 " + ", ".join(f"{e:.3e}" for e in sph))
+            if not all(bool(torch.isfinite(x).all()) for x in got):
+                raise AssertionError(f"{name} gave non-finite gradients ({label})")
+            if any(float(got[k].abs().max()) == 0.0 for k in per_sphere):
+                raise AssertionError(f"{name} left a leaf without gradient ({label})")
+            if ulp > K6_MAX_ULP or max(sph) > K6_SPHERE_RTOL:
+                raise AssertionError(f"{name} differs from its plain version ({label})")
+            worst = (max(worst[0], err), max(worst[1], ulp), max(worst[2], *sph))
+        ro_, rd_, tm_, t_, idx_ = winners_[0]
+        args = (sp_.center, sp_.radius, ro_, rd_, t_, idx_, g_t)
+        motion = ((sp_.center_delta, sp_.time0, sp_.inv_time_delta, tm_)
+                  if moving else None)
+        ms = time_ms(lambda: k1.sphere_nearest_bwd(*args, motion=motion), 20)
+        plain_ms = time_ms(
+            lambda: k1.sphere_nearest_bwd_plain(*args, motion=motion), 3)
+        return (*worst, ms, plain_ms)
+
     sp = scene.spheres
-    g_gen = torch.Generator(device=dev)
-    g_gen.manual_seed(1)
-    k6_err, k6_ulp, k6_sph = 0.0, 0, 0.0
-    for label, (ro_, rd_, t_, idx_) in zip(("primary", "scattered"), winners):
-        g_t = torch.rand(R, generator=g_gen, device=dev) + 0.5
-        got = k1.sphere_nearest_bwd(sp.center, sp.radius, ro_, rd_, t_, idx_,
-                                    g_t)
-        ref_ = k1.sphere_nearest_bwd_plain(sp.center, sp.radius, ro_, rd_, t_,
-                                           idx_, g_t)
-        torch.cuda.synchronize()
-        ulp = max(ulp_distance(got[k], ref_[k]) for k in (2, 3))
-        n_diff = sum(int((got[k] != ref_[k]).sum()) for k in (2, 3))
-        err = max(float((got[k] - ref_[k]).abs().max()) for k in (2, 3))
-        sph = max(rel_l2(got[k], ref_[k]) for k in (0, 1))
-        phase(f"[7] K6 {label}: per-ray g_ro/g_rd {n_diff} of {6 * R} values "
-              f"differ from plain (max {ulp} ULP, max |diff| {err}); "
-              f"per-sphere g_center/g_radius rel L2 {sph:.3e}")
-        if not all(bool(torch.isfinite(x).all()) for x in got):
-            raise AssertionError(f"K6 gave non-finite gradients ({label})")
-        if ulp > K6_MAX_ULP or sph > K6_SPHERE_RTOL:
-            raise AssertionError(f"K6 differs from its plain version ({label})")
-        k6_err, k6_ulp, k6_sph = max(k6_err, err), max(k6_ulp, ulp), max(k6_sph, sph)
-    ro_, rd_, t_, idx_ = winners[0]
-    k6_args = (sp.center, sp.radius, ro_, rd_, t_, idx_, g_t)
-    k6_ms = time_ms(lambda: k1.sphere_nearest_bwd(*k6_args), 20)
-    k6_plain_ms = time_ms(lambda: k1.sphere_nearest_bwd_plain(*k6_args), 3)
+    k6_err, k6_ulp, k6_sph, k6_ms, k6_plain_ms = k6_check("7", "K6", sp,
+                                                          winners, 1)
     # K6: per ray ro, rd, t, idx, g_t in (36 B) and g_ro, g_rd out (24 B),
     # the sphere leaves in and their gradients out once; ~60 operations
     k6_bound = bound(R * 60 + sp.center.numel() * 4 * 2 + sp.radius.numel() * 4 * 2,
                      R * 60)
     phase(f"[7] K6 time at {R} rays: kernel {k6_ms:.3f} ms, plain "
           f"{k6_plain_ms:.3f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
-    del winners, got, ref_, k6_args
+    del winners
 
     # ---- 8: the CUDA trace's gradients against the JAX fixture ----
-    gref = np.load(GRAD_FIXTURE)
-    gscene, _ = presets.random_spheres(WIDTH / HEIGHT)
-    gparams, rebuild, names = split_scene(gscene.to(dev))
-    if names != list(gref["names"]):
-        raise AssertionError(f"trainable leaves {names}")
-    rad, _ = fp.trace_fast_diff(
-        rebuild(gparams), *(torch.from_numpy(gref[k]).to(dev)
-                            for k in ("rays.ro", "rays.rd", "rays.time")),
-        int(gref["seed"]), int(gref["max_depth"]),
-        SceneFeatures.from_scene(gscene))
-    frac = outside_fraction(rad.detach().cpu(), torch.from_numpy(gref["radiance"]))
-    grads = torch.autograd.grad(
-        (torch.from_numpy(gref["w"]).to(dev) * rad).sum(), gparams)
-    errs = {n: rel_l2(g.cpu(), torch.from_numpy(gref[f"grad.{n}"]))
-            for n, g in zip(names, grads)}
-    phase(f"[8] gradient fixture: {rad.shape[0]} rays depth "
-          f"{int(gref['max_depth'])}, {frac:.4%} of values outside 1e-3; "
-          "per-leaf rel L2 vs JAX: "
-          + ", ".join(f"{n} {e:.3e} (<= {FIXTURE_GRAD_TOL[n]})"
-                      for n, e in errs.items()))
-    if frac > 0.005 or any(errs[n] > FIXTURE_GRAD_TOL[n] for n in names):
-        raise AssertionError("trace gradients outside the fixture contract")
+    def grad_fixture(tag, name, scene_, gref, tol, kernel):
+        """The CUDA ``trace_fast_diff`` of a gradient fixture's rays:
+        radiance under the lane contract, per-leaf gradients within
+        ``tol`` of JAX's, ``kernel`` and K6 launched, no plain version."""
+        gparams, rebuild, names = split_scene(scene_.to(dev))
+        if names != list(gref["names"]):
+            raise AssertionError(f"trainable leaves {names}")
+        reset_counts(k1, k2)
+        rad, _ = fp.trace_fast_diff(
+            rebuild(gparams), *(torch.from_numpy(gref[k]).to(dev)
+                                for k in ("rays.ro", "rays.rd", "rays.time")),
+            int(gref["seed"]), int(gref["max_depth"]),
+            SceneFeatures.from_scene(scene_))
+        frac = outside_fraction(rad.detach().cpu(),
+                                torch.from_numpy(gref["radiance"]))
+        grads = torch.autograd.grad(
+            (torch.from_numpy(gref["w"]).to(dev) * rad).sum(), gparams)
+        counts = read_counts(k1, k2)
+        errs = {n: rel_l2(g.cpu(), torch.from_numpy(gref[f"grad.{n}"]))
+                for n, g in zip(names, grads)}
+        phase(f"[{tag}] {name}: {rad.shape[0]} rays depth "
+              f"{int(gref['max_depth'])}, {frac:.4%} of values outside 1e-3; "
+              f"launches {counts}; per-leaf rel L2 vs JAX: "
+              + ", ".join(f"{n} {e:.3e} (<= {tol[n]})" for n, e in errs.items()))
+        if (frac > 0.005 or counts[kernel] <= 0 or counts["K6"] <= 0
+                or counts["plain"] or any(errs[n] > tol[n] for n in names)):
+            raise AssertionError(f"{name}: trace gradients outside the contract")
+
+    grad_fixture("8", "gradient fixture", presets.random_spheres(WIDTH / HEIGHT)[0],
+                 np.load(GRAD_FIXTURE), FIXTURE_GRAD_TOL, "K1")
 
     # ---- 9: the trainer through its entry point, twice: every
     # default-trainable leaf (the full configuration), then the example's
@@ -428,10 +523,12 @@ def main() -> int:
     # reference's trainer does the same (tests/test_torch_grad.py
     # test_train_steps_track_jax holds the port's losses to its, step by
     # step, with every default leaf and with the colours alone).
-    runs = {}
-    for trainable in ("default", "color"):
+    def train_run(tag, preset, trainable, every_leaf=False):
+        """``inverse_render.main`` at the smoke's film, depth 4, 5 steps:
+        (launch counts, losses, the largest change per leaf). The
+        parameters must move (``every_leaf``: each trainable leaf)."""
         with tempfile.TemporaryDirectory() as tmp:
-            argv = ["--preset", "random_spheres", "--width", str(WIDTH),
+            argv = ["--preset", preset, "--width", str(WIDTH),
                     "--height", str(HEIGHT), "--samples", str(SAMPLES),
                     "--depth", str(TRAIN_DEPTH), "--steps", str(TRAIN_STEPS),
                     "--trainable", trainable, "--device", "cuda",
@@ -442,37 +539,43 @@ def main() -> int:
             with contextlib.redirect_stdout(buf):
                 rc = inverse_render.main(argv)
             wall = time.monotonic() - t_start
-            c9 = read_counts(k1, k2)
-            counts = (c9["K1"], c9["K6"])
+            counts = read_counts(k1, k2)
             log = buf.getvalue()
             for ln in log.splitlines():
-                phase(f"[9] inverse_render --trainable {trainable}: {ln}")
+                phase(f"[{tag}] inverse_render --preset {preset} --trainable "
+                      f"{trainable}: {ln}")
             if rc != 0:
                 raise AssertionError(f"inverse_render.main returned {rc}")
             side = np.load(os.path.join(tmp, "inverse.npy"))
         steps = [(float(loss), float(ms)) for loss, ms in re.findall(
             r"step \d+/\d+: loss ([\d.e+-]+|nan|inf), ([\d.]+) ms", log)]
-        moved = [float(x) for x in re.findall(
-            r" ([\d.]+)(?:,|$)",
-            log.split("largest parameter change:")[1].splitlines()[0])]
+        moved = {n: float(m) for n, m in re.findall(
+            r"(\S+) ([\d.]+)(?:,|$)",
+            log.split("largest parameter change:")[1].splitlines()[0])}
         peak = float(re.search(r"peak device memory: ([\d.]+) GiB",
                                log).group(1))
         losses = [loss for loss, _ in steps]
-        phase(f"[9] --trainable {trainable}: launches K1 {counts[0]}, K6 "
-              f"{counts[1]}; plain calls {c9['plain']}; loss "
-              f"{losses[0]:.8f} -> {losses[-1]:.8f}; ms per step "
+        phase(f"[{tag}] {preset} --trainable {trainable}: launches {counts}; "
+              f"loss {losses[0]:.8f} -> {losses[-1]:.8f}; ms per step "
               + ", ".join(f"{ms:.2f}" for _, ms in steps)
               + f" (CUDA events); peak memory {peak:.3f} GiB; wall {wall:.2f} s")
         if len(steps) != TRAIN_STEPS or not np.isfinite(losses).all():
             raise AssertionError(f"bad step lines: {steps}")
-        if not moved or max(moved) <= 0.0:
-            raise AssertionError("the parameters did not move")
-        if min(counts) <= 0 or c9["plain"] != 0:
-            raise AssertionError("the trainer did not run through K1 and K6")
+        if not moved or (min if every_leaf else max)(moved.values()) <= 0.0:
+            raise AssertionError(f"a trainable leaf did not move: {moved}")
+        if counts["K6"] <= 0 or counts["plain"] != 0:
+            raise AssertionError("the trainer did not run through the kernels")
         if not (np.isfinite(side).all()
                 and side.shape == (HEIGHT, 2 * WIDTH, 3)):
             raise AssertionError(f"bad target|optimized image {side.shape}")
-        runs[trainable] = (counts, losses)
+        return counts, losses, moved
+
+    runs = {}
+    for trainable in ("default", "color"):
+        c9, losses, _ = train_run("9", "random_spheres", trainable)
+        if c9["K1"] <= 0:
+            raise AssertionError("the trainer did not run through K1")
+        runs[trainable] = ((c9["K1"], c9["K6"]), losses)
     if not runs["color"][1][-1] < runs["color"][1][0]:
         raise AssertionError(f"loss did not fall: {runs['color'][1]}")
     train_launches = runs["default"][0]
@@ -574,23 +677,8 @@ def main() -> int:
     k5 = cull_phase("11", "random_spheres_xl (K5)", xl, cam_xl, True)
 
     # ---- 12: the CUDA trace against the committed xl fixture ----
-    xref = np.load(XL_FIXTURE)
-    reset_counts(k1, k2)
-    res = fp.trace_fast(xl, *(torch.from_numpy(xref[k]).to(dev)
-                              for k in ("rays.ro", "rays.rd", "rays.time")),
-                        int(xref["seed"]), int(xref["max_depth"]),
-                        SceneFeatures.from_scene(xl), min_size=128)
-    c12 = read_counts(k1, k2)
-    n_out, frac = rays_outside(res.radiance, xref["radiance"])
-    count, ref_count = int(res.ray_count), int(xref["ray_count"])
-    phase(f"[12] xl fixture: {len(res.radiance)} tile-ordered rays depth "
-          f"{int(xref['max_depth'])}, {frac:.4%} of rays outside 1e-3 (budget "
-          f"{XL_DEPTH10_BUDGET:.0%}), segments {count} vs JAX {ref_count}; "
-          f"launches {c12}")
-    if (frac > XL_DEPTH10_BUDGET or c12["K5"] != int(xref["max_depth"]) + 1
-            or c12["K1"] or c12["plain"]
-            or abs(count - ref_count) > n_out * int(xref["max_depth"])):
-        raise AssertionError("xl trace outside the slice contract")
+    fixture_trace("12", "xl fixture (tile-ordered rays)", xl, np.load(XL_FIXTURE),
+                  XL_DEPTH10_BUDGET, "K5")
 
     # ---- 13: the scene-scale path through the CLI, culled and brute force ----
     def cli_frames(tag, argv):
@@ -642,6 +730,112 @@ def main() -> int:
               f"{smi})")
     del xl
 
+    # ---- 14: K3 on primary and once-scattered rays of random ----
+    mscene, mcamera = presets.random(WIDTH / HEIGHT)
+    mscene = mscene.to(dev)
+    mfeats = SceneFeatures.from_scene(mscene)
+    mtables = fp.prep_tables(mscene, mfeats)
+    mflags = fp.feature_flags(mfeats)
+    if not (mfeats.has_motion and mflags & k2.FLAG_MOTION
+            and tuple(mtables.soa.shape) == (12, 512) and mtables.cull is None):
+        raise AssertionError("random did not get the motion tables")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ro, rd, tm = generate_primary_rays(mcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    mst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+    del ro, rd, tm
+    phase(f"[14] random: {int(mscene.spheres.mask.sum())} spheres "
+          f"({int((mscene.spheres.inv_time_delta != 0).sum())} moving) in "
+          f"{mtables.soa.shape[1]} slots; ray times in "
+          f"[{mst0.time.min().item():.4f}, {mst0.time.max().item():.4f}]")
+
+    mt0, midx0, k3_err_a = nearest_check("14", "K3", mtables.soa, mst0,
+                                         "primary", moving=True)
+    mst1 = scattered(mtables, mflags, mst0, mt0, midx0)
+    mt1, midx1, k3_err_b = nearest_check("14", "K3", mtables.soa, mst1,
+                                         "scattered", moving=True)
+    # K3 with a zero motion operand is K1, bit for bit
+    sscene, _ = presets.random_spheres(WIDTH / HEIGHT)
+    sscene = sscene.to(dev)
+    soa12 = fp.build_sphere_soa(sscene, motion=True)
+    t3, i3 = k1.sphere_nearest_moving(soa12, mst0.planes[:6], mst0.time)
+    t1s, i1s = k1.sphere_nearest(fp.build_sphere_soa(sscene), mst0.planes[:6])
+    torch.cuda.synchronize()
+    same_k1 = torch.equal(t3, t1s) and torch.equal(i3, i1s)
+    phase(f"[14] K3 on random_spheres (zero motion operand) equal to K1: "
+          f"{same_k1}")
+    if not (same_k1 and not soa12[5:].any()):
+        raise AssertionError("K3 differs from K1 on static spheres")
+    del soa12, t3, i3, t1s, i1s, sscene
+    mrays = mst0.planes[:6]
+    k3_ms = time_ms(lambda: k1.sphere_nearest_moving(mtables.soa, mrays,
+                                                     mst0.time), 20)
+    soa5 = mtables.soa[:5].contiguous()
+    k3_k1_ms = time_ms(lambda: k1.sphere_nearest(soa5, mrays), 20)
+    k3_plain_ms = time_ms(lambda: k1.sphere_nearest_plain(
+        mtables.soa, mrays, time=mst0.time), 2)
+    m_live = int(mscene.spheres.mask.sum())
+    # K3: ~42 fp32 operations per (ray, live sphere) pair; 28 B in (ray,
+    # time) and 8 B out per ray, 48 B per sphere
+    k3_bound = bound(R * 36 + mtables.soa.numel() * 4, R * m_live * 42)
+    phase(f"[14] K3 time at {R} rays x {mtables.soa.shape[1]} spheres: kernel "
+          f"{k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, K1 on the same rays "
+          f"{k3_k1_ms:.3f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+
+    # ---- 15: K2 with the motion flag on phase 14's winners ----
+    k2m_err, k2m_out, k2m_ms, k2m_plain_ms = shade_check(
+        "15", "K2 (motion)", mtables, mflags,
+        (("primary", mst0, mt0, midx0, 0), ("scattered", mst1, mt1, midx1, 1)))
+    mwinners = winners_of(((mst0, mt0, midx0), (mst1, mt1, midx1)))
+    del mst0, mst1
+
+    # ---- 16: the CUDA trace of random against the committed JAX fixture ----
+    fixture_trace("16", "random fixture", mscene, np.load(RANDOM_FIXTURE),
+                  DEPTH10_BUDGET, "K3")
+
+    # ---- 17: random through the CLI ----
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = os.path.join(tmp, "random.npy")
+        argv = ["-P", "random", "-W", str(WIDTH), "-H", str(HEIGHT),
+                "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", str(FRAMES),
+                "--out", out_path]
+        c17, m_frames = cli_frames("17", argv)
+        image = np.load(out_path)
+    phase(f"[17] launches {c17}")
+    if (c17["K3"] <= 0 or c17["K2"] <= 0 or c17["K1"] or c17["K4"]
+            or c17["K5"] or c17["plain"]):
+        raise AssertionError(f"the random frames did not run through K3 and "
+                             f"K2 alone: {c17}")
+    if not (np.isfinite(image).all() and image.shape == (HEIGHT, WIDTH, 3)
+            and 0.0 < float(image.mean()) <= 1.0):
+        raise AssertionError("bad random image")
+    for i, (ms, rays, rb) in enumerate(m_frames):
+        phase(f"[17] random frame {i + 1}: {ms:.2f} ms (CUDA events), {rays} "
+              f"rays, {rays / ms / 1e3:.2f} Mrays/s, {rb} readbacks ({smi})")
+    phase(f"[17] image mean {float(image.mean()):.6f}, finite")
+
+    # ---- 18: K6 for moving spheres against its plain version ----
+    msp = mscene.spheres
+    k6m_err, k6m_ulp, k6m_sph, k6m_ms, k6m_plain_ms = k6_check(
+        "18", "K6 (motion)", msp, mwinners, 2, moving=True)
+    # per ray ro, rd, time, t, idx, g_t in (40 B) and g_ro, g_rd, g_time
+    # out (28 B), the nine sphere floats in and their gradients out once;
+    # ~80 operations
+    k6m_bound = bound(R * 68 + msp.center.shape[0] * 9 * 4 * 2, R * 80)
+    phase(f"[18] K6 (motion) time at {R} rays: kernel {k6m_ms:.3f} ms, plain "
+          f"{k6m_plain_ms:.3f} ms, bound {k6m_bound[0]:.4f} ms ({k6m_bound[1]})")
+    del mwinners, mscene
+
+    # ---- 19: the CUDA trace's gradients against the random JAX fixture ----
+    grad_fixture("19", "random gradient fixture", presets.random(WIDTH / HEIGHT)[0],
+                 np.load(RANDOM_GRAD_FIXTURE), MOTION_FIXTURE_GRAD_TOL, "K3")
+
+    # ---- 20: the trainer on random through its entry point ----
+    c20, losses20, moved20 = train_run("20", "random", "default",
+                                       every_leaf=True)
+    if c20["K3"] <= 0 or c20["K1"] or "spheres.center_delta" not in moved20:
+        raise AssertionError(f"the random trainer did not run through K3: {c20}")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -650,20 +844,33 @@ def main() -> int:
          "max_abs_err": max(err_a, err_b),
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
+        {"name": "sphere_nearest_moving (K3)", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
+         "replaces": "pathtrace_tpu/ops/intersect_pallas.py:340",
+         "launches": c17["K3"], "train_launches": c20["K3"],
+         "max_abs_err": max(k3_err_a, k3_err_b),
+         "ms": k3_ms, "plain_ms": k3_plain_ms, "k1_ms": k3_k1_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:92",
          "launches": launches[1], "max_abs_err": k2_err,
          "lanes_outside": k2_out, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "library_ms": None},
+         "motion_launches": c17["K2"], "motion_max_abs_err": k2m_err,
+         "motion_lanes_outside": k2m_out, "motion_ms": k2m_ms,
+         "motion_plain_ms": k2m_plain_ms, "library_ms": None},
         {"name": "sphere_nearest_bwd", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:670",
          "launches": train_launches[1], "max_abs_err": k6_err,
          "max_ulp": k6_ulp, "sphere_rel_l2": k6_sph,
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
-         "bound_by": k6_bound[1], "library_ms": None},
+         "bound_by": k6_bound[1], "motion_launches": c20["K6"],
+         "motion_max_abs_err": k6m_err, "motion_max_ulp": k6m_ulp,
+         "motion_sphere_rel_l2": k6m_sph, "motion_ms": k6m_ms,
+         "motion_plain_ms": k6m_plain_ms, "motion_bound_ms": k6m_bound[0],
+         "motion_bound_by": k6m_bound[1], "library_ms": None},
         {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:111",

@@ -9,7 +9,10 @@ rays, film output, the progressive driver and the CLI
 trainer on one device: the closest hit made differentiable with a
 hand-written backward kernel, the differentiable trace, and Adam over the
 scene's leaves (``parallel/inverse.py``,
-``python -m pathtrace_tpu_torch.examples.inverse_render``).
+``python -m pathtrace_tpu_torch.examples.inverse_render``). The third
+culls the closest hit per sphere tile for scenes of scene scale; the
+fourth carries moving spheres (the motion-blurred ``random`` preset)
+through the closest hit, the shade kernel and the backward kernel.
 
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA

@@ -6,7 +6,9 @@
 // front of it ([R, 24] rows, then a (rows, 24, 128) cube). Here each
 // thread reads its lane's winner row straight from the attribute table
 // (512 x 24 floats for random_spheres, resident in L2), so no per-lane
-// attribute copy ever reaches device memory.
+// attribute copy ever reaches device memory. With FLAG_MOTION the sphere
+// normal comes from the centre lerped to the lane's time,
+// c = c0 + ((time - time0) * inv_dt) * delta (shade_pallas.py:137-141).
 //
 // What bounds it: bytes. Per lane it reads 15 state planes, t and idx and
 // the winner row (about 120 bytes from device memory) and writes 13
@@ -35,6 +37,7 @@ constexpr int FLAG_LAMBERTIAN = 4;
 constexpr int FLAG_METAL = 8;
 constexpr int FLAG_DIELECTRIC = 16;
 constexpr int FLAG_LIGHT = 32;
+constexpr int FLAG_MOTION = 64;
 
 constexpr float MAT_LAMBERTIAN = 0.f;
 constexpr float MAT_METAL = 1.f;
@@ -143,7 +146,6 @@ shade_kernel(const float* __restrict__ table, int k_attr,
              int flags, float* __restrict__ out, bool* __restrict__ alive_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  (void)time_in;  // moving spheres are not in this kernel yet
 
   const float* a = table + static_cast<long long>(idx[i]) * k_attr;
   const float t = t_in[i];
@@ -164,11 +166,18 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   const float px = rox + t_safe * rdx;
   const float py = roy + t_safe * rdy;
   const float pz = roz + t_safe * rdz;
+  float cx = a[kGeo], cy = a[kGeo + 1], cz = a[kGeo + 2];
+  if (flags & FLAG_MOTION) {
+    const float s = (time_in[i] - a[kGeo + 6]) * a[kGeo + 7];
+    cx = cx + s * a[kGeo + 3];
+    cy = cy + s * a[kGeo + 4];
+    cz = cz + s * a[kGeo + 5];
+  }
   const float r = a[kGeo + 8];
   const float inv_r = 1.0f / (fabsf(r) < 1e-12f ? 1.0f : r);
-  const float nx = (px - a[kGeo]) * inv_r;
-  const float ny = (py - a[kGeo + 1]) * inv_r;
-  const float nz = (pz - a[kGeo + 2]) * inv_r;
+  const float nx = (px - cx) * inv_r;
+  const float ny = (py - cy) * inv_r;
+  const float nz = (pz - cz) * inv_r;
 
   const float tex_kind = a[3];
   float rgb[3] = {a[4], a[5], a[6]};

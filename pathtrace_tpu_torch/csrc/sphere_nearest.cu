@@ -1,26 +1,36 @@
-// Closest hit over every sphere, one thread per ray (Hopper, sm_90a).
+// Closest hit over every sphere, one thread per ray (Hopper, sm_90a):
+// K1 (static spheres) and K3 (moving spheres), two instances of one
+// template.
 //
-// Replaces the TPU kernel pathtrace_tpu/ops/intersect_pallas.py
-// _kernel_static. There a grid step swept a [128 spheres x 512 rays] tile
-// on the vector unit and carried the running (t, idx) across sphere tiles
-// in the revisited output block. Here each thread owns one ray: it keeps
-// the ray and its running (t, idx) in registers and walks the spheres in
-// increasing index with a strict `<`, which reproduces the TPU's tie rule
-// (first index of the minimum). The sphere operand, 5 floats per sphere,
-// streams through shared memory in tiles of kTile spheres; every thread
-// of a block reads the same sphere at once, a broadcast with no bank
-// conflicts. The random_spheres scene (512 padded spheres, 10 KB) fits in
-// one tile.
+// Replaces the TPU kernels pathtrace_tpu/ops/intersect_pallas.py
+// _kernel_static (K1) and _kernel_moving (K3). There a grid step swept a
+// [128 spheres x 512 rays] tile on the vector unit and carried the running
+// (t, idx) across sphere tiles in the revisited output block. Here each
+// thread owns one ray: it keeps the ray and its running (t, idx) in
+// registers and walks the spheres in increasing index with a strict `<`,
+// which reproduces the TPU's tie rule (first index of the minimum). The
+// sphere operand (5 floats per sphere for K1, 12 for K3) streams through
+// shared memory in tiles of kTile spheres; every thread of a block reads
+// the same sphere at once, a broadcast with no bank conflicts. The cover
+// scenes (512 padded spheres: 10 KB for K1, 24 KB for K3) fit in one tile.
 //
-// What bounds it: fp32 arithmetic, about 20 flops per ray-sphere pair
-// (R x N x 20 per bounce), against 32 bytes of device memory per ray.
+// K3 lerps each centre to the ray's time, c = c0 + s * delta with
+// s = (time - time0) * inv_dt, in the reference's expanded form over the
+// precomputed c0.delta and |delta|^2:
+//   b = (ro.d - c0.d) - s * (delta.d)
+//   c = ((((|ro|^2 - 2 c0.ro) + (|c0|^2 - r^2)) - 2 s (delta.ro))
+//        + 2 s (c0.delta)) + s^2 |delta|^2
+// A static sphere has delta = 0 and inv_dt = 0, so s = 0 and every added
+// term is zero: K3 gives K1's result on it bit for bit.
+//
+// What bounds it: fp32 arithmetic, about 20 flops per ray-sphere pair for
+// K1 and 38 for K3 (R x N x ops per bounce), against 32 (K1) or 36 (K3)
+// bytes of device memory per ray.
 //
 // Numerics: built with -fmad=false and IEEE sqrt, so every operation
-// rounds exactly as the plain PyTorch version's (same operation order:
-// b = ro.d - (cx*dx + cy*dy + cz*dz),
-// c = (|ro|^2 - 2*(cx*ox + cy*oy + cz*oz)) + cc_m_r2); the two agree bit
-// for bit. Masked spheres are skipped by their mask, not by the far-away
-// padding values.
+// rounds exactly as the plain PyTorch version's (same operation order);
+// the two agree bit for bit. Masked spheres are skipped by their mask, not
+// by the far-away padding values.
 
 #include <cuda_runtime.h>
 
@@ -29,17 +39,23 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 512;
 
+// operand rows: cx, cy, cz, |c|^2 - r^2, mask (K1); K3 adds
+// dx, dy, dz, time0, inv_dt, c.delta, |delta|^2
+template <bool kMoving>
 __global__ void __launch_bounds__(kThreads)
 sphere_nearest_kernel(const float* __restrict__ rays, long long stride,
-                      int n_rays, const float* __restrict__ soa,
-                      int n_spheres, float t_min, float t_max,
-                      float* __restrict__ t_out, int* __restrict__ idx_out) {
+                      const float* __restrict__ time, int n_rays,
+                      const float* __restrict__ soa, int n_spheres,
+                      float t_min, float t_max, float* __restrict__ t_out,
+                      int* __restrict__ idx_out) {
   __shared__ float s_cx[kTile], s_cy[kTile], s_cz[kTile], s_c2[kTile];
   __shared__ float s_mask[kTile];
+  __shared__ float s_mov[kMoving ? 7 : 1][kMoving ? kTile : 1];
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = i < n_rays;
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tm = 0.f;
   if (live) {
     ox = rays[i];
     oy = rays[stride + i];
@@ -47,6 +63,7 @@ sphere_nearest_kernel(const float* __restrict__ rays, long long stride,
     dx = rays[3 * stride + i];
     dy = rays[4 * stride + i];
     dz = rays[5 * stride + i];
+    if (kMoving) tm = time[i];
   }
   const float ro_d = ox * dx + oy * dy + oz * dz;
   const float ro_ro = ox * ox + oy * oy + oz * oz;
@@ -62,14 +79,29 @@ sphere_nearest_kernel(const float* __restrict__ rays, long long stride,
       s_cz[j] = soa[2 * n_spheres + base + j];
       s_c2[j] = soa[3 * n_spheres + base + j];
       s_mask[j] = soa[4 * n_spheres + base + j];
+      if (kMoving) {
+#pragma unroll
+        for (int k = 0; k < 7; ++k) {
+          s_mov[k][j] = soa[(5 + k) * n_spheres + base + j];
+        }
+      }
     }
     __syncthreads();
     if (!live) continue;
     for (int j = 0; j < count; ++j) {
       if (!(s_mask[j] > 0.f)) continue;
       const float cx = s_cx[j], cy = s_cy[j], cz = s_cz[j];
-      const float b = ro_d - (cx * dx + cy * dy + cz * dz);
-      const float c = (ro_ro - 2.0f * (cx * ox + cy * oy + cz * oz)) + s_c2[j];
+      float b = ro_d - (cx * dx + cy * dy + cz * dz);
+      float c = (ro_ro - 2.0f * (cx * ox + cy * oy + cz * oz)) + s_c2[j];
+      if (kMoving) {
+        const float mx = s_mov[0][j], my = s_mov[1][j], mz = s_mov[2][j];
+        const float s = (tm - s_mov[3][j]) * s_mov[4][j];
+        const float dd_rd = mx * dx + my * dy + mz * dz;
+        const float dd_ro = mx * ox + my * oy + mz * oz;
+        b = b - s * dd_rd;
+        c = ((c - 2.0f * s * dd_ro) + 2.0f * s * s_mov[5][j]) +
+            s * s * s_mov[6][j];
+      }
       const float disc = b * b - c;
       if (!(disc > 0.f)) continue;
       const float sq = sqrtf(disc);
@@ -101,8 +133,25 @@ extern "C" int pt_sphere_nearest(const float* rays, long long stride,
                                  int* idx_out, cudaStream_t stream) {
   if (n_rays > 0) {
     const int blocks = (n_rays + kThreads - 1) / kThreads;
-    sphere_nearest_kernel<<<blocks, kThreads, 0, stream>>>(
-        rays, stride, n_rays, soa, n_spheres, t_min, t_max, t_out, idx_out);
+    sphere_nearest_kernel<false><<<blocks, kThreads, 0, stream>>>(
+        rays, stride, nullptr, n_rays, soa, n_spheres, t_min, t_max, t_out,
+        idx_out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// soa is [12, n_spheres]; time is [n_rays] (the rays' shutter times)
+extern "C" int pt_sphere_nearest_moving(const float* rays, long long stride,
+                                        const float* time, int n_rays,
+                                        const float* soa, int n_spheres,
+                                        float t_min, float t_max,
+                                        float* t_out, int* idx_out,
+                                        cudaStream_t stream) {
+  if (n_rays > 0) {
+    const int blocks = (n_rays + kThreads - 1) / kThreads;
+    sphere_nearest_kernel<true><<<blocks, kThreads, 0, stream>>>(
+        rays, stride, time, n_rays, soa, n_spheres, t_min, t_max, t_out,
+        idx_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

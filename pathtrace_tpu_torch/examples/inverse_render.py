@@ -7,11 +7,14 @@ to [0, 1]), takes ``--steps`` Adam steps on the image MSE and writes
 
     python -m pathtrace_tpu_torch.examples.inverse_render --steps 40 --size 32
     python -m pathtrace_tpu_torch.examples.inverse_render --device cpu --steps 3 --size 16
+    python -m pathtrace_tpu_torch.examples.inverse_render --preset random --width 1280 --height 720 --depth 4 --trainable default
 
 ``--trainable color`` (the default, as in the reference's example) trains
 the texture colours; ``--trainable default`` trains every leaf of the
 reference's default selector (sphere centres and radii, texture colours,
-fuzz, refractive index). Each step prints its loss (before the update)
+fuzz, refractive index; in a scene with moving spheres, such as
+``--preset random``, the substring ``spheres.center`` also selects the
+motion leaf ``spheres.center_delta``). Each step prints its loss (before the update)
 and its time: CUDA events around the step on the card, the host clock on
 the CPU. ``--checkpoint`` and ``--geometry`` are not ported yet.
 """

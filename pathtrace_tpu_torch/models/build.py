@@ -1,9 +1,10 @@
 """Host-side scene construction in numpy, emitting a tensor :class:`Scene`.
 
-Counterpart of ``pathtrace_tpu/models/build.py`` for spheres, materials
-and constant/checker/noise textures. ``finish`` pads the sphere array with
-far-away, masked-off spheres and can Morton-sort it, exactly as the JAX
-builder does, so a preset built here equals the reference leaf for leaf.
+Counterpart of ``pathtrace_tpu/models/build.py`` for spheres (static and
+moving), materials and constant/checker/noise textures. ``finish`` pads
+the sphere array with far-away, masked-off spheres and can Morton-sort it
+by the mid-shutter centres, exactly as the JAX builder does, so a preset
+built here equals the reference leaf for leaf.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ class SceneBuilder:
     """Accumulates spheres, materials and textures, then emits a Scene."""
 
     def __init__(self):
-        self._sph = []   # (center, radius, mat)
+        self._sph = []   # (center, delta, time0, inv_dt, radius, mat)
         self._mats = []  # (kind, tex, fuzz, ref_idx)
         self._texs = []  # (kind, color, odd, even, scale)
         self.sky: Optional[Vec3] = None  # None => gradient sky
@@ -98,7 +99,17 @@ class SceneBuilder:
 
     # ---- primitives ----
     def sphere(self, center: Vec3, radius: float, mat_id: int) -> None:
-        self._sph.append((_v3(center), float(radius), mat_id))
+        self._sph.append((_v3(center), np.zeros(3, np.float32), 0.0, 0.0,
+                          float(radius), mat_id))
+
+    def moving_sphere(self, center0: Vec3, center1: Vec3, time0: float,
+                      time1: float, radius: float, mat_id: int) -> None:
+        """A sphere whose centre moves linearly from ``center0`` at
+        ``time0`` to ``center1`` at ``time1``: stored as (c0, c1 - c0,
+        time0, 1 / (time1 - time0)), as the reference stores it."""
+        c0, c1 = _v3(center0), _v3(center1)
+        self._sph.append((c0, c1 - c0, float(time0), 1.0 / (time1 - time0),
+                          float(radius), mat_id))
 
     # ---- finish ----
     def finish(self, pad_multiple: int = 1,
@@ -106,13 +117,14 @@ class SceneBuilder:
         """Pad the sphere array to a multiple of ``pad_multiple`` and emit
         the Scene as CPU tensors.
 
-        ``spatial_sort`` orders spheres by the Morton code of their centres
-        (the reference's layout for tile culling; winner selection is a min
-        over t, so order changes no image except at exact ties)."""
+        ``spatial_sort`` orders spheres by the Morton code of their
+        mid-shutter centres ``c + 0.5 * delta`` (the reference's layout for
+        tile culling; winner selection is a min over t, so order changes
+        no image except at exact ties)."""
         f32, i32 = np.float32, np.int32
 
         if spatial_sort and len(self._sph) > 2:
-            centers = np.stack([c for (c, _r, _m) in self._sph])
+            centers = np.stack([c + 0.5 * d for (c, d, *_rest) in self._sph])
             lo = centers.min(axis=0)
             ext = np.maximum(centers.max(axis=0) - lo, 1e-9)
             q = np.clip((centers - lo) / ext * 1023.0, 0.0, 1023.0)
@@ -123,11 +135,17 @@ class SceneBuilder:
         ns = _pad_to(len(self._sph), pad_multiple)
         # padding spheres sit at a huge far-away centre and are masked off
         sp_center = np.full((ns, 3), 1.0e18, f32)
+        sp_delta = np.zeros((ns, 3), f32)
+        sp_t0 = np.zeros(ns, f32)
+        sp_invdt = np.zeros(ns, f32)
         sp_radius = np.zeros(ns, f32)
         sp_mat = np.zeros(ns, i32)
         sp_mask = np.zeros(ns, bool)
-        for i, (c, r, m) in enumerate(self._sph):
+        for i, (c, d, t0, invdt, r, m) in enumerate(self._sph):
             sp_center[i] = c
+            sp_delta[i] = d
+            sp_t0[i] = t0
+            sp_invdt[i] = invdt
             sp_radius[i] = r
             sp_mat[i] = m
             sp_mask[i] = True
@@ -156,8 +174,8 @@ class SceneBuilder:
         sky = np.zeros(3, f32) if self.sky is None else _v3(self.sky)
         return T.Scene(
             spheres=T.Spheres(
-                center=t(sp_center), center_delta=t(np.zeros((ns, 3), f32)),
-                time0=t(np.zeros(ns, f32)), inv_time_delta=t(np.zeros(ns, f32)),
+                center=t(sp_center), center_delta=t(sp_delta),
+                time0=t(sp_t0), inv_time_delta=t(sp_invdt),
                 radius=t(sp_radius), mat_id=t(sp_mat), mask=t(sp_mask),
             ),
             materials=T.Materials(t(ma_kind), t(ma_tex), t(ma_fuzz), t(ma_ref)),

@@ -1,7 +1,9 @@
 """Preset scenes of the slice (counterpart of
-``pathtrace_tpu/models/presets.py``): ``random_spheres`` (the Shirley cover
-scene, static spheres), its 64x64-grid variant ``random_spheres_xl``,
-``small`` and ``two_perlin_spheres`` (the CLI default). Each builds its
+``pathtrace_tpu/models/presets.py``): ``random`` (the Shirley "Next Week"
+cover scene, whose small diffuse spheres move over the shutter),
+``random_spheres`` (the same scene with static spheres), its 64x64-grid
+variant ``random_spheres_xl``, ``small`` and ``two_perlin_spheres`` (the
+CLI default). Each builds its
 scene with the same numpy generator calls as the JAX preset, so both
 packages produce identical leaves."""
 
@@ -17,7 +19,7 @@ from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this slice cannot render
 NOT_PORTED = ("aras", "cornell", "cornell_smoke", "earth", "final",
-              "final_full", "random", "simple_light", "smallpt")
+              "final_full", "simple_light", "smallpt")
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -34,10 +36,8 @@ def _random_impl(aspect: float, only_spheres: bool, seed: int,
     """Shirley cover scene on a ``2 * half_extent`` square grid of small
     spheres (11: the reference's 22x22, 488 spheres; 32: the 64x64
     scene-scale variant, 4100 spheres). ``only_spheres=False`` is the
-    motion-blurred ``random`` preset, whose moving spheres are not ported
-    yet."""
-    if not only_spheres:
-        raise ValueError("moving spheres (the 'random' preset): not ported yet")
+    motion-blurred ``random`` preset: each diffuse sphere moves up by
+    ``0.5 * u`` over the shutter [0, 1]."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     checker = b.checker_texture(
@@ -56,11 +56,15 @@ def _random_impl(aspect: float, only_spheres: bool, seed: int,
                     rng.random() * rng.random(),
                     rng.random() * rng.random(),
                 )
-                # the moving variant's end point (0.5 * u up): drawn in
-                # both variants, so the generator stays in step with the
-                # JAX preset
-                rng.random()
-                b.sphere(centre, 0.2, b.lambertian_color(albedo))
+                # the end point is drawn in both variants, so the
+                # generator stays in step with the JAX preset
+                centre1 = centre + np.array([0.0, 0.5 * rng.random(), 0.0],
+                                            np.float32)
+                if only_spheres:
+                    b.sphere(centre, 0.2, b.lambertian_color(albedo))
+                else:
+                    b.moving_sphere(centre, centre1, 0.0, 1.0, 0.2,
+                                    b.lambertian_color(albedo))
             elif choose < 0.95:
                 albedo = (
                     0.5 * (1.0 + rng.random()),
@@ -74,6 +78,12 @@ def _random_impl(aspect: float, only_spheres: bool, seed: int,
     b.sphere((-4.0, 1.0, 0.0), 1.0, b.lambertian_color((0.4, 0.2, 0.1)))
     b.sphere((4.0, 1.0, 0.0), 1.0, b.metal((0.7, 0.6, 0.5), 0.0))
     return b.finish(pad_multiple=128, spatial_sort=True), _standard_camera(aspect)
+
+
+def random(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Cover scene with motion-blurred diffuse spheres: 488 spheres (391
+    of them moving) padded to 512."""
+    return _random_impl(aspect, only_spheres=False, seed=seed)
 
 
 def random_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
@@ -115,6 +125,7 @@ def two_perlin_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 
 
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
+    "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,
     "small": small,

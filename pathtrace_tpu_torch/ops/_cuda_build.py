@@ -53,6 +53,13 @@ _SIGNATURES = {
         _c_float, _c_float,                      # t_min, t_max
         _c_void_p, _c_void_p, _c_void_p,         # t_out, idx_out, stream
     ],
+    "pt_sphere_nearest_moving": [
+        _c_void_p, _c_longlong,                  # rays, row stride
+        _c_void_p, _c_int,                       # time, n_rays
+        _c_void_p, _c_int,                       # soa [12, N], n_spheres
+        _c_float, _c_float,                      # t_min, t_max
+        _c_void_p, _c_void_p, _c_void_p,         # t_out, idx_out, stream
+    ],
     "pt_shade_from_winners": [
         _c_void_p, _c_int,                       # table, k_attr
         _c_void_p, _c_void_p,                    # idx, t
@@ -63,12 +70,14 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,         # planes_out, alive_out, stream
     ],
     "pt_sphere_nearest_bwd": [
-        _c_void_p, _c_void_p,                    # ro, rd ([R, 3])
+        _c_void_p, _c_void_p, _c_void_p,         # ro, rd ([R, 3]), time or NULL
         _c_void_p, _c_void_p, _c_void_p, _c_int,  # t, idx, g_t, n_rays
-        _c_void_p, _c_void_p, _c_int,            # center, radius, n_spheres
+        _c_void_p, _c_void_p, _c_void_p,         # center, delta, time0
+        _c_void_p, _c_void_p, _c_int,            # inv_dt, radius, n_spheres
         _c_float, _c_float,                      # t_min, t_max
-        _c_void_p, _c_void_p,                    # g_ro, g_rd
-        _c_void_p, _c_void_p, _c_void_p,         # g_center, g_radius, stream
+        _c_void_p, _c_void_p, _c_void_p,         # g_ro, g_rd, g_time
+        _c_void_p, _c_void_p, _c_void_p,         # g_center, g_delta, g_time0
+        _c_void_p, _c_void_p, _c_void_p,         # g_inv_dt, g_radius, stream
     ],
     "pt_sphere_nearest_culled": [
         _c_void_p, _c_longlong, _c_int,          # rays, row stride, n_rays

@@ -1,18 +1,22 @@
 """Fast render path: closest-hit kernel + fused shade/scatter kernel +
 host-driven stream compaction.
 
-Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour, static
-sphere scenes). One bounce is two kernels:
+Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour, sphere
+scenes, static or moving). One bounce is two kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
   closest hit over every sphere, giving (t, idx) per ray; scenes of at
   least ``CULL_MIN_TILES`` sphere tiles take
   :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest_culled`
   instead (the flat cull K4, or the two-level cull K5 for scenes of two
-  supertiles or more), which gives the same (t, idx) bit for bit;
+  supertiles or more), which gives the same (t, idx) bit for bit; scenes
+  with moving spheres take
+  :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest_moving`
+  (K3, centres lerped to each ray's time), never culled;
 * :func:`~pathtrace_tpu_torch.ops.shade_kernel.shade_from_winners` — reads
   each lane's winner row of the attribute table itself and runs texture,
-  emission, sky and scatter in one pass.
+  emission, sky and scatter in one pass (the sphere normal from the
+  time-lerped centre when the scene moves).
 
 Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
@@ -22,7 +26,7 @@ warp's rays form a narrow frustum the culls can prune.
 The differentiable trace (:func:`trace_fast_diff`, the training path) runs
 every bounce at full width with no compaction: the closest hit goes
 through :class:`~pathtrace_tpu_torch.ops.intersect_kernel.SphereNearest`
-(kernel forward, K6 backward) and one row gather, and the shading is
+(K1 or, for moving spheres, K3 forward; K6 backward) and one row gather, and the shading is
 plain PyTorch under autograd, as the reference shades its diff path in
 XLA.
 
@@ -67,6 +71,7 @@ from pathtrace_tpu_torch.ops.intersect_kernel import (
     cull_slots,
     sphere_nearest,
     sphere_nearest_culled,
+    sphere_nearest_moving,
 )
 from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_CHECKER,
@@ -74,6 +79,7 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_LAMBERTIAN,
     FLAG_LIGHT,
     FLAG_METAL,
+    FLAG_MOTION,
     FLAG_NOISE,
     TWO_PI,
     shade_from_winners,
@@ -197,12 +203,11 @@ def attr_width(features: SceneFeatures) -> int:
 
 
 def fastpath_supported(features: SceneFeatures) -> bool:
-    """True for the scene classes this port renders: static spheres with
-    Lambertian, metal, dielectric or emissive materials and constant,
+    """True for the scene classes this port renders: static or moving
+    spheres with Lambertian, metal, dielectric or emissive materials and constant,
     checker (constant children) or noise textures. Raises ``ValueError``
     naming what is missing for anything else."""
     missing = [name for name, on in (
-        ("moving spheres", features.has_motion),
         ("rects", features.has_rects),
         ("boxes", features.has_boxes),
         ("media", features.has_media),
@@ -226,7 +231,8 @@ def feature_flags(features: SceneFeatures) -> int:
                     (features.has_lambertian, FLAG_LAMBERTIAN),
                     (features.has_metal, FLAG_METAL),
                     (features.has_dielectric, FLAG_DIELECTRIC),
-                    (features.has_light, FLAG_LIGHT)):
+                    (features.has_light, FLAG_LIGHT),
+                    (features.has_motion, FLAG_MOTION)):
         if on:
             flags |= bit
     return flags
@@ -283,11 +289,15 @@ def build_sphere_table(scene: Scene, k_attr: int) -> torch.Tensor:
     return _finish_table(cols, sp.mask, GEO, n_pad, k_attr)
 
 
-def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None) -> torch.Tensor:
+def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
+                     motion: bool = False) -> torch.Tensor:
     """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask, with
     ``n_pad`` slots (default: the spheres padded to whole tiles of 128).
-    Padding spheres sit at centre 1e18 with c-term 1e30 and mask 0. No
-    gradient flows through it (see ``SphereNearest``)."""
+    ``motion``: the [12, Npad] operand of K3, which adds dx, dy, dz,
+    time0, inv_dt, c.delta and |delta|^2 (both dot products summed
+    x, y, z in that order). Padding spheres sit at centre 1e18 with
+    c-term 1e30, every other row 0. No gradient flows through it (see
+    ``SphereNearest``)."""
     sp = scene.spheres
     n = sp.count
     if n_pad is None:
@@ -296,10 +306,16 @@ def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None) -> torch.Tensor:
     radius = sp.radius.detach()
     cc_m_r2 = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
                - radius * radius)
-    soa = torch.stack([c[:, 0], c[:, 1], c[:, 2], cc_m_r2,
-                       sp.mask.to(torch.float32)])
+    rows = [c[:, 0], c[:, 1], c[:, 2], cc_m_r2, sp.mask.to(torch.float32)]
+    if motion:
+        d = sp.center_delta.detach()
+        rows += [d[:, 0], d[:, 1], d[:, 2], sp.time0.detach(),
+                 sp.inv_time_delta.detach(),
+                 c[:, 0] * d[:, 0] + c[:, 1] * d[:, 1] + c[:, 2] * d[:, 2],
+                 d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]]
+    soa = torch.stack(rows)
     if n_pad > n:
-        pad = soa.new_zeros((5, n_pad - n))
+        pad = soa.new_zeros((len(rows), n_pad - n))
         pad[:3] = 1.0e18
         pad[3] = 1.0e30
         soa = torch.cat([soa, pad], dim=1)
@@ -308,7 +324,7 @@ def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None) -> torch.Tensor:
 
 class FastTables(NamedTuple):
     table: torch.Tensor   # [Npad, 24] winner rows
-    soa: torch.Tensor     # [5, Nslots] closest-hit operand
+    soa: torch.Tensor     # [5, Nslots] closest-hit operand ([12, Npad]: K3)
     sky4: torch.Tensor    # [4] sky rgb + use_gradient_sky
     cull: Optional[CullBoxes] = None  # the culls' boxes (None: K1)
 
@@ -342,7 +358,7 @@ def prep_tables(scene: Scene, features: SceneFeatures,
                            s_tiles)
     return FastTables(
         table=build_sphere_table(scene, attr_width(features)).contiguous(),
-        soa=build_sphere_soa(scene, n_slots),
+        soa=build_sphere_soa(scene, n_slots, motion=features.has_motion),
         sky4=sky4.contiguous(),
         cull=boxes,
     )
@@ -395,9 +411,12 @@ def make_state(ro: torch.Tensor, rd: torch.Tensor,
 def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
                       depth: int, max_depth: int,
                       features: SceneFeatures) -> FastStateP:
-    """One bounce: closest hit (culled when the tables carry boxes), then
-    the fused shade/scatter pass."""
-    if tables.cull is not None and (depth == 0 or CULL_ALL_DEPTHS):
+    """One bounce: closest hit (K3 for moving spheres, culled when the
+    tables carry boxes), then the fused shade/scatter pass."""
+    if features.has_motion:
+        t, idx = sphere_nearest_moving(tables.soa, state.planes[:6],
+                                       state.time, MIN_T, MAX_T)
+    elif tables.cull is not None and (depth == 0 or CULL_ALL_DEPTHS):
         t, idx, _ = sphere_nearest_culled(tables.soa, state.planes[:6],
                                           tables.cull, MIN_T, MAX_T)
     else:
@@ -669,13 +688,16 @@ class FastState(NamedTuple):
 
 
 def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
-                      ro: torch.Tensor, rd: torch.Tensor):
+                      ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
+                      features: SceneFeatures):
     """Closest hit over the spheres, differentiable in t, and the winner's
     attribute row by one row gather: (t [R], attrs [R, K]). Twin of the
     reference's ``nearest_hit_attrs`` (``fastpath.py:242``) for sphere
-    scenes."""
+    scenes; moving spheres pass their motion leaves and the rays' time."""
     sp = scene.spheres
-    t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd)
+    motion = ((sp.center_delta, sp.time0, sp.inv_time_delta, time)
+              if features.has_motion else ())
+    t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd, *motion)
     return t, table.index_select(0, idx.long())
 
 
@@ -689,12 +711,16 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     keep the reference's double-where guards, so masked lanes leak no NaN
     into the gradients."""
     f = features
-    t, attrs = nearest_hit_attrs(table, soa, scene, state.ro, state.rd)
+    t, attrs = nearest_hit_attrs(table, soa, scene, state.ro, state.rd,
+                                 state.time, f)
     hit = t < _INF
     t_safe = torch.where(hit, t, 0.0)
     point = state.ro + t_safe[:, None] * state.rd
 
     center = attrs[:, GEO:GEO + 3]
+    if f.has_motion:
+        s = (state.time - attrs[:, GEO + 6]) * attrs[:, GEO + 7]
+        center = center + s[:, None] * attrs[:, GEO + 3:GEO + 6]
     r = attrs[:, GEO + 8]
     inv_r = 1.0 / torch.where(torch.abs(r) < 1e-12, 1.0, r)
     normal = (point - center) * inv_r[:, None]
@@ -818,7 +844,7 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     (radiance [R, 3], segments [] int64 on the device)."""
     fastpath_supported(features)
     table = build_sphere_table(scene, attr_width(features))
-    soa = build_sphere_soa(scene)
+    soa = build_sphere_soa(scene, motion=features.has_motion)
     R = ro.shape[0]
     dev = ro.device
     state = FastState(

@@ -1,13 +1,22 @@
-"""Closest hit over every sphere: the CUDA kernel ``csrc/sphere_nearest.cu``
-and its plain PyTorch version.
+"""Closest hit over every sphere: the CUDA kernels of
+``csrc/sphere_nearest.cu`` and their plain PyTorch versions.
 
-Replaces the TPU kernel ``pathtrace_tpu/ops/intersect_pallas.py``
-``_kernel_static`` (reached through ``_sphere_nearest_call`` from
-``sphere_nearest_pallas_cols``). Per ray, the nearest root in
-(t_min, t_max) of the unit-direction quadratic over the masked spheres,
-with ``b = ro.d - c.d`` and ``c = |ro|^2 - 2 c.ro + (|c|^2 - r^2)``: the
-near root if it lies in the window, else the far one. Ties go to the
-lowest sphere index; a miss gives (t_max, 0).
+:func:`sphere_nearest` (K1) replaces the TPU kernel
+``pathtrace_tpu/ops/intersect_pallas.py`` ``_kernel_static`` (reached
+through ``_sphere_nearest_call`` from ``sphere_nearest_pallas_cols``). Per
+ray, the nearest root in (t_min, t_max) of the unit-direction quadratic
+over the masked spheres, with ``b = ro.d - c.d`` and
+``c = |ro|^2 - 2 c.ro + (|c|^2 - r^2)``: the near root if it lies in the
+window, else the far one. Ties go to the lowest sphere index; a miss gives
+(t_max, 0).
+
+:func:`sphere_nearest_moving` (K3) replaces ``_kernel_moving``
+(``intersect_pallas.py:340``): the same closest hit with each centre
+lerped to the ray's time, ``c = c0 + s * delta``, ``s = (time - time0) *
+inv_dt``, in the reference's expanded form over the precomputed ``c0.delta``
+and ``|delta|^2`` (``b -= s * delta.d``; ``c += -2 s delta.ro + 2 s c0.delta
++ s^2 |delta|^2``). Its operand is [12, N]; a static sphere (delta = 0,
+inv_dt = 0) gives K1's result bit for bit. About 42 flops per pair.
 
 On the card the kernel is bound by fp32 arithmetic, about 20 flops per
 ray-sphere pair (R x N x 20 per bounce), not by bytes: it reads 24 bytes
@@ -27,7 +36,9 @@ counterpart of the reference's custom VJP (``_sphere_nearest_vjp``,
 ``intersect_pallas.py:639-683``): the forward is the kernel above, the
 backward is the kernel ``csrc/sphere_nearest_bwd.cu`` (K6), which
 recomputes the winner's root from (t, idx) and differentiates it in O(R).
-Static scenes only: ray time and the motion leaves get no gradient.
+For moving spheres the forward is K3 and the backward differentiates the
+lerped centre too: it gives gradients to the motion leaves (delta, time0,
+inv_dt) and to the rays' time.
 
 :func:`sphere_nearest_culled` is the same closest hit with per-tile AABB
 culls, the kernel ``csrc/sphere_nearest_culled.cu``: K4, the flat cull
@@ -50,6 +61,8 @@ from pathtrace_tpu_torch.config import MAX_T, MIN_T
 
 LAUNCHES = 0     # kernel launches (CUDA tensors)
 PLAIN_CALLS = 0  # calls the wrapper served with the plain version (CPU)
+MOVING_LAUNCHES = 0     # K3 launches (CUDA tensors)
+MOVING_PLAIN_CALLS = 0  # K3 calls served with the plain version (CPU)
 BWD_LAUNCHES = 0     # K6 launches (CUDA tensors)
 BWD_PLAIN_CALLS = 0  # K6 calls served with the plain version (CPU)
 FLAT_LAUNCHES = 0     # K4 (flat cull) launches
@@ -66,14 +79,23 @@ WARP = 32          # rays per skip decision of the culled kernels
 PLAIN_CHUNK = 1 << 15
 
 
-def _nearest_plain(cx, cy, cz, cc_m_r2, smask, rays, t_min, t_max):
+def _nearest_plain(cx, cy, cz, cc_m_r2, smask, rays, t_min, t_max,
+                   motion=None):
     """K1's arithmetic on one chunk: ``rays`` [6, r] against the spheres'
-    [1, n] rows; (t [r], first index of the minimum [r] int64)."""
+    [1, n] rows; (t [r], first index of the minimum [r] int64).
+    ``motion`` (K3): the [1, n] rows dx, dy, dz, time0, inv_dt, c.delta,
+    |delta|^2 and the chunk's times [r]."""
     ox, oy, oz, dx, dy, dz = (rays[k][:, None] for k in range(6))
     ro_d = ox * dx + oy * dy + oz * dz
     ro_ro = ox * ox + oy * oy + oz * oz
     b = ro_d - (cx * dx + cy * dy + cz * dz)
     c = ro_ro - 2.0 * (cx * ox + cy * oy + cz * oz) + cc_m_r2
+    if motion is not None:
+        mx, my, mz, time0, inv_dt, c_dot_d, d2, time = motion
+        s = (time[:, None] - time0) * inv_dt
+        b = b - s * (mx * dx + my * dy + mz * dz)
+        c = (c - 2.0 * s * (mx * ox + my * oy + mz * oz)
+             + 2.0 * s * c_dot_d + s * s * d2)
     disc = b * b - c
     valid = (disc > 0.0) & smask
     # float64 root rounded once = the correctly rounded float32 sqrt
@@ -90,29 +112,35 @@ def _nearest_plain(cx, cy, cz, cc_m_r2, smask, rays, t_min, t_max):
 
 
 def sphere_nearest_plain(soa: torch.Tensor, rays: torch.Tensor,
-                         t_min: float = MIN_T, t_max: float = MAX_T):
-    """Plain PyTorch version, in ray chunks. ``soa``: [5, N] (cx, cy, cz,
-    |c|^2 - r^2, mask); ``rays``: [6, R] (ro xyz, rd xyz, |rd| = 1).
-    Returns (t [R] f32, idx [R] int32)."""
-    spheres = [soa[k][None, :] for k in range(4)] + [soa[4][None, :] > 0]
+                         t_min: float = MIN_T, t_max: float = MAX_T,
+                         time: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of K1, in ray chunks. ``soa``: [5, N] (cx,
+    cy, cz, |c|^2 - r^2, mask); ``rays``: [6, R] (ro xyz, rd xyz,
+    |rd| = 1). Given the rays' ``time`` [R], the plain version of K3:
+    ``soa`` is then [12, N] (adding dx, dy, dz, time0, inv_dt, c.delta,
+    |delta|^2). Returns (t [R] f32, idx [R] int32)."""
+    rows = [soa[k][None, :] for k in range(soa.shape[0])]
+    spheres = rows[:4] + [rows[4] > 0]
     R = rays.shape[1]
     t_out = torch.empty(R, dtype=torch.float32, device=rays.device)
     i_out = torch.empty(R, dtype=torch.int32, device=rays.device)
     for lo in range(0, R, PLAIN_CHUNK):
         hi = min(lo + PLAIN_CHUNK, R)
-        tmin, imin = _nearest_plain(*spheres, rays[:, lo:hi], t_min, t_max)
+        motion = None if time is None else rows[5:] + [time[lo:hi]]
+        tmin, imin = _nearest_plain(*spheres, rays[:, lo:hi], t_min, t_max,
+                                    motion)
         t_out[lo:hi] = tmin
         i_out[lo:hi] = imin.to(torch.int32)
     return t_out, i_out
 
 
-def _check(soa: torch.Tensor, rays: torch.Tensor) -> None:
+def _check(soa: torch.Tensor, rays: torch.Tensor, rows: int = 5) -> None:
     if soa.device != rays.device:
         raise ValueError(f"soa on {soa.device}, rays on {rays.device}")
     if soa.dtype != torch.float32 or rays.dtype != torch.float32:
         raise TypeError("sphere_nearest takes float32 tensors")
-    if soa.dim() != 2 or soa.shape[0] != 5:
-        raise ValueError(f"soa must be [5, N], got {tuple(soa.shape)}")
+    if soa.dim() != 2 or soa.shape[0] != rows:
+        raise ValueError(f"soa must be [{rows}, N], got {tuple(soa.shape)}")
     if rays.dim() != 2 or rays.shape[0] != 6:
         raise ValueError(f"rays must be [6, R], got {tuple(rays.shape)}")
     if not soa.is_contiguous() or rays.stride(1) != 1:
@@ -150,18 +178,68 @@ def sphere_nearest(soa: torch.Tensor, rays: torch.Tensor,
     return t_out, i_out
 
 
+def sphere_nearest_moving(soa: torch.Tensor, rays: torch.Tensor,
+                          time: torch.Tensor, t_min: float = MIN_T,
+                          t_max: float = MAX_T):
+    """Closest hit over moving spheres (K3) for every ray at its time:
+    (t [R] f32, idx [R] int32). ``soa`` is the [12, N] operand of
+    ``fastpath.build_sphere_soa(..., motion=True)``; ``time`` [R].
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel on
+    the current stream (raising if it cannot launch)."""
+    global MOVING_LAUNCHES, MOVING_PLAIN_CALLS
+    _check(soa, rays, rows=12)
+    R = rays.shape[1]
+    if (time.device != rays.device or time.dtype != torch.float32
+            or tuple(time.shape) != (R,) or not time.is_contiguous()):
+        raise ValueError("time must be a contiguous float32 [R] tensor on "
+                         f"{rays.device}")
+    if rays.device.type == "cpu":
+        MOVING_PLAIN_CALLS += 1
+        return sphere_nearest_plain(soa, rays, t_min, t_max, time)
+    if rays.device.type != "cuda":
+        raise ValueError(f"sphere_nearest_moving: unsupported device "
+                         f"{rays.device}")
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    lib = _cuda_build.library()
+    N = soa.shape[1]
+    t_out = torch.empty(R, dtype=torch.float32, device=rays.device)
+    i_out = torch.empty(R, dtype=torch.int32, device=rays.device)
+    if R == 0:
+        return t_out, i_out
+    stream = torch.cuda.current_stream(rays.device).cuda_stream
+    code = lib.pt_sphere_nearest_moving(
+        rays.data_ptr(), rays.stride(0), time.data_ptr(), R, soa.data_ptr(),
+        N, float(t_min), float(t_max), t_out.data_ptr(), i_out.data_ptr(),
+        stream,
+    )
+    _cuda_build.check(code, "sphere_nearest_moving launch")
+    MOVING_LAUNCHES += 1
+    return t_out, i_out
+
+
 # ---------------------------------------------------------------------------
 # backward (K6) and the differentiable closest hit
 # ---------------------------------------------------------------------------
 
-def _winner_t(center, radius, ro, rd, idx, t_min, t_max):
+def _winner_t(center, radius, ro, rd, idx, t_min, t_max, motion=None):
     """The winner's root, recomputed differentiably from ``idx``: the
-    twin of the reference's ``_winner_t`` (``intersect_pallas.py:649``)
-    for static spheres, with the same root choice and t window as the
-    forward and the double-where guard on the square root. Each
-    intermediate feeds at most two later operations, so autograd's
-    accumulation order cannot change a bit."""
-    oc = ro - center.index_select(0, idx)
+    twin of the reference's ``_winner_t`` (``intersect_pallas.py:649``),
+    with the same root choice and t window as the forward and the
+    double-where guard on the square root. ``motion`` (delta, time0,
+    inv_dt, time) lerps the centre to the ray's time first. Each
+    intermediate feeds at most two later operations (the lerp factor
+    feeds one stack, whose three edges autograd sums in their order), so
+    autograd's accumulation order cannot change a bit."""
+    centre = center.index_select(0, idx)
+    if motion is not None:
+        delta, time0, inv_dt, time = motion
+        dt = time - time0.index_select(0, idx)
+        u = dt * inv_dt.index_select(0, idx)
+        centre = centre + delta.index_select(0, idx) * torch.stack(
+            [u, u, u], dim=1)
+    oc = ro - centre
     r = radius.index_select(0, idx)
     p = oc * rd
     b = (p[:, 0] + p[:, 1]) + p[:, 2]
@@ -178,23 +256,27 @@ def _winner_t(center, radius, ro, rd, idx, t_min, t_max):
 
 
 def sphere_nearest_bwd_plain(center, radius, ro, rd, t, idx, g_t,
-                             t_min: float = MIN_T, t_max: float = MAX_T):
+                             t_min: float = MIN_T, t_max: float = MAX_T,
+                             motion=None):
     """Plain PyTorch version of K6: autograd through :func:`_winner_t`.
     Misses (``t == t_max``) get a zero gradient. Returns (g_center [N, 3],
-    g_radius [N], g_ro [R, 3], g_rd [R, 3])."""
+    g_radius [N], g_ro [R, 3], g_rd [R, 3]); with ``motion`` (delta [N,
+    3], time0 [N], inv_dt [N], time [R]) also (g_delta, g_time0,
+    g_inv_dt, g_time)."""
     g = torch.where(t < t_max, g_t, 0.0)
     with torch.enable_grad():
         leaves = [x.detach().requires_grad_(True)
-                  for x in (center, radius, ro, rd)]
-        tw = _winner_t(*leaves, idx.long(), t_min, t_max)
+                  for x in (center, radius, ro, rd, *(motion or ()))]
+        tw = _winner_t(*leaves[:4], idx.long(), t_min, t_max,
+                       motion=leaves[4:] if motion is not None else None)
         grads = torch.autograd.grad(tw, leaves, g)
     return tuple(grads)
 
 
-def _check_bwd(center, radius, ro, rd, t, idx, g_t) -> None:
+def _check_bwd(center, radius, ro, rd, t, idx, g_t, motion) -> None:
     dev = t.device
     R, N = t.shape[0], radius.shape[0]
-    for name, x, dtype, shape in (
+    named = [
         ("center", center, torch.float32, (N, 3)),
         ("radius", radius, torch.float32, (N,)),
         ("ro", ro, torch.float32, (R, 3)),
@@ -202,7 +284,12 @@ def _check_bwd(center, radius, ro, rd, t, idx, g_t) -> None:
         ("t", t, torch.float32, (R,)),
         ("idx", idx, torch.int32, (R,)),
         ("g_t", g_t, torch.float32, (R,)),
-    ):
+    ]
+    if motion is not None:
+        named += [(name, x, torch.float32, shape) for name, x, shape in zip(
+            ("delta", "time0", "inv_dt", "time"), motion,
+            ((N, 3), (N,), (N,), (R,)))]
+    for name, x, dtype, shape in named:
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, t on {dev}")
         if x.dtype != dtype:
@@ -212,19 +299,23 @@ def _check_bwd(center, radius, ro, rd, t, idx, g_t) -> None:
 
 
 def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
-                       t_min: float = MIN_T, t_max: float = MAX_T):
+                       t_min: float = MIN_T, t_max: float = MAX_T,
+                       motion=None):
     """Gradient of the closest-hit distance ``t`` (cotangent ``g_t``)
     with respect to the sphere centres and radii and the rays:
-    (g_center [N, 3], g_radius [N], g_ro [R, 3], g_rd [R, 3]).
+    (g_center [N, 3], g_radius [N], g_ro [R, 3], g_rd [R, 3]). With
+    ``motion`` = (delta [N, 3], time0 [N], inv_dt [N], time [R]), the
+    moving spheres' backward, which also gives (g_delta, g_time0,
+    g_inv_dt, g_time).
 
     CPU tensors run the plain version; CUDA tensors launch K6 on the
     current stream (raising if it cannot launch)."""
     global BWD_LAUNCHES, BWD_PLAIN_CALLS
-    _check_bwd(center, radius, ro, rd, t, idx, g_t)
+    _check_bwd(center, radius, ro, rd, t, idx, g_t, motion)
     if t.device.type == "cpu":
         BWD_PLAIN_CALLS += 1
         return sphere_nearest_bwd_plain(center, radius, ro, rd, t, idx, g_t,
-                                        t_min, t_max)
+                                        t_min, t_max, motion)
     if t.device.type != "cuda":
         raise ValueError(f"sphere_nearest_bwd: unsupported device {t.device}")
     from pathtrace_tpu_torch.ops import _cuda_build
@@ -233,49 +324,71 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     center, radius, ro, rd, t, idx, g_t = (
         x.contiguous() for x in (center, radius, ro, rd, t, idx, g_t))
     R, N = t.shape[0], radius.shape[0]
-    g_center = torch.zeros_like(center)
-    g_radius = torch.zeros_like(radius)
-    g_ro = torch.empty_like(ro)
-    g_rd = torch.empty_like(rd)
+    grads = [torch.zeros_like(center), torch.zeros_like(radius),
+             torch.empty_like(ro), torch.empty_like(rd)]
+    delta = time0 = inv_dt = time = None
+    if motion is not None:
+        delta, time0, inv_dt, time = (x.contiguous() for x in motion)
+        grads += [torch.zeros_like(delta), torch.zeros_like(time0),
+                  torch.zeros_like(inv_dt), torch.empty_like(time)]
     if R == 0:
-        return g_center, g_radius, g_ro, g_rd
+        return tuple(grads)
+    g_center, g_radius, g_ro, g_rd, g_delta, g_time0, g_inv_dt, g_time = (
+        grads + [None] * 4)[:8]
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     stream = torch.cuda.current_stream(t.device).cuda_stream
     code = lib.pt_sphere_nearest_bwd(
-        ro.data_ptr(), rd.data_ptr(), t.data_ptr(), idx.data_ptr(),
-        g_t.data_ptr(), R, center.data_ptr(), radius.data_ptr(), N,
-        float(t_min), float(t_max), g_ro.data_ptr(), g_rd.data_ptr(),
-        g_center.data_ptr(), g_radius.data_ptr(), stream,
+        ptr(ro), ptr(rd), ptr(time), ptr(t), ptr(idx), ptr(g_t), R,
+        ptr(center), ptr(delta), ptr(time0), ptr(inv_dt), ptr(radius), N,
+        float(t_min), float(t_max), ptr(g_ro), ptr(g_rd), ptr(g_time),
+        ptr(g_center), ptr(g_delta), ptr(g_time0), ptr(g_inv_dt),
+        ptr(g_radius), stream,
     )
     _cuda_build.check(code, "sphere_nearest_bwd launch")
     BWD_LAUNCHES += 1
-    return g_center, g_radius, g_ro, g_rd
+    return tuple(grads)
 
 
 class SphereNearest(torch.autograd.Function):
     """Differentiable closest hit: ``apply(soa, center, radius, ro, rd)``
-    gives (t [R], idx [R] int32).
+    gives (t [R], idx [R] int32); for moving spheres
+    ``apply(soa, center, radius, ro, rd, delta, time0, inv_dt, time)``.
 
-    ``soa`` is the [5, Npad] operand of :func:`sphere_nearest`, built from
-    the same ``center`` and ``radius`` (``fastpath.build_sphere_soa``);
-    it gets no gradient, as in the reference, where none flows through
-    the kernel's ``|c|^2 - r^2`` term. ``ro``/``rd`` are [R, 3] and are
-    packed per call into the kernel's [6, R] planes. The backward (K6)
-    gives gradients to ``center``, ``radius``, ``ro`` and ``rd``."""
+    ``soa`` is the operand of :func:`sphere_nearest` ([5, Npad]) or of
+    :func:`sphere_nearest_moving` ([12, Npad]), built from the same
+    leaves (``fastpath.build_sphere_soa``); it gets no gradient, as in the
+    reference, where none flows through the kernel's precomputed terms.
+    ``ro``/``rd`` are [R, 3] and are packed per call into the kernel's
+    [6, R] planes. The backward (K6) gives gradients to ``center``,
+    ``radius``, ``ro`` and ``rd``, and with motion to ``delta``,
+    ``time0``, ``inv_dt`` and ``time``."""
 
     @staticmethod
-    def forward(ctx, soa, center, radius, ro, rd):
+    def forward(ctx, soa, center, radius, ro, rd, delta=None, time0=None,
+                inv_dt=None, time=None):
         rays = torch.cat([ro, rd], dim=1).T.contiguous()
-        t, idx = sphere_nearest(soa, rays, MIN_T, MAX_T)
+        ctx.moving = time is not None
+        if ctx.moving:
+            t, idx = sphere_nearest_moving(soa, rays, time.contiguous(),
+                                           MIN_T, MAX_T)
+            extra = (delta, time0, inv_dt, time)
+        else:
+            t, idx = sphere_nearest(soa, rays, MIN_T, MAX_T)
+            extra = ()
         ctx.mark_non_differentiable(idx)
-        ctx.save_for_backward(center, radius, ro, rd, t, idx)
+        ctx.save_for_backward(center, radius, ro, rd, t, idx, *extra)
         return t, idx
 
     @staticmethod
     def backward(ctx, g_t, _g_idx):
-        center, radius, ro, rd, t, idx = ctx.saved_tensors
-        g_center, g_radius, g_ro, g_rd = sphere_nearest_bwd(
-            center, radius, ro, rd, t, idx, g_t.contiguous())
-        return None, g_center, g_radius, g_ro, g_rd
+        center, radius, ro, rd, t, idx, *extra = ctx.saved_tensors
+        grads = sphere_nearest_bwd(center, radius, ro, rd, t, idx,
+                                   g_t.contiguous(),
+                                   motion=extra if ctx.moving else None)
+        return (None, *grads)
 
 
 # ---------------------------------------------------------------------------

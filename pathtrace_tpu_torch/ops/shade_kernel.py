@@ -6,7 +6,8 @@ Replaces the TPU kernel ``pathtrace_tpu/ops/shade_pallas.py``
 ``pathtrace_tpu/ops/fastpath.py`` ``_fused_shade_from_winners`` ran before
 it: the kernel reads each lane's winner row of the attribute table
 itself, so no [R, 24] gather is materialized. Per lane: the hit point and
-sphere normal, the albedo (constant, checker, or hash-turbulence marble),
+sphere normal (from the centre lerped to the lane's time when the scene
+moves, ``FLAG_MOTION``), the albedo (constant, checker, or hash-turbulence marble),
 emission or the gradient/constant sky into the radiance, counter-hash
 draws 0-3, the Lambertian / metal / dielectric scatter, the normalized
 new direction and throughput, and
@@ -48,6 +49,7 @@ FLAG_LAMBERTIAN = 4
 FLAG_METAL = 8
 FLAG_DIELECTRIC = 16
 FLAG_LIGHT = 32
+FLAG_MOTION = 64
 
 TWO_PI = 6.283185307179586
 _INF = float(MAX_T)
@@ -76,6 +78,11 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
     py = roy + t_safe * rdy
     pz = roz + t_safe * rdz
     cx, cy, cz, r = col[_GEO], col[_GEO + 1], col[_GEO + 2], col[_GEO + 8]
+    if flags & FLAG_MOTION:
+        s = (time - col[_GEO + 6]) * col[_GEO + 7]
+        cx = cx + s * col[_GEO + 3]
+        cy = cy + s * col[_GEO + 4]
+        cz = cz + s * col[_GEO + 5]
     inv_r = 1.0 / torch.where(torch.abs(r) < 1e-12, 1.0, r)
     nx = (px - cx) * inv_r
     ny = (py - cy) * inv_r

@@ -5,8 +5,9 @@ device).
 The forward pass is the differentiable fast trace
 (:func:`~pathtrace_tpu_torch.render.frame.render_frame_diff`), the loss is
 the image MSE, and gradients flow to the trainable scene leaves through
-hit distances (the closest hit's backward kernel), normals, attribute
-rows and the shading. ``torch.optim.Adam`` with its defaults (betas 0.9,
+hit distances (the closest hit's backward kernel, which for moving
+spheres also differentiates the centre lerped to each ray's time),
+normals, attribute rows and the shading. ``torch.optim.Adam`` with its defaults (betas 0.9,
 0.999, eps 1e-8) is ``optax.adam``'s update.
 
 The bounce seed and the primary-ray jitter come from a ``torch.Generator``

@@ -3,12 +3,13 @@
     python -m pathtrace_tpu_torch.tools.profile_step --what train
     python -m pathtrace_tpu_torch.tools.profile_step --what frame
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random_spheres_xl
+    python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random
 
-``train``: the inverse-rendering trainer on random_spheres (every
-default-trainable leaf, perturbed albedos, as
+``train``: the inverse-rendering trainer on ``--preset`` (default
+random_spheres; every default-trainable leaf, perturbed albedos, as
 ``examples/inverse_render.py --trainable default``), 1280x720, 4 spp,
 depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
-depth 10) of ``--preset`` (default random_spheres). After warm-up steps, ``--reps`` unprofiled steps are timed
+depth 10) of ``--preset``. After warm-up steps, ``--reps`` unprofiled steps are timed
 with CUDA events, then one step runs under ``torch.profiler``: the device
 time of every kernel, summed by kind, the forward's share, and the device busy and idle share of the profiled
 step's wall time. The last line of the output is a JSON object with the
@@ -33,6 +34,7 @@ KINDS = (
     ("sphere_nearest_bwd", "K6 closest-hit backward"),
     ("sphere_nearest_culled_kernel<false>", "K4 closest hit, flat cull"),
     ("sphere_nearest_culled_kernel<true>", "K5 closest hit, two-level cull"),
+    ("sphere_nearest_kernel<true>", "K3 closest hit, moving spheres"),
     ("sphere_nearest_kernel", "K1 closest hit"),
     ("shade_kernel", "K2 fused shade"),
     ("indexFuncLargeIndex", _SCATTER),
@@ -69,13 +71,13 @@ def _total_device_us(evt) -> float:
                          getattr(evt, "cuda_time_total", 0.0)))
 
 
-def _setup_train(dev):
+def _setup_train(dev, preset):
     import torch
 
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
 
-    scene, cam = presets.random_spheres(1280 / 720)
+    scene, cam = presets.from_name(preset, 1280 / 720)
     renderer, state, names = make_inverse_renderer(
         scene, cam, 1280, 720, samples=4, max_depth=4, device=dev)
     gen = torch.Generator(device=dev)
@@ -127,7 +129,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="profile_step")
     ap.add_argument("--what", choices=("train", "frame"), default="train")
     ap.add_argument("--preset", default="random_spheres",
-                    help="scene of --what frame")
+                    help="scene of the frame or of the trainer")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
@@ -143,7 +145,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    step = (_setup_train(dev) if args.what == "train"
+    step = (_setup_train(dev, args.preset) if args.what == "train"
             else _setup_frame(dev, args.preset))
     for _ in range(args.warmup):
         step()
@@ -183,7 +185,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     kernels.sort(reverse=True)
     result = {
         "what": args.what,
-        "preset": "random_spheres" if args.what == "train" else args.preset,
+        "preset": args.preset,
         "card": smi, "torch": torch.__version__,
         "step_ms_median": statistics.median(times), "step_ms": times,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,

@@ -57,8 +57,9 @@ from pathtrace_tpu_torch.ops import fastpath as tfp  # noqa: E402
 from pathtrace_tpu_torch.ops import intersect_kernel as tik  # noqa: E402
 from pathtrace_tpu_torch.parallel import inverse as tinv  # noqa: E402
 from torch_port_util import (  # noqa: E402
-    FIXTURE_GRAD_TOL, GRAD_TOL, assert_lanes_close, jax_camera_rays,
-    lane_close, rel_l2, scene_pair,
+    FIXTURE_GRAD_TOL, GRAD_TOL, assert_grads_close, assert_lanes_close,
+    jax_camera_rays, jax_trace_vjp, lane_close, port_grads, port_trace_diff,
+    rel_l2, scene_pair,
 )
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "goldens",
@@ -69,43 +70,6 @@ SEED = 7
 ASPECT = 16 / 9
 # the fixture's weights are kept on rays whose radiance agrees to this
 FIXTURE_TIGHT = 1e-5
-
-
-def _jax_trace_grads(jscene, ro, rd, tm, seed, depth, w):
-    """JAX radiance and the gradient of sum(w * radiance) per
-    default-trainable leaf (numpy), with the leaf names."""
-    params, rebuild, names = jinv.split_scene(jscene)
-    feats = JFeatures.from_scene(jscene)
-
-    def radiance(p):
-        return jfp.trace_fast_diff(rebuild(p), jnp.asarray(ro), jnp.asarray(rd),
-                                   jnp.asarray(tm), seed, depth, feats)[0]
-
-    rad, vjp = jax.vjp(radiance, params)
-    (grads,) = vjp(jnp.asarray(w))
-    return np.asarray(rad), [np.asarray(g) for g in grads], names
-
-
-def _port_trace(scene, ro, rd, tm, seed, depth):
-    """The port's differentiable trace on the CPU: (radiance tensor,
-    trainable leaves, names)."""
-    params, rebuild, names = tinv.split_scene(scene)
-    rad, _ = tfp.trace_fast_diff(
-        rebuild(params), torch.from_numpy(ro), torch.from_numpy(rd),
-        torch.from_numpy(tm), seed, depth, SceneFeatures.from_scene(scene))
-    return rad, params, names
-
-
-def _port_grads(rad, params, w):
-    grads = torch.autograd.grad((torch.from_numpy(w) * rad).sum(), params,
-                                retain_graph=True)
-    return [g.numpy() for g in grads]
-
-
-def _assert_grads_close(got, ref, names, tol, what):
-    for name, a, b in zip(names, got, ref):
-        err = rel_l2(a, b)
-        assert err <= tol.get(name, 0.0), f"{what} {name}: rel L2 {err:.3e}"
 
 
 # ---------------------------------------------------------------------------
@@ -202,23 +166,18 @@ def test_sphere_nearest_function_backward_is_k6():
 def test_trace_fast_diff_matches_jax(preset):
     jscene, jcam, scene = scene_pair(preset, ASPECT)
     ro, rd, tm = jax_camera_rays(jcam, N_RAYS, seed=1)
-    rad, params, names = _port_trace(scene, ro, rd, tm, SEED, DEPTH)
+    rad, params, names = port_trace_diff(scene, ro, rd, tm, SEED, DEPTH)
     got = rad.detach().numpy()
     w0 = np.random.default_rng(9).standard_normal((N_RAYS, 3)).astype(np.float32)
-    ref_rad, _, jnames = _jax_trace_grads(jscene, ro, rd, tm, SEED, DEPTH,
-                                          np.zeros_like(w0))
+    ref_rad, jgrads, jnames = jax_trace_vjp(jscene, ro, rd, tm, SEED, DEPTH)
     assert names == jnames
     assert_lanes_close(got, ref_rad, what=f"{preset} radiance")
     for tight, tol in ((1e-3, GRAD_TOL), (1e-6, None)):
         keep = lane_close(got, ref_rad, tight, tight).all(axis=1)
         w = w0 * keep[:, None]
-        _, ref_g, _ = _jax_trace_grads(jscene, ro, rd, tm, SEED, DEPTH, w)
-        got_g = _port_grads(rad, params, w)
-        for a in got_g:
-            assert np.isfinite(a).all()
-        _assert_grads_close(got_g, ref_g, names,
-                            tol or {n: 1e-3 for n in names},
-                            f"{preset} (rays within {tight})")
+        assert_grads_close(port_grads(rad, params, w), jgrads(w), names,
+                           tol or {n: 1e-3 for n in names},
+                           f"{preset} (rays within {tight})")
 
 
 def test_split_scene_names_match_jax():
@@ -293,8 +252,8 @@ def test_adam_step_matches_jax_optax():
 
     assert names == jnames
     assert float(loss) == pytest.approx(float(jl), rel=1e-6)
-    _assert_grads_close(got_g, [np.asarray(g) for g in jg], names, GRAD_TOL,
-                        "adam step")
+    assert_grads_close(got_g, [np.asarray(g) for g in jg], names, GRAD_TOL,
+                       "adam step")
     for name, p0, p, g, jp, jp0 in zip(names, before, state.params, got_g,
                                        jnew, jparams):
         moved = (g != 0) | (np.asarray(jg[names.index(name)]) != 0)
@@ -412,18 +371,16 @@ def make_grad_fixture() -> dict:
     ``FIXTURE_TIGHT``."""
     jscene, jcam, scene = scene_pair("random_spheres", ASPECT)
     ro, rd, tm = jax_camera_rays(jcam, N_RAYS, seed=11)
-    rad, _, _ = _port_trace(scene, ro, rd, tm, SEED, DEPTH)
+    rad, _, _ = port_trace_diff(scene, ro, rd, tm, SEED, DEPTH)
     w = np.random.default_rng(13).standard_normal((N_RAYS, 3)).astype(np.float32)
-    ref_rad, _, _ = _jax_trace_grads(jscene, ro, rd, tm, SEED, DEPTH,
-                                     np.zeros_like(w))
+    ref_rad, jgrads, names = jax_trace_vjp(jscene, ro, rd, tm, SEED, DEPTH)
     keep = lane_close(rad.detach().numpy(), ref_rad, FIXTURE_TIGHT,
                       FIXTURE_TIGHT).all(axis=1)
     w = w * keep[:, None]
-    ref_rad, grads, names = _jax_trace_grads(jscene, ro, rd, tm, SEED, DEPTH, w)
     out = {"rays.ro": ro, "rays.rd": rd, "rays.time": tm, "w": w,
            "radiance": ref_rad, "seed": np.int64(SEED),
            "max_depth": np.int64(DEPTH), "names": np.array(names)}
-    out.update({f"grad.{n}": g for n, g in zip(names, grads)})
+    out.update({f"grad.{n}": g for n, g in zip(names, jgrads(w))})
     return out
 
 
@@ -438,22 +395,22 @@ def test_grad_fixture_matches_jax_regeneration():
     assert_lanes_close(new["radiance"], ref["radiance"], what="radiance")
     assert (new["w"] != 0).mean() >= 0.9
     names = list(ref["names"])
-    _assert_grads_close([new[f"grad.{n}"] for n in names],
-                        [ref[f"grad.{n}"] for n in names], names, GRAD_TOL,
-                        "regenerated fixture")
+    assert_grads_close([new[f"grad.{n}"] for n in names],
+                       [ref[f"grad.{n}"] for n in names], names, GRAD_TOL,
+                       "regenerated fixture")
 
 
 def test_port_cpu_grads_hold_fixture():
     ref = np.load(FIXTURE)
     scene, _ = presets.random_spheres(ASPECT)
-    rad, params, names = _port_trace(scene, ref["rays.ro"], ref["rays.rd"],
-                                     ref["rays.time"], int(ref["seed"]),
-                                     int(ref["max_depth"]))
+    rad, params, names = port_trace_diff(scene, ref["rays.ro"], ref["rays.rd"],
+                                         ref["rays.time"], int(ref["seed"]),
+                                         int(ref["max_depth"]))
     assert names == list(ref["names"])
     assert_lanes_close(rad.detach().numpy(), ref["radiance"], what="radiance")
-    got = _port_grads(rad, params, ref["w"])
-    _assert_grads_close(got, [ref[f"grad.{n}"] for n in names], names,
-                        FIXTURE_GRAD_TOL, "fixture")
+    got = port_grads(rad, params, ref["w"])
+    assert_grads_close(got, [ref[f"grad.{n}"] for n in names], names,
+                       FIXTURE_GRAD_TOL, "fixture")
 
 
 if __name__ == "__main__":

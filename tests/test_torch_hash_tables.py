@@ -109,19 +109,33 @@ class TestSceneState:
         assert _bits_equal(j_sph, tables.table.numpy())
         assert _bits_equal(np.asarray(j_sky).reshape(3), tables.sky4[:3].numpy())
         assert float(j_grad) == float(tables.sky4[3])
-        # the closest-hit operand: centres, |c|^2 - r^2, mask, padded to 128
+        # the closest-hit operand: centres, |c|^2 - r^2, mask, padded to 128;
+        # a moving scene's (K3) adds delta, time0, inv_dt, c.delta and
+        # |delta|^2, the dot products summed x, y, z in that order
         sp = jscene.spheres
         n = sp.center.shape[0]
         c = np.asarray(sp.center)
         cc = (c[:, 0] * c[:, 0] + c[:, 1] * c[:, 1] + c[:, 2] * c[:, 2]
               - np.asarray(sp.radius) * np.asarray(sp.radius))
         soa = tables.soa.numpy()
+        assert soa.shape == (12 if feats.has_motion else 5, soa.shape[1])
         assert soa.shape[1] % 128 == 0
         np.testing.assert_array_equal(soa[:3, :n], c.T)
         np.testing.assert_array_equal(soa[3, :n], cc)
         np.testing.assert_array_equal(soa[4, :n], np.asarray(sp.mask))
         assert np.all(soa[:3, n:] == 1e18) and np.all(soa[3, n:] == 1e30)
         assert np.all(soa[4, n:] == 0.0)
+        if feats.has_motion:
+            d = np.asarray(sp.center_delta)
+            np.testing.assert_array_equal(soa[5:8, :n], d.T)
+            np.testing.assert_array_equal(soa[8, :n], np.asarray(sp.time0))
+            np.testing.assert_array_equal(soa[9, :n],
+                                          np.asarray(sp.inv_time_delta))
+            np.testing.assert_array_equal(
+                soa[10, :n], c[:, 0] * d[:, 0] + c[:, 1] * d[:, 1] + c[:, 2] * d[:, 2])
+            np.testing.assert_array_equal(
+                soa[11, :n], d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2])
+            assert np.all(soa[5:, n:] == 0.0)
 
     def test_scene_from_numpy_round_trip(self):
         jscene, jcam = jpresets.random_spheres(16 / 9)
@@ -140,11 +154,20 @@ class TestSceneState:
             convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
 
     def test_fastpath_refuses_moving_spheres(self):
+        """Moving spheres are ported (K3): the converted JAX ``random``
+        scene is accepted, and its tables carry the [12, N] motion
+        operand. The gate still refuses the kinds that are not ported."""
         jscene, _ = jpresets.random(1.0)
         leaves = jax_scene_leaves(jscene)
         scene = convert.scene_from_numpy(leaves, device="cpu")
-        with pytest.raises(ValueError, match="moving spheres"):
-            tfp.fastpath_supported(SceneFeatures.from_scene(scene))
+        feats = SceneFeatures.from_scene(scene)
+        assert feats.has_motion and tfp.fastpath_supported(feats)
+        tables = tfp.prep_tables(scene, feats)
+        assert tuple(tables.soa.shape) == (12, 512)
+        assert np.count_nonzero(tables.soa[9].numpy()) == 391  # inv_dt
+        feats.has_rects = True
+        with pytest.raises(ValueError, match="rects"):
+            tfp.fastpath_supported(feats)
 
     def test_unported_preset_raises(self):
         with pytest.raises(ValueError, match="not ported yet"):

@@ -149,14 +149,72 @@ def rel_l2(a, b) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
+def jax_trace_vjp(jscene, ro, rd, tm, seed, depth):
+    """JAX ``trace_fast_diff`` of numpy rays: (radiance, a function from
+    weights w to the per-leaf gradients of sum(w * radiance), the
+    default-trainable leaf names), all numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from pathtrace_tpu.models.types import SceneFeatures
+    from pathtrace_tpu.ops.fastpath import trace_fast_diff
+    from pathtrace_tpu.parallel.inverse import split_scene
+
+    params, rebuild, names = split_scene(jscene)
+    feats = SceneFeatures.from_scene(jscene)
+
+    def radiance(p):
+        return trace_fast_diff(rebuild(p), jnp.asarray(ro), jnp.asarray(rd),
+                               jnp.asarray(tm), seed, depth, feats)[0]
+
+    rad, vjp = jax.vjp(radiance, params)
+    return (np.asarray(rad),
+            lambda w: [np.asarray(g) for g in vjp(jnp.asarray(w))[0]], names)
+
+
+def port_trace_diff(scene, ro, rd, tm, seed, depth):
+    """The port's differentiable trace of numpy rays on the CPU: (radiance
+    tensor, trainable leaves, their names)."""
+    import torch
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops.fastpath import trace_fast_diff
+    from pathtrace_tpu_torch.parallel.inverse import split_scene
+
+    params, rebuild, names = split_scene(scene)
+    rad, _ = trace_fast_diff(
+        rebuild(params), *(torch.from_numpy(np.ascontiguousarray(x))
+                           for x in (ro, rd, tm)),
+        seed, depth, SceneFeatures.from_scene(scene))
+    return rad, params, names
+
+
+def port_grads(rad, params, w):
+    """Per-leaf gradients (numpy) of sum(w * radiance)."""
+    import torch
+
+    grads = torch.autograd.grad((torch.from_numpy(w) * rad).sum(), params,
+                                retain_graph=True)
+    return [g.numpy() for g in grads]
+
+
+def assert_grads_close(got, ref, names, tol, what):
+    """Every leaf finite and within its relative-L2 bound (0 if absent)."""
+    for name, a, b in zip(names, got, ref):
+        assert np.isfinite(a).all(), f"{what} {name}: not finite"
+        err = rel_l2(a, b)
+        assert err <= tol.get(name, 0.0), f"{what} {name}: rel L2 {err:.3e}"
+
+
 # Per-leaf relative-L2 bounds of the trace gradient (depth 4) against JAX
 # on the rays inside the lane contract: about twice what 2048 rays of
 # random_spheres and small measured on the CPU (centre 1.5e-2, radius
 # 1.8e-2, fuzz 2.4e-3, ref_idx 2.5e-3, colour 1.8e-4). The closest hit's
 # expanded quadratic rounds differently in XLA and moves t by up to ~1e-4
 # relative; the normals of the 0.2-radius spheres amplify that in the
-# centre and radius gradients (see tests/test_torch_grad.py). The motion
-# leaf gets no gradient on either side.
+# centre and radius gradients (see tests/test_torch_grad.py). In a static
+# scene the motion leaf gets no gradient on either side, hence 0.0; moving
+# scenes take MOTION_GRAD_TOL.
 GRAD_TOL = {
     "spheres.center": 3e-2,
     "spheres.center_delta": 0.0,
@@ -181,5 +239,29 @@ FIXTURE_GRAD_TOL = {
     "spheres.radius": 5e-3,
     "materials.fuzz": 3e-3,
     "materials.ref_idx": 3e-3,
+    "textures.color": 1e-4,
+}
+
+# The same bounds for the motion-blurred ``random`` preset (391 of its 488
+# spheres move), whose motion leaf ``spheres.center_delta`` now gets a
+# gradient: through K6's lerped centre and through the time-lerped normal.
+# Its bound is about twice the CPU reading on 2048 camera rays at depth 4
+# (tests/test_torch_motion.py): 1.48e-2 (centre 1.45e-2, radius 1.40e-2,
+# fuzz 1.2e-3, ref_idx 1.5e-4, colour 2.9e-4, inside GRAD_TOL).
+MOTION_GRAD_TOL = {**GRAD_TOL, "spheres.center_delta": 3e-2}
+
+# The committed gradient fixture of ``random``
+# (tests/goldens/torch_port_grad_random.npz, weights kept on rays that
+# agree with JAX to 1e-5): about three times the port's CPU readings on it
+# (centre 1.42e-3, delta 2.77e-3, radius 1.02e-3, fuzz 5.99e-3, ref_idx
+# 1.7e-4, colour 2.5e-5). The fuzz gradient comes from the few rays that
+# reach the metal spheres, so its reading varies with the weights: 4e-4 to
+# 6e-3 over five draws of them on the same rays.
+MOTION_FIXTURE_GRAD_TOL = {
+    "spheres.center": 5e-3,
+    "spheres.center_delta": 1e-2,
+    "spheres.radius": 5e-3,
+    "materials.fuzz": 2e-2,
+    "materials.ref_idx": 1e-3,
     "textures.color": 1e-4,
 }
