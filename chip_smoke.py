@@ -80,7 +80,25 @@ Phases (each prints a line before the next starts):
 20. ``examples.inverse_render.main`` trains random at 1280x720, 4 spp,
     depth 4, 5 Adam steps, every default-trainable leaf: finite losses,
     every leaf moves (``spheres.center_delta`` included), K3 and K6
-    launched and no plain version run.
+    launched and no plain version run;
+21. K7 (the megakernel: the whole bounce loop in one kernel) against its
+    plain version on the 1280x720x4 primary rays of ``random_spheres``
+    at depth 10: at most 1% of rays outside 1e-3, the segment counts
+    within 0.5%; the times of the kernel and of the plain version, and
+    the bound;
+22. the same on ``random`` (moving spheres) and ``simple_light`` (a rect,
+    diffuse lights, the noise texture, a black sky);
+23. K7 on the rays of ``tests/goldens/torch_port_megakernel.npz`` against
+    JAX's megakernel (``simple_light`` depth 8: 0.5% of rays; ``random``
+    depth 10: ``DEPTH10_BUDGET``), then against the port's ``trace_fast``
+    on phases 21-22's full-width rays of ``random_spheres`` and
+    ``random``: at least 99% of rays within 1e-3, segments within 1%;
+24. 3 frames each of ``random_spheres``, ``random`` and ``simple_light``
+    at 1280x720, 4 spp, depth 10 through ``generate_primary_rays``, then
+    ``trace_megakernel`` over the scene's tables (built once per scene,
+    timed apart), then the sample mean, timed with CUDA events
+    beside the wavefront frames of phases 6 and 17: K7 launched once a
+    frame, no plain version and no K1, K2 or K3.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
@@ -90,7 +108,9 @@ from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 from this run's shapes; for K4 and K5 the operations of the sweeps this
 run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test;
-for K3 ~42 per pair)
+for K3 ~42 per pair; for K7 those of the segments this run traced, ~25
+per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
+rect) pair and the shading per segment; phase 24 for K7's launches)
 and ``library_ms`` (null: no single PyTorch call computes any of them).
 K4 and K5 also carry the share of sweeps skipped and K1's time on the
 same rays. Then
@@ -119,6 +139,8 @@ XL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
 RANDOM_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_random.npz")
 RANDOM_GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                    "torch_port_grad_random.npz")
+MEGA_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                            "torch_port_megakernel.npz")
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
 TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
@@ -131,6 +153,14 @@ K6_SPHERE_RTOL = 1e-4
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# K7's operations, counted from csrc/megakernel.cu: per (segment, live
+# sphere) pair ~25 (the quadratic's b, c and disc; most pairs stop at
+# disc <= 0), ~31 with the centre lerped; per (segment, live rect) pair
+# ~20; per segment that hits (a miss takes the sky and stops) ~250 of
+# shading and scatter, and ~1800 more where the winner has the 7-octave
+# hash noise texture
+K7_OPS_PAIR, K7_OPS_PAIR_MOTION, K7_OPS_RECT = 25, 31, 20
+K7_OPS_SHADE, K7_OPS_NOISE = 250, 1800
 
 
 def phase(msg: str) -> None:
@@ -196,23 +226,24 @@ def rel_l2(a, b) -> float:
     return float((a64 - b64).norm() / max(float(b64.norm()), 1e-30))
 
 
-def reset_counts(k1, k2) -> None:
+def reset_counts(k1, k2, k7) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
     for name in ("LAUNCHES", "PLAIN_CALLS", "BWD_LAUNCHES", "BWD_PLAIN_CALLS",
                  "FLAT_LAUNCHES", "FLAT_PLAIN_CALLS", "HIER_LAUNCHES",
                  "HIER_PLAIN_CALLS", "MOVING_LAUNCHES", "MOVING_PLAIN_CALLS"):
         setattr(k1, name, 0)
     k2.LAUNCHES = k2.PLAIN_CALLS = 0
+    k7.LAUNCHES = k7.PLAIN_CALLS = 0
 
 
-def read_counts(k1, k2) -> dict:
+def read_counts(k1, k2, k7) -> dict:
     """Launches per kernel, and the plain versions' calls summed."""
     return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k1.MOVING_LAUNCHES,
             "K4": k1.FLAT_LAUNCHES, "K5": k1.HIER_LAUNCHES,
-            "K6": k1.BWD_LAUNCHES,
+            "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES,
             "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
-                      + k1.MOVING_PLAIN_CALLS)}
+                      + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS)}
 
 
 def main() -> int:
@@ -231,6 +262,7 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import _cuda_build
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
+    from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.ops import shade_kernel as k2
     from pathtrace_tpu_torch.parallel.inverse import split_scene
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
@@ -364,12 +396,12 @@ def main() -> int:
         within max_depth per ray outside, ``kernel`` launched at every
         bounce and no other closest hit or plain version."""
         depth = int(ref["max_depth"])
-        reset_counts(k1, k2)
+        reset_counts(k1, k2, k7)
         res = fp.trace_fast(scene_, *(torch.from_numpy(ref[k]).to(dev) for k in
                                       ("rays.ro", "rays.rd", "rays.time")),
                             int(ref["seed"]), depth,
                             SceneFeatures.from_scene(scene_), min_size=128)
-        counts = read_counts(k1, k2)
+        counts = read_counts(k1, k2, k7)
         n_out, frac = rays_outside(res.radiance, ref["radiance"])
         count, ref_count = int(res.ray_count), int(ref["ray_count"])
         phase(f"[{tag}] {name}: {len(res.radiance)} rays depth {depth}, "
@@ -390,13 +422,13 @@ def main() -> int:
         argv = ["-P", "random_spheres", "-W", str(WIDTH), "-H", str(HEIGHT),
                 "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", str(FRAMES),
                 "--out", out_path]
-        reset_counts(k1, k2)
+        reset_counts(k1, k2, k7)
         buf = io.StringIO()
         t_start = time.monotonic()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         wall = time.monotonic() - t_start
-        c6 = read_counts(k1, k2)
+        c6 = read_counts(k1, k2, k7)
         launches = (c6["K1"], c6["K2"])
         log = buf.getvalue()
         for ln in log.splitlines():
@@ -490,7 +522,7 @@ def main() -> int:
         gparams, rebuild, names = split_scene(scene_.to(dev))
         if names != list(gref["names"]):
             raise AssertionError(f"trainable leaves {names}")
-        reset_counts(k1, k2)
+        reset_counts(k1, k2, k7)
         rad, _ = fp.trace_fast_diff(
             rebuild(gparams), *(torch.from_numpy(gref[k]).to(dev)
                                 for k in ("rays.ro", "rays.rd", "rays.time")),
@@ -500,7 +532,7 @@ def main() -> int:
                                 torch.from_numpy(gref["radiance"]))
         grads = torch.autograd.grad(
             (torch.from_numpy(gref["w"]).to(dev) * rad).sum(), gparams)
-        counts = read_counts(k1, k2)
+        counts = read_counts(k1, k2, k7)
         errs = {n: rel_l2(g.cpu(), torch.from_numpy(gref[f"grad.{n}"]))
                 for n, g in zip(names, grads)}
         phase(f"[{tag}] {name}: {rad.shape[0]} rays depth "
@@ -533,13 +565,13 @@ def main() -> int:
                     "--depth", str(TRAIN_DEPTH), "--steps", str(TRAIN_STEPS),
                     "--trainable", trainable, "--device", "cuda",
                     "--out", os.path.join(tmp, "inverse.npy")]
-            reset_counts(k1, k2)
+            reset_counts(k1, k2, k7)
             buf = io.StringIO()
             t_start = time.monotonic()
             with contextlib.redirect_stdout(buf):
                 rc = inverse_render.main(argv)
             wall = time.monotonic() - t_start
-            counts = read_counts(k1, k2)
+            counts = read_counts(k1, k2, k7)
             log = buf.getvalue()
             for ln in log.splitlines():
                 phase(f"[{tag}] inverse_render --preset {preset} --trainable "
@@ -653,13 +685,13 @@ def main() -> int:
         from pathtrace_tpu_torch.config import Params
         from pathtrace_tpu_torch.render.progressive import render_progressive
 
-        reset_counts(k1, k2)
+        reset_counts(k1, k2, k7)
         res_ = render_progressive(
             scene_c, camera_c, Params(WIDTH, HEIGHT, SAMPLES, DEPTH), frames,
             dev, log=lambda ln: phase(f"[{tag}] {ln}"))
         if not (np.isfinite(res_.image).all() and 0.0 < res_.image.mean() <= 1.0):
             raise AssertionError(f"[{tag}] bad image")
-        return read_counts(k1, k2)
+        return read_counts(k1, k2, k7)
 
     cover20, cam20 = presets._random_impl(WIDTH / HEIGHT, True, 0, half_extent=20)
     cover20 = cover20.to(dev)
@@ -682,11 +714,11 @@ def main() -> int:
 
     # ---- 13: the scene-scale path through the CLI, culled and brute force ----
     def cli_frames(tag, argv):
-        reset_counts(k1, k2)
+        reset_counts(k1, k2, k7)
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
-        counts = read_counts(k1, k2)
+        counts = read_counts(k1, k2, k7)
         log = buf.getvalue()
         for ln in log.splitlines():
             phase(f"[{tag}] cli: {ln}")
@@ -836,6 +868,147 @@ def main() -> int:
     if c20["K3"] <= 0 or c20["K1"] or "spheres.center_delta" not in moved20:
         raise AssertionError(f"the random trainer did not run through K3: {c20}")
 
+    # ---- 21-22: K7 against its plain version at full width ----
+    def time_once(fn):
+        """(result, ms) of one run of ``fn``, with CUDA events."""
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def k7_check(tag, preset):
+        """K7 and its plain version on the primary rays of ``preset`` at
+        the smoke's film, depth 10: at most 1% of rays outside 1e-3, the
+        segment counts within 0.5%. Returns (the rays and K7's radiance,
+        kept for phase 23; the numbers of the kernel line)."""
+        scene_, cam_ = presets.from_name(preset, WIDTH / HEIGHT)
+        scene_ = scene_.to(dev)
+        feats_ = SceneFeatures.from_scene(scene_)
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+        rays_ = tuple(x.reshape(R, -1).squeeze(-1) for x in
+                      generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES, g))
+        tables_ = k7.prep_tables(scene_)
+        rad, segs = k7.trace_megakernel(tables_, *rays_, 7, DEPTH, feats_)
+        work = {}
+        (rad_p, segs_p), plain_ms = time_once(
+            lambda: k7.trace_megakernel_plain(tables_, *rays_, 7, DEPTH, feats_,
+                                              work=work))
+        n_out, frac = rays_outside(rad, rad_p.cpu().numpy())
+        err = float((rad - rad_p).abs().max())
+        count, count_p = int(segs), int(segs_p)
+        shaded, noisy = int(work["shaded"]), int(work["noise"])
+        ms = time_ms(lambda: k7.trace_megakernel(tables_, *rays_, 7, DEPTH,
+                                                 feats_), 5)
+        n_sph = int(scene_.spheres.mask.sum())
+        n_rect = int(scene_.rects.mask.sum())
+        sweep = (n_sph * (K7_OPS_PAIR_MOTION if feats_.has_motion
+                          else K7_OPS_PAIR) + n_rect * K7_OPS_RECT)
+        ops = count * sweep + shaded * K7_OPS_SHADE + noisy * K7_OPS_NOISE
+        # 28 B in (ro, rd, time) and 12 B out per ray, the tables once
+        table_bytes = 4 * (tables_.spheres.numel() + tables_.sky4.numel()
+                           + (tables_.rects.numel() if feats_.has_rects else 0))
+        bnd = bound(R * 40 + table_bytes, ops)
+        phase(f"[{tag}] K7 {preset}: {R} rays depth {DEPTH}, {n_sph} live "
+              f"spheres in {tables_.spheres.shape[0]} rows, {n_rect} live "
+              f"rects; {n_out} rays ({frac:.6%}) outside 1e-3 of plain, max "
+              f"|diff| {err}; segments {count} (plain {count_p}, "
+              f"{count / R:.3f} per ray), {shaded} of them shaded, {noisy} "
+              f"with the noise texture")
+        phase(f"[{tag}] K7 {preset} time: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+        if (frac > 0.01 or abs(count - count_p) > 0.005 * count_p
+                or not bool(torch.isfinite(rad).all())):
+            raise AssertionError(f"K7 differs from its plain version ({preset})")
+        return (rays_, rad, count), {
+            "max_abs_err": err, "lanes_outside": frac, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "segments": count, "shaded_segments": shaded,
+            "noise_segments": noisy}
+
+    k7_runs = {p: k7_check(tag, p) for tag, p in (
+        ("21", "random_spheres"), ("22", "random"), ("22", "simple_light"))}
+
+    # ---- 23: K7 against the JAX fixture and the port's wavefront path ----
+    mref = np.load(MEGA_FIXTURE)
+    for preset, budget in (("simple_light", 0.005), ("random", DEPTH10_BUDGET)):
+        depth = int(mref[f"{preset}.max_depth"])
+        scene_ = presets.from_name(preset, WIDTH / HEIGHT)[0].to(dev)
+        rad, segs = k7.trace_megakernel(
+            k7.prep_tables(scene_),
+            *(torch.from_numpy(mref[f"{preset}.rays.{k}"]).to(dev)
+              for k in ("ro", "rd", "time")),
+            int(mref["seed"]), depth, SceneFeatures.from_scene(scene_))
+        n_out, frac = rays_outside(rad, mref[f"{preset}.radiance"])
+        count, ref_count = int(segs), int(mref[f"{preset}.ray_count"])
+        phase(f"[23] K7 on the {preset} fixture: {len(rad)} rays depth "
+              f"{depth}, {frac:.4%} of rays outside 1e-3 (budget "
+              f"{budget:.1%}), segments {count} vs JAX {ref_count}")
+        if frac > budget or (abs(count - ref_count) > 0.01 * ref_count
+                             if n_out else count != ref_count):
+            raise AssertionError(f"K7 outside the contract of the {preset} "
+                                 "fixture")
+    for preset in ("random_spheres", "random"):
+        (rays_, rad, count), _ = k7_runs[preset]
+        scene_ = presets.from_name(preset, WIDTH / HEIGHT)[0].to(dev)
+        res = fp.trace_fast(scene_, *rays_, 7, DEPTH,
+                            SceneFeatures.from_scene(scene_))
+        n_out, frac = rays_outside(rad, res.radiance.cpu().numpy())
+        fcount = int(res.ray_count)
+        phase(f"[23] K7 vs the port's trace_fast on {preset}: {R} rays, "
+              f"{1.0 - frac:.6%} within 1e-3, segments {count} vs {fcount}")
+        if frac > 0.01 or abs(count - fcount) > 0.01 * fcount:
+            raise AssertionError(f"K7 disagrees with trace_fast on {preset}")
+    k7_runs = {p: v for p, (_, v) in k7_runs.items()}
+
+    # ---- 24: megakernel frames (the tables built once per scene) ----
+    reset_counts(k1, k2, k7)
+    k7_frames = {}
+    for preset in ("random_spheres", "random", "simple_light"):
+        scene_, cam_ = presets.from_name(preset, WIDTH / HEIGHT)
+        scene_, cam_ = scene_.to(dev), cam_.to(dev)
+        feats_ = SceneFeatures.from_scene(scene_)
+        tables_, tables_ms = time_once(lambda: k7.prep_tables(scene_))
+        phase(f"[24] {preset}: the megakernel's tables in {tables_ms:.3f} ms "
+              f"(once per scene)")
+        g = torch.Generator(device=dev)
+        g.manual_seed(0)
+
+        def frame(seed):
+            ro_, rd_, tm_ = generate_primary_rays(cam_, WIDTH, HEIGHT,
+                                                  SAMPLES, g)
+            rad, segs = k7.trace_megakernel(
+                tables_, ro_.reshape(R, 3), rd_.reshape(R, 3), tm_.reshape(R),
+                seed, DEPTH, feats_)
+            return rad.reshape(HEIGHT, WIDTH, SAMPLES, 3).mean(dim=2), segs
+
+        k7_frames[preset] = []
+        for i in range(FRAMES):
+            (image, segs), ms = time_once(lambda: frame(i))
+            mean = float(image.mean())
+            if not (bool(torch.isfinite(image).all()) and 0.0 < mean <= 1.0):
+                raise AssertionError(f"bad {preset} megakernel image: {mean}")
+            k7_frames[preset].append(ms)
+            phase(f"[24] megakernel {preset} frame {i + 1}: {ms:.2f} ms (CUDA "
+                  f"events), {int(segs)} rays, {int(segs) / ms / 1e3:.2f} "
+                  f"Mrays/s, image mean {mean:.6f} ({smi})")
+    c24 = read_counts(k1, k2, k7)
+    wave = {"random_spheres": [ms for ms, _, _ in frames],
+            "random": [ms for ms, _, _ in m_frames]}
+    for preset, ms_list in wave.items():
+        phase(f"[24] {preset}: megakernel frames "
+              + ", ".join(f"{ms:.2f}" for ms in k7_frames[preset])
+              + " ms; wavefront frames (phases 6, 17) "
+              + ", ".join(f"{ms:.2f}" for ms in ms_list) + " ms")
+    phase(f"[24] launches {c24}")
+    others = [c24[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6")]
+    if c24["K7"] != 3 * FRAMES or any(others) or c24["plain"]:
+        raise AssertionError(f"the megakernel frames did not run through K7 "
+                             f"alone: {c24}")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -879,6 +1052,13 @@ def main() -> int:
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:212",
          **k5, "library_ms": None},
+        {"name": "megakernel (K7)", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/megakernel.cu",
+         "replaces": "pathtrace_tpu/ops/megakernel.py:264",
+         "launches": c24["K7"], "launches_per_frame": c24["K7"] // (3 * FRAMES),
+         **k7_runs["random_spheres"],
+         "random": k7_runs["random"], "simple_light": k7_runs["simple_light"],
+         "frame_ms": k7_frames, "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -22,6 +22,7 @@ import numpy as np
 from pathtrace_tpu_torch.config import Params
 from pathtrace_tpu_torch.models import presets
 from pathtrace_tpu_torch.models.types import SceneFeatures
+from pathtrace_tpu_torch.ops.fastpath import fastpath_supported
 from pathtrace_tpu_torch.render import film
 
 
@@ -75,10 +76,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     try:
         scene, camera = presets.from_name(args.preset, params.aspect,
                                           seed=params.seed)
+        features = SceneFeatures.from_scene(scene)
+        fastpath_supported(features)
     except ValueError as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
-    features = SceneFeatures.from_scene(scene)
     print(f"scene features: {features}")
 
     from pathtrace_tpu_torch.render.progressive import render_progressive

@@ -1,10 +1,12 @@
 """Host-side scene construction in numpy, emitting a tensor :class:`Scene`.
 
 Counterpart of ``pathtrace_tpu/models/build.py`` for spheres (static and
-moving), materials and constant/checker/noise textures. ``finish`` pads
-the sphere array with far-away, masked-off spheres and can Morton-sort it
-by the mid-shutter centres, exactly as the JAX builder does, so a preset
-built here equals the reference leaf for leaf.
+moving), axis-aligned rects, materials and constant/checker/noise
+textures. ``finish`` pads the sphere array with far-away, masked-off
+spheres and can Morton-sort it by the mid-shutter centres, and pads the
+rects with masked-off ones on a far plane, exactly as the JAX builder
+does, so a preset built here equals the reference leaf for leaf.
+Instanced primitives (the JAX builder's ``transform``) are not ported.
 """
 
 from __future__ import annotations
@@ -48,10 +50,12 @@ def _morton3(q: np.ndarray) -> np.ndarray:
 
 
 class SceneBuilder:
-    """Accumulates spheres, materials and textures, then emits a Scene."""
+    """Accumulates spheres, rects, materials and textures, then emits a
+    Scene."""
 
     def __init__(self):
         self._sph = []   # (center, delta, time0, inv_dt, radius, mat)
+        self._rects = []  # (axis, a0, a1, b0, b1, k, flip, mat)
         self._mats = []  # (kind, tex, fuzz, ref_idx)
         self._texs = []  # (kind, color, odd, even, scale)
         self.sky: Optional[Vec3] = None  # None => gradient sky
@@ -111,6 +115,25 @@ class SceneBuilder:
         self._sph.append((c0, c1 - c0, float(time0), 1.0 / (time1 - time0),
                           float(radius), mat_id))
 
+    def _rect(self, axis: int, a0, a1, b0, b1, k, flip: bool, mat_id: int,
+              transform) -> None:
+        if transform is not None:
+            raise ValueError("instanced rects are not ported yet")
+        self._rects.append((axis, a0, a1, b0, b1, k, -1.0 if flip else 1.0,
+                            mat_id))
+
+    def rect_xy(self, x0, x1, y0, y1, k, flip: bool, mat_id: int,
+                transform=None) -> None:
+        self._rect(2, x0, x1, y0, y1, k, flip, mat_id, transform)
+
+    def rect_xz(self, x0, x1, z0, z1, k, flip: bool, mat_id: int,
+                transform=None) -> None:
+        self._rect(1, x0, x1, z0, z1, k, flip, mat_id, transform)
+
+    def rect_yz(self, y0, y1, z0, z1, k, flip: bool, mat_id: int,
+                transform=None) -> None:
+        self._rect(0, y0, y1, z0, z1, k, flip, mat_id, transform)
+
     # ---- finish ----
     def finish(self, pad_multiple: int = 1,
                spatial_sort: bool = False) -> T.Scene:
@@ -150,6 +173,20 @@ class SceneBuilder:
             sp_mat[i] = m
             sp_mask[i] = True
 
+        # padding rects lie on the plane k = 1e18 and are masked off
+        nr = _pad_to(len(self._rects), 1)
+        re_axis = np.zeros(nr, i32)
+        re_span = np.zeros((4, nr), f32)   # a0, a1, b0, b1
+        re_k = np.full(nr, 1.0e18, f32)
+        re_flip = np.ones(nr, f32)
+        re_mat = np.zeros(nr, i32)
+        re_mask = np.zeros(nr, bool)
+        for i, (ax, a0, a1, b0, b1, k, fl, m) in enumerate(self._rects):
+            re_axis[i] = ax
+            re_span[:, i] = (a0, a1, b0, b1)
+            re_k[i], re_flip[i], re_mat[i] = k, fl, m
+            re_mask[i] = True
+
         nmat = max(len(self._mats), 1)
         ma_kind = np.zeros(nmat, i32)
         ma_tex = np.zeros(nmat, i32)
@@ -177,6 +214,12 @@ class SceneBuilder:
                 center=t(sp_center), center_delta=t(sp_delta),
                 time0=t(sp_t0), inv_time_delta=t(sp_invdt),
                 radius=t(sp_radius), mat_id=t(sp_mat), mask=t(sp_mask),
+            ),
+            rects=T.Rects(
+                axis=t(re_axis), a0=t(re_span[0].copy()),
+                a1=t(re_span[1].copy()), b0=t(re_span[2].copy()),
+                b1=t(re_span[3].copy()), k=t(re_k), flip=t(re_flip),
+                mat_id=t(re_mat), mask=t(re_mask),
             ),
             materials=T.Materials(t(ma_kind), t(ma_tex), t(ma_fuzz), t(ma_ref)),
             textures=T.Textures(t(tx_kind), t(tx_color), t(tx_odd), t(tx_even),

@@ -18,11 +18,11 @@ import torch
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models import types as T
 
-_GROUPS = {"spheres": T.Spheres, "materials": T.Materials,
+_GROUPS = {"spheres": T.Spheres, "rects": T.Rects, "materials": T.Materials,
            "textures": T.Textures}
-# primitive kinds the JAX scene carries and this slice has no tables for:
+# primitive kinds the JAX scene carries and the port has no tables for:
 # a live entry in any of them is refused rather than silently dropped
-_ABSENT_KINDS = ("rects", "boxes", "media")
+_ABSENT_KINDS = ("boxes", "media")
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -35,6 +35,9 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene
         mask = leaves.get(f"{kind}.mask")
         if mask is not None and np.any(mask):
             raise ValueError(f"scene has live {kind}: not in this port yet")
+    for kind in ("spheres", "rects"):
+        if f"{kind}.world_from_obj" in leaves:
+            raise ValueError(f"scene has instanced {kind}: not in this port yet")
     tex_kind = np.asarray(leaves["textures.kind"])
     if np.any(tex_kind == T.TEX_IMAGE):
         raise ValueError("scene has image textures: not in this port yet")

@@ -2,8 +2,9 @@
 ``pathtrace_tpu/models/presets.py``): ``random`` (the Shirley "Next Week"
 cover scene, whose small diffuse spheres move over the shutter),
 ``random_spheres`` (the same scene with static spheres), its 64x64-grid
-variant ``random_spheres_xl``, ``small`` and ``two_perlin_spheres`` (the
-CLI default). Each builds its
+variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
+default) and ``simple_light`` (an emissive sphere and rect; the megakernel
+renders it, the fast path does not take rects yet). Each builds its
 scene with the same numpy generator calls as the JAX preset, so both
 packages produce identical leaves."""
 
@@ -19,7 +20,7 @@ from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this slice cannot render
 NOT_PORTED = ("aras", "cornell", "cornell_smoke", "earth", "final",
-              "final_full", "simple_light", "smallpt")
+              "final_full", "smallpt")
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -124,10 +125,28 @@ def two_perlin_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     return b.finish(), _standard_camera(aspect, time1=0.0, aperture=0.0)
 
 
+def simple_light(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Emissive sphere and rect over marble, black sky."""
+    b = SceneBuilder()
+    noise = b.noise_texture(4.0)
+    light_tex = b.constant_texture((4.0, 4.0, 4.0))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
+    b.sphere((0.0, 2.0, 0.0), 2.0, b.lambertian(noise))
+    b.sphere((0.0, 7.0, 0.0), 2.0, b.diffuse_light(light_tex))
+    b.rect_xy(3.0, 5.0, 1.0, 3.0, -2.0, False, b.diffuse_light(light_tex))
+    b.sky = (0.0, 0.0, 0.0)
+    cam = make_camera(
+        (50.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 20.0, aspect,
+        aperture=0.0, focus_dist=10.0, time0=0.0, time1=0.0,
+    )
+    return b.finish(), cam
+
+
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
     "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,
+    "simple_light": simple_light,
     "small": small,
     "two_perlin_spheres": two_perlin_spheres,
 }

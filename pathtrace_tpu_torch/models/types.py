@@ -1,9 +1,9 @@
 """Scene representation: dataclasses of tensors.
 
-Counterpart of ``pathtrace_tpu/models/types.py`` for the sphere-only slice:
-spheres, materials, textures and the sky. Rects, boxes, media and the image
-atlas are not ported yet. Every leaf is a tensor; ``.to(device)`` moves a
-whole dataclass.
+Counterpart of ``pathtrace_tpu/models/types.py`` for spheres, axis-aligned
+rects, materials, textures and the sky. Boxes, media, instanced primitives
+and the image atlas are not ported yet. Every leaf is a tensor;
+``.to(device)`` moves a whole dataclass.
 """
 
 from __future__ import annotations
@@ -61,6 +61,29 @@ class Spheres(_TensorData):
 
 
 @dataclasses.dataclass
+class Rects(_TensorData):
+    """Axis-aligned rectangles. ``axis`` is the normal axis (0: YZ-rect,
+    1: XZ, 2: XY); ``(a, b)`` are the two in-plane axes in ascending order
+    (YZ: a = y, b = z; XZ: a = x, b = z; XY: a = x, b = y); ``k`` is the
+    plane's offset along ``axis`` and ``flip`` the normal's sign (+1 or
+    -1)."""
+
+    axis: torch.Tensor    # [N] i32 in {0, 1, 2}
+    a0: torch.Tensor      # [N] f32
+    a1: torch.Tensor      # [N] f32
+    b0: torch.Tensor      # [N] f32
+    b1: torch.Tensor      # [N] f32
+    k: torch.Tensor       # [N] f32
+    flip: torch.Tensor    # [N] f32, +1.0 or -1.0
+    mat_id: torch.Tensor  # [N] i32
+    mask: torch.Tensor    # [N] bool
+
+    @property
+    def count(self) -> int:
+        return self.axis.shape[0]
+
+
+@dataclasses.dataclass
 class Materials(_TensorData):
     kind: torch.Tensor     # [M] i32
     tex_id: torch.Tensor   # [M] i32
@@ -86,6 +109,7 @@ class Scene:
     is 0; otherwise the gradient sky."""
 
     spheres: Spheres
+    rects: Rects
     materials: Materials
     textures: Textures
     sky: torch.Tensor               # [3] f32
@@ -94,6 +118,7 @@ class Scene:
     def to(self, device) -> "Scene":
         return Scene(
             spheres=self.spheres.to(device),
+            rects=self.rects.to(device),
             materials=self.materials.to(device),
             textures=self.textures.to(device),
             sky=self.sky.to(device),
@@ -103,8 +128,9 @@ class Scene:
 
 class SceneFeatures:
     """Static scene capabilities, derived host-side (same slots as the JAX
-    package's ``SceneFeatures``). Kinds this slice has no tables for are
-    always False here; ``fastpath_supported`` refuses the rest."""
+    package's ``SceneFeatures``). Kinds the port has no tables for (boxes,
+    media) are always False here; ``fastpath_supported`` and
+    ``megakernel_supported`` refuse what their paths cannot render."""
 
     __slots__ = (
         "has_spheres", "has_motion", "has_rects", "has_boxes", "has_media",
@@ -156,7 +182,7 @@ class SceneFeatures:
             checker_children_const=children_const,
             has_spheres=bool(sp.mask.any()),
             has_motion=bool((sp.inv_time_delta != 0.0).any()),
-            has_rects=False,
+            has_rects=bool(scene.rects.mask.any()),
             has_boxes=False,
             has_media=False,
             has_noise=TEX_NOISE in tex_kinds,

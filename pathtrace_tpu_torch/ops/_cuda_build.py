@@ -88,6 +88,13 @@ _SIGNATURES = {
         _c_void_p, _c_void_p,                    # t_out, idx_out
         _c_void_p, _c_void_p,                    # sweep counter or NULL, stream
     ],
+    "pt_megakernel": [
+        _c_void_p, _c_void_p, _c_void_p, _c_int,  # ro, rd, time, n_rays
+        _c_void_p, _c_int,                       # sphere table, rows
+        _c_void_p, _c_void_p,                    # rect table or NULL, sky4
+        _c_int, _c_int, _c_int, _c_float,        # seed, max_depth, flags, t_min
+        _c_void_p, _c_void_p, _c_void_p,         # out, segments, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 

@@ -4,16 +4,21 @@
     python -m pathtrace_tpu_torch.tools.profile_step --what frame
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random_spheres_xl
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random
+    python -m pathtrace_tpu_torch.tools.profile_step --what megakernel --preset simple_light
 
 ``train``: the inverse-rendering trainer on ``--preset`` (default
 random_spheres; every default-trainable leaf, perturbed albedos, as
 ``examples/inverse_render.py --trainable default``), 1280x720, 4 spp,
 depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
-depth 10) of ``--preset``. After warm-up steps, ``--reps`` unprofiled steps are timed
-with CUDA events, then one step runs under ``torch.profiler``: the device
-time of every kernel, summed by kind, the forward's share, and the device busy and idle share of the profiled
-step's wall time. The last line of the output is a JSON object with the
-same numbers; ``--out`` writes it to a file too.
+depth 10) of ``--preset``. ``megakernel``: one frame of the megakernel
+path at the same film (primary rays, K7 over tables built once per scene,
+the sample mean). After warm-up steps, ``--reps`` unprofiled steps are
+timed with CUDA events, then one step runs under ``torch.profiler``: the
+device time of every kernel, summed by kind, the forward's share, and the
+device's idle share two ways: of the profiled step's wall time (the
+profiler's own, inflated by its overhead on the host), and of the
+unprofiled median (1 - busy / median). The last line of the output is a
+JSON object with the same numbers; ``--out`` writes it to a file too.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ _SCATTER = "scatter-adds and index copies (index_add_, index_copy_)"
 _GATHER = "gathers (index_select and indexing)"
 _COPY = "copies, concatenations and fills"
 KINDS = (
+    ("megakernel", "K7 megakernel"),
     ("sphere_nearest_bwd", "K6 closest-hit backward"),
     ("sphere_nearest_culled_kernel<false>", "K4 closest hit, flat cull"),
     ("sphere_nearest_culled_kernel<true>", "K5 closest hit, two-level cull"),
@@ -125,9 +131,37 @@ def _setup_frame(dev, preset):
     return step
 
 
+def _setup_megakernel(dev, preset):
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops.megakernel import prep_tables, trace_megakernel
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+
+    W, H, S, R = 1280, 720, 4, 1280 * 720 * 4
+    scene, cam = presets.from_name(preset, W / H)
+    scene, cam = scene.to(dev), cam.to(dev)
+    feats = SceneFeatures.from_scene(scene)
+    tables = prep_tables(scene)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    box = {"frame": 0}
+
+    def step():
+        box["frame"] += 1
+        ro, rd, t = generate_primary_rays(cam, W, H, S, gen)
+        rad, _ = trace_megakernel(tables, ro.reshape(R, 3), rd.reshape(R, 3),
+                                  t.reshape(R), box["frame"], 10, feats)
+        rad.reshape(H, W, S, 3).mean(dim=2)
+
+    return step
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="profile_step")
-    ap.add_argument("--what", choices=("train", "frame"), default="train")
+    ap.add_argument("--what", choices=("train", "frame", "megakernel"),
+                    default="train")
     ap.add_argument("--preset", default="random_spheres",
                     help="scene of the frame or of the trainer")
     ap.add_argument("--warmup", type=int, default=2)
@@ -145,8 +179,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    step = (_setup_train(dev, args.preset) if args.what == "train"
-            else _setup_frame(dev, args.preset))
+    step = {"train": _setup_train, "frame": _setup_frame,
+            "megakernel": _setup_megakernel}[args.what](dev, args.preset)
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
@@ -189,7 +223,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "card": smi, "torch": torch.__version__,
         "step_ms_median": statistics.median(times), "step_ms": times,
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / wall_ms, "peak_gib": peak_gib,
+        "idle_share": 1.0 - busy_ms / wall_ms,
+        "idle_share_unprofiled": 1.0 - busy_ms / statistics.median(times),
+        "peak_gib": peak_gib,
         "regions_device_ms": regions,
         "kinds_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:160], "launches": c, "ms": us / 1e3}
@@ -200,7 +236,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print("step ms (CUDA events, unprofiled): "
           + ", ".join(f"{t:.3f}" for t in times))
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
-          f"ms, idle {result['idle_share']:.1%}, peak memory {peak_gib:.3f} GiB")
+          f"ms, idle {result['idle_share']:.1%} (of the unprofiled median: "
+          f"{result['idle_share_unprofiled']:.1%}), peak memory "
+          f"{peak_gib:.3f} GiB")
     for name, ms in regions.items():
         print(f"  region {name}: {ms:.3f} ms of device time")
     for kind, ms in result["kinds_ms"].items():

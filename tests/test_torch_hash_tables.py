@@ -149,8 +149,9 @@ class TestSceneState:
             assert _bits_equal(cam_leaves[key], val), key
 
     def test_scene_from_numpy_refuses_unported_kinds(self):
+        # cornell's rects are ported; its two boxes are not
         jscene, _ = jpresets.cornell(1.0)
-        with pytest.raises(ValueError, match="rects"):
+        with pytest.raises(ValueError, match="boxes"):
             convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
 
     def test_fastpath_refuses_moving_spheres(self):
