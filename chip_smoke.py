@@ -98,7 +98,24 @@ Phases (each prints a line before the next starts):
     ``trace_megakernel`` over the scene's tables (built once per scene,
     timed apart), then the sample mean, timed with CUDA events
     beside the wavefront frames of phases 6 and 17: K7 launched once a
-    frame, no plain version and no K1, K2 or K3.
+    frame, no plain version and no K1, K2 or K3;
+25. K2 with the rect flag against its plain version on the winners (K1
+    and the rect sweep merged) of ``simple_light``'s 1280x720x4 primary
+    rays and once-scattered rays, then with the MIS flag on a random
+    ``emit_scale`` plane (its extra rows, the plane copied through, the
+    normal and the albedo, included), under the lane contract; the times
+    of the kernel, of its plain version, its bound, and per full-width
+    bounce the rect sweep and the NEE and roulette tails (plain PyTorch);
+26. the CUDA trace of the rays in ``tests/goldens/torch_port_simple_light.npz``
+    against JAX's radiance, plain and with NEE and roulette from depth 3
+    (``torch_port_simple_light_nee.npz``), depth 10, ``DEPTH10_BUDGET``;
+27. ``cli.main`` renders simple_light at 1280x720, 4 spp, depth 10, 3
+    frames, then the same with ``--nee --rr 3``: K1 and K2 launched, K3,
+    K4, K5 and every plain version not; frame times, readbacks and
+    segments (shadow rays included); the NEE image finite, its mean
+    within 5% of the plain image's;
+28. the wavefront ``trace_fast`` of ``simple_light`` (no NEE) against K7
+    ray by ray on phase 22's full-width rays: at least 99% within 1e-3.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
@@ -153,6 +170,14 @@ K6_SPHERE_RTOL = 1e-4
 # the card's published peaks (H100 SXM data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                             "torch_port_simple_light.npz")
+NEE_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                           "torch_port_simple_light_nee.npz")
+RR_START = 3
+# K2's operations, counted from csrc/shade.cu: ~300 per lane, and ~1800
+# more per lane whose winner has the 7-octave hash noise texture
+K2_OPS, K2_OPS_NOISE = 300, 1800
 # K7's operations, counted from csrc/megakernel.cu: per (segment, live
 # sphere) pair ~25 (the quadratic's b, c and disc; most pairs stop at
 # disc <= 0), ~31 with the centre lerped; per (segment, live rect) pair
@@ -264,6 +289,9 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.parallel.inverse import split_scene
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
 
@@ -354,7 +382,8 @@ def main() -> int:
                     st.lane, 7, depth, DEPTH, tables_.sky4, flags_)
             out, alive = k2.shade_from_winners(*args)
             out_p, alive_p = k2.shade_from_winners_plain(*args)
-            frac = max(outside_fraction(out[k], out_p[k]) for k in range(12))
+            frac = max(outside_fraction(out[k], out_p[k])
+                       for k in range(out.shape[0]))
             agree = (alive == alive_p).float().mean().item()
             err = (out - out_p).abs().max().item()
             phase(f"[{tag}] {name} {label}: worst plane {frac:.6f} of lanes "
@@ -380,7 +409,7 @@ def main() -> int:
     k1_bound = bound(R * 32 + tables.soa.numel() * 4, R * n_live * 20)
     # K2: per lane 65 B in (12 planes, time, alive, lane, t, idx) and 49 B
     # out (12 planes, alive), the winner table once; ~300 operations
-    k2_bound = bound(R * 114 + tables.table.numel() * 4, R * 300)
+    k2_bound = bound(R * 114 + tables.table.numel() * 4, R * K2_OPS)
     def winners_of(cases):
         """K6's inputs per state: [R, 3] rays, time and the (t, idx)."""
         return [(st.planes[0:3].T.contiguous(), st.planes[3:6].T.contiguous(),
@@ -962,6 +991,7 @@ def main() -> int:
               f"{1.0 - frac:.6%} within 1e-3, segments {count} vs {fcount}")
         if frac > 0.01 or abs(count - fcount) > 0.01 * fcount:
             raise AssertionError(f"K7 disagrees with trace_fast on {preset}")
+    sl_k7 = k7_runs["simple_light"][0]
     k7_runs = {p: v for p, (_, v) in k7_runs.items()}
 
     # ---- 24: megakernel frames (the tables built once per scene) ----
@@ -1009,12 +1039,197 @@ def main() -> int:
         raise AssertionError(f"the megakernel frames did not run through K7 "
                              f"alone: {c24}")
 
+    # ---- 25: K2's rect branch and MIS entry on simple_light's winners ----
+    lscene, lcamera = presets.simple_light(WIDTH / HEIGHT)
+    lscene = lscene.to(dev)
+    lfeats = SceneFeatures.from_scene(lscene)
+    llights = build_light_table(lscene)
+    ltables = fp.prep_tables(lscene, lfeats, lights=llights)
+    lflags = fp.feature_flags(lfeats)
+    eflags = lflags | k2.FLAG_EMIT_SCALE
+    if not (lflags & k2.FLAG_RECT and ltables.rects is not None
+            and llights.count == 2 and ltables.table.shape[0] == 256):
+        raise AssertionError("simple_light did not get the rect tables")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ro, rd, tm = generate_primary_rays(lcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    lst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+    del ro, rd, tm
+    lt0, lidx0 = fp.closest_hit(ltables, lst0, 0, lfeats)
+    lst1 = scattered(ltables, lflags, lst0, lt0, lidx0)
+    lt1, lidx1 = fp.closest_hit(ltables, lst1, 1, lfeats)
+    # K1 alone on the scene's 128 sphere slots, before the rect merge
+    _, _, k1l_err_a = nearest_check("25", "K1", ltables.soa, lst0,
+                                    "simple_light primary")
+    _, _, k1l_err_b = nearest_check("25", "K1", ltables.soa, lst1,
+                                    "simple_light scattered")
+    rect_row0 = ltables.table.shape[0] - fp.RECT_ROWS
+    for label, t_, idx_ in (("primary", lt0, lidx0), ("scattered", lt1, lidx1)):
+        hit = t_ < 1e30
+        rows = ltables.table[idx_.long()]
+        phase(f"[25] simple_light {label}: {R} rays, hit "
+              f"{hit.float().mean().item():.4f}, rect winners "
+              f"{int((hit & (idx_ >= rect_row0)).sum())}, light hits "
+              f"{int((hit & (rows[:, 0] == 3.0)).sum())}, noise winners "
+              f"{int((hit & (rows[:, 3] == 2.0)).sum())}")
+    n_noise = int(((lt0 < 1e30) & (ltables.table[lidx0.long(), 3] == 2.0)).sum())
+    k2r_err, k2r_out, k2r_ms, k2r_plain_ms = shade_check(
+        "25", "K2 (rect)", ltables, lflags,
+        (("primary", lst0, lt0, lidx0, 0), ("scattered", lst1, lt1, lidx1, 1)))
+    k2r_bound = bound(R * 114 + ltables.table.numel() * 4,
+                      R * K2_OPS + n_noise * K2_OPS_NOISE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+
+    def with_esc(st):
+        esc = torch.rand((1, R), generator=g, device=dev)
+        return fp.FastStateP(torch.cat([st.planes[:12], esc]), st.time,
+                             st.alive, st.lane)
+
+    est0, est1 = with_esc(lst0), with_esc(lst1)
+    k2e_err, k2e_out, k2e_ms, k2e_plain_ms = shade_check(
+        "25", "K2 (rect, emit_scale)", ltables, eflags,
+        (("primary", est0, lt0, lidx0, 0), ("scattered", est1, lt1, lidx1, 1)))
+    # one plane more in, seven more out (MIS plane, normal, albedo)
+    k2e_bound = bound(R * (114 + 4 + 28) + ltables.table.numel() * 4,
+                      R * K2_OPS + n_noise * K2_OPS_NOISE)
+    phase(f"[25] K2 bounds: rect {k2r_bound[0]:.4f} ms ({k2r_bound[1]}), "
+          f"rect + emit_scale {k2e_bound[0]:.4f} ms ({k2e_bound[1]}); "
+          f"{n_noise} noise lanes")
+    # the plain-PyTorch pieces around K2, per full-width bounce
+    rect_ms = time_ms(lambda: rect_nearest(ltables.rects, *lst0.planes[:6]), 10)
+    eout, ealive = k2.shade_from_winners(
+        ltables.table, lidx0, lt0, est0.planes, est0.time, est0.alive,
+        est0.lane, 7, 0, DEPTH, ltables.sky4, eflags)
+    # K1 on the shadow rays the NEE tail sweeps at depth 0: the lanes off
+    # NEE start at the origin, as in the reference
+    sh = fp.shadow_rays(ltables, lidx0, eout, ealive, est0.lane, 7, 0)
+    _, _, k1l_err_c = nearest_check(
+        "25", "K1", ltables.soa, fp.FastStateP(sh.rays, est0.time, ealive,
+                                               est0.lane),
+        f"simple_light shadow rays ({int(sh.mask.sum())} on NEE)")
+    k1l_ms = time_ms(lambda: k1.sphere_nearest(ltables.soa, lst0.planes[:6]),
+                     20)
+    k1l_plain_ms = time_ms(
+        lambda: k1.sphere_nearest_plain(ltables.soa, lst0.planes[:6]), 2)
+    k1l_bound = bound(R * 32 + ltables.soa.numel() * 4,
+                      R * int(lscene.spheres.mask.sum()) * 20)
+    phase(f"[25] K1 time at {R} rays x {ltables.soa.shape[1]} slots: kernel "
+          f"{k1l_ms:.3f} ms, plain {k1l_plain_ms:.3f} ms, bound "
+          f"{k1l_bound[0]:.4f} ms ({k1l_bound[1]})")
+    del sh
+    shadow = fp.nee_tail(ltables, lt0, lidx0, est0, eout, ealive, 7, 0, lfeats)
+    phase(f"[25] NEE tail at depth 0: {int(shadow)} shadow rays of {R} lanes "
+          f"({int(ealive.sum())} alive after K2)")
+    nee_ms = time_ms(lambda: fp.nee_tail(ltables, lt0, lidx0, est0, eout,
+                                         ealive, 7, 0, lfeats), 5)
+    rr_ms = time_ms(lambda: fp.rr_tail(eout[:13], ealive, est0.lane, 7,
+                                       RR_START, RR_START), 10)
+    phase(f"[25] per full-width bounce ({R} lanes): rect sweep {rect_ms:.3f} "
+          f"ms, NEE tail {nee_ms:.3f} ms, roulette tail {rr_ms:.3f} ms "
+          f"(plain PyTorch; {smi})")
+    # device launches (kernels, copies, fills) per full-width bounce
+    n_launch = {
+        "rect sweep": device_launches(
+            lambda: rect_nearest(ltables.rects, *lst0.planes[:6])),
+        "NEE tail": device_launches(
+            lambda: fp.nee_tail(ltables, lt0, lidx0, est0, eout, ealive, 7,
+                                0, lfeats)),
+        "roulette tail": device_launches(
+            lambda: fp.rr_tail(eout[:13], ealive, est0.lane, 7, RR_START,
+                               RR_START)),
+        "bounce": device_launches(
+            lambda: fp.fast_bounce_fused(
+                ltables._replace(lights=None, light_rgb=None), lst0, 7, 0,
+                DEPTH, lfeats)),
+        "bounce with NEE and roulette": device_launches(
+            lambda: fp.fast_bounce_fused(ltables, est0, 7, RR_START, DEPTH,
+                                         lfeats, rr_start=RR_START)),
+    }
+    phase(f"[25] device launches per full-width bounce: {n_launch}")
+    del lst0, lst1, est0, est1, eout, ealive
+
+    # ---- 26: the CUDA trace of simple_light against the JAX fixtures ----
+    lref = np.load(LIGHT_FIXTURE)
+    for name, ref_, kw in (
+            ("simple_light fixture", lref, {}),
+            ("simple_light NEE fixture", np.load(NEE_FIXTURE),
+             {"nee_lights": llights, "rr_start": RR_START})):
+        depth = int(lref["max_depth"])
+        reset_counts(k1, k2, k7)
+        res = fp.trace_fast(lscene, *(torch.from_numpy(lref[k]).to(dev) for k in
+                                      ("rays.ro", "rays.rd", "rays.time")),
+                            int(lref["seed"]), depth, lfeats, min_size=128, **kw)
+        counts = read_counts(k1, k2, k7)
+        n_out, frac = rays_outside(res.radiance, ref_["radiance"])
+        count, ref_count = int(res.ray_count), int(ref_["ray_count"])
+        phase(f"[26] {name}: {len(res.radiance)} rays depth {depth}, "
+              f"{frac:.4%} of rays outside 1e-3 (budget {DEPTH10_BUDGET:.0%}), "
+              f"segments {count} vs JAX {ref_count}; launches {counts}")
+        if (frac > DEPTH10_BUDGET or counts["K1"] <= 0 or counts["K2"] <= 0
+                or counts["K3"] or counts["K4"] or counts["K5"]
+                or counts["plain"] or abs(count - ref_count) > 2 * n_out * depth):
+            raise AssertionError(f"{name}: trace outside the slice contract")
+
+    # ---- 27: simple_light through the CLI, plain and with NEE + roulette ----
+    light_runs = {}
+    for label, extra in (("plain", []), ("nee_rr", ["--nee", "--rr",
+                                                    str(RR_START)])):
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = os.path.join(tmp, "simple_light.npy")
+            argv = ["-P", "simple_light", "-W", str(WIDTH), "-H", str(HEIGHT),
+                    "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F",
+                    str(FRAMES), "--out", out_path, *extra]
+            counts, got = cli_frames(f"27 {label}", argv)
+            image = np.load(out_path)
+        if (counts["K1"] <= 0 or counts["K2"] <= 0 or counts["K3"]
+                or counts["K4"] or counts["K5"] or counts["plain"]):
+            raise AssertionError(f"simple_light {label} did not run through K1 "
+                                 f"and K2 alone: {counts}")
+        mean = float(image.mean())
+        if not (np.isfinite(image).all() and image.shape == (HEIGHT, WIDTH, 3)
+                and 0.0 < mean):
+            raise AssertionError(f"bad simple_light {label} image: {mean}")
+        light_runs[label] = (counts, got, mean)
+        for i, (ms, rays, rb) in enumerate(got):
+            phase(f"[27] simple_light {label} frame {i + 1}: {ms:.2f} ms (CUDA "
+                  f"events), {rays} segments, {rays / ms / 1e3:.2f} Mrays/s, "
+                  f"{rb} readbacks ({smi})")
+        phase(f"[27] simple_light {label}: launches {counts}, image mean "
+              f"{mean:.6f}")
+    (c27, plain_frames, plain_mean) = light_runs["plain"]
+    (c27n, nee_frames, nee_mean) = light_runs["nee_rr"]
+    segs_plain = sum(r for _, r, _ in plain_frames)
+    segs_nee = sum(r for _, r, _ in nee_frames)
+    phase(f"[27] NEE + roulette: {segs_nee} segments against {segs_plain} "
+          f"plain; image mean {nee_mean:.6f} vs plain {plain_mean:.6f} "
+          f"({nee_mean / plain_mean - 1.0:+.3%})")
+    if abs(nee_mean / plain_mean - 1.0) > 0.05:
+        raise AssertionError("the NEE image's mean is more than 5% off")
+
+    # ---- 28: the wavefront simple_light trace against K7 ray by ray ----
+    rays_, rad, count = sl_k7
+    res = fp.trace_fast(lscene, *rays_, 7, DEPTH, lfeats)
+    n_out, frac = rays_outside(rad, res.radiance.cpu().numpy())
+    fcount = int(res.ray_count)
+    phase(f"[28] K7 vs the port's trace_fast on simple_light: {R} rays, "
+          f"{1.0 - frac:.6%} within 1e-3, segments {count} vs {fcount}")
+    if frac > 0.01 or abs(count - fcount) > 0.01 * fcount:
+        raise AssertionError("K7 disagrees with trace_fast on simple_light")
+    del sl_k7, rays_, rad, res
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:50",
          "launches": launches[0], "train_launches": train_launches[0],
+         "simple_light_launches": c27["K1"],
+         "simple_light_nee_launches": c27n["K1"],
          "max_abs_err": max(err_a, err_b),
+         "simple_light_max_abs_err": max(k1l_err_a, k1l_err_b, k1l_err_c),
+         "simple_light_ms": k1l_ms, "simple_light_plain_ms": k1l_plain_ms,
+         "simple_light_bound_ms": k1l_bound[0],
+         "simple_light_bound_by": k1l_bound[1],
          "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "library_ms": None},
         {"name": "sphere_nearest_moving (K3)", "route": "cuda",
@@ -1032,7 +1247,18 @@ def main() -> int:
          "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
          "motion_launches": c17["K2"], "motion_max_abs_err": k2m_err,
          "motion_lanes_outside": k2m_out, "motion_ms": k2m_ms,
-         "motion_plain_ms": k2m_plain_ms, "library_ms": None},
+         "motion_plain_ms": k2m_plain_ms,
+         "flags": {"FLAG_RECT": k2.FLAG_RECT,
+                   "FLAG_EMIT_SCALE": k2.FLAG_EMIT_SCALE},
+         "rect_launches": c27["K2"], "rect_max_abs_err": k2r_err,
+         "rect_lanes_outside": k2r_out, "rect_ms": k2r_ms,
+         "rect_plain_ms": k2r_plain_ms, "rect_bound_ms": k2r_bound[0],
+         "rect_bound_by": k2r_bound[1],
+         "emit_scale_launches": c27n["K2"], "emit_scale_max_abs_err": k2e_err,
+         "emit_scale_lanes_outside": k2e_out, "emit_scale_ms": k2e_ms,
+         "emit_scale_plain_ms": k2e_plain_ms,
+         "emit_scale_bound_ms": k2e_bound[0],
+         "emit_scale_bound_by": k2e_bound[1], "library_ms": None},
         {"name": "sphere_nearest_bwd", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:670",

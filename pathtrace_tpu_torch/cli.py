@@ -1,6 +1,7 @@
 """Command-line interface of the port: ``python -m pathtrace_tpu_torch``.
 
-The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``)
+The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
+next-event estimation (``--nee``) and Russian roulette (``--rr DEPTH``),
 plus ``--device`` (default ``cuda``). Every other flag of the JAX package's
 CLI is refused as not ported yet. With ``-O`` (offline) the render runs
 ``-F`` accumulated frames (default 1); without ``-O`` the reference opens
@@ -29,7 +30,8 @@ from pathtrace_tpu_torch.render import film
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtrace_tpu_torch",
-        description="Path tracer, PyTorch/CUDA port (fast path, sphere scenes)",
+        description="Path tracer, PyTorch/CUDA port (fast path, sphere and "
+                    "rect scenes)",
     )
     p.add_argument("-W", "--width", type=int, default=1280, help="Image width")
     p.add_argument("-H", "--height", type=int, default=720, help="Image height")
@@ -44,6 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-O", "--offline", action="store_true",
                    help="Offline render (no live preview)")
     p.add_argument("--seed", type=int, default=0, help="Base RNG seed")
+    p.add_argument("--nee", action="store_true",
+                   help="Next-event estimation: sample lights directly with "
+                        "shadow rays, combined with BSDF sampling by MIS "
+                        "(unbiased; less noise on light-driven scenes)")
+    p.add_argument("--rr", type=int, default=0, metavar="DEPTH",
+                   help="Russian-roulette path termination from this bounce "
+                        "depth (0 = off). Unbiased")
     p.add_argument("--out", default="output.png",
                    help="Output path: .png (sRGB) or .npy (linear float)")
     p.add_argument("--device", default="cuda",
@@ -77,7 +86,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         scene, camera = presets.from_name(args.preset, params.aspect,
                                           seed=params.seed)
         features = SceneFeatures.from_scene(scene)
-        fastpath_supported(features)
+        fastpath_supported(features, scene)
     except ValueError as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
@@ -88,7 +97,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     start = time.monotonic()
     result = render_progressive(scene, camera, params,
                                 max_frames=args.frames or 1,
-                                device=args.device, features=features)
+                                device=args.device, features=features,
+                                nee=args.nee, rr_start=args.rr)
     elapsed = time.monotonic() - start
     # same report shape as the JAX CLI's offline line
     print(f"{elapsed:.2f}secs {result.total_rays}rays "

@@ -23,6 +23,8 @@ constexpr int FLAG_METAL = 8;
 constexpr int FLAG_DIELECTRIC = 16;
 constexpr int FLAG_LIGHT = 32;
 constexpr int FLAG_MOTION = 64;
+constexpr int FLAG_RECT = 128;
+constexpr int FLAG_EMIT_SCALE = 256;
 
 // material and texture kinds, as the attribute tables store them (f32)
 constexpr float MAT_LAMBERTIAN = 0.f;
@@ -31,6 +33,7 @@ constexpr float MAT_DIELECTRIC = 2.f;
 constexpr float MAT_DIFFUSE_LIGHT = 3.f;
 constexpr float TEX_CHECKER = 1.f;
 constexpr float TEX_NOISE = 2.f;
+constexpr float KIND_RECT = 1.f;  // primitive kind at column 14 of a row
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h = h ^ (h >> 16);

@@ -9,10 +9,19 @@
 // attribute copy ever reaches device memory. With FLAG_MOTION the sphere
 // normal comes from the centre lerped to the lane's time,
 // c = c0 + ((time - time0) * inv_dt) * delta (shade_pallas.py:137-141).
+// With FLAG_RECT a winner row of kind 1 (a rect, from the rect block of the
+// table) takes the normal onehot(axis) * flip, not turned to face the ray
+// (shade_pallas.py:146-152). With FLAG_EMIT_SCALE (next-event estimation)
+// the primitive emission, never the sky, is scaled by the lane's MIS
+// weight, the 13th state plane (shade_pallas.py:109-115, 250-251); the
+// kernel then also copies that plane through and writes the normal and
+// the albedo it computed, six planes the estimator's tail reads instead of
+// recomputing them (the 7-octave noise above all).
 //
 // What bounds it: bytes. Per lane it reads 15 state planes, t and idx and
 // the winner row (about 120 bytes from device memory) and writes 13
-// planes, against a few hundred flops (more with the noise texture).
+// planes, against a few hundred flops (more with the noise texture); with
+// FLAG_EMIT_SCALE one plane more in and seven more out.
 //
 // The arithmetic follows the plain PyTorch version in
 // pathtrace_tpu_torch/ops/shade_kernel.py operation for operation; built
@@ -77,9 +86,15 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   }
   const float r = a[kGeo + 8];
   const float inv_r = 1.0f / (fabsf(r) < 1e-12f ? 1.0f : r);
-  const float nx = (px - cx) * inv_r;
-  const float ny = (py - cy) * inv_r;
-  const float nz = (pz - cz) * inv_r;
+  float nx = (px - cx) * inv_r;
+  float ny = (py - cy) * inv_r;
+  float nz = (pz - cz) * inv_r;
+  if ((flags & FLAG_RECT) && a[kGeo - 1] == KIND_RECT) {
+    const float axis = a[kGeo], flip = a[kGeo + 6];
+    nx = (axis == 0.0f ? 1.0f : 0.0f) * flip;
+    ny = (axis == 1.0f ? 1.0f : 0.0f) * flip;
+    nz = (axis == 2.0f ? 1.0f : 0.0f) * flip;
+  }
 
   const float tex_kind = a[3];
   float rgb[3] = {a[4], a[5], a[6]};
@@ -100,12 +115,15 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   const bool is_light = mat_kind == MAT_DIFFUSE_LIGHT;
   const float sky_t = 0.5f * (rdy + 1.0f);
   const bool use_grad = sky4[3] > 0.5f;
+  const bool nee = flags & FLAG_EMIT_SCALE;
+  const float esc = nee ? planes[12 * pstride + i] : 1.0f;
   const float grad_k[3] = {0.15f, 0.21f, 0.30f};
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
     const float grad_c = (1.0f - sky_t) + sky_t * grad_k[c];
     const float sky_c = use_grad ? grad_c : sky4[c];
-    const float prim_c = is_light ? rgb[c] : 0.0f;
+    float prim_c = is_light ? rgb[c] : 0.0f;
+    if (nee) prim_c = prim_c * esc;
     const float emit_c = hit ? prim_c : sky_c;
     out[(6 + c) * static_cast<long long>(n) + i] =
         rad[c] + thr[c] * emit_c * alive_f;
@@ -190,6 +208,14 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   for (int c = 0; c < 3; ++c) {
     const float atten = is_diel ? 1.0f : rgb[c];
     out[(9 + c) * s + i] = can ? thr[c] * atten : thr[c];
+  }
+  if (nee) {
+    out[12 * s + i] = esc;
+    out[13 * s + i] = nx;
+    out[14 * s + i] = ny;
+    out[15 * s + i] = nz;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) out[(16 + c) * s + i] = rgb[c];
   }
   alive_out[i] = can;
 }

@@ -3,8 +3,7 @@
 cover scene, whose small diffuse spheres move over the shutter),
 ``random_spheres`` (the same scene with static spheres), its 64x64-grid
 variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
-default) and ``simple_light`` (an emissive sphere and rect; the megakernel
-renders it, the fast path does not take rects yet). Each builds its
+default) and ``simple_light`` (an emissive sphere and rect over marble). Each builds its
 scene with the same numpy generator calls as the JAX preset, so both
 packages produce identical leaves."""
 

@@ -2,7 +2,7 @@
 host-driven stream compaction.
 
 Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour, sphere
-scenes, static or moving). One bounce is two kernels:
+and rect scenes, static or moving spheres). One bounce is two kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
   closest hit over every sphere, giving (t, idx) per ray; scenes of at
@@ -13,10 +13,22 @@ scenes, static or moving). One bounce is two kernels:
   with moving spheres take
   :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest_moving`
   (K3, centres lerped to each ray's time), never culled;
+  the rects of the scene are swept beside it in plain PyTorch
+  (:mod:`~pathtrace_tpu_torch.ops.intersect_rect`) and a rect wins only
+  when strictly nearer;
 * :func:`~pathtrace_tpu_torch.ops.shade_kernel.shade_from_winners` — reads
-  each lane's winner row of the attribute table itself and runs texture,
-  emission, sky and scatter in one pass (the sphere normal from the
-  time-lerped centre when the scene moves).
+  each lane's winner row of the attribute table (spheres, then the rect
+  block) itself and runs texture, emission, sky and scatter in one pass
+  (the sphere normal from the time-lerped centre when the scene moves; a
+  rect's axis normal).
+
+With next-event estimation (``nee_lights``) a plain-PyTorch tail follows
+K2 each bounce: one light sample per Lambertian lane, a shadow ray through
+the closest hit (K1 or K3, and the rects), the power-heuristic split of
+the light and BSDF strategies, and the MIS weight of the next vertex's
+emission, which K2 applies there (the 13th state plane). With Russian
+roulette (``rr_start``) a tail from that depth on ends lanes of low
+throughput and boosts the survivors.
 
 Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
@@ -33,8 +45,9 @@ XLA.
 Attribute row layout (24 columns, as in the JAX package):
   cols 0-13   shading: mat_kind, fuzz, ref_idx, tex_kind, col_rgb,
               odd_rgb, even_rgb, noise_scale
-  col  14     kind (0: sphere)
-  cols 15-23  cx cy cz dx dy dz time0 inv_dt radius
+  col  14     kind (0: sphere, 1: rect)
+  cols 15-23  sphere: cx cy cz dx dy dz time0 inv_dt radius
+              rect: axis a0 a1 b0 b1 k flip, then zeros
 
 The bounce RNG is the stateless counter hash of the JAX package, keyed on
 (lane, seed, depth, draw) and reproduced bit for bit. torch on the CPU has
@@ -53,7 +66,7 @@ import numpy as np
 import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
-from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
+from pathtrace_tpu_torch.models.types import Rects, Scene, SceneFeatures
 from pathtrace_tpu_torch.models.types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
@@ -73,14 +86,30 @@ from pathtrace_tpu_torch.ops.intersect_kernel import (
     sphere_nearest_culled,
     sphere_nearest_moving,
 )
+from pathtrace_tpu_torch.ops.intersect_rect import (
+    RECT_ROWS,
+    merge_rects,
+    rect_nearest,
+)
+from pathtrace_tpu_torch.ops.lights import (
+    LightTable,
+    light_dir_pdf_planes,
+    sample_light_dirs_planes,
+)
 from pathtrace_tpu_torch.ops.shade_kernel import (
+    ALBEDO,
+    ESC,
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
+    FLAG_EMIT_SCALE,
     FLAG_LAMBERTIAN,
     FLAG_LIGHT,
     FLAG_METAL,
     FLAG_MOTION,
     FLAG_NOISE,
+    FLAG_RECT,
+    KIND_RECT,
+    NORMAL,
     TWO_PI,
     shade_from_winners,
 )
@@ -88,6 +117,7 @@ from pathtrace_tpu_torch.render import compact_util
 
 GEO = 15       # first geometry column of an attribute row
 K_ATTR = 24
+_INV_PI = 1.0 / 3.14159265358979
 
 _M32 = 0xFFFFFFFF
 _INF = float(MAX_T)
@@ -202,13 +232,16 @@ def attr_width(features: SceneFeatures) -> int:
     return K_ATTR
 
 
-def fastpath_supported(features: SceneFeatures) -> bool:
+def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
     """True for the scene classes this port renders: static or moving
-    spheres with Lambertian, metal, dielectric or emissive materials and constant,
-    checker (constant children) or noise textures. Raises ``ValueError``
-    naming what is missing for anything else."""
+    spheres and world-space rects (at most ``RECT_ROWS``) with Lambertian,
+    metal, dielectric or emissive materials and constant, checker
+    (constant children) or noise textures. Raises ``ValueError`` naming
+    what is missing for anything else."""
+    if scene.rects.count > RECT_ROWS:
+        raise ValueError(f"scene has {scene.rects.count} rects; the fast "
+                         f"path takes at most {RECT_ROWS}")
     missing = [name for name, on in (
-        ("rects", features.has_rects),
         ("boxes", features.has_boxes),
         ("media", features.has_media),
         ("image textures", features.has_image),
@@ -232,7 +265,8 @@ def feature_flags(features: SceneFeatures) -> int:
                     (features.has_metal, FLAG_METAL),
                     (features.has_dielectric, FLAG_DIELECTRIC),
                     (features.has_light, FLAG_LIGHT),
-                    (features.has_motion, FLAG_MOTION)):
+                    (features.has_motion, FLAG_MOTION),
+                    (features.has_rects, FLAG_RECT)):
         if on:
             flags |= bit
     return flags
@@ -289,6 +323,24 @@ def build_sphere_table(scene: Scene, k_attr: int) -> torch.Tensor:
     return _finish_table(cols, sp.mask, GEO, n_pad, k_attr)
 
 
+def build_rect_table(scene: Scene, k_attr: int) -> torch.Tensor:
+    """[128, k_attr] rect rows: the shading columns, kind 1, then axis, a0,
+    a1, b0, b1, k, flip. Dead and padding rows get k = 1e18 and the empty
+    interval a0 = 1 > a1 = -1, so they never win."""
+    rc = scene.rects
+    cols = _shade_cols(scene, rc.mat_id) + [
+        torch.ones_like(rc.k),                           # kind = 1 (rect)
+        rc.axis.to(torch.float32), rc.a0, rc.a1, rc.b0, rc.b1, rc.k, rc.flip,
+    ]
+    table = _finish_table(cols, rc.mask, GEO + 5, RECT_ROWS, k_attr)
+    dead = torch.cat([~rc.mask, rc.mask.new_ones(RECT_ROWS - rc.count)])
+    k = torch.arange(table.shape[1], device=table.device)
+    interval = (k == GEO + 1) | (k == GEO + 2)
+    return torch.where(dead[:, None] & interval,
+                       torch.where(k == GEO + 1, 1.0, -1.0).to(table.dtype),
+                       table)
+
+
 def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
                      motion: bool = False) -> torch.Tensor:
     """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask, with
@@ -323,10 +375,23 @@ def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
 
 
 class FastTables(NamedTuple):
-    table: torch.Tensor   # [Npad, 24] winner rows
+    table: torch.Tensor   # [Npad (+ 128 rect rows), 24] winner rows
     soa: torch.Tensor     # [5, Nslots] closest-hit operand ([12, Npad]: K3)
     sky4: torch.Tensor    # [4] sky rgb + use_gradient_sky
     cull: Optional[CullBoxes] = None  # the culls' boxes (None: K1)
+    rects: Optional[Rects] = None     # the rect sweep's rects (rect scenes)
+    lights: Optional[LightTable] = None  # NEE's light table (host)
+    light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
+
+
+def winner_table(scene: Scene, features: SceneFeatures) -> torch.Tensor:
+    """The rows K2 and the differentiable bounce read winners from: the
+    sphere rows, then in rect scenes the ``RECT_ROWS`` rect block, whose
+    row ``n_rows - RECT_ROWS + i`` is rect i (:func:`merge_rects`)."""
+    table = build_sphere_table(scene, attr_width(features))
+    if features.has_rects:
+        table = torch.cat([table, build_rect_table(scene, table.shape[1])])
+    return table
 
 
 def sphere_tiles(scene: Scene) -> int:
@@ -343,10 +408,13 @@ def cull_scene(scene: Scene, features: SceneFeatures) -> bool:
 
 
 def prep_tables(scene: Scene, features: SceneFeatures,
-                cull: bool = False) -> FastTables:
+                cull: bool = False,
+                lights: Optional[LightTable] = None) -> FastTables:
     """Per-trace tables, on the scene's device. ``cull``: build the boxes
     of the cull :func:`cull_mode` picks, and pad the closest-hit operand
-    to its tiles (and supertiles)."""
+    to its tiles (and supertiles). Rect scenes get the rect block after
+    the sphere rows. ``lights``: the light table of next-event estimation,
+    whose lights must all have constant textures."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     boxes, n_slots = None, None
@@ -356,11 +424,21 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         n_slots = cull_slots(sp.count, hier, s_tiles)
         boxes = cull_boxes(sp.center, sp.radius, sp.mask, n_slots, hier,
                            s_tiles)
+    table = winner_table(scene, features)
+    light_rgb = None
+    if lights is not None:
+        if lights.color is None:
+            raise ValueError("lights whose texture is not a constant: not "
+                             "ported yet")
+        light_rgb = torch.from_numpy(lights.color.T.copy()).to(sky4.device)
     return FastTables(
-        table=build_sphere_table(scene, attr_width(features)).contiguous(),
+        table=table.contiguous(),
         soa=build_sphere_soa(scene, n_slots, motion=features.has_motion),
         sky4=sky4.contiguous(),
         cull=boxes,
+        rects=scene.rects if features.has_rects else None,
+        lights=lights,
+        light_rgb=light_rgb,
     )
 
 
@@ -377,11 +455,13 @@ class FastStateP:
     """Plane-form wavefront state.
 
     ``planes`` packs the twelve float planes the shade kernel rewrites
-    (ro xyz, rd xyz, radiance rgb, throughput rgb) as one [12, R] tensor,
-    so a compaction moves them with one gather and the closest-hit kernel
-    reads ``planes[:6]`` in place."""
+    (ro xyz, rd xyz, radiance rgb, throughput rgb), and with next-event
+    estimation a 13th, the MIS weight of the lane's next emission hit
+    (row ``ESC``), as one [12 or 13, R] tensor, so a compaction moves them
+    with one gather and the closest-hit kernel reads ``planes[:6]`` in
+    place."""
 
-    planes: torch.Tensor  # [12, R] f32
+    planes: torch.Tensor  # [12, R] f32 ([13, R] with NEE)
     time: torch.Tensor    # [R] f32
     alive: torch.Tensor   # [R] bool
     lane: torch.Tensor    # [R] int32, uint32 bit pattern of the RNG stream id
@@ -391,15 +471,19 @@ class FastStateP:
         return self.alive.shape[0]
 
 
-def make_state(ro: torch.Tensor, rd: torch.Tensor,
-               time: torch.Tensor) -> FastStateP:
+def make_state(ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
+               nee: bool = False) -> FastStateP:
+    """The state of a new wavefront; ``nee`` adds the MIS plane, at 1."""
     R = ro.shape[0]
     dev = ro.device
-    planes = torch.empty((12, R), dtype=torch.float32, device=dev)
+    planes = torch.empty((13 if nee else 12, R), dtype=torch.float32,
+                         device=dev)
     planes[RO] = ro.T
     planes[RD] = rd.T
     planes[RAD] = 0.0
     planes[THR] = 1.0
+    if nee:
+        planes[ESC] = 1.0
     return FastStateP(
         planes=planes,
         time=time.to(torch.float32).contiguous(),
@@ -408,11 +492,113 @@ def make_state(ro: torch.Tensor, rd: torch.Tensor,
     )
 
 
-def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
-                      depth: int, max_depth: int,
-                      features: SceneFeatures) -> FastStateP:
-    """One bounce: closest hit (K3 for moving spheres, culled when the
-    tables carry boxes), then the fused shade/scatter pass."""
+def nearest_t_only(tables: FastTables, rays: torch.Tensor,
+                   time: torch.Tensor,
+                   features: SceneFeatures) -> torch.Tensor:
+    """Closest-hit distance only, over the spheres (K1 brute force, or K3
+    for moving spheres) and the rects, of ``rays`` [6, R]: the shadow
+    rays' occlusion test (the reference's ``nearest_t_only``,
+    ``fastpath.py:356``)."""
+    if features.has_motion:
+        t, _ = sphere_nearest_moving(tables.soa, rays, time, MIN_T, MAX_T)
+    else:
+        t, _ = sphere_nearest(tables.soa, rays, MIN_T, MAX_T)
+    if tables.rects is not None:
+        t = torch.minimum(t, rect_nearest(tables.rects, *rays)[0])
+    return t
+
+
+class ShadowRays(NamedTuple):
+    rays: torch.Tensor    # [6, R] hit point xyz (0 off NEE), light dir xyz
+    dist: torch.Tensor    # [R] distance to the sampled light point
+    pdf: torch.Tensor     # [R] the sample's solid-angle density
+    light: torch.Tensor   # [R] int32 index of the sampled light
+    mask: torch.Tensor    # [R] bool: the lanes that take NEE
+    is_lam: torch.Tensor  # [R] bool: Lambertian winners
+
+
+def shadow_rays(tables: FastTables, idx: torch.Tensor, planes: torch.Tensor,
+                alive: torch.Tensor, lane: torch.Tensor, seed: int,
+                depth: int) -> ShadowRays:
+    """NEE's light samples after the shade kernel: each live Lambertian
+    lane samples one light (draws 4-6) from its hit point, which K2 left
+    in the ro rows of ``planes``. Lanes off NEE start at the origin and
+    are swept all the same, as in the reference."""
+    is_lam = (tables.table[:, 0].index_select(0, idx.long())
+              == float(MAT_LAMBERTIAN))
+    mask = alive & is_lam
+    lu0, lu1, lu2 = (counter_uniform(lane, seed, depth, k) for k in (4, 5, 6))
+    zero = torch.zeros_like(planes[0])
+    spx, spy, spz = (torch.where(mask, planes[k], zero) for k in range(3))
+    wix, wiy, wiz, ldist, lpdf, lidx, lvalid = sample_light_dirs_planes(
+        tables.lights, spx, spy, spz, lu0, lu1, lu2)
+    return ShadowRays(torch.stack([spx, spy, spz, wix, wiy, wiz]), ldist,
+                      lpdf, lidx, mask & lvalid, is_lam)
+
+
+def nee_tail(tables: FastTables, t: torch.Tensor, idx: torch.Tensor,
+             state_in: FastStateP, planes: torch.Tensor, alive: torch.Tensor,
+             seed: int, depth: int, features: SceneFeatures) -> torch.Tensor:
+    """Next-event estimation with MIS after the shade kernel (the
+    reference's ``_fused_nee_tail``, ``fastpath.py:1294``). ``planes`` is
+    K2's [19, R] output under ``FLAG_EMIT_SCALE`` and ``alive`` its new
+    alive mask; K2 has scaled this bounce's emission by the lane's MIS
+    weight. The lanes of :func:`shadow_rays` trace their shadow ray; an
+    unoccluded sample adds its light-strategy share to the radiance
+    planes, and row ``ESC`` gets the BSDF strategy's share for the
+    direction K2 scattered into. In place; returns the shadow rays traced
+    (a device int64)."""
+    lights = tables.lights
+    sh = shadow_rays(tables, idx, planes, alive, state_in.lane, seed, depth)
+    spx, spy, spz, wix, wiy, wiz = sh.rays
+    ldist, lpdf, nee_mask, is_lam = sh.dist, sh.pdf, sh.mask, sh.is_lam
+    zero = torch.zeros_like(t)
+    s_t = nearest_t_only(tables, sh.rays, state_in.time, features)
+    unoccluded = ~((s_t < _INF) & (s_t < ldist * (1.0 - 1e-3)))
+    le = tables.light_rgb.index_select(1, sh.light.long())
+    snx, sny, snz = (torch.where(nee_mask, n, zero) for n in planes[NORMAL])
+    cos_s = torch.clamp(wix * snx + wiy * sny + wiz * snz, min=0.0)
+    pdf_f = torch.where(is_lam, cos_s * _INV_PI, 0.25 * _INV_PI)
+    w_light = lpdf * lpdf / torch.clamp(lpdf * lpdf + pdf_f * pdf_f, min=1e-20)
+    scale = torch.where(nee_mask & unoccluded,
+                        pdf_f * w_light / torch.clamp(lpdf, min=1e-12), 0.0)
+    albedo = planes[ALBEDO]
+    for c in range(3):
+        planes[6 + c] = (planes[6 + c]
+                         + state_in.planes[9 + c] * albedo[c] * le[c] * scale)
+    # the BSDF side of the split: K2's scattered direction is in the rd rows
+    rdx, rdy, rdz = planes[3], planes[4], planes[5]
+    cos_b = torch.clamp(rdx * snx + rdy * sny + rdz * snz, min=0.0)
+    p_b = torch.where(is_lam, cos_b * _INV_PI, 0.25 * _INV_PI)
+    p_l = light_dir_pdf_planes(lights, spx, spy, spz, rdx, rdy, rdz)
+    w_bsdf = p_b * p_b / torch.clamp(p_b * p_b + p_l * p_l, min=1e-20)
+    planes[ESC] = torch.where(nee_mask & (p_l > 0.0), w_bsdf, 1.0)
+    return nee_mask.sum()
+
+
+def rr_tail(planes: torch.Tensor, alive: torch.Tensor, lane: torch.Tensor,
+            seed: int, depth: int, rr_start: int) -> torch.Tensor:
+    """Russian roulette after the shade kernel (the reference's
+    ``_fused_rr_tail``, ``fastpath.py:1399``): from depth ``rr_start`` on
+    a live lane survives with p = clip(max throughput, 0.05, 1) (draw 7)
+    and its throughput is divided by p. Scales ``planes``' throughput rows
+    in place; returns the new alive mask."""
+    if depth < rr_start:
+        return alive
+    thr = planes[THR]
+    p_rr = torch.clamp(torch.maximum(torch.maximum(thr[0], thr[1]), thr[2]),
+                       0.05, 1.0)
+    survive = ~alive | (counter_uniform(lane, seed, depth, 7) < p_rr)
+    planes[THR] = thr * torch.where(alive & survive, 1.0 / p_rr, 1.0)
+    return alive & survive
+
+
+def closest_hit(tables: FastTables, state: FastStateP, depth: int,
+                features: SceneFeatures):
+    """The winners (t [R], idx [R] int32, a row of ``tables.table``) of a
+    state's rays: K3 for moving spheres, the cull when the tables carry
+    boxes, else K1; then the rect sweep, whose winner takes the row of the
+    rect block when strictly nearer (the sphere keeps ties)."""
     if features.has_motion:
         t, idx = sphere_nearest_moving(tables.soa, state.planes[:6],
                                        state.time, MIN_T, MAX_T)
@@ -421,23 +607,47 @@ def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
                                           tables.cull, MIN_T, MAX_T)
     else:
         t, idx = sphere_nearest(tables.soa, state.planes[:6], MIN_T, MAX_T)
+    if tables.rects is not None:
+        t, idx = merge_rects(tables.rects, state.planes[:6], t, idx,
+                             tables.table.shape[0])
+    return t, idx
+
+
+def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
+                      depth: int, max_depth: int, features: SceneFeatures,
+                      rr_start: int = 0):
+    """One bounce: :func:`closest_hit`, then the fused shade/scatter pass,
+    then the NEE tail when the tables carry lights and the roulette tail
+    when ``rr_start`` > 0. Returns (state, shadow rays traced: a device
+    int64, or 0 without NEE)."""
+    t, idx = closest_hit(tables, state, depth, features)
+    nee = tables.lights is not None
+    flags = feature_flags(features) | (FLAG_EMIT_SCALE if nee else 0)
     planes, alive = shade_from_winners(
         tables.table, idx, t, state.planes, state.time, state.alive,
-        state.lane, seed, depth, max_depth, tables.sky4,
-        feature_flags(features),
+        state.lane, seed, depth, max_depth, tables.sky4, flags,
     )
+    shadow = 0
+    if nee:
+        shadow = nee_tail(tables, t, idx, state, planes, alive, seed, depth,
+                          features)
+        planes = planes[:ESC + 1]
+    if rr_start > 0:
+        alive = rr_tail(planes, alive, state.lane, seed, depth, rr_start)
     return FastStateP(planes=planes, time=state.time, alive=alive,
-                      lane=state.lane)
+                      lane=state.lane), shadow
 
 
 def _bounce_group_fused(tables, state, seed, depth0, max_depth, features,
-                        group, segs):
+                        group, segs, rr_start=0):
     """``group`` bounces; ``segs`` (device int64) gains sum(alive) before
-    each bounce: every live lane traces one segment."""
+    each bounce (every live lane traces one segment) and the shadow rays
+    of the NEE tail."""
     for g in range(group):
         segs = segs + state.alive.sum()
-        state = fast_bounce_fused(tables, state, seed, depth0 + g,
-                                  max_depth, features)
+        state, shadow = fast_bounce_fused(tables, state, seed, depth0 + g,
+                                          max_depth, features, rr_start)
+        segs = segs + shadow
     return state, segs
 
 
@@ -552,20 +762,26 @@ def _host_ladder(step, state: FastStateP, max_depth: int, min_size: int,
 def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                time: torch.Tensor, seed: int, max_depth: int,
                features: SceneFeatures, min_size: int = 1 << 15,
-               compaction: bool = True) -> TraceResult:
+               compaction: bool = True,
+               nee_lights: Optional[LightTable] = None,
+               rr_start: int = 0) -> TraceResult:
     """Trace a wavefront of rays (ro, rd: [R, 3] unit directions; time
     [R]) on the scene's device. ``seed`` keys the bounce RNG (its int32
     bit pattern); lane id ``i`` keys ray i's stream, so compaction never
-    changes a ray's result."""
-    fastpath_supported(features)
-    tables = prep_tables(scene, features, cull=cull_scene(scene, features))
+    changes a ray's result. ``nee_lights`` (the scene's
+    :func:`~pathtrace_tpu_torch.ops.lights.build_light_table`) turns on
+    next-event estimation with MIS, whose shadow rays the segment count
+    includes; ``rr_start`` > 0 Russian roulette from that depth."""
+    fastpath_supported(features, scene)
+    tables = prep_tables(scene, features, cull=cull_scene(scene, features),
+                         lights=nee_lights)
     seed = int(seed)
 
     def step(state, depth, g, segs):
         return _bounce_group_fused(tables, state, seed, depth, max_depth,
-                                   features, g, segs)
+                                   features, g, segs, rr_start)
 
-    state = make_state(ro, rd, time)
+    state = make_state(ro, rd, time, nee=nee_lights is not None)
     out_radiance, segs, readbacks = _host_ladder(
         step, state, max_depth, max(min_size, 128), compaction)
     return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
@@ -634,8 +850,9 @@ def unpermute_image(radiance: torch.Tensor, inv: torch.Tensor, height: int,
 
 def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 t: torch.Tensor, width: int, height: int, samples: int,
-                max_depth: int, seed: int,
-                features: SceneFeatures) -> FrameResult:
+                max_depth: int, seed: int, features: SceneFeatures,
+                nee_lights: Optional[LightTable] = None,
+                rr_start: int = 0) -> FrameResult:
     """A frame's rays (ro, rd [H*W*S, 3], t [H*W*S], in [H, W, S] order)
     to its image: permuted into tile order when :func:`tile_layout` says
     so, traced, un-permuted and averaged over the samples. Lane ids key
@@ -645,7 +862,8 @@ def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     if tiled:
         order, inv = _tile_perm(height, width, ro.device)
         ro, rd, t = permute_rays(ro, rd, t, order, samples)
-    res = trace_fast(scene, ro, rd, t, seed, max_depth, features)
+    res = trace_fast(scene, ro, rd, t, seed, max_depth, features,
+                     nee_lights=nee_lights, rr_start=rr_start)
     if tiled:
         img = unpermute_image(res.radiance, inv, height, width, samples)
     else:
@@ -656,10 +874,13 @@ def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
 def render_frame_fast(scene: Scene, camera, width: int, height: int,
                       samples: int, max_depth: int,
                       generator: torch.Generator, seed: int,
-                      features: SceneFeatures) -> FrameResult:
+                      features: SceneFeatures,
+                      nee_lights: Optional[LightTable] = None,
+                      rr_start: int = 0) -> FrameResult:
     """Whole-frame render through the fast path. ``generator`` (on the
     scene's device) draws the primary-ray jitter; ``seed`` must be
-    frame-unique and keys the bounce RNG."""
+    frame-unique and keys the bounce RNG. ``nee_lights``, ``rr_start``:
+    as :func:`trace_fast`'s."""
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
 
     ro, rd, t = generate_primary_rays(camera, width, height, samples,
@@ -667,7 +888,7 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
     R = height * width * samples
     return trace_frame(scene, ro.reshape(R, 3), rd.reshape(R, 3),
                        t.reshape(R), width, height, samples, max_depth, seed,
-                       features)
+                       features, nee_lights, rr_start)
 
 
 # ---------------------------------------------------------------------------
@@ -690,14 +911,19 @@ class FastState(NamedTuple):
 def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                       ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
                       features: SceneFeatures):
-    """Closest hit over the spheres, differentiable in t, and the winner's
-    attribute row by one row gather: (t [R], attrs [R, K]). Twin of the
-    reference's ``nearest_hit_attrs`` (``fastpath.py:242``) for sphere
-    scenes; moving spheres pass their motion leaves and the rays' time."""
+    """Closest hit over the spheres and the rects, differentiable in t,
+    and the winner's attribute row by one row gather from ``table``
+    (spheres, then the rect block in rect scenes): (t [R], attrs [R, K]).
+    Twin of the reference's ``nearest_hit_attrs`` (``fastpath.py:242``)
+    for sphere and rect scenes; moving spheres pass their motion leaves
+    and the rays' time. A rect wins only when strictly nearer."""
     sp = scene.spheres
     motion = ((sp.center_delta, sp.time0, sp.inv_time_delta, time)
               if features.has_motion else ())
     t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd, *motion)
+    if features.has_rects:
+        t, idx = merge_rects(scene.rects, (*ro.unbind(1), *rd.unbind(1)), t,
+                             idx, table.shape[0])
     return t, table.index_select(0, idx.long())
 
 
@@ -706,8 +932,8 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                 features: SceneFeatures) -> FastState:
     """One differentiable bounce: the twin of the reference's
     ``fast_bounce`` (``fastpath.py:549-895``) on the branches this port's
-    scenes reach (sphere normal, constant/checker/noise albedo, emission
-    and sky, Lambertian/metal/dielectric scatter). The masked square roots
+    scenes reach (sphere and rect normals, constant/checker/noise albedo,
+    emission and sky, Lambertian/metal/dielectric scatter). The masked square roots
     keep the reference's double-where guards, so masked lanes leak no NaN
     into the gradients."""
     f = features
@@ -724,6 +950,11 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     r = attrs[:, GEO + 8]
     inv_r = 1.0 / torch.where(torch.abs(r) < 1e-12, 1.0, r)
     normal = (point - center) * inv_r[:, None]
+    if f.has_rects:
+        one_hot = (torch.arange(3, dtype=point.dtype, device=point.device)
+                   == attrs[:, GEO, None]).to(point.dtype)
+        normal = torch.where((attrs[:, GEO - 1] == KIND_RECT)[:, None],
+                             one_hot * attrs[:, GEO + 6, None], normal)
 
     tex_kind = attrs[:, 3]
     rgb = attrs[:, 4:7]
@@ -842,8 +1073,8 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     ``fastpath.py:1568``). Gradients flow to the scene's leaves through
     the attribute table and the closest hit's backward. Returns
     (radiance [R, 3], segments [] int64 on the device)."""
-    fastpath_supported(features)
-    table = build_sphere_table(scene, attr_width(features))
+    fastpath_supported(features, scene)
+    table = winner_table(scene, features)
     soa = build_sphere_soa(scene, motion=features.has_motion)
     R = ro.shape[0]
     dev = ro.device

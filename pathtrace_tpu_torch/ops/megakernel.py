@@ -68,8 +68,19 @@ _INF = float(MAX_T)
 
 
 def megakernel_supported(features: SceneFeatures) -> bool:
-    """The megakernel's scenes: no boxes, media or image textures."""
-    return not (features.has_boxes or features.has_media or features.has_image)
+    """The megakernel's scenes: no boxes, media or image textures, and
+    checker textures only with constant children (the tables hold a
+    checker's two child colours, which a noise or checker child lacks)."""
+    return not (features.has_boxes or features.has_media or features.has_image
+                or (features.has_checker
+                    and not features.checker_children_const))
+
+
+def _refuse_unsupported(features: SceneFeatures) -> None:
+    if not megakernel_supported(features):
+        raise ValueError("the megakernel takes no boxes, media, image "
+                         "textures or checker textures with non-constant "
+                         "children")
 
 
 def build_sphere_table(scene: Scene) -> torch.Tensor:
@@ -300,6 +311,7 @@ def trace_megakernel_plain(tables: MegaTables, ro: torch.Tensor,
     ``work``, if given, receives the segments that hit something and were
     shaded (``"shaded"``) and those whose winner has the noise texture
     (``"noise"``), int64 on the device: what K7's operation bound counts."""
+    _refuse_unsupported(features)
     R = ro.shape[0]
     dev = ro.device
     o, d = ro.clone(), rd.clone()
@@ -362,9 +374,7 @@ def trace_megakernel(tables: MegaTables, ro: torch.Tensor, rd: torch.Tensor,
     CPU tensors run the plain version; CUDA tensors launch K7 on the
     current stream, with no host sync (raising if it cannot launch)."""
     global LAUNCHES, PLAIN_CALLS
-    if not megakernel_supported(features):
-        raise ValueError("the megakernel takes no boxes, media or image "
-                         "textures")
+    _refuse_unsupported(features)
     ro, rd = ro.contiguous(), rd.contiguous()
     time = time.to(torch.float32).contiguous()
     _check(tables, ro, rd, time)

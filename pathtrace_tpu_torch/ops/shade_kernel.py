@@ -6,18 +6,23 @@ Replaces the TPU kernel ``pathtrace_tpu/ops/shade_pallas.py``
 ``pathtrace_tpu/ops/fastpath.py`` ``_fused_shade_from_winners`` ran before
 it: the kernel reads each lane's winner row of the attribute table
 itself, so no [R, 24] gather is materialized. Per lane: the hit point and
-sphere normal (from the centre lerped to the lane's time when the scene
-moves, ``FLAG_MOTION``), the albedo (constant, checker, or hash-turbulence marble),
-emission or the gradient/constant sky into the radiance, counter-hash
-draws 0-3, the Lambertian / metal / dielectric scatter, the normalized
-new direction and throughput, and
-``alive = alive & hit & ok & depth < max_depth``.
+normal (a sphere's, from the centre lerped to the lane's time when the
+scene moves, ``FLAG_MOTION``; a rect's, onehot(axis) * flip, for winner
+rows of kind 1 under ``FLAG_RECT``), the albedo (constant, checker, or
+hash-turbulence marble), emission or the gradient/constant sky into the
+radiance (the emission scaled by the lane's MIS weight, the 13th state
+plane, under ``FLAG_EMIT_SCALE``), counter-hash draws 0-3, the Lambertian
+/ metal / dielectric scatter, the normalized new direction and
+throughput, and ``alive = alive & hit & ok & depth < max_depth``. Under
+``FLAG_EMIT_SCALE`` the output also carries the MIS plane (copied
+through), the normal and the albedo: the next-event estimator's tail
+reads them there.
 
 On the card it is bound by bytes: about 120 per lane (15 state planes in,
 13 out, t and idx, and the 96-byte winner row from L2), against a few
-hundred flops (more with noise textures). One thread per lane; the
-feature flags are uniform across a launch, so their branches do not
-diverge.
+hundred flops (more with noise textures); under ``FLAG_EMIT_SCALE`` 4
+bytes more in and 28 more out. One thread per lane; the feature flags
+are uniform across a launch, so their branches do not diverge.
 
 Transcendentals (sin, cos, exp, log, rsqrt) may differ by a few ULPs
 between CUDA, PyTorch and XLA; such differences, and the discrete
@@ -50,33 +55,24 @@ FLAG_METAL = 8
 FLAG_DIELECTRIC = 16
 FLAG_LIGHT = 32
 FLAG_MOTION = 64
+FLAG_RECT = 128
+FLAG_EMIT_SCALE = 256
 
 TWO_PI = 6.283185307179586
 _INF = float(MAX_T)
 _GEO = 15
+KIND_RECT = 1.0  # primitive kind at column _GEO - 1 of a winner row
 _SKY_GRADIENT = (0.15, 0.21, 0.30)
+# rows of the output beside the 12 state planes under FLAG_EMIT_SCALE
+ESC, NORMAL, ALBEDO = 12, slice(13, 16), slice(16, 19)
 
 
-def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
-                             depth, max_depth, sky4, flags):
-    """Plain PyTorch version; same arguments and results as
-    :func:`shade_from_winners`."""
-    from pathtrace_tpu_torch.ops.fastpath import (
-        cbrt_pos, counter_uniform, fast_turb_c,
-    )
-
-    a = table.index_select(0, idx.long())            # [R, K] winner rows
-    col = [a[:, k] for k in range(a.shape[1])]
-    rox, roy, roz, rdx, rdy, rdz = (planes[k] for k in range(6))
-    rads = [planes[6 + c] for c in range(3)]
-    thrs = [planes[9 + c] for c in range(3)]
-    alive_f = alive.to(torch.float32)
-
-    hit = t < _INF
-    t_safe = torch.where(hit, t, 0.0)
-    px = rox + t_safe * rdx
-    py = roy + t_safe * rdy
-    pz = roz + t_safe * rdz
+def normal_planes(col, px, py, pz, time, flags):
+    """The winner's surface normal as three [R] planes from its row's
+    columns ``col`` and the hit point: the sphere normal (the centre lerped
+    to ``time`` under ``FLAG_MOTION``) or, for a rect under ``FLAG_RECT``,
+    onehot(axis) * flip. The twin of the JAX package's ``_normal_planes``
+    (``fastpath.py:1189``) on the branches this port has."""
     cx, cy, cz, r = col[_GEO], col[_GEO + 1], col[_GEO + 2], col[_GEO + 8]
     if flags & FLAG_MOTION:
         s = (time - col[_GEO + 6]) * col[_GEO + 7]
@@ -87,6 +83,21 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
     nx = (px - cx) * inv_r
     ny = (py - cy) * inv_r
     nz = (pz - cz) * inv_r
+    if flags & FLAG_RECT:
+        axis, flip = col[_GEO], col[_GEO + 6]
+        is_rect = col[_GEO - 1] == KIND_RECT
+        nx = torch.where(is_rect, (axis == 0.0).to(px.dtype) * flip, nx)
+        ny = torch.where(is_rect, (axis == 1.0).to(px.dtype) * flip, ny)
+        nz = torch.where(is_rect, (axis == 2.0).to(px.dtype) * flip, nz)
+    return nx, ny, nz
+
+
+def albedo_planes(col, px, py, pz, flags):
+    """The winner's albedo as three [R] planes: its constant colour, the
+    checker's odd or even colour, or the marble of the hash turbulence.
+    The twin of the JAX package's ``_albedo_planes``
+    (``fastpath.py:1263``)."""
+    from pathtrace_tpu_torch.ops.fastpath import fast_turb_c
 
     tex_kind = col[3]
     rgb = [col[4], col[5], col[6]]
@@ -102,16 +113,42 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
                                         + 10.0 * fast_turb_c(px, py, pz)))
         is_noise = tex_kind == float(TEX_NOISE)
         rgb = [torch.where(is_noise, marble, rgb[c]) for c in range(3)]
+    return rgb
+
+
+def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
+                             depth, max_depth, sky4, flags):
+    """Plain PyTorch version; same arguments and results as
+    :func:`shade_from_winners`."""
+    from pathtrace_tpu_torch.ops.fastpath import cbrt_pos, counter_uniform
+
+    a = table.index_select(0, idx.long())            # [R, K] winner rows
+    col = [a[:, k] for k in range(a.shape[1])]
+    rox, roy, roz, rdx, rdy, rdz = (planes[k] for k in range(6))
+    rads = [planes[6 + c] for c in range(3)]
+    thrs = [planes[9 + c] for c in range(3)]
+    alive_f = alive.to(torch.float32)
+
+    hit = t < _INF
+    t_safe = torch.where(hit, t, 0.0)
+    px = rox + t_safe * rdx
+    py = roy + t_safe * rdy
+    pz = roz + t_safe * rdz
+    nx, ny, nz = normal_planes(col, px, py, pz, time, flags)
+    rgb = albedo_planes(col, px, py, pz, flags)
 
     mat_kind = col[0]
     sky_t = 0.5 * (rdy + 1.0)
     use_grad = sky4[3] > 0.5
     is_light = mat_kind == float(MAT_DIFFUSE_LIGHT)
+    nee = bool(flags & FLAG_EMIT_SCALE)
     rad_out = []
     for c in range(3):
         grad_c = (1.0 - sky_t) + sky_t * _SKY_GRADIENT[c]
         sky_c = torch.where(use_grad, grad_c, sky4[c])
         prim_c = torch.where(is_light, rgb[c], 0.0)
+        if nee:
+            prim_c = prim_c * planes[ESC]
         emit_c = torch.where(hit, prim_c, sky_c)
         rad_out.append(rads[c] + thrs[c] * emit_c * alive_f)
 
@@ -189,7 +226,7 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
         atten = [torch.where(is_diel, 1.0, rgb[c]) for c in range(3)]
 
     can = alive & hit & ok & (depth < max_depth)
-    out = torch.stack([
+    rows = [
         torch.where(can, px, rox), torch.where(can, py, roy),
         torch.where(can, pz, roz),
         torch.where(can, dir_x, rdx), torch.where(can, dir_y, rdy),
@@ -198,8 +235,10 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
         torch.where(can, thrs[0] * atten[0], thrs[0]),
         torch.where(can, thrs[1] * atten[1], thrs[1]),
         torch.where(can, thrs[2] * atten[2], thrs[2]),
-    ])
-    return out, can
+    ]
+    if nee:
+        rows += [planes[ESC], nx, ny, nz, *rgb]
+    return torch.stack(rows), can
 
 
 def _int32(x: int) -> int:
@@ -207,7 +246,8 @@ def _int32(x: int) -> int:
     return ((int(x) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
-def _check(table, idx, t, planes, time, alive, lane, sky4) -> None:
+def _check(table, idx, t, planes, time, alive, lane, sky4,
+           n_planes: int) -> None:
     dev = t.device
     R = t.shape[0]
     for name, x, dtype, shape in (
@@ -230,8 +270,9 @@ def _check(table, idx, t, planes, time, alive, lane, sky4) -> None:
             raise ValueError(f"{name} must be contiguous")
     if table.dim() != 2 or table.shape[1] < _GEO + 9:
         raise ValueError(f"table must be [N, >=24], got {tuple(table.shape)}")
-    if planes.dim() != 2 or planes.shape[0] < 12 or planes.shape[1] != R:
-        raise ValueError(f"planes must be [>=12, R], got {tuple(planes.shape)}")
+    if planes.dim() != 2 or planes.shape[0] < n_planes or planes.shape[1] != R:
+        raise ValueError(f"planes must be [>={n_planes}, R], got "
+                         f"{tuple(planes.shape)}")
     if planes.stride(1) != 1:
         raise ValueError("planes rows must be unit-stride")
 
@@ -240,17 +281,24 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
                        depth: int, max_depth: int, sky4, flags: int):
     """Shade and scatter one wavefront.
 
-    ``table`` [N, 24] winner rows; ``idx`` [R] int32 and ``t`` [R] f32
-    from the closest hit; ``planes`` [12, R] (ro xyz, rd xyz, radiance
-    rgb, throughput rgb), ``time`` [R], ``alive`` [R] bool, ``lane`` [R]
-    int32 (the 15 state planes); ``seed`` the int32 bounce seed; ``sky4``
-    [4] (sky rgb, use_gradient_sky); ``flags`` the FLAG_* bitmask.
-    Returns (planes [12, R] f32, alive [R] bool): 13 output planes.
+    ``table`` [N, 24] winner rows (spheres, then with ``FLAG_RECT`` the
+    rect block); ``idx`` [R] int32 and ``t`` [R] f32 from the closest
+    hit; ``planes`` [12, R] (ro xyz, rd xyz, radiance rgb, throughput
+    rgb; [13, R] with the MIS weight under ``FLAG_EMIT_SCALE``), ``time``
+    [R], ``alive`` [R] bool, ``lane`` [R] int32 (the 15 state planes);
+    ``seed`` the int32 bounce seed; ``sky4`` [4] (sky rgb,
+    use_gradient_sky); ``flags`` the FLAG_* bitmask.
+    Returns (planes [12, R] f32, alive [R] bool): 13 output planes. Under
+    ``FLAG_EMIT_SCALE`` the planes are [19, R]: the 12, the MIS weight
+    copied through (row ``ESC``), the normal (rows ``NORMAL``) and the
+    albedo (rows ``ALBEDO``).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream (raising if it cannot launch)."""
     global LAUNCHES, PLAIN_CALLS
-    _check(table, idx, t, planes, time, alive, lane, sky4)
+    n_out = 19 if flags & FLAG_EMIT_SCALE else 12
+    _check(table, idx, t, planes, time, alive, lane, sky4,
+           13 if flags & FLAG_EMIT_SCALE else 12)
     if t.device.type == "cpu":
         PLAIN_CALLS += 1
         return shade_from_winners_plain(table, idx, t, planes, time, alive,
@@ -262,7 +310,7 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
 
     lib = _cuda_build.library()
     R = t.shape[0]
-    out = torch.empty((12, R), dtype=torch.float32, device=t.device)
+    out = torch.empty((n_out, R), dtype=torch.float32, device=t.device)
     alive_out = torch.empty(R, dtype=torch.bool, device=t.device)
     if R == 0:
         return out, alive_out

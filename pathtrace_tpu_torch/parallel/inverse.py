@@ -170,7 +170,7 @@ def make_inverse_renderer(
     if silhouette:
         raise ValueError("the silhouette boundary term: not ported yet")
     features = SceneFeatures.from_scene(scene)
-    fastpath_supported(features)
+    fastpath_supported(features, scene)
     scene = scene.to(device)
     params, rebuild, names = split_scene(scene, trainable)
     renderer = InverseRenderer(

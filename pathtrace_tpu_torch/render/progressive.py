@@ -4,7 +4,9 @@
 Each frame renders ``params.samples`` spp through the fast path and blends
 into the running average with ``mix_prev = n/(n+1)``. On CUDA each frame is
 timed with CUDA events around its work; the ray count is read back once
-per frame, after the frame's last kernel.
+per frame, after the frame's last kernel. ``nee`` builds the scene's light
+table once and renders with next-event estimation; a scene without lights
+renders with the plain estimator, as the reference's does.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.config import Params
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops.fastpath import fastpath_supported, render_frame_fast
+from pathtrace_tpu_torch.ops.lights import build_light_table
 from pathtrace_tpu_torch.render.frame import accumulate
 
 
@@ -35,12 +38,16 @@ class ProgressiveResult:
 
 def render_progressive(scene: Scene, camera: Camera, params: Params,
                        max_frames: int, device, features: Optional[SceneFeatures] = None,
-                       log: Callable[[str], None] = print) -> ProgressiveResult:
-    """Render ``max_frames`` accumulated frames on ``device``."""
+                       log: Callable[[str], None] = print, nee: bool = False,
+                       rr_start: int = 0) -> ProgressiveResult:
+    """Render ``max_frames`` accumulated frames on ``device``; ``nee``:
+    next-event estimation; ``rr_start`` > 0: Russian roulette from that
+    depth."""
     device = torch.device(device)
     seed = params.resolve_seed()
     features = features or SceneFeatures.from_scene(scene)
-    fastpath_supported(features)
+    fastpath_supported(features, scene)
+    nee_lights = build_light_table(scene) if nee else None
     scene = scene.to(device)
     camera = camera.to(device)
     generator = torch.Generator(device=device)
@@ -60,6 +67,7 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
         res = render_frame_fast(
             scene, camera, params.width, params.height, params.samples,
             params.max_depth, generator, seed * 1000003 + frame, features,
+            nee_lights=nee_lights, rr_start=rr_start,
         )
         acc = res.image if acc is None else accumulate(acc, res.image, frame)
         if on_cuda:

@@ -4,18 +4,23 @@
     python -m pathtrace_tpu_torch.tools.profile_step --what frame
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random_spheres_xl
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random
+    python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset simple_light --nee --rr 3
     python -m pathtrace_tpu_torch.tools.profile_step --what megakernel --preset simple_light
 
 ``train``: the inverse-rendering trainer on ``--preset`` (default
 random_spheres; every default-trainable leaf, perturbed albedos, as
 ``examples/inverse_render.py --trainable default``), 1280x720, 4 spp,
 depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
-depth 10) of ``--preset``. ``megakernel``: one frame of the megakernel
+depth 10) of ``--preset``, with next-event estimation (``--nee``) and
+Russian roulette from depth ``--rr``, as the CLI's flags; the frame's
+alive-count readbacks and segments (shadow rays included) are reported
+too. ``megakernel``: one frame of the megakernel
 path at the same film (primary rays, K7 over tables built once per scene,
 the sample mean). After warm-up steps, ``--reps`` unprofiled steps are
 timed with CUDA events, then one step runs under ``torch.profiler``: the
-device time of every kernel, summed by kind, the forward's share, and the
-device's idle share two ways: of the profiled step's wall time (the
+device time of every kernel, summed by kind, the forward's share, the
+step's device launches (kernels, copies and fills), and the device's idle
+share two ways: of the profiled step's wall time (the
 profiler's own, inflated by its overhead on the host), and of the
 unprofiled median (1 - busy / median). The last line of the output is a
 JSON object with the same numbers; ``--out`` writes it to a file too.
@@ -77,6 +82,22 @@ def _total_device_us(evt) -> float:
                          getattr(evt, "cuda_time_total", 0.0)))
 
 
+def device_launches(fn) -> int:
+    """Device operations (kernels, copies and fills) that one call of
+    ``fn`` puts on the card, counted by ``torch.profiler`` after one
+    unprofiled warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(evt.count for evt in prof.key_averages()
+               if str(getattr(evt, "device_type", "")).endswith("CUDA"))
+
+
 def _setup_train(dev, preset):
     import torch
 
@@ -109,24 +130,29 @@ def _setup_train(dev, preset):
     return step
 
 
-def _setup_frame(dev, preset):
+def _setup_frame(dev, preset, nee, rr, info):
     import torch
 
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
+    from pathtrace_tpu_torch.ops.lights import build_light_table
 
     scene, cam = presets.from_name(preset, 1280 / 720)
     scene, cam = scene.to(dev), cam.to(dev)
     feats = SceneFeatures.from_scene(scene)
+    lights = build_light_table(scene) if nee else None
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     box = {"frame": 0}
 
     def step():
         box["frame"] += 1
-        render_frame_fast(scene, cam, 1280, 720, 4, 10, gen, box["frame"],
-                          feats)
+        res = render_frame_fast(scene, cam, 1280, 720, 4, 10, gen,
+                                box["frame"], feats, nee_lights=lights,
+                                rr_start=rr)
+        info["readbacks"] = res.readbacks
+        info["segments"] = res.ray_count
 
     return step
 
@@ -164,6 +190,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                     default="train")
     ap.add_argument("--preset", default="random_spheres",
                     help="scene of the frame or of the trainer")
+    ap.add_argument("--nee", action="store_true",
+                    help="frame: next-event estimation")
+    ap.add_argument("--rr", type=int, default=0, metavar="DEPTH",
+                    help="frame: Russian roulette from this depth (0: off)")
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
@@ -179,8 +209,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    step = {"train": _setup_train, "frame": _setup_frame,
-            "megakernel": _setup_megakernel}[args.what](dev, args.preset)
+    info = {}
+    if args.what == "frame":
+        step = _setup_frame(dev, args.preset, args.nee, args.rr, info)
+    else:
+        step = {"train": _setup_train, "megakernel": _setup_megakernel}[
+            args.what](dev, args.preset)
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
@@ -214,6 +248,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             k = _kind(evt.key)
             kinds[k] = kinds.get(k, 0.0) + us / 1e3
     busy_ms = sum(us for us, _, _ in kernels) / 1e3
+    launches = sum(c for _, c, _ in kernels)
     if regions:
         regions["backward and optimizer"] = busy_ms - regions["forward"]
     kernels.sort(reverse=True)
@@ -225,20 +260,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / wall_ms,
         "idle_share_unprofiled": 1.0 - busy_ms / statistics.median(times),
-        "peak_gib": peak_gib,
+        "peak_gib": peak_gib, "device_launches": launches,
+        "nee": args.nee, "rr_start": args.rr,
+        "readbacks": info.get("readbacks"),
+        "segments": (int(info["segments"]) if "segments" in info else None),
         "regions_device_ms": regions,
         "kinds_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:160], "launches": c, "ms": us / 1e3}
                         for us, c, n in kernels[:15]],
     }
-    print(f"{args.what} of {result['preset']} on {smi} "
-          f"(torch {torch.__version__})")
+    print(f"{args.what} of {result['preset']}"
+          + (f" (nee {args.nee}, rr {args.rr})" if args.what == "frame" else "")
+          + f" on {smi} (torch {torch.__version__})")
+    if result["segments"] is not None:
+        print(f"segments {result['segments']}, readbacks {result['readbacks']}")
     print("step ms (CUDA events, unprofiled): "
           + ", ".join(f"{t:.3f}" for t in times))
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
           f"ms, idle {result['idle_share']:.1%} (of the unprofiled median: "
           f"{result['idle_share_unprofiled']:.1%}), peak memory "
-          f"{peak_gib:.3f} GiB")
+          f"{peak_gib:.3f} GiB, {launches} device launches")
     for name, ms in regions.items():
         print(f"  region {name}: {ms:.3f} ms of device time")
     for kind, ms in result["kinds_ms"].items():

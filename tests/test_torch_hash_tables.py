@@ -102,11 +102,14 @@ class TestSceneState:
     def test_prep_tables_bitwise(self, name):
         jscene, _, scene = scene_pair(name, 1.0)
         jfeat = JFeatures.from_scene(jscene)
-        (j_sph, _, _, _), j_sky, j_grad = jfp.prep_tables(jscene, jfeat)
+        (j_sph, j_rect, _, _), j_sky, j_grad = jfp.prep_tables(jscene, jfeat)
         feats = SceneFeatures.from_scene(scene)
         assert feats._key() == jfeat._key()
         tables = tfp.prep_tables(scene, feats)
-        assert _bits_equal(j_sph, tables.table.numpy())
+        # rect scenes: the rect block follows the sphere rows
+        ref = (np.concatenate([np.asarray(j_sph), np.asarray(j_rect)])
+               if feats.has_rects else j_sph)
+        assert _bits_equal(ref, tables.table.numpy())
         assert _bits_equal(np.asarray(j_sky).reshape(3), tables.sky4[:3].numpy())
         assert float(j_grad) == float(tables.sky4[3])
         # the closest-hit operand: centres, |c|^2 - r^2, mask, padded to 128;
@@ -162,13 +165,13 @@ class TestSceneState:
         leaves = jax_scene_leaves(jscene)
         scene = convert.scene_from_numpy(leaves, device="cpu")
         feats = SceneFeatures.from_scene(scene)
-        assert feats.has_motion and tfp.fastpath_supported(feats)
+        assert feats.has_motion and tfp.fastpath_supported(feats, scene)
         tables = tfp.prep_tables(scene, feats)
         assert tuple(tables.soa.shape) == (12, 512)
         assert np.count_nonzero(tables.soa[9].numpy()) == 391  # inv_dt
-        feats.has_rects = True
-        with pytest.raises(ValueError, match="rects"):
-            tfp.fastpath_supported(feats)
+        feats.has_boxes = True
+        with pytest.raises(ValueError, match="boxes"):
+            tfp.fastpath_supported(feats, scene)
 
     def test_unported_preset_raises(self):
         with pytest.raises(ValueError, match="not ported yet"):

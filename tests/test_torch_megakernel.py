@@ -158,14 +158,44 @@ def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
                                transform=np.eye(3, 4, dtype=np.float32))
 
 
-def test_fast_path_and_cli_still_refuse_rects(capsys):
+def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
+    """The fast path and the CLI refuse boxes (``cornell``) and render
+    ``simple_light``, whose rect both paths take now."""
     scene, _ = presets.simple_light(ASPECT)
     feats = SceneFeatures.from_scene(scene)
     assert tmk.megakernel_supported(feats)
-    with pytest.raises(ValueError, match="rects: not ported yet"):
-        tfp.fastpath_supported(feats)
-    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu"]) == 2
-    assert "rects: not ported yet" in capsys.readouterr().err
+    assert tfp.fastpath_supported(feats, scene)
+    out = tmp_path / "simple_light.npy"
+    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu", "-W", "16",
+                     "-H", "9", "-S", "1", "--out", str(out)]) == 0
+    assert np.isfinite(np.load(out)).all()
+    feats.has_boxes = True
+    with pytest.raises(ValueError, match="boxes: not ported yet"):
+        tfp.fastpath_supported(feats, scene)
+    capsys.readouterr()
+    assert cli.main(["-P", "cornell", "-O", "--device", "cpu"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_megakernel_refuses_checker_with_noise_child():
+    """A checker whose child is a noise texture: the tables hold only the
+    children's colours, so the megakernel and its plain version refuse
+    the scene rather than render that half black."""
+    b = SceneBuilder()
+    chk = b.checker_texture(b.noise_texture(4.0),
+                            b.constant_texture((0.9, 0.9, 0.9)))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(chk))
+    scene = b.finish()
+    feats = SceneFeatures.from_scene(scene)
+    assert feats.has_checker and not feats.checker_children_const
+    assert not tmk.megakernel_supported(feats)
+    tables = tmk.prep_tables(scene)
+    rays = (torch.zeros(8, 3), torch.tensor([[0.0, -1.0, 0.0]] * 8),
+            torch.zeros(8))
+    with pytest.raises(ValueError, match="checker"):
+        tmk.trace_megakernel(tables, *rays, 0, 4, feats)
+    with pytest.raises(ValueError, match="checker"):
+        tmk.trace_megakernel_plain(tables, *rays, 0, 4, feats)
 
 
 @pytest.mark.parametrize("name", ["random_spheres", "random", "simple_light",

@@ -139,7 +139,7 @@ def test_cli_renders_on_cpu_without_jax(tmp_path):
 def test_cli_refuses_what_is_not_ported(capsys):
     from pathtrace_tpu_torch.cli import main
 
-    assert main(["--nee", "-O", "--device", "cpu"]) == 2
+    assert main(["--aovs", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     assert main(["-P", "cornell", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err

@@ -5,8 +5,15 @@ arrays cross between JAX and PyTorch as numpy.
 """
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
+
+# JAX's fused trace_fast of simple_light (4096 camera rays, depth 10),
+# regenerated by tests/test_torch_rects.py
+LIGHT_FIXTURE = os.path.join(os.path.dirname(__file__), "goldens",
+                             "torch_port_simple_light.npz")
 
 # state planes of both packages' fused bounce, in the port's row order
 PLANE_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz",
@@ -63,6 +70,92 @@ def scene_pair(name: str, aspect: float):
                 lit_scene(build.SceneBuilder()))
     jscene, jcam = jpresets.from_name(name, aspect)
     return jscene, jcam, presets.from_name(name, aspect)[0]
+
+
+def boards_scene(builder):
+    """Rects of every axis, flipped and not, one of them a light, over two
+    spheres: the cases of the rect sweep and of the sphere/rect merge.
+    ``builder`` is either package's ``SceneBuilder``."""
+    b = builder
+    mat = b.lambertian_color((0.5, 0.5, 0.5))
+    light = b.diffuse_light_color((4.0, 4.0, 4.0))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, mat)
+    b.sphere((0.0, 1.0, 0.0), 1.0, mat)
+    b.rect_xy(-2.0, 2.0, 0.0, 3.0, -1.5, True, mat)
+    b.rect_xz(-1.0, 1.0, -2.0, 2.0, 2.5, False, light)
+    b.rect_yz(0.0, 2.0, -1.0, 1.0, 1.0, True, mat)
+    b.rect_xy(-3.0, 3.0, 0.0, 4.0, -4.0, False, mat)
+    return b.finish()
+
+
+def jax_rect_scene_winners(jscene, ro, rd):
+    """JAX's closest hit over spheres (Pallas, interpret mode) and rects,
+    merged as ``_fast_bounce_fused_prims`` merges them (numpy)."""
+    import jax.numpy as jnp
+
+    from pathtrace_tpu.config import MAX_T, MIN_T
+    from pathtrace_tpu.ops import intersect as jisect
+    from pathtrace_tpu.ops.intersect_pallas import sphere_nearest_pallas_cols
+
+    cols = [jnp.asarray(c) for c in (*ro.T, *rd.T)]
+    t, idx = sphere_nearest_pallas_cols(
+        jscene.spheres, *cols, jnp.zeros(ro.shape[0], jnp.float32), MIN_T,
+        MAX_T, has_motion=False, cull=False)
+    t_r, i_r = jisect.rect_nearest_planes(jscene.rects, *cols)
+    offset = ((jscene.spheres.center.shape[0] + 127) // 128) * 128
+    wins = t_r < t
+    return (np.asarray(jnp.where(wins, t_r, t)),
+            np.asarray(jnp.where(wins, offset + i_r, idx)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_shade():
+    import jax
+
+    from pathtrace_tpu.ops.shade_pallas import shade_bounce_planes
+
+    return jax.jit(shade_bounce_planes,
+                   static_argnames=("features", "max_depth"))
+
+
+def jax_shade_planes(jscene, table, t, idx, st, seed, depth, max_depth,
+                     emit_scale=None):
+    """``shade_bounce_planes`` on the port's state ``st`` and the winners
+    (t, idx) in ``table`` (numpy): the 13 output planes (numpy)."""
+    import jax.numpy as jnp
+
+    from pathtrace_tpu.models.types import SceneFeatures as JFeatures
+
+    jfeat = JFeatures.from_scene(jscene)
+    planes = st.planes.numpy()
+    R = t.shape[0]
+    attrs3 = table[idx].reshape(R // 128, 128, -1).transpose(0, 2, 1)
+    sp = {name: jnp.asarray(planes[k]) for k, name in enumerate(PLANE_NAMES)}
+    sp.update(time=jnp.asarray(st.time.numpy()),
+              alive=jnp.asarray(st.alive.numpy().astype(np.float32)),
+              lane=jnp.asarray(st.lane.numpy()))
+    outs = _jax_shade()(
+        jnp.asarray(t), jnp.asarray(np.ascontiguousarray(attrs3)), sp, seed,
+        depth, jscene.sky, jscene.use_gradient_sky, features=jfeat,
+        max_depth=max_depth,
+        emit_scale=None if emit_scale is None else jnp.asarray(emit_scale))
+    return [np.asarray(o) for o in outs]
+
+
+def port_light_fixture_trace(ref, **kw):
+    """The port's CPU ``trace_fast`` of the rays of a ``simple_light``
+    fixture (``LIGHT_FIXTURE``)."""
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as tfp
+
+    scene, _ = presets.simple_light(16 / 9)
+    return tfp.trace_fast(scene, *(torch.from_numpy(ref[k]) for k in
+                                   ("rays.ro", "rays.rd", "rays.time")),
+                          int(ref["seed"]), int(ref["max_depth"]),
+                          SceneFeatures.from_scene(scene), **kw)
 
 
 def numpy_uniforms(n: int, seed: int = 0):
