@@ -115,12 +115,32 @@ Phases (each prints a line before the next starts):
     segments (shadow rays included); the NEE image finite, its mean
     within 5% of the plain image's;
 28. the wavefront ``trace_fast`` of ``simple_light`` (no NEE) against K7
-    ray by ray on phase 22's full-width rays: at least 99% within 1e-3.
+    ray by ray on phase 22's full-width rays: at least 99% within 1e-3;
+29. boxes and media on the wavefront path, ``cornell`` (two rotated boxes)
+    and ``cornell_smoke`` (two media boxes), no sphere: K2 with the box
+    flag and with the medium flag, each with and without the MIS flag on a
+    random ``emit_scale`` plane, against its plain version on the winners
+    (the rect, box and media sweeps merged) of the 1280x720x4 primary rays
+    and once-scattered rays, under the lane contract; the times of the
+    kernel, of its plain version and its bound; per full-width bounce the
+    time and the device launches (``torch.profiler``) of the rect, box and
+    media sweeps, of the NEE tail and of whole bounces;
+30. the CUDA trace of the rays in ``tests/goldens/torch_port_cornell.npz``
+    (plain and NEE + roulette) and ``torch_port_cornell_smoke_nee.npz``
+    (NEE + roulette and plain) against JAX's radiance, depth 10,
+    ``DEPTH10_BUDGET``: K2 at every bounce, no closest-hit kernel;
+31. ``cli.main`` renders cornell and cornell_smoke at 1280x720, 4 spp,
+    depth 10, 3 frames each, plain and with ``--nee --rr 3``: K2
+    launched, no closest-hit kernel (the scenes have no sphere) and no
+    plain version; frame times, readbacks, segments (shadow rays
+    included) and Mrays/s; each NEE image finite, its mean within 5% of
+    the plain image's.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
 trainer's, phase 10 for K4, phase 13 for K5, phases 17 and 20 for K3
-and the motion runs of K2 and K6), its largest difference
+and the motion runs of K2 and K6, phase 31 for K2's box and medium
+runs), its largest difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 from this run's shapes; for K4 and K5 the operations of the sweeps this
@@ -174,10 +194,17 @@ LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                              "torch_port_simple_light.npz")
 NEE_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                            "torch_port_simple_light_nee.npz")
+CORNELL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                               "torch_port_cornell.npz")
+SMOKE_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                             "torch_port_cornell_smoke_nee.npz")
 RR_START = 3
 # K2's operations, counted from csrc/shade.cu: ~300 per lane, and ~1800
 # more per lane whose winner has the 7-octave hash noise texture
 K2_OPS, K2_OPS_NOISE = 300, 1800
+# ~100 more per lane whose winner is a box (the slab test redone, the face
+# picked and its normal mapped back)
+K2_OPS_BOX = 100
 # K7's operations, counted from csrc/megakernel.cu: per (segment, live
 # sphere) pair ~25 (the quadratic's b, c and disc; most pairs stop at
 # disc <= 0), ~31 with the centre lerped; per (segment, live rect) pair
@@ -289,6 +316,7 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
     from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.tools.profile_step import device_launches
@@ -386,8 +414,9 @@ def main() -> int:
                        for k in range(out.shape[0]))
             agree = (alive == alive_p).float().mean().item()
             err = (out - out_p).abs().max().item()
-            phase(f"[{tag}] {name} {label}: worst plane {frac:.6f} of lanes "
-                  f"outside 1e-3, alive agreement {agree:.6f}, max |diff| {err}")
+            phase(f"[{tag}] {name} {label}: worst plane "
+                  f"{round(frac * out.shape[1])} lanes ({frac:.6f}) outside "
+                  f"1e-3, alive agreement {agree:.6f}, max |diff| {err}")
             if frac > 0.005 or agree < 0.995:
                 raise AssertionError(f"{name} outside the lane contract ({label})")
             worst_err, worst_out = max(worst_err, err), max(worst_out, frac)
@@ -1216,7 +1245,171 @@ def main() -> int:
           f"{1.0 - frac:.6%} within 1e-3, segments {count} vs {fcount}")
     if frac > 0.01 or abs(count - fcount) > 0.01 * fcount:
         raise AssertionError("K7 disagrees with trace_fast on simple_light")
-    del sl_k7, rays_, rad, res
+    del sl_k7, rays_, rad, res, lscene
+
+    # ---- 29: K2's box and medium branches on cornell and cornell_smoke ----
+    box_runs = {}
+    for cname, flag_name, row_kind, key in (
+            ("cornell", "FLAG_BOX", 2.0, "box"),
+            ("cornell_smoke", "FLAG_MEDIUM", 3.0, "medium")):
+        cscene, ccamera = presets.from_name(cname, WIDTH / HEIGHT)
+        cscene = cscene.to(dev)
+        cfeats = SceneFeatures.from_scene(cscene)
+        clights = build_light_table(cscene)
+        ctables = fp.prep_tables(cscene, cfeats, lights=clights)
+        cflags = fp.feature_flags(cfeats)
+        if not (cflags & getattr(k2, flag_name) and not cfeats.has_spheres
+                and ctables.table.shape[1] == 48 and clights.count == 1):
+            raise AssertionError(f"{cname} did not get the {key} tables")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ro, rd, tm = generate_primary_rays(ccamera, WIDTH, HEIGHT, SAMPLES, gen)
+        cst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+        del ro, rd, tm
+        ct0, cidx0 = fp.closest_hit(ctables, cst0, 0, cfeats, seed=7)
+        cst1 = scattered(ctables, cflags, cst0, ct0, cidx0)
+        ct1, cidx1 = fp.closest_hit(ctables, cst1, 1, cfeats, seed=7)
+        n_kind = []
+        for label, t_, idx_ in (("primary", ct0, cidx0),
+                                ("scattered", ct1, cidx1)):
+            hit = t_ < 1e30
+            rows = ctables.table[idx_.long()]
+            n_kind.append(int((hit & (rows[:, 14] == row_kind)).sum()))
+            phase(f"[29] {cname} {label}: {R} rays, hit "
+                  f"{hit.float().mean().item():.4f}, {key} winners "
+                  f"{n_kind[-1]}, rect winners "
+                  f"{int((hit & (rows[:, 14] == 1.0)).sum())}, light hits "
+                  f"{int((hit & (rows[:, 0] == 3.0)).sum())}")
+        if min(n_kind) <= 0:
+            raise AssertionError(f"{cname}: no {key} winners")
+        cases = (("primary", cst0, ct0, cidx0, 0),
+                 ("scattered", cst1, ct1, cidx1, 1))
+        err, out_share, ms, plain_ms = shade_check(
+            "29", f"K2 ({cname}, {flag_name})", ctables, cflags, cases)
+        # the timed case is the primary one: its box lanes do the slab test
+        ops = R * K2_OPS + (n_kind[0] * K2_OPS_BOX if key == "box" else 0)
+        bnd = bound(R * 114 + ctables.table.numel() * 4, ops)
+        est0, est1 = with_esc(cst0), with_esc(cst1)
+        eflags_c = cflags | k2.FLAG_EMIT_SCALE
+        e_err, e_out, e_ms, e_plain_ms = shade_check(
+            "29", f"K2 ({cname}, {flag_name} + FLAG_EMIT_SCALE)", ctables,
+            eflags_c, (("primary", est0, ct0, cidx0, 0),
+                       ("scattered", est1, ct1, cidx1, 1)))
+        ebnd = bound(R * (114 + 4 + 28) + ctables.table.numel() * 4, ops)
+        phase(f"[29] K2 bounds on {cname}: {flag_name} {bnd[0]:.4f} ms "
+              f"({bnd[1]}), + FLAG_EMIT_SCALE {ebnd[0]:.4f} ms ({ebnd[1]})")
+        # the plain-PyTorch pieces around K2, per full-width bounce
+        rays = cst0.planes[:6]
+        eout, ealive = k2.shade_from_winners(
+            ctables.table, cidx0, ct0, est0.planes, est0.time, est0.alive,
+            est0.lane, 7, 0, DEPTH, ctables.sky4, eflags_c)
+        shadow = fp.nee_tail(ctables, ct0, cidx0, est0, eout, ealive, 7, 0,
+                             cfeats)
+        phase(f"[29] {cname} NEE tail at depth 0: {int(shadow)} shadow rays "
+              f"of {R} lanes ({int(ealive.sum())} alive after K2)")
+        pieces = {"rect sweep": lambda: rect_nearest(ctables.rects, *rays)}
+        if ctables.boxes is not None:
+            pieces["box sweep"] = lambda: box_nearest(ctables.boxes, *rays)
+        if ctables.media is not None:
+            pieces["media sweep (with its draws)"] = lambda: media_nearest(
+                ctables.media, *rays, fp.media_uniforms(
+                    cst0.lane, 7, 0, ctables.media.count, 8))
+        pieces["NEE tail"] = lambda: fp.nee_tail(
+            ctables, ct0, cidx0, est0, eout, ealive, 7, 0, cfeats)
+        pieces["bounce"] = lambda: fp.fast_bounce_fused(
+            ctables._replace(lights=None, light_rgb=None), cst0, 7, 0, DEPTH,
+            cfeats)
+        pieces["bounce with NEE and roulette"] = lambda: fp.fast_bounce_fused(
+            ctables, est0, 7, RR_START, DEPTH, cfeats, rr_start=RR_START)
+        piece_ms = {name: time_ms(fn, 5) for name, fn in pieces.items()}
+        piece_launches = {name: device_launches(fn)
+                          for name, fn in pieces.items()}
+        phase(f"[29] {cname} per full-width bounce ({R} lanes, plain "
+              f"PyTorch around K2; {smi}): ms "
+              + ", ".join(f"{k} {v:.3f}" for k, v in piece_ms.items()))
+        phase(f"[29] {cname} device launches per full-width bounce: "
+              f"{piece_launches}")
+        box_runs[key] = {
+            "max_abs_err": err, "lanes_outside": out_share, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "winners": n_kind, "emit_scale_max_abs_err": e_err,
+            "emit_scale_lanes_outside": e_out, "emit_scale_ms": e_ms,
+            "emit_scale_plain_ms": e_plain_ms, "emit_scale_bound_ms": ebnd[0],
+            "emit_scale_bound_by": ebnd[1], "bounce_ms": piece_ms,
+            "bounce_device_launches": piece_launches}
+        del cst0, cst1, est0, est1, eout, ealive, ct0, ct1, cidx0, cidx1
+        del rays, pieces, cscene, ctables
+
+    # ---- 30: the CUDA traces of cornell and cornell_smoke against JAX ----
+    for fixture, prefix, cname, nee in (
+            (CORNELL_FIXTURE, "", "cornell", False),
+            (CORNELL_FIXTURE, "nee.", "cornell", True),
+            (SMOKE_FIXTURE, "", "cornell_smoke", True),
+            (SMOKE_FIXTURE, "plain.", "cornell_smoke", False)):
+        ref_ = np.load(fixture)
+        cscene = presets.from_name(cname, WIDTH / HEIGHT)[0].to(dev)
+        kw = ({"nee_lights": build_light_table(cscene),
+               "rr_start": int(ref_["rr_start"])} if nee else {})
+        depth = int(ref_["max_depth"])
+        reset_counts(k1, k2, k7)
+        res = fp.trace_fast(cscene, *(torch.from_numpy(ref_[k]).to(dev)
+                                      for k in ("rays.ro", "rays.rd",
+                                                "rays.time")),
+                            int(ref_["seed"]), depth,
+                            SceneFeatures.from_scene(cscene), min_size=128,
+                            **kw)
+        counts = read_counts(k1, k2, k7)
+        n_out, frac = rays_outside(res.radiance, ref_[prefix + "radiance"])
+        count, ref_count = int(res.ray_count), int(ref_[prefix + "ray_count"])
+        label = f"{cname} {'NEE + roulette' if nee else 'plain'}"
+        phase(f"[30] {label} fixture: {len(res.radiance)} rays depth {depth}, "
+              f"{n_out} rays ({frac:.4%}) outside 1e-3 (budget "
+              f"{DEPTH10_BUDGET:.0%}), segments {count} vs JAX {ref_count}; "
+              f"launches {counts}")
+        box_runs.setdefault("fixture_share_outside", {})[label] = frac
+        others = [counts[k] for k in ("K1", "K3", "K4", "K5", "K6", "K7")]
+        # K2 once a bounce; the ladder stops early once every path has ended
+        if (frac > DEPTH10_BUDGET or not 0 < counts["K2"] <= depth + 1
+                or any(others) or counts["plain"]
+                or abs(count - ref_count) > 2 * n_out * depth):
+            raise AssertionError(f"{label}: trace outside the slice contract")
+
+    # ---- 31: cornell and cornell_smoke through the CLI ----
+    for cname, key in (("cornell", "box"), ("cornell_smoke", "medium")):
+        runs = {}
+        for label, extra in (("plain", []), ("nee_rr", ["--nee", "--rr",
+                                                        str(RR_START)])):
+            with tempfile.TemporaryDirectory() as tmp:
+                out_path = os.path.join(tmp, f"{cname}.npy")
+                argv = ["-P", cname, "-W", str(WIDTH), "-H", str(HEIGHT),
+                        "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F",
+                        str(FRAMES), "--out", out_path, *extra]
+                counts, got = cli_frames(f"31 {cname} {label}", argv)
+                image = np.load(out_path)
+            others = [counts[k] for k in ("K1", "K3", "K4", "K5", "K6", "K7")]
+            if counts["K2"] <= 0 or any(others) or counts["plain"]:
+                raise AssertionError(f"{cname} {label} did not run through K2 "
+                                     f"alone: {counts}")
+            mean = float(image.mean())
+            if not (np.isfinite(image).all()
+                    and image.shape == (HEIGHT, WIDTH, 3) and 0.0 < mean):
+                raise AssertionError(f"bad {cname} {label} image: {mean}")
+            runs[label] = (counts, got, mean)
+            for i, (ms, rays_n, rb) in enumerate(got):
+                phase(f"[31] {cname} {label} frame {i + 1}: {ms:.2f} ms (CUDA "
+                      f"events), {rays_n} segments, {rays_n / ms / 1e3:.2f} "
+                      f"Mrays/s, {rb} readbacks ({smi})")
+            median = sorted(ms for ms, _, _ in got)[len(got) // 2]
+            phase(f"[31] {cname} {label}: median {median:.2f} ms, launches "
+                  f"{counts}, image mean {mean:.6f}")
+            box_runs[key][f"{label}_frame_ms"] = [ms for ms, _, _ in got]
+            box_runs[key][f"{label}_launches"] = counts["K2"]
+        plain_mean, nee_mean = runs["plain"][2], runs["nee_rr"][2]
+        phase(f"[31] {cname} NEE + roulette: image mean {nee_mean:.6f} vs "
+              f"plain {plain_mean:.6f} ({nee_mean / plain_mean - 1.0:+.3%})")
+        if abs(nee_mean / plain_mean - 1.0) > 0.05:
+            raise AssertionError(f"{cname}: the NEE image's mean is more "
+                                 f"than 5% off")
 
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
@@ -1249,7 +1442,8 @@ def main() -> int:
          "motion_lanes_outside": k2m_out, "motion_ms": k2m_ms,
          "motion_plain_ms": k2m_plain_ms,
          "flags": {"FLAG_RECT": k2.FLAG_RECT,
-                   "FLAG_EMIT_SCALE": k2.FLAG_EMIT_SCALE},
+                   "FLAG_EMIT_SCALE": k2.FLAG_EMIT_SCALE,
+                   "FLAG_BOX": k2.FLAG_BOX, "FLAG_MEDIUM": k2.FLAG_MEDIUM},
          "rect_launches": c27["K2"], "rect_max_abs_err": k2r_err,
          "rect_lanes_outside": k2r_out, "rect_ms": k2r_ms,
          "rect_plain_ms": k2r_plain_ms, "rect_bound_ms": k2r_bound[0],
@@ -1258,7 +1452,12 @@ def main() -> int:
          "emit_scale_lanes_outside": k2e_out, "emit_scale_ms": k2e_ms,
          "emit_scale_plain_ms": k2e_plain_ms,
          "emit_scale_bound_ms": k2e_bound[0],
-         "emit_scale_bound_by": k2e_bound[1], "library_ms": None},
+         "emit_scale_bound_by": k2e_bound[1],
+         "box_launches": box_runs["box"]["plain_launches"],
+         "medium_launches": box_runs["medium"]["plain_launches"],
+         "box": box_runs["box"], "medium": box_runs["medium"],
+         "box_media_fixture_share_outside": box_runs["fixture_share_outside"],
+         "library_ms": None},
         {"name": "sphere_nearest_bwd", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:670",

@@ -30,8 +30,8 @@ from pathtrace_tpu_torch.render import film
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtrace_tpu_torch",
-        description="Path tracer, PyTorch/CUDA port (fast path, sphere and "
-                    "rect scenes)",
+        description="Path tracer, PyTorch/CUDA port (fast path: spheres, "
+                    "rects, boxes and media)",
     )
     p.add_argument("-W", "--width", type=int, default=1280, help="Image width")
     p.add_argument("-H", "--height", type=int, default=720, help="Image height")

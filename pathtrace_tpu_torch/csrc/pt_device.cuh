@@ -25,6 +25,8 @@ constexpr int FLAG_LIGHT = 32;
 constexpr int FLAG_MOTION = 64;
 constexpr int FLAG_RECT = 128;
 constexpr int FLAG_EMIT_SCALE = 256;
+constexpr int FLAG_BOX = 512;
+constexpr int FLAG_MEDIUM = 1024;
 
 // material and texture kinds, as the attribute tables store them (f32)
 constexpr float MAT_LAMBERTIAN = 0.f;
@@ -33,7 +35,10 @@ constexpr float MAT_DIELECTRIC = 2.f;
 constexpr float MAT_DIFFUSE_LIGHT = 3.f;
 constexpr float TEX_CHECKER = 1.f;
 constexpr float TEX_NOISE = 2.f;
-constexpr float KIND_RECT = 1.f;  // primitive kind at column 14 of a row
+// primitive kinds at column 14 of a row
+constexpr float KIND_RECT = 1.f;
+constexpr float KIND_BOX = 2.f;
+constexpr float KIND_MEDIUM = 3.f;
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h = h ^ (h >> 16);

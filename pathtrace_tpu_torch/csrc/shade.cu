@@ -11,17 +11,26 @@
 // c = c0 + ((time - time0) * inv_dt) * delta (shade_pallas.py:137-141).
 // With FLAG_RECT a winner row of kind 1 (a rect, from the rect block of the
 // table) takes the normal onehot(axis) * flip, not turned to face the ray
-// (shade_pallas.py:146-152). With FLAG_EMIT_SCALE (next-event estimation)
-// the primitive emission, never the sky, is scaled by the lane's MIS
-// weight, the 13th state plane (shade_pallas.py:109-115, 250-251); the
+// (shade_pallas.py:146-152). With FLAG_BOX a winner row of kind 2 (a
+// transformed box, 48-column rows) takes its face normal: the slab test
+// redone in object space from the row's obj_from_world columns, the entry
+// or exit face picked by |t - t_enter| < 1e-4 max(|t|, 1), signed against
+// the ray and mapped back through world_from_obj (shade_pallas.py:153-204).
+// With FLAG_MEDIUM a row of kind 3 (a medium) takes (1, 0, 0), which the
+// isotropic scatter ignores (:205-210); its material falls to the default
+// scatter, the unit-sphere direction. With FLAG_EMIT_SCALE (next-event
+// estimation) the primitive emission, never the sky, is scaled by the
+// lane's MIS weight, the 13th state plane (shade_pallas.py:109-115,
+// 250-251); the
 // kernel then also copies that plane through and writes the normal and
 // the albedo it computed, six planes the estimator's tail reads instead of
 // recomputing them (the 7-octave noise above all).
 //
 // What bounds it: bytes. Per lane it reads 15 state planes, t and idx and
-// the winner row (about 120 bytes from device memory) and writes 13
-// planes, against a few hundred flops (more with the noise texture); with
-// FLAG_EMIT_SCALE one plane more in and seven more out.
+// the winner row (about 120 bytes from device memory; the table itself,
+// a few hundred rows, stays in L2) and writes 13 planes, against a few
+// hundred flops (more with the noise texture, ~100 more for a box
+// winner); with FLAG_EMIT_SCALE one plane more in and seven more out.
 //
 // The arithmetic follows the plain PyTorch version in
 // pathtrace_tpu_torch/ops/shade_kernel.py operation for operation; built
@@ -44,6 +53,60 @@ constexpr int kGeo = 15;
 
 __device__ __forceinline__ float cbrt_pos(float x) {
   return expf(logf(fmaxf(x, 1e-38f)) * (1.0f / 3.0f));
+}
+
+// jnp.sign / torch.sign: 0 for a zero (copysignf would give +-1)
+__device__ __forceinline__ float sign_of(float x) {
+  return static_cast<float>((x > 0.0f) - (x < 0.0f));
+}
+
+// The normal of a box winner whose row is ``a`` (48 columns: p0, p1 at
+// kGeo, obj_from_world 3x4 row-major at kGeo + 6, world_from_obj's linear
+// part 3x3 row-major at kGeo + 18), hit at t_safe along (ro, rd).
+__device__ __forceinline__ void box_normal(const float* a, float rox,
+                                           float roy, float roz, float rdx,
+                                           float rdy, float rdz,
+                                           float t_safe, float n[3]) {
+  float ro_o[3], rd_o[3], tn[3], tf[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float* m = a + kGeo + 6 + r * 4;
+    ro_o[r] = m[0] * rox + m[1] * roy + m[2] * roz + m[3];
+    const float d = m[0] * rdx + m[1] * rdy + m[2] * rdz;
+    // small negatives become +1e-12 too, as in the reference
+    rd_o[r] = fabsf(d) < 1e-12f ? 1e-12f : d;
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float rcp = 1.0f / rd_o[r];
+    const float d0 = (a[kGeo + r] - ro_o[r]) * rcp;
+    const float d1 = (a[kGeo + 3 + r] - ro_o[r]) * rcp;
+    tn[r] = fminf(d0, d1);
+    tf[r] = fmaxf(d0, d1);
+  }
+  const float t_enter = fmaxf(fmaxf(tn[0], tn[1]), tn[2]);
+  // first-max / first-min axes, as argmax / argmin
+  int enter_axis = tn[1] > tn[0] ? 1 : 0;
+  if (tn[2] > fmaxf(tn[0], tn[1])) enter_axis = 2;
+  int exit_axis = tf[1] < tf[0] ? 1 : 0;
+  if (tf[2] < fminf(tf[0], tf[1])) exit_axis = 2;
+  const bool is_entry =
+      fabsf(t_safe - t_enter) < 1e-4f * fmaxf(fabsf(t_safe), 1.0f);
+  const int face = is_entry ? enter_axis : exit_axis;
+  float fa[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) fa[r] = face == r ? 1.0f : 0.0f;
+  const float rd_sel = fa[0] * rd_o[0] + fa[1] * rd_o[1] + fa[2] * rd_o[2];
+  const float sign_d = sign_of(rd_sel);
+  const float n_sign = is_entry ? -sign_d : sign_d;
+  float n_obj[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) n_obj[r] = fa[r] * n_sign;
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    const float* w = a + kGeo + 18 + r * 3;
+    n[r] = w[0] * n_obj[0] + w[1] * n_obj[1] + w[2] * n_obj[2];
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -94,6 +157,18 @@ shade_kernel(const float* __restrict__ table, int k_attr,
     nx = (axis == 0.0f ? 1.0f : 0.0f) * flip;
     ny = (axis == 1.0f ? 1.0f : 0.0f) * flip;
     nz = (axis == 2.0f ? 1.0f : 0.0f) * flip;
+  }
+  if ((flags & FLAG_BOX) && a[kGeo - 1] == KIND_BOX) {
+    float n[3];
+    box_normal(a, rox, roy, roz, rdx, rdy, rdz, t_safe, n);
+    nx = n[0];
+    ny = n[1];
+    nz = n[2];
+  }
+  if ((flags & FLAG_MEDIUM) && a[kGeo - 1] == KIND_MEDIUM) {
+    nx = 1.0f;
+    ny = 0.0f;
+    nz = 0.0f;
   }
 
   const float tex_kind = a[3];

@@ -1,12 +1,15 @@
 """Host-side scene construction in numpy, emitting a tensor :class:`Scene`.
 
 Counterpart of ``pathtrace_tpu/models/build.py`` for spheres (static and
-moving), axis-aligned rects, materials and constant/checker/noise
-textures. ``finish`` pads the sphere array with far-away, masked-off
-spheres and can Morton-sort it by the mid-shutter centres, and pads the
-rects with masked-off ones on a far plane, exactly as the JAX builder
-does, so a preset built here equals the reference leaf for leaf.
-Instanced primitives (the JAX builder's ``transform``) are not ported.
+moving), axis-aligned rects, transformed boxes, constant-density media
+(box or sphere boundary, isotropic phase function), materials,
+constant/checker/noise textures and the affine helpers. ``finish`` pads
+the sphere array with far-away, masked-off spheres and can Morton-sort it
+by the mid-shutter centres, pads the rects with masked-off ones on a far
+plane and the boxes and media with masked-off ones at 1e18, exactly as
+the JAX builder does, so a preset built here equals the reference leaf
+for leaf. Instanced spheres and rects (the JAX builder's ``transform``)
+are not ported.
 """
 
 from __future__ import annotations
@@ -49,13 +52,79 @@ def _morton3(q: np.ndarray) -> np.ndarray:
     )
 
 
+def identity_affine() -> np.ndarray:
+    return np.concatenate(
+        [np.eye(3, dtype=np.float32), np.zeros((3, 1), np.float32)], axis=1
+    )
+
+
+def affine_from_rotation_y_translation(degrees: float,
+                                       translation: Vec3) -> np.ndarray:
+    """3x4 affine: rotate about +Y, then translate."""
+    th = np.deg2rad(degrees)
+    c, s = np.cos(th), np.sin(th)
+    rot = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]],
+                   dtype=np.float32)
+    m = np.zeros((3, 4), dtype=np.float32)
+    m[:, :3] = rot
+    m[:, 3] = _v3(translation)
+    return m
+
+
+def affine_from_axis_angle(axis: Vec3, degrees: float,
+                           translation: Vec3 = (0.0, 0.0, 0.0),
+                           scale: float = 1.0) -> np.ndarray:
+    """3x4 affine: uniform scale, rotate about an arbitrary axis (computed
+    in float64, rounded once), translate."""
+    a = _v3(axis).astype(np.float64)
+    a = a / np.linalg.norm(a)
+    th = np.deg2rad(degrees)
+    c, s = np.cos(th), np.sin(th)
+    x, y, z = a
+    rot = np.array([
+        [c + x * x * (1 - c), x * y * (1 - c) - z * s, x * z * (1 - c) + y * s],
+        [y * x * (1 - c) + z * s, c + y * y * (1 - c), y * z * (1 - c) - x * s],
+        [z * x * (1 - c) - y * s, z * y * (1 - c) + x * s, c + z * z * (1 - c)],
+    ])
+    m = np.zeros((3, 4), np.float32)
+    m[:, :3] = (rot * scale).astype(np.float32)
+    m[:, 3] = _v3(translation)
+    return m
+
+
+def affine_compose(*ms: np.ndarray) -> np.ndarray:
+    """Compose 3x4 affines in application order (``affine_compose(a, b)``
+    applies ``a`` first), in float64, rounded once."""
+    out = identity_affine().astype(np.float64)
+    for m in ms:
+        m = np.asarray(m, np.float64)
+        lin = m[:, :3] @ out[:, :3]
+        t = m[:, :3] @ out[:, 3] + m[:, 3]
+        out = np.concatenate([lin, t[:, None]], axis=1)
+    return out.astype(np.float32)
+
+
+def invert_affine(m: np.ndarray) -> np.ndarray:
+    """Invert a 3x4 affine (invertible linear part): ``np.linalg.inv``,
+    rounded once to float32."""
+    lin = m[:, :3]
+    t = m[:, 3]
+    inv_lin = np.linalg.inv(lin)
+    out = np.zeros((3, 4), dtype=np.float32)
+    out[:, :3] = inv_lin
+    out[:, 3] = -inv_lin @ t
+    return out
+
+
 class SceneBuilder:
-    """Accumulates spheres, rects, materials and textures, then emits a
-    Scene."""
+    """Accumulates spheres, rects, boxes, media, materials and textures,
+    then emits a Scene."""
 
     def __init__(self):
         self._sph = []   # (center, delta, time0, inv_dt, radius, mat)
         self._rects = []  # (axis, a0, a1, b0, b1, k, flip, mat)
+        self._boxes = []  # (p0, p1, world_from_obj, mat)
+        self._media = []  # (kind, p0, p1, radius, world_from_obj, density, mat)
         self._mats = []  # (kind, tex, fuzz, ref_idx)
         self._texs = []  # (kind, color, odd, even, scale)
         self.sky: Optional[Vec3] = None  # None => gradient sky
@@ -101,6 +170,9 @@ class SceneBuilder:
     def diffuse_light_color(self, color: Vec3) -> int:
         return self.diffuse_light(self.constant_texture(color))
 
+    def isotropic(self, tex_id: int) -> int:
+        return self._mat(T.MAT_ISOTROPIC, tex_id)
+
     # ---- primitives ----
     def sphere(self, center: Vec3, radius: float, mat_id: int) -> None:
         self._sph.append((_v3(center), np.zeros(3, np.float32), 0.0, 0.0,
@@ -133,6 +205,27 @@ class SceneBuilder:
     def rect_yz(self, y0, y1, z0, z1, k, flip: bool, mat_id: int,
                 transform=None) -> None:
         self._rect(0, y0, y1, z0, z1, k, flip, mat_id, transform)
+
+    def box(self, p0: Vec3, p1: Vec3, mat_id: int,
+            world_from_obj: Optional[np.ndarray] = None) -> None:
+        m = (identity_affine() if world_from_obj is None
+             else np.asarray(world_from_obj, np.float32))
+        self._boxes.append((_v3(p0), _v3(p1), m, mat_id))
+
+    def medium_box(self, p0: Vec3, p1: Vec3, density: float, albedo_tex: int,
+                   world_from_obj: Optional[np.ndarray] = None) -> None:
+        m = (identity_affine() if world_from_obj is None
+             else np.asarray(world_from_obj, np.float32))
+        mat = self.isotropic(albedo_tex)
+        self._media.append((T.MEDIUM_BOX, _v3(p0), _v3(p1), 0.0, m,
+                            float(density), mat))
+
+    def medium_sphere(self, center: Vec3, radius: float, density: float,
+                      albedo_tex: int) -> None:
+        mat = self.isotropic(albedo_tex)
+        self._media.append((T.MEDIUM_SPHERE, _v3(center),
+                            np.zeros(3, np.float32), float(radius),
+                            identity_affine(), float(density), mat))
 
     # ---- finish ----
     def finish(self, pad_multiple: int = 1,
@@ -187,6 +280,40 @@ class SceneBuilder:
             re_k[i], re_flip[i], re_mat[i] = k, fl, m
             re_mask[i] = True
 
+        # padding boxes and media sit at 1e18 and are masked off
+        nb = _pad_to(len(self._boxes), 1)
+        bx_p0 = np.full((nb, 3), 1.0e18, f32)
+        bx_p1 = np.full((nb, 3), 1.0e18, f32)
+        bx_wfo = np.tile(identity_affine()[None], (nb, 1, 1))
+        bx_ofw = np.tile(identity_affine()[None], (nb, 1, 1))
+        bx_mat = np.zeros(nb, i32)
+        bx_mask = np.zeros(nb, bool)
+        for i, (p0, p1, m, mat) in enumerate(self._boxes):
+            bx_p0[i], bx_p1[i] = p0, p1
+            bx_wfo[i] = m
+            bx_ofw[i] = invert_affine(m)
+            bx_mat[i] = mat
+            bx_mask[i] = True
+
+        nm = _pad_to(len(self._media), 1)
+        md_kind = np.zeros(nm, i32)
+        md_p0 = np.full((nm, 3), 1.0e18, f32)
+        md_p1 = np.full((nm, 3), 1.0e18, f32)
+        md_rad = np.zeros(nm, f32)
+        md_wfo = np.tile(identity_affine()[None], (nm, 1, 1))
+        md_ofw = np.tile(identity_affine()[None], (nm, 1, 1))
+        md_den = np.ones(nm, f32)
+        md_mat = np.zeros(nm, i32)
+        md_mask = np.zeros(nm, bool)
+        for i, (kind, p0, p1, rad, m, den, mat) in enumerate(self._media):
+            md_kind[i] = kind
+            md_p0[i], md_p1[i], md_rad[i] = p0, p1, rad
+            md_wfo[i] = m
+            md_ofw[i] = invert_affine(m)
+            md_den[i] = den
+            md_mat[i] = mat
+            md_mask[i] = True
+
         nmat = max(len(self._mats), 1)
         ma_kind = np.zeros(nmat, i32)
         ma_tex = np.zeros(nmat, i32)
@@ -227,4 +354,8 @@ class SceneBuilder:
             sky=t(sky),
             use_gradient_sky=torch.tensor(1.0 if self.sky is None else 0.0,
                                           dtype=torch.float32),
+            boxes=T.Boxes(t(bx_p0), t(bx_p1), t(bx_wfo), t(bx_ofw), t(bx_mat),
+                          t(bx_mask)),
+            media=T.Media(t(md_kind), t(md_p0), t(md_p1), t(md_rad), t(md_wfo),
+                          t(md_ofw), t(md_den), t(md_mat), t(md_mask)),
         )

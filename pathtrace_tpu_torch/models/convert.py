@@ -18,11 +18,8 @@ import torch
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models import types as T
 
-_GROUPS = {"spheres": T.Spheres, "rects": T.Rects, "materials": T.Materials,
-           "textures": T.Textures}
-# primitive kinds the JAX scene carries and the port has no tables for:
-# a live entry in any of them is refused rather than silently dropped
-_ABSENT_KINDS = ("boxes", "media")
+_GROUPS = {"spheres": T.Spheres, "rects": T.Rects, "boxes": T.Boxes,
+           "media": T.Media, "materials": T.Materials, "textures": T.Textures}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,11 +27,8 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene:
-    """Build the port's Scene from the reference's flattened leaves."""
-    for kind in _ABSENT_KINDS:
-        mask = leaves.get(f"{kind}.mask")
-        if mask is not None and np.any(mask):
-            raise ValueError(f"scene has live {kind}: not in this port yet")
+    """Build the port's Scene from the reference's flattened leaves.
+    Instanced spheres or rects and image textures are refused."""
     for kind in ("spheres", "rects"):
         if f"{kind}.world_from_obj" in leaves:
             raise ValueError(f"scene has instanced {kind}: not in this port yet")

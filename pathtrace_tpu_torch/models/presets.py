@@ -3,7 +3,9 @@
 cover scene, whose small diffuse spheres move over the shutter),
 ``random_spheres`` (the same scene with static spheres), its 64x64-grid
 variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
-default) and ``simple_light`` (an emissive sphere and rect over marble). Each builds its
+default), ``simple_light`` (an emissive sphere and rect over marble),
+``cornell`` (six rects, a rect light and two rotated boxes) and
+``cornell_smoke`` (the same walls and two rotated media boxes). Each builds its
 scene with the same numpy generator calls as the JAX preset, so both
 packages produce identical leaves."""
 
@@ -14,12 +16,14 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 
 from pathtrace_tpu_torch.camera import Camera, make_camera
-from pathtrace_tpu_torch.models.build import SceneBuilder
+from pathtrace_tpu_torch.models.build import (
+    SceneBuilder,
+    affine_from_rotation_y_translation,
+)
 from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this slice cannot render
-NOT_PORTED = ("aras", "cornell", "cornell_smoke", "earth", "final",
-              "final_full", "smallpt")
+NOT_PORTED = ("aras", "earth", "final", "final_full", "smallpt")
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -141,7 +145,62 @@ def simple_light(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     return b.finish(), cam
 
 
+def _cornell_camera(aspect: float) -> Camera:
+    return make_camera(
+        (278.0, 278.0, -800.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0), 40.0,
+        aspect, aperture=0.0, focus_dist=10.0, time0=0.0, time1=1.0,
+    )
+
+
+def _cornell_walls(b: SceneBuilder, light_color, light_rect) -> None:
+    red = b.lambertian_color((0.65, 0.05, 0.05))
+    white = b.lambertian_color((0.73, 0.73, 0.73))
+    green = b.lambertian_color((0.12, 0.45, 0.15))
+    light = b.diffuse_light_color(light_color)
+    b.rect_yz(0.0, 555.0, 0.0, 555.0, 555.0, True, green)
+    b.rect_yz(0.0, 555.0, 0.0, 555.0, 0.0, False, red)
+    b.rect_xz(*light_rect, False, light)
+    b.rect_xz(0.0, 555.0, 0.0, 555.0, 555.0, True, white)
+    b.rect_xz(0.0, 555.0, 0.0, 555.0, 0.0, False, white)
+    b.rect_xy(0.0, 555.0, 0.0, 555.0, 555.0, True, white)
+
+
+def _box1_xform():
+    return affine_from_rotation_y_translation(-18.0, (130.0, 0.0, 65.0))
+
+
+def _box2_xform():
+    return affine_from_rotation_y_translation(15.0, (265.0, 0.0, 295.0))
+
+
+def cornell(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Cornell box: six walls (one a rect light) and two rotated white
+    boxes, black sky."""
+    b = SceneBuilder()
+    _cornell_walls(b, (15.0, 15.0, 15.0), (213.0, 343.0, 227.0, 332.0, 554.0))
+    white = b.lambertian_color((0.73, 0.73, 0.73))
+    b.box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), white, _box1_xform())
+    b.box((0.0, 0.0, 0.0), (165.0, 330.0, 165.0), white, _box2_xform())
+    b.sky = (0.0, 0.0, 0.0)
+    return b.finish(), _cornell_camera(aspect)
+
+
+def cornell_smoke(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Cornell box with two rotated media boxes of density 0.01 (white
+    smoke and black fog) under a larger, dimmer light."""
+    b = SceneBuilder()
+    _cornell_walls(b, (7.0, 7.0, 7.0), (113.0, 443.0, 127.0, 432.0, 554.0))
+    b.medium_box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), 0.01,
+                 b.constant_texture((1.0, 1.0, 1.0)), _box1_xform())
+    b.medium_box((0.0, 0.0, 0.0), (165.0, 330.0, 165.0), 0.01,
+                 b.constant_texture((0.0, 0.0, 0.0)), _box2_xform())
+    b.sky = (0.0, 0.0, 0.0)
+    return b.finish(), _cornell_camera(aspect)
+
+
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
+    "cornell": cornell,
+    "cornell_smoke": cornell_smoke,
     "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,

@@ -1,9 +1,9 @@
 """Scene representation: dataclasses of tensors.
 
 Counterpart of ``pathtrace_tpu/models/types.py`` for spheres, axis-aligned
-rects, materials, textures and the sky. Boxes, media, instanced primitives
-and the image atlas are not ported yet. Every leaf is a tensor;
-``.to(device)`` moves a whole dataclass.
+rects, transformed boxes, constant-density media, materials, textures and
+the sky. Instanced spheres and rects and the image atlas are not ported
+yet. Every leaf is a tensor; ``.to(device)`` moves a whole dataclass.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ TEX_CONSTANT = 0
 TEX_CHECKER = 1
 TEX_NOISE = 2
 TEX_IMAGE = 3
+
+# Medium boundary kinds.
+MEDIUM_BOX = 0
+MEDIUM_SPHERE = 1
 
 
 class _TensorData:
@@ -83,6 +87,76 @@ class Rects(_TensorData):
         return self.axis.shape[0]
 
 
+def _identity_affines(n: int) -> torch.Tensor:
+    out = torch.zeros((n, 3, 4), dtype=torch.float32)
+    out[:, :, :3] = torch.eye(3)
+    return out
+
+
+@dataclasses.dataclass
+class Boxes(_TensorData):
+    """Transformed axis-aligned boxes: an object-space AABB ``[p0, p1]``
+    and its affine pair (the reference's Cuboid inside an Instance). The
+    hit is a slab test in object space; the normal is the entry or exit
+    face's, mapped back through ``world_from_obj``."""
+
+    p0: torch.Tensor              # [N, 3] f32 object-space min corner
+    p1: torch.Tensor              # [N, 3] f32 object-space max corner
+    world_from_obj: torch.Tensor  # [N, 3, 4] f32 affine
+    obj_from_world: torch.Tensor  # [N, 3, 4] f32 affine (its inverse)
+    mat_id: torch.Tensor          # [N] i32
+    mask: torch.Tensor            # [N] bool
+
+    @property
+    def count(self) -> int:
+        return self.p0.shape[0]
+
+    @staticmethod
+    def empty() -> "Boxes":
+        """One dead box, as the builder pads a scene without boxes."""
+        return Boxes(
+            p0=torch.full((1, 3), 1.0e18), p1=torch.full((1, 3), 1.0e18),
+            world_from_obj=_identity_affines(1),
+            obj_from_world=_identity_affines(1),
+            mat_id=torch.zeros(1, dtype=torch.int32),
+            mask=torch.zeros(1, dtype=torch.bool),
+        )
+
+
+@dataclasses.dataclass
+class Media(_TensorData):
+    """Constant-density participating media whose boundary is a
+    transformed box or a sphere (``kind``). Free flight is
+    ``-ln(U) / density`` inside the boundary interval; the phase function
+    is the isotropic material ``mat_id``."""
+
+    kind: torch.Tensor            # [N] i32, MEDIUM_BOX or MEDIUM_SPHERE
+    p0: torch.Tensor              # [N, 3] f32 box min (sphere centre)
+    p1: torch.Tensor              # [N, 3] f32 box max (unused for spheres)
+    radius: torch.Tensor          # [N] f32 sphere radius (unused for boxes)
+    world_from_obj: torch.Tensor  # [N, 3, 4] f32
+    obj_from_world: torch.Tensor  # [N, 3, 4] f32
+    density: torch.Tensor         # [N] f32
+    mat_id: torch.Tensor          # [N] i32
+    mask: torch.Tensor            # [N] bool
+
+    @property
+    def count(self) -> int:
+        return self.kind.shape[0]
+
+    @staticmethod
+    def empty() -> "Media":
+        """One dead medium, as the builder pads a scene without media."""
+        return Media(
+            kind=torch.zeros(1, dtype=torch.int32),
+            p0=torch.full((1, 3), 1.0e18), p1=torch.full((1, 3), 1.0e18),
+            radius=torch.zeros(1), world_from_obj=_identity_affines(1),
+            obj_from_world=_identity_affines(1), density=torch.ones(1),
+            mat_id=torch.zeros(1, dtype=torch.int32),
+            mask=torch.zeros(1, dtype=torch.bool),
+        )
+
+
 @dataclasses.dataclass
 class Materials(_TensorData):
     kind: torch.Tensor     # [M] i32
@@ -106,7 +180,8 @@ class Textures(_TensorData):
 @dataclasses.dataclass
 class Scene:
     """``sky`` is the constant sky colour, used when ``use_gradient_sky``
-    is 0; otherwise the gradient sky."""
+    is 0; otherwise the gradient sky. A scene built without boxes or media
+    holds one dead entry of each, as the builder pads them."""
 
     spheres: Spheres
     rects: Rects
@@ -114,6 +189,8 @@ class Scene:
     textures: Textures
     sky: torch.Tensor               # [3] f32
     use_gradient_sky: torch.Tensor  # [] f32, 1.0 or 0.0
+    boxes: Boxes = dataclasses.field(default_factory=Boxes.empty)
+    media: Media = dataclasses.field(default_factory=Media.empty)
 
     def to(self, device) -> "Scene":
         return Scene(
@@ -123,13 +200,14 @@ class Scene:
             textures=self.textures.to(device),
             sky=self.sky.to(device),
             use_gradient_sky=self.use_gradient_sky.to(device),
+            boxes=self.boxes.to(device),
+            media=self.media.to(device),
         )
 
 
 class SceneFeatures:
     """Static scene capabilities, derived host-side (same slots as the JAX
-    package's ``SceneFeatures``). Kinds the port has no tables for (boxes,
-    media) are always False here; ``fastpath_supported`` and
+    package's ``SceneFeatures``); ``fastpath_supported`` and
     ``megakernel_supported`` refuse what their paths cannot render."""
 
     __slots__ = (
@@ -183,8 +261,8 @@ class SceneFeatures:
             has_spheres=bool(sp.mask.any()),
             has_motion=bool((sp.inv_time_delta != 0.0).any()),
             has_rects=bool(scene.rects.mask.any()),
-            has_boxes=False,
-            has_media=False,
+            has_boxes=bool(scene.boxes.mask.any()),
+            has_media=bool(scene.media.mask.any()),
             has_noise=TEX_NOISE in tex_kinds,
             has_checker=TEX_CHECKER in tex_kinds,
             has_image=TEX_IMAGE in tex_kinds,

@@ -1,8 +1,9 @@
 """Fast render path: closest-hit kernel + fused shade/scatter kernel +
 host-driven stream compaction.
 
-Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour, sphere
-and rect scenes, static or moving spheres). One bounce is two kernels:
+Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour: static
+or moving spheres, rects, transformed boxes and constant-density media).
+One bounce is two kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
   closest hit over every sphere, giving (t, idx) per ray; scenes of at
@@ -13,18 +14,24 @@ and rect scenes, static or moving spheres). One bounce is two kernels:
   with moving spheres take
   :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest_moving`
   (K3, centres lerped to each ray's time), never culled;
-  the rects of the scene are swept beside it in plain PyTorch
-  (:mod:`~pathtrace_tpu_torch.ops.intersect_rect`) and a rect wins only
-  when strictly nearer;
+  a scene without spheres skips the sweep (t = MAX_T, idx 0), as the
+  reference does; the rects, boxes and media of the scene are swept
+  after it in plain PyTorch (:mod:`~pathtrace_tpu_torch.ops.intersect_rect`,
+  :mod:`~pathtrace_tpu_torch.ops.intersect_box`; the media with the
+  free-flight draws ``8 + j``), each kind winning only when strictly
+  nearer;
 * :func:`~pathtrace_tpu_torch.ops.shade_kernel.shade_from_winners` — reads
-  each lane's winner row of the attribute table (spheres, then the rect
-  block) itself and runs texture, emission, sky and scatter in one pass
-  (the sphere normal from the time-lerped centre when the scene moves; a
-  rect's axis normal).
+  each lane's winner row of the attribute table (spheres, then the rect,
+  box and medium blocks) itself and runs texture, emission, sky and
+  scatter in one pass (the sphere normal from the time-lerped centre when
+  the scene moves; a rect's axis normal; a box's face normal from the
+  slab test redone in object space; (1, 0, 0) in a medium, whose
+  isotropic material scatters into the unit-sphere direction).
 
 With next-event estimation (``nee_lights``) a plain-PyTorch tail follows
-K2 each bounce: one light sample per Lambertian lane, a shadow ray through
-the closest hit (K1 or K3, and the rects), the power-heuristic split of
+K2 each bounce: one light sample per Lambertian or isotropic lane, a
+shadow ray through the closest hit (K1 or K3, the rects, boxes and media;
+the shadow media draw ``8 + n_media + j``), the power-heuristic split of
 the light and BSDF strategies, and the MIS weight of the next vertex's
 emission, which K2 applies there (the 13th state plane). With Russian
 roulette (``rr_start``) a tail from that depth on ends lanes of low
@@ -36,18 +43,24 @@ them. Frames of culled scenes trace in 64x64 pixel-tile order, so that a
 warp's rays form a narrow frustum the culls can prune.
 
 The differentiable trace (:func:`trace_fast_diff`, the training path) runs
-every bounce at full width with no compaction: the closest hit goes
+every bounce at full width with no compaction (sphere and rect scenes:
+boxes and media are refused until their silhouette gradients are ported):
+the closest hit goes
 through :class:`~pathtrace_tpu_torch.ops.intersect_kernel.SphereNearest`
 (K1 or, for moving spheres, K3 forward; K6 backward) and one row gather, and the shading is
 plain PyTorch under autograd, as the reference shades its diff path in
 XLA.
 
-Attribute row layout (24 columns, as in the JAX package):
+Attribute row layout (24 columns, 48 in scenes with boxes or media, as
+in the JAX package):
   cols 0-13   shading: mat_kind, fuzz, ref_idx, tex_kind, col_rgb,
               odd_rgb, even_rgb, noise_scale
-  col  14     kind (0: sphere, 1: rect)
+  col  14     kind (0: sphere, 1: rect, 2: box, 3: medium)
   cols 15-23  sphere: cx cy cz dx dy dz time0 inv_dt radius
               rect: axis a0 a1 b0 b1 k flip, then zeros
+  cols 15-41  box: p0 xyz, p1 xyz, obj_from_world (3x4 row-major),
+              world_from_obj's linear part (3x3 row-major)
+  cols 15-34  medium: p0 xyz, p1 xyz, obj_from_world, density, radius
 
 The bounce RNG is the stateless counter hash of the JAX package, keyed on
 (lane, seed, depth, draw) and reproduced bit for bit. torch on the CPU has
@@ -66,10 +79,17 @@ import numpy as np
 import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
-from pathtrace_tpu_torch.models.types import Rects, Scene, SceneFeatures
+from pathtrace_tpu_torch.models.types import (
+    Boxes,
+    Media,
+    Rects,
+    Scene,
+    SceneFeatures,
+)
 from pathtrace_tpu_torch.models.types import (
     MAT_DIELECTRIC,
     MAT_DIFFUSE_LIGHT,
+    MAT_ISOTROPIC,
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
@@ -86,9 +106,11 @@ from pathtrace_tpu_torch.ops.intersect_kernel import (
     sphere_nearest_culled,
     sphere_nearest_moving,
 )
+from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
 from pathtrace_tpu_torch.ops.intersect_rect import (
     RECT_ROWS,
     merge_rects,
+    merge_winner,
     rect_nearest,
 )
 from pathtrace_tpu_torch.ops.lights import (
@@ -99,15 +121,19 @@ from pathtrace_tpu_torch.ops.lights import (
 from pathtrace_tpu_torch.ops.shade_kernel import (
     ALBEDO,
     ESC,
+    FLAG_BOX,
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
     FLAG_EMIT_SCALE,
     FLAG_LAMBERTIAN,
     FLAG_LIGHT,
+    FLAG_MEDIUM,
     FLAG_METAL,
     FLAG_MOTION,
     FLAG_NOISE,
     FLAG_RECT,
+    KIND_BOX,
+    KIND_MEDIUM,
     KIND_RECT,
     NORMAL,
     TWO_PI,
@@ -117,6 +143,8 @@ from pathtrace_tpu_torch.render import compact_util
 
 GEO = 15       # first geometry column of an attribute row
 K_ATTR = 24
+K_ATTR_AFFINE = 48  # rows of scenes with boxes or media
+K_ATTR_IMG = 28     # rows this wide carry the image atlas entry at the end
 _INV_PI = 1.0 / 3.14159265358979
 
 _M32 = 0xFFFFFFFF
@@ -227,25 +255,26 @@ def fast_turb_c(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attr_width(features: SceneFeatures) -> int:
-    """24 columns: the sphere row (image textures and boxes, which widen
-    it in the JAX package, are not in this port yet)."""
+    """24 columns, or 48 in scenes with boxes or media, whose rows carry
+    affine transforms (image textures, which widen the row in the JAX
+    package, are not in this port yet)."""
+    if features.has_boxes or features.has_media:
+        return K_ATTR_AFFINE
     return K_ATTR
 
 
 def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
     """True for the scene classes this port renders: static or moving
-    spheres and world-space rects (at most ``RECT_ROWS``) with Lambertian,
-    metal, dielectric or emissive materials and constant, checker
-    (constant children) or noise textures. Raises ``ValueError`` naming
-    what is missing for anything else."""
+    spheres, world-space rects (at most ``RECT_ROWS``), transformed boxes
+    and constant-density media with Lambertian, metal, dielectric,
+    emissive or isotropic materials and constant, checker (constant
+    children) or noise textures. Raises ``ValueError`` naming what is
+    missing for anything else."""
     if scene.rects.count > RECT_ROWS:
         raise ValueError(f"scene has {scene.rects.count} rects; the fast "
                          f"path takes at most {RECT_ROWS}")
     missing = [name for name, on in (
-        ("boxes", features.has_boxes),
-        ("media", features.has_media),
         ("image textures", features.has_image),
-        ("isotropic materials", features.has_isotropic),
         ("checker textures with non-constant children",
          features.has_checker and not features.checker_children_const),
     ) if on]
@@ -266,7 +295,9 @@ def feature_flags(features: SceneFeatures) -> int:
                     (features.has_dielectric, FLAG_DIELECTRIC),
                     (features.has_light, FLAG_LIGHT),
                     (features.has_motion, FLAG_MOTION),
-                    (features.has_rects, FLAG_RECT)):
+                    (features.has_rects, FLAG_RECT),
+                    (features.has_boxes, FLAG_BOX),
+                    (features.has_media, FLAG_MEDIUM)):
         if on:
             flags |= bit
     return flags
@@ -293,7 +324,15 @@ def _shade_cols(scene: Scene, mat_id: torch.Tensor):
 
 def _finish_table(cols, mask, dead_col: int, n_pad: int, k_attr: int):
     """Stack the columns into rows; dead and padding rows are zero with
-    1e18 in ``dead_col``. Out of place, so gradients reach the leaves."""
+    1e18 in ``dead_col``. Out of place, so gradients reach the leaves.
+    Rows of 28 columns or more end, as the reference's do, in the image
+    atlas entry of the row's texture (y-offset, height, width): the port
+    has no image textures, so every live row holds the builder's 1x1
+    placeholder, (0, 1, 1)."""
+    if k_attr >= K_ATTR_IMG:
+        fill = cols[0].new_zeros(cols[0].shape)
+        cols = (cols + [fill] * (k_attr - 3 - len(cols))
+                + [fill, fill + 1.0, fill + 1.0])
     table = torch.stack(cols, dim=1)
     is_dead_col = torch.arange(table.shape[1], device=table.device) == dead_col
     dead_row = torch.where(is_dead_col, 1.0e18, 0.0).to(table.dtype)
@@ -341,6 +380,42 @@ def build_rect_table(scene: Scene, k_attr: int) -> torch.Tensor:
                        table)
 
 
+def _affine_cols(m: torch.Tensor, linear_only: bool = False):
+    """The columns of [N, 3, 4] affines, row-major (the 3x3 linear part
+    only when ``linear_only``)."""
+    m = m[:, :, :3] if linear_only else m
+    flat = m.reshape(m.shape[0], -1)
+    return [flat[:, i] for i in range(flat.shape[1])]
+
+
+def _slab_cols(scene: Scene, prims, kind: float):
+    """The columns boxes and media share: shading, ``kind``, p0 and p1 at
+    GEO, obj_from_world (3x4 row-major) at GEO + 6."""
+    return _shade_cols(scene, prims.mat_id) + [
+        torch.full_like(prims.mask, kind, dtype=torch.float32),
+        *prims.p0.unbind(1), *prims.p1.unbind(1),
+    ] + _affine_cols(prims.obj_from_world)
+
+
+def build_box_table(scene: Scene, k_attr: int) -> torch.Tensor:
+    """[N, k_attr] box rows: :func:`_slab_cols` with kind 2, then
+    world_from_obj's linear part (3x3 row-major) at GEO + 18. Dead rows
+    are zero with p0x = 1e18."""
+    bx = scene.boxes
+    cols = (_slab_cols(scene, bx, KIND_BOX)
+            + _affine_cols(bx.world_from_obj, linear_only=True))
+    return _finish_table(cols, bx.mask, GEO, bx.count, k_attr)
+
+
+def build_media_table(scene: Scene, k_attr: int) -> torch.Tensor:
+    """[N, k_attr] medium rows: :func:`_slab_cols` with kind 3 (the
+    scatter needs no normal), then the density at GEO + 18 and the sphere
+    boundary's radius at GEO + 19."""
+    md = scene.media
+    cols = _slab_cols(scene, md, KIND_MEDIUM) + [md.density, md.radius]
+    return _finish_table(cols, md.mask, GEO, md.count, k_attr)
+
+
 def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
                      motion: bool = False) -> torch.Tensor:
     """[5, Npad] closest-hit operand: cx, cy, cz, |c|^2 - r^2, mask, with
@@ -374,24 +449,52 @@ def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
     return soa.contiguous()
 
 
+class TableRows(NamedTuple):
+    """First row of each kind's block in the winner table (a kind the
+    scene lacks has no block, and its entry is the next block's row)."""
+
+    rect: int
+    box: int
+    media: int
+
+
 class FastTables(NamedTuple):
-    table: torch.Tensor   # [Npad (+ 128 rect rows), 24] winner rows
+    table: torch.Tensor   # [rows, 24 or 48] winner rows (see TableRows)
     soa: torch.Tensor     # [5, Nslots] closest-hit operand ([12, Npad]: K3)
     sky4: torch.Tensor    # [4] sky rgb + use_gradient_sky
+    rows: TableRows       # where the rect, box and medium blocks start
     cull: Optional[CullBoxes] = None  # the culls' boxes (None: K1)
     rects: Optional[Rects] = None     # the rect sweep's rects (rect scenes)
+    boxes: Optional[Boxes] = None     # the box sweep's boxes (box scenes)
+    media: Optional[Media] = None     # the media sweep's media (media scenes)
     lights: Optional[LightTable] = None  # NEE's light table (host)
     light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
 
 
+def table_rows(scene: Scene, features: SceneFeatures) -> TableRows:
+    """The blocks of :func:`winner_table`: the sphere rows (whole tiles of
+    128), then the ``RECT_ROWS`` rect block in rect scenes, one row per
+    box in box scenes, one per medium in media scenes."""
+    rect = sphere_tiles(scene) * TILE_N
+    box = rect + (RECT_ROWS if features.has_rects else 0)
+    media = box + (scene.boxes.count if features.has_boxes else 0)
+    return TableRows(rect, box, media)
+
+
 def winner_table(scene: Scene, features: SceneFeatures) -> torch.Tensor:
-    """The rows K2 and the differentiable bounce read winners from: the
-    sphere rows, then in rect scenes the ``RECT_ROWS`` rect block, whose
-    row ``n_rows - RECT_ROWS + i`` is rect i (:func:`merge_rects`)."""
-    table = build_sphere_table(scene, attr_width(features))
+    """The rows K2 and the differentiable bounce read winners from, in the
+    blocks of :func:`table_rows` (the reference's order): rect ``i`` is
+    row ``rows.rect + i``, box ``i`` row ``rows.box + i``, medium ``i``
+    row ``rows.media + i``."""
+    k_attr = attr_width(features)
+    parts = [build_sphere_table(scene, k_attr)]
     if features.has_rects:
-        table = torch.cat([table, build_rect_table(scene, table.shape[1])])
-    return table
+        parts.append(build_rect_table(scene, k_attr))
+    if features.has_boxes:
+        parts.append(build_box_table(scene, k_attr))
+    if features.has_media:
+        parts.append(build_media_table(scene, k_attr))
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
 
 
 def sphere_tiles(scene: Scene) -> int:
@@ -412,9 +515,10 @@ def prep_tables(scene: Scene, features: SceneFeatures,
                 lights: Optional[LightTable] = None) -> FastTables:
     """Per-trace tables, on the scene's device. ``cull``: build the boxes
     of the cull :func:`cull_mode` picks, and pad the closest-hit operand
-    to its tiles (and supertiles). Rect scenes get the rect block after
-    the sphere rows. ``lights``: the light table of next-event estimation,
-    whose lights must all have constant textures."""
+    to its tiles (and supertiles). Rect, box and media scenes get their
+    blocks after the sphere rows. ``lights``: the light table of
+    next-event estimation, whose lights must all have constant
+    textures."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     boxes, n_slots = None, None
@@ -435,8 +539,11 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         table=table.contiguous(),
         soa=build_sphere_soa(scene, n_slots, motion=features.has_motion),
         sky4=sky4.contiguous(),
+        rows=table_rows(scene, features),
         cull=boxes,
         rects=scene.rects if features.has_rects else None,
+        boxes=scene.boxes if features.has_boxes else None,
+        media=scene.media if features.has_media else None,
         lights=lights,
         light_rgb=light_rgb,
     )
@@ -492,19 +599,41 @@ def make_state(ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
     )
 
 
+def _no_hit(rays: torch.Tensor):
+    """(t, idx) of a scene without spheres: MAX_T and 0 on every ray."""
+    R = rays.shape[1]
+    return (torch.full((R,), _INF, dtype=rays.dtype, device=rays.device),
+            torch.zeros((R,), dtype=torch.int32, device=rays.device))
+
+
+def media_uniforms(lane: torch.Tensor, seed: int, depth: int, n_media: int,
+                   first_draw: int):
+    """The media sweep's free-flight uniforms: draw ``first_draw + j`` for
+    medium ``j`` (8 + j for the bounce's rays, 8 + n_media + j for the
+    shadow rays, as in the reference)."""
+    return [counter_uniform(lane, seed, depth, first_draw + j)
+            for j in range(n_media)]
+
+
 def nearest_t_only(tables: FastTables, rays: torch.Tensor,
-                   time: torch.Tensor,
-                   features: SceneFeatures) -> torch.Tensor:
+                   time: torch.Tensor, features: SceneFeatures,
+                   med_u=None) -> torch.Tensor:
     """Closest-hit distance only, over the spheres (K1 brute force, or K3
-    for moving spheres) and the rects, of ``rays`` [6, R]: the shadow
-    rays' occlusion test (the reference's ``nearest_t_only``,
-    ``fastpath.py:356``)."""
-    if features.has_motion:
+    for moving spheres), the rects, boxes and media, of ``rays`` [6, R]:
+    the shadow rays' occlusion test (the reference's ``nearest_t_only``,
+    ``fastpath.py:356``). ``med_u``: the media's uniforms (media scenes)."""
+    if not features.has_spheres:
+        t, _ = _no_hit(rays)
+    elif features.has_motion:
         t, _ = sphere_nearest_moving(tables.soa, rays, time, MIN_T, MAX_T)
     else:
         t, _ = sphere_nearest(tables.soa, rays, MIN_T, MAX_T)
     if tables.rects is not None:
         t = torch.minimum(t, rect_nearest(tables.rects, *rays)[0])
+    if tables.boxes is not None:
+        t = torch.minimum(t, box_nearest(tables.boxes, *rays)[0])
+    if tables.media is not None:
+        t = torch.minimum(t, media_nearest(tables.media, *rays, med_u)[0])
     return t
 
 
@@ -520,13 +649,13 @@ class ShadowRays(NamedTuple):
 def shadow_rays(tables: FastTables, idx: torch.Tensor, planes: torch.Tensor,
                 alive: torch.Tensor, lane: torch.Tensor, seed: int,
                 depth: int) -> ShadowRays:
-    """NEE's light samples after the shade kernel: each live Lambertian
-    lane samples one light (draws 4-6) from its hit point, which K2 left
-    in the ro rows of ``planes``. Lanes off NEE start at the origin and
-    are swept all the same, as in the reference."""
-    is_lam = (tables.table[:, 0].index_select(0, idx.long())
-              == float(MAT_LAMBERTIAN))
-    mask = alive & is_lam
+    """NEE's light samples after the shade kernel: each live Lambertian or
+    isotropic lane samples one light (draws 4-6) from its hit point,
+    which K2 left in the ro rows of ``planes``. Lanes off NEE start at the
+    origin and are swept all the same, as in the reference."""
+    mat_kind = tables.table[:, 0].index_select(0, idx.long())
+    is_lam = mat_kind == float(MAT_LAMBERTIAN)
+    mask = alive & (is_lam | (mat_kind == float(MAT_ISOTROPIC)))
     lu0, lu1, lu2 = (counter_uniform(lane, seed, depth, k) for k in (4, 5, 6))
     zero = torch.zeros_like(planes[0])
     spx, spy, spz = (torch.where(mask, planes[k], zero) for k in range(3))
@@ -546,14 +675,20 @@ def nee_tail(tables: FastTables, t: torch.Tensor, idx: torch.Tensor,
     weight. The lanes of :func:`shadow_rays` trace their shadow ray; an
     unoccluded sample adds its light-strategy share to the radiance
     planes, and row ``ESC`` gets the BSDF strategy's share for the
-    direction K2 scattered into. In place; returns the shadow rays traced
-    (a device int64)."""
+    direction K2 scattered into. An isotropic lane's BSDF density is
+    1 / (4 pi). In place; returns the shadow rays traced (a device
+    int64)."""
     lights = tables.lights
     sh = shadow_rays(tables, idx, planes, alive, state_in.lane, seed, depth)
     spx, spy, spz, wix, wiy, wiz = sh.rays
     ldist, lpdf, nee_mask, is_lam = sh.dist, sh.pdf, sh.mask, sh.is_lam
     zero = torch.zeros_like(t)
-    s_t = nearest_t_only(tables, sh.rays, state_in.time, features)
+    med_u = None
+    if tables.media is not None:
+        n_media = tables.media.count
+        med_u = media_uniforms(state_in.lane, seed, depth, n_media,
+                               8 + n_media)
+    s_t = nearest_t_only(tables, sh.rays, state_in.time, features, med_u)
     unoccluded = ~((s_t < _INF) & (s_t < ldist * (1.0 - 1e-3)))
     le = tables.light_rgb.index_select(1, sh.light.long())
     snx, sny, snz = (torch.where(nee_mask, n, zero) for n in planes[NORMAL])
@@ -594,12 +729,17 @@ def rr_tail(planes: torch.Tensor, alive: torch.Tensor, lane: torch.Tensor,
 
 
 def closest_hit(tables: FastTables, state: FastStateP, depth: int,
-                features: SceneFeatures):
+                features: SceneFeatures, seed: Optional[int] = None):
     """The winners (t [R], idx [R] int32, a row of ``tables.table``) of a
     state's rays: K3 for moving spheres, the cull when the tables carry
-    boxes, else K1; then the rect sweep, whose winner takes the row of the
-    rect block when strictly nearer (the sphere keeps ties)."""
-    if features.has_motion:
+    cull boxes, else K1 (no sweep in a scene without spheres); then the
+    rect, box and media sweeps in that order, each kind's winner taking
+    its row when strictly nearer (the earlier kinds keep ties). The media
+    sweep draws its free flights from the bounce's ``seed`` (draws
+    ``8 + j``), which media scenes must pass."""
+    if not features.has_spheres:
+        t, idx = _no_hit(state.planes)
+    elif features.has_motion:
         t, idx = sphere_nearest_moving(tables.soa, state.planes[:6],
                                        state.time, MIN_T, MAX_T)
     elif tables.cull is not None and (depth == 0 or CULL_ALL_DEPTHS):
@@ -607,9 +747,20 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
                                           tables.cull, MIN_T, MAX_T)
     else:
         t, idx = sphere_nearest(tables.soa, state.planes[:6], MIN_T, MAX_T)
+    rays = state.planes[:6]
     if tables.rects is not None:
-        t, idx = merge_rects(tables.rects, state.planes[:6], t, idx,
-                             tables.table.shape[0])
+        t, idx = merge_rects(tables.rects, rays, t, idx, tables.rows.rect)
+    if tables.boxes is not None:
+        t, idx = merge_winner(t, idx, *box_nearest(tables.boxes, *rays),
+                              tables.rows.box)
+    if tables.media is not None:
+        if seed is None:
+            raise ValueError("closest_hit: a media scene needs the bounce "
+                             "seed (the free-flight draws)")
+        med_u = media_uniforms(state.lane, seed, depth, tables.media.count, 8)
+        t, idx = merge_winner(
+            t, idx, *media_nearest(tables.media, *rays, med_u),
+            tables.rows.media)
     return t, idx
 
 
@@ -620,7 +771,7 @@ def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
     then the NEE tail when the tables carry lights and the roulette tail
     when ``rr_start`` > 0. Returns (state, shadow rays traced: a device
     int64, or 0 without NEE)."""
-    t, idx = closest_hit(tables, state, depth, features)
+    t, idx = closest_hit(tables, state, depth, features, seed)
     nee = tables.lights is not None
     flags = feature_flags(features) | (FLAG_EMIT_SCALE if nee else 0)
     planes, alive = shade_from_winners(
@@ -923,7 +1074,7 @@ def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd, *motion)
     if features.has_rects:
         t, idx = merge_rects(scene.rects, (*ro.unbind(1), *rd.unbind(1)), t,
-                             idx, table.shape[0])
+                             idx, table_rows(scene, features).rect)
     return t, table.index_select(0, idx.long())
 
 
@@ -1065,6 +1216,20 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     )
 
 
+def diff_supported(features: SceneFeatures, scene: Scene) -> bool:
+    """The differentiable path's scenes: those of :func:`fastpath_supported`
+    without boxes or media, whose normals and silhouette gradients it does
+    not have yet. Raises ``ValueError`` naming them."""
+    fastpath_supported(features, scene)
+    missing = [name for name, on in (("boxes", features.has_boxes),
+                                     ("media", features.has_media)) if on]
+    if missing:
+        raise ValueError(f"the differentiable path takes no "
+                         f"{' or '.join(missing)} yet (their silhouette "
+                         f"gradients are not ported)")
+    return True
+
+
 def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                     time: torch.Tensor, seed: int, max_depth: int,
                     features: SceneFeatures):
@@ -1072,8 +1237,9 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     width, no compaction (twin of the reference's ``trace_fast_diff``,
     ``fastpath.py:1568``). Gradients flow to the scene's leaves through
     the attribute table and the closest hit's backward. Returns
-    (radiance [R, 3], segments [] int64 on the device)."""
-    fastpath_supported(features, scene)
+    (radiance [R, 3], segments [] int64 on the device). Boxes and media
+    are refused (:func:`diff_supported`)."""
+    diff_supported(features, scene)
     table = winner_table(scene, features)
     soa = build_sphere_soa(scene, motion=features.has_motion)
     R = ro.shape[0]

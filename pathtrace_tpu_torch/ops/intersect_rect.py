@@ -58,14 +58,19 @@ def rect_nearest(rects: Rects, rox, roy, roz, rdx, rdy, rdz,
     return tbest, ibest
 
 
+def merge_winner(t: torch.Tensor, idx: torch.Tensor, t_k: torch.Tensor,
+                 i_k: torch.Tensor, row0: int):
+    """Merge a kind's winner (t_k, i_k) into the running winner (t, idx):
+    it wins only when strictly nearer (the earlier kinds keep ties) and
+    takes row ``row0 + i_k`` of the winner table, ``row0`` being the first
+    row of its kind's block (see ``fastpath.table_rows``)."""
+    wins = t_k < t
+    return torch.where(wins, t_k, t), torch.where(wins, i_k + row0, idx)
+
+
 def merge_rects(rects: Rects, rays, t: torch.Tensor, idx: torch.Tensor,
-                n_rows: int):
+                row0: int):
     """Sweep the rects along ``rays`` (six [R] planes: ro xyz, rd xyz) and
-    merge their winner into the sphere winner (t, idx): a rect wins only
-    when strictly nearer (the sphere keeps ties) and takes its row of the
-    rect block, the last ``RECT_ROWS`` of a winner table of ``n_rows``
-    rows (see ``fastpath.winner_table``). Returns the merged (t, idx)."""
-    t_r, i_r = rect_nearest(rects, *rays)
-    wins = t_r < t
-    return (torch.where(wins, t_r, t),
-            torch.where(wins, i_r + (n_rows - RECT_ROWS), idx))
+    merge their winner into (t, idx) with :func:`merge_winner`, the rect
+    block starting at row ``row0``. Returns the merged (t, idx)."""
+    return merge_winner(t, idx, *rect_nearest(rects, *rays), row0)

@@ -8,21 +8,28 @@ it: the kernel reads each lane's winner row of the attribute table
 itself, so no [R, 24] gather is materialized. Per lane: the hit point and
 normal (a sphere's, from the centre lerped to the lane's time when the
 scene moves, ``FLAG_MOTION``; a rect's, onehot(axis) * flip, for winner
-rows of kind 1 under ``FLAG_RECT``), the albedo (constant, checker, or
+rows of kind 1 under ``FLAG_RECT``; a box's, for rows of kind 2 under
+``FLAG_BOX``: the slab test redone in object space picks the entry or
+exit face, signed against the ray and mapped back through
+``world_from_obj``; (1, 0, 0) for a medium, rows of kind 3 under
+``FLAG_MEDIUM``), the albedo (constant, checker, or
 hash-turbulence marble), emission or the gradient/constant sky into the
 radiance (the emission scaled by the lane's MIS weight, the 13th state
 plane, under ``FLAG_EMIT_SCALE``), counter-hash draws 0-3, the Lambertian
-/ metal / dielectric scatter, the normalized new direction and
-throughput, and ``alive = alive & hit & ok & depth < max_depth``. Under
+/ metal / dielectric scatter (an isotropic medium's material takes the
+default, the unit-sphere direction, attenuated by its albedo), the
+normalized new direction and throughput, and
+``alive = alive & hit & ok & depth < max_depth``. Under
 ``FLAG_EMIT_SCALE`` the output also carries the MIS plane (copied
 through), the normal and the albedo: the next-event estimator's tail
 reads them there.
 
 On the card it is bound by bytes: about 120 per lane (15 state planes in,
-13 out, t and idx, and the 96-byte winner row from L2), against a few
-hundred flops (more with noise textures); under ``FLAG_EMIT_SCALE`` 4
-bytes more in and 28 more out. One thread per lane; the feature flags
-are uniform across a launch, so their branches do not diverge.
+13 out, t and idx, and the winner row, 96 or 192 bytes, from L2), against
+a few hundred flops (more with noise textures, ~100 more for a box
+winner); under ``FLAG_EMIT_SCALE`` 4 bytes more in and 28 more out. One
+thread per lane; the feature flags are uniform across a launch, so their
+branches diverge only where lanes of one warp hit different kinds.
 
 Transcendentals (sin, cos, exp, log, rsqrt) may differ by a few ULPs
 between CUDA, PyTorch and XLA; such differences, and the discrete
@@ -57,22 +64,75 @@ FLAG_LIGHT = 32
 FLAG_MOTION = 64
 FLAG_RECT = 128
 FLAG_EMIT_SCALE = 256
+FLAG_BOX = 512
+FLAG_MEDIUM = 1024
 
 TWO_PI = 6.283185307179586
 _INF = float(MAX_T)
 _GEO = 15
-KIND_RECT = 1.0  # primitive kind at column _GEO - 1 of a winner row
+# primitive kinds at column _GEO - 1 of a winner row
+KIND_RECT, KIND_BOX, KIND_MEDIUM = 1.0, 2.0, 3.0
 _SKY_GRADIENT = (0.15, 0.21, 0.30)
 # rows of the output beside the 12 state planes under FLAG_EMIT_SCALE
 ESC, NORMAL, ALBEDO = 12, slice(13, 16), slice(16, 19)
 
 
-def normal_planes(col, px, py, pz, time, flags):
+def _box_normal(col, ro, rd, t_safe):
+    """A box winner's normal: the slab test redone in object space from
+    the row's ``obj_from_world`` columns (a direction component under
+    1e-12 in magnitude becomes +1e-12), the entry face (first-max axis)
+    when ``|t - t_enter| < 1e-4 * max(|t|, 1)``, else the exit face
+    (first-min axis), signed against the ray (``torch.sign``: a zero
+    component gives 0, as ``jnp.sign``), then mapped through
+    ``world_from_obj``'s linear part."""
+    def ofw(r, c):
+        return col[_GEO + 6 + r * 4 + c]
+
+    ro_o = [ofw(r, 0) * ro[0] + ofw(r, 1) * ro[1] + ofw(r, 2) * ro[2]
+            + ofw(r, 3) for r in range(3)]
+    rd_o = [ofw(r, 0) * rd[0] + ofw(r, 1) * rd[1] + ofw(r, 2) * rd[2]
+            for r in range(3)]
+    rd_o = [torch.where(torch.abs(v) < 1e-12, 1e-12, v) for v in rd_o]
+    tn3, tf3 = [], []
+    for r in range(3):
+        rcp = 1.0 / rd_o[r]
+        d0 = (col[_GEO + r] - ro_o[r]) * rcp
+        d1 = (col[_GEO + 3 + r] - ro_o[r]) * rcp
+        tn3.append(torch.minimum(d0, d1))
+        tf3.append(torch.maximum(d0, d1))
+    t_enter = torch.maximum(torch.maximum(tn3[0], tn3[1]), tn3[2])
+    enter_axis = torch.where(tn3[1] > tn3[0], 1, 0)
+    enter_axis = torch.where(tn3[2] > torch.maximum(tn3[0], tn3[1]), 2,
+                             enter_axis)
+    exit_axis = torch.where(tf3[1] < tf3[0], 1, 0)
+    exit_axis = torch.where(tf3[2] < torch.minimum(tf3[0], tf3[1]), 2,
+                            exit_axis)
+    is_entry = torch.abs(t_safe - t_enter) < 1e-4 * torch.clamp(
+        torch.abs(t_safe), min=1.0)
+    face_axis = torch.where(is_entry, enter_axis, exit_axis)
+    fa = [(face_axis == r).to(t_safe.dtype) for r in range(3)]
+    rd_sel = fa[0] * rd_o[0] + fa[1] * rd_o[1] + fa[2] * rd_o[2]
+    sign_d = torch.sign(rd_sel)
+    n_sign = torch.where(is_entry, -sign_d, sign_d)
+    n_obj = [fa[r] * n_sign for r in range(3)]
+
+    def wfo(r, c):
+        return col[_GEO + 18 + r * 3 + c]
+
+    return [wfo(r, 0) * n_obj[0] + wfo(r, 1) * n_obj[1]
+            + wfo(r, 2) * n_obj[2] for r in range(3)]
+
+
+def normal_planes(col, ro, rd, t_safe, px, py, pz, time, flags):
     """The winner's surface normal as three [R] planes from its row's
-    columns ``col`` and the hit point: the sphere normal (the centre lerped
-    to ``time`` under ``FLAG_MOTION``) or, for a rect under ``FLAG_RECT``,
-    onehot(axis) * flip. The twin of the JAX package's ``_normal_planes``
-    (``fastpath.py:1189``) on the branches this port has."""
+    columns ``col``, the ray (``ro``, ``rd``: three [R] planes each), its
+    hit distance ``t_safe`` (0 on a miss) and the hit point: the sphere
+    normal (the centre lerped to ``time`` under ``FLAG_MOTION``); for a
+    rect under ``FLAG_RECT``, onehot(axis) * flip; for a box under
+    ``FLAG_BOX``, its face normal (:func:`_box_normal`); for a medium
+    under ``FLAG_MEDIUM``, (1, 0, 0). The twin of the JAX package's
+    ``_normal_planes`` (``fastpath.py:1189``) on the branches this port
+    has, in its order."""
     cx, cy, cz, r = col[_GEO], col[_GEO + 1], col[_GEO + 2], col[_GEO + 8]
     if flags & FLAG_MOTION:
         s = (time - col[_GEO + 6]) * col[_GEO + 7]
@@ -89,6 +149,17 @@ def normal_planes(col, px, py, pz, time, flags):
         nx = torch.where(is_rect, (axis == 0.0).to(px.dtype) * flip, nx)
         ny = torch.where(is_rect, (axis == 1.0).to(px.dtype) * flip, ny)
         nz = torch.where(is_rect, (axis == 2.0).to(px.dtype) * flip, nz)
+    if flags & FLAG_BOX:
+        is_box = col[_GEO - 1] == KIND_BOX
+        bn = _box_normal(col, ro, rd, t_safe)
+        nx = torch.where(is_box, bn[0], nx)
+        ny = torch.where(is_box, bn[1], ny)
+        nz = torch.where(is_box, bn[2], nz)
+    if flags & FLAG_MEDIUM:
+        is_med = col[_GEO - 1] == KIND_MEDIUM
+        nx = torch.where(is_med, 1.0, nx)
+        ny = torch.where(is_med, 0.0, ny)
+        nz = torch.where(is_med, 0.0, nz)
     return nx, ny, nz
 
 
@@ -134,7 +205,8 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
     px = rox + t_safe * rdx
     py = roy + t_safe * rdy
     pz = roz + t_safe * rdz
-    nx, ny, nz = normal_planes(col, px, py, pz, time, flags)
+    nx, ny, nz = normal_planes(col, (rox, roy, roz), (rdx, rdy, rdz), t_safe,
+                               px, py, pz, time, flags)
     rgb = albedo_planes(col, px, py, pz, flags)
 
     mat_kind = col[0]
@@ -247,7 +319,7 @@ def _int32(x: int) -> int:
 
 
 def _check(table, idx, t, planes, time, alive, lane, sky4,
-           n_planes: int) -> None:
+           n_planes: int, k_min: int) -> None:
     dev = t.device
     R = t.shape[0]
     for name, x, dtype, shape in (
@@ -268,8 +340,9 @@ def _check(table, idx, t, planes, time, alive, lane, sky4,
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
         if name != "planes" and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if table.dim() != 2 or table.shape[1] < _GEO + 9:
-        raise ValueError(f"table must be [N, >=24], got {tuple(table.shape)}")
+    if table.dim() != 2 or table.shape[1] < k_min:
+        raise ValueError(f"table must be [N, >={k_min}], got "
+                         f"{tuple(table.shape)}")
     if planes.dim() != 2 or planes.shape[0] < n_planes or planes.shape[1] != R:
         raise ValueError(f"planes must be [>={n_planes}, R], got "
                          f"{tuple(planes.shape)}")
@@ -282,10 +355,12 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
     """Shade and scatter one wavefront.
 
     ``table`` [N, 24] winner rows (spheres, then with ``FLAG_RECT`` the
-    rect block); ``idx`` [R] int32 and ``t`` [R] f32 from the closest
-    hit; ``planes`` [12, R] (ro xyz, rd xyz, radiance rgb, throughput
-    rgb; [13, R] with the MIS weight under ``FLAG_EMIT_SCALE``), ``time``
-    [R], ``alive`` [R] bool, ``lane`` [R] int32 (the 15 state planes);
+    rect block; [N, 48] with ``FLAG_BOX`` or ``FLAG_MEDIUM``, the box and
+    medium blocks after it); ``idx`` [R] int32 and ``t`` [R] f32 from
+    the closest hit; ``planes`` [12, R] (ro xyz, rd xyz, radiance rgb,
+    throughput rgb; [13, R] with the MIS weight under ``FLAG_EMIT_SCALE``),
+    ``time`` [R], ``alive`` [R] bool, ``lane`` [R] int32 (the 15 state
+    planes);
     ``seed`` the int32 bounce seed; ``sky4`` [4] (sky rgb,
     use_gradient_sky); ``flags`` the FLAG_* bitmask.
     Returns (planes [12, R] f32, alive [R] bool): 13 output planes. Under
@@ -297,8 +372,10 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
     the current stream (raising if it cannot launch)."""
     global LAUNCHES, PLAIN_CALLS
     n_out = 19 if flags & FLAG_EMIT_SCALE else 12
+    # a box row reads up to its world_from_obj at columns 33-41
     _check(table, idx, t, planes, time, alive, lane, sky4,
-           13 if flags & FLAG_EMIT_SCALE else 12)
+           13 if flags & FLAG_EMIT_SCALE else 12,
+           _GEO + 27 if flags & FLAG_BOX else _GEO + 9)
     if t.device.type == "cpu":
         PLAIN_CALLS += 1
         return shade_from_winners_plain(table, idx, t, planes, time, alive,

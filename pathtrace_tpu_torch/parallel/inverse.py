@@ -29,7 +29,7 @@ import torch
 
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
-from pathtrace_tpu_torch.ops.fastpath import fastpath_supported
+from pathtrace_tpu_torch.ops.fastpath import diff_supported
 from pathtrace_tpu_torch.render.frame import render_frame_diff
 
 _GROUPS = ("spheres", "materials", "textures")
@@ -166,11 +166,12 @@ def make_inverse_renderer(
 ):
     """Build (renderer, initial TrainState, trainable-leaf names) on
     ``device``. Raises ``ValueError`` for what is not ported yet: the
-    silhouette term and scenes outside the fast path's classes."""
+    silhouette term and scenes outside the differentiable path's classes
+    (boxes and media among them)."""
     if silhouette:
         raise ValueError("the silhouette boundary term: not ported yet")
     features = SceneFeatures.from_scene(scene)
-    fastpath_supported(features, scene)
+    diff_supported(features, scene)
     scene = scene.to(device)
     params, rebuild, names = split_scene(scene, trainable)
     renderer = InverseRenderer(

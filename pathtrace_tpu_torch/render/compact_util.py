@@ -3,9 +3,11 @@
 Counterpart of ``pathtrace_tpu/render/compact_util.py`` on the port's
 :class:`~pathtrace_tpu_torch.ops.fastpath.FastStateP`. Compaction moves
 lanes, never changes them: lane ids ride along and key the RNG, so a
-compacted trace equals the uncompacted one bit for bit. The radiance rows
-are flushed into the full-size output (``indices`` maps slots to rays)
-and restart at zero.
+compacted trace follows the same paths as the uncompacted one. The
+radiance rows are flushed into the full-size output (``indices`` maps
+slots to rays) and restart at zero, so a lane that gains radiance both
+before and after a compaction (next-event estimation adds some at every
+bounce) sums it in another grouping, which may differ in the last bit.
 """
 
 from __future__ import annotations

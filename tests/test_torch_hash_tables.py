@@ -102,13 +102,16 @@ class TestSceneState:
     def test_prep_tables_bitwise(self, name):
         jscene, _, scene = scene_pair(name, 1.0)
         jfeat = JFeatures.from_scene(jscene)
-        (j_sph, j_rect, _, _), j_sky, j_grad = jfp.prep_tables(jscene, jfeat)
+        (j_sph, j_rect, j_box, j_media), j_sky, j_grad = jfp.prep_tables(
+            jscene, jfeat)
         feats = SceneFeatures.from_scene(scene)
         assert feats._key() == jfeat._key()
         tables = tfp.prep_tables(scene, feats)
-        # rect scenes: the rect block follows the sphere rows
-        ref = (np.concatenate([np.asarray(j_sph), np.asarray(j_rect)])
-               if feats.has_rects else j_sph)
+        # the rect block follows the sphere rows in rect scenes, then the
+        # box and medium rows in box and media scenes
+        ref = np.concatenate([np.asarray(b) for b, on in (
+            (j_sph, True), (j_rect, feats.has_rects),
+            (j_box, feats.has_boxes), (j_media, feats.has_media)) if on])
         assert _bits_equal(ref, tables.table.numpy())
         assert _bits_equal(np.asarray(j_sky).reshape(3), tables.sky4[:3].numpy())
         assert float(j_grad) == float(tables.sky4[3])
@@ -152,9 +155,9 @@ class TestSceneState:
             assert _bits_equal(cam_leaves[key], val), key
 
     def test_scene_from_numpy_refuses_unported_kinds(self):
-        # cornell's rects are ported; its two boxes are not
-        jscene, _ = jpresets.cornell(1.0)
-        with pytest.raises(ValueError, match="boxes"):
+        # earth's image texture is not ported (cornell's boxes are)
+        jscene, _ = jpresets.earth(1.0)
+        with pytest.raises(ValueError, match="image textures"):
             convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
 
     def test_fastpath_refuses_moving_spheres(self):
@@ -169,13 +172,13 @@ class TestSceneState:
         tables = tfp.prep_tables(scene, feats)
         assert tuple(tables.soa.shape) == (12, 512)
         assert np.count_nonzero(tables.soa[9].numpy()) == 391  # inv_dt
-        feats.has_boxes = True
-        with pytest.raises(ValueError, match="boxes"):
+        feats.has_image = True
+        with pytest.raises(ValueError, match="image textures"):
             tfp.fastpath_supported(feats, scene)
 
     def test_unported_preset_raises(self):
         with pytest.raises(ValueError, match="not ported yet"):
-            presets.from_name("cornell", 1.0)
+            presets.from_name("earth", 1.0)
 
 
 class TestCamera:

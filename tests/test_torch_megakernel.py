@@ -159,8 +159,8 @@ def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
 
 
 def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
-    """The fast path and the CLI refuse boxes (``cornell``) and render
-    ``simple_light``, whose rect both paths take now."""
+    """The fast path and the CLI refuse image textures (``earth``) and
+    render ``simple_light``, whose rect both paths take now."""
     scene, _ = presets.simple_light(ASPECT)
     feats = SceneFeatures.from_scene(scene)
     assert tmk.megakernel_supported(feats)
@@ -169,11 +169,11 @@ def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
     assert cli.main(["-P", "simple_light", "-O", "--device", "cpu", "-W", "16",
                      "-H", "9", "-S", "1", "--out", str(out)]) == 0
     assert np.isfinite(np.load(out)).all()
-    feats.has_boxes = True
-    with pytest.raises(ValueError, match="boxes: not ported yet"):
+    feats.has_image = True
+    with pytest.raises(ValueError, match="image textures: not ported yet"):
         tfp.fastpath_supported(feats, scene)
     capsys.readouterr()
-    assert cli.main(["-P", "cornell", "-O", "--device", "cpu"]) == 2
+    assert cli.main(["-P", "earth", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

@@ -88,6 +88,32 @@ def boards_scene(builder):
     return b.finish()
 
 
+def mixed_scene(build):
+    """Every primitive kind in one scene, built by either package's build
+    module ``build``: a ground sphere, a rect light, a box under an
+    ``affine_from_axis_angle`` (scaled) composed with a rotation about y,
+    an unrotated metal box, a sphere medium and a rotated box medium. Both
+    packages build identical leaves from it."""
+    b = build.SceneBuilder()
+    b.sky = (0.1, 0.1, 0.2)
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian_color((0.5, 0.5, 0.5)))
+    b.rect_xz(-3.0, 3.0, -3.0, 3.0, 4.0, True,
+              b.diffuse_light_color((4.0, 4.0, 4.0)))
+    xf = build.affine_compose(
+        build.affine_from_axis_angle((1.0, 2.0, 0.5), 30.0, (0.5, 0.0, 0.0),
+                                     scale=1.5),
+        build.affine_from_rotation_y_translation(20.0, (0.0, 0.5, -1.0)))
+    b.box((-0.5, 0.0, -0.5), (0.5, 1.0, 0.5),
+          b.lambertian_color((0.8, 0.3, 0.2)), xf)
+    b.box((1.0, 0.0, 1.0), (2.0, 0.5, 2.0), b.metal((0.8, 0.8, 0.8), 0.1))
+    b.medium_sphere((-1.5, 0.8, 0.5), 0.8, 0.5,
+                    b.constant_texture((0.9, 0.9, 0.9)))
+    b.medium_box((1.0, 0.0, -2.0), (2.0, 1.0, -1.0), 0.8,
+                 b.constant_texture((0.3, 0.6, 0.9)),
+                 build.affine_from_rotation_y_translation(10.0, (0.0, 0.0, 0.0)))
+    return b.finish()
+
+
 def jax_rect_scene_winners(jscene, ro, rd):
     """JAX's closest hit over spheres (Pallas, interpret mode) and rects,
     merged as ``_fast_bounce_fused_prims`` merges them (numpy)."""
@@ -106,6 +132,68 @@ def jax_rect_scene_winners(jscene, ro, rd):
     wins = t_r < t
     return (np.asarray(jnp.where(wins, t_r, t)),
             np.asarray(jnp.where(wins, offset + i_r, idx)))
+
+
+def jax_scene_winners(jscene, ro, rd, lane=None, seed=0, depth=0):
+    """JAX's closest hit over every kind of a scene, merged in the order
+    ``_fast_bounce_fused_prims`` merges them (numpy): spheres (Pallas in
+    interpret mode; no sweep in a scene without spheres), rects, boxes and
+    media (the free-flight draws ``8 + j`` of ``lane``, ``seed`` and
+    ``depth``), each winning only when strictly nearer. idx is a row of
+    the blocks sphere, rect (rect scenes), box, medium: the port's winner
+    table."""
+    import jax.numpy as jnp
+
+    from pathtrace_tpu.config import MAX_T, MIN_T
+    from pathtrace_tpu.models.types import SceneFeatures as JFeatures
+    from pathtrace_tpu.ops import fastpath as jfp
+    from pathtrace_tpu.ops import intersect as jisect
+    from pathtrace_tpu.ops.intersect_pallas import sphere_nearest_pallas_cols
+
+    feats = JFeatures.from_scene(jscene)
+    cols = [jnp.asarray(c) for c in (*ro.T, *rd.T)]
+    if feats.has_spheres:
+        t, idx = (np.asarray(x) for x in sphere_nearest_pallas_cols(
+            jscene.spheres, *cols, jnp.zeros(ro.shape[0], jnp.float32),
+            MIN_T, MAX_T, has_motion=False, cull=False))
+    else:
+        t = np.full(ro.shape[0], MAX_T, np.float32)
+        idx = np.zeros(ro.shape[0], np.int32)
+    kinds = []
+    if feats.has_rects:
+        kinds.append((jisect.rect_nearest_planes(jscene.rects, *cols), 128))
+    if feats.has_boxes:
+        kinds.append((jisect.box_nearest_planes(jscene.boxes, *cols),
+                      jscene.boxes.count))
+    if feats.has_media:
+        n = jscene.media.count
+        j_lane = jnp.asarray(np.asarray(lane).astype(np.uint32))
+        med_u = jnp.stack([jfp.counter_uniform(j_lane, jnp.int32(seed),
+                                               depth, 8 + j)
+                           for j in range(n)], axis=-1)
+        kinds.append((jisect.media_nearest_planes(jscene.media, *cols, med_u),
+                      n))
+    offset = ((jscene.spheres.center.shape[0] + 127) // 128) * 128
+    for (t_k, i_k), n in kinds:
+        t_k, i_k = np.asarray(t_k), np.asarray(i_k)
+        wins = t_k < t
+        t, idx = np.where(wins, t_k, t), np.where(wins, offset + i_k, idx)
+        offset += n
+    return t.astype(np.float32), idx.astype(np.int32)
+
+
+def jax_fused_state(st):
+    """The JAX package's ``FastStateP`` of the port's state ``st``."""
+    import jax.numpy as jnp
+
+    from pathtrace_tpu.ops import fastpath as jfp
+
+    planes = st.planes.numpy()
+    return jfp.FastStateP(*(jnp.asarray(p) for p in planes[:6]),
+                          jnp.asarray(st.time.numpy()),
+                          *(jnp.asarray(p) for p in planes[6:12]),
+                          jnp.asarray(st.alive.numpy()),
+                          jnp.asarray(st.lane.numpy().astype(np.uint32)))
 
 
 @functools.lru_cache(maxsize=None)
