@@ -134,13 +134,36 @@ Phases (each prints a line before the next starts):
     launched, no closest-hit kernel (the scenes have no sphere) and no
     plain version; frame times, readbacks, segments (shadow rays
     included) and Mrays/s; each NEE image finite, its mean within 5% of
-    the plain image's.
+    the plain image's;
+32. image textures: K2 with the image flag against its plain version on
+    ``earth``'s winners (1280x720x4 primary and once-scattered rays; with
+    and without the MIS flag) and on the image-light scene's
+    (``tests/torch_port_util.image_light_scene``: ``simple_light`` with an
+    image globe and two image walls) with the rect, image and MIS flags:
+    lanes outside the contract, the image lanes whose albedo (the texel)
+    differs between kernel and plain version (texel-index flips), the
+    times of the kernel and its plain version, the bound (bytes: the state
+    planes, the table and the atlas, each once), and the plain texel
+    pre-pass ``image_rgb_planes`` that the kernel folds in (its time and
+    device launches at full width);
+33. the CUDA traces of ``tests/goldens/torch_port_earth.npz`` (plain) and
+    ``torch_port_image_light_nee.npz`` (NEE + roulette from depth 3)
+    against JAX's radiance, depth 10, ``DEPTH10_BUDGET``: K1 and K2 at
+    every bounce, no other kernel, no plain version;
+34. ``cli.main`` renders ``earth`` at 1280x720, 4 spp, depth 10, 3 frames,
+    then again with ``--image`` pointing at a PNG the script writes (the
+    globe takes its colour); then the image-light scene through
+    ``trace_frame``, plain and with NEE + roulette from depth 3, 3 frames
+    each timed with CUDA events: K1 and K2 launched, no other kernel and
+    no plain version; frame times, readbacks, segments, image means (NEE
+    within 5% of plain).
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
 trainer's, phase 10 for K4, phase 13 for K5, phases 17 and 20 for K3
 and the motion runs of K2 and K6, phase 31 for K2's box and medium
-runs), its largest difference
+runs; phase 34's ``earth`` frames for K2's image entry), its largest
+difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
 from this run's shapes; for K4 and K5 the operations of the sweeps this
@@ -205,6 +228,12 @@ K2_OPS, K2_OPS_NOISE = 300, 1800
 # ~100 more per lane whose winner is a box (the slab test redone, the face
 # picked and its normal mapped back)
 K2_OPS_BOX = 100
+# ~150 more per lane whose winner has an image texture (the UV: an atan2f,
+# an asinf and ~40 more; the clamps and the texel address)
+K2_OPS_IMAGE = 150
+IMAGE_LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                                   "torch_port_image_light_nee.npz")
+EARTH_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_earth.npz")
 # K7's operations, counted from csrc/megakernel.cu: per (segment, live
 # sphere) pair ~25 (the quadratic's b, c and disc; most pairs stop at
 # disc <= 0), ~31 with the centre lerped; per (segment, live rect) pair
@@ -328,7 +357,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_port_util import (
         DEPTH10_BUDGET, FIXTURE_GRAD_TOL, MOTION_FIXTURE_GRAD_TOL,
-        XL_DEPTH10_BUDGET,
+        XL_DEPTH10_BUDGET, image_light_scene,
     )
 
     dev = torch.device("cuda")
@@ -386,8 +415,8 @@ def main() -> int:
         """The state after one bounce through K2 from the winners (t_, idx_)."""
         planes, alive = k2.shade_from_winners(
             tables_.table, idx_, t_, st.planes, st.time, st.alive, st.lane, 7,
-            0, DEPTH, tables_.sky4, flags_)
-        return fp.FastStateP(planes, st.time, alive, st.lane)
+            0, DEPTH, tables_.sky4, flags_, atlas=tables_.atlas)
+        return fp.FastStateP(planes[:12], st.time, alive, st.lane)
 
     t0_, idx0, err_a = nearest_check("3", "K1", tables.soa, st0, "primary")
     st1 = scattered(tables, flags, st0, t0_, idx0)
@@ -405,11 +434,12 @@ def main() -> int:
         first case. Returns (max |diff|, worst share outside, ms,
         plain ms)."""
         worst_err, worst_out = 0.0, 0.0
+        kw = {"atlas": tables_.atlas}
         for label, st, t_, idx_, depth in cases:
             args = (tables_.table, idx_, t_, st.planes, st.time, st.alive,
                     st.lane, 7, depth, DEPTH, tables_.sky4, flags_)
-            out, alive = k2.shade_from_winners(*args)
-            out_p, alive_p = k2.shade_from_winners_plain(*args)
+            out, alive = k2.shade_from_winners(*args, **kw)
+            out_p, alive_p = k2.shade_from_winners_plain(*args, **kw)
             frac = max(outside_fraction(out[k], out_p[k])
                        for k in range(out.shape[0]))
             agree = (alive == alive_p).float().mean().item()
@@ -423,8 +453,9 @@ def main() -> int:
         _, st, t_, idx_, depth = cases[0]
         args = (tables_.table, idx_, t_, st.planes, st.time, st.alive,
                 st.lane, 7, depth, DEPTH, tables_.sky4, flags_)
-        ms = time_ms(lambda: k2.shade_from_winners(*args), 20)
-        plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args), 3)
+        ms = time_ms(lambda: k2.shade_from_winners(*args, **kw), 20)
+        plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args, **kw),
+                           3)
         phase(f"[{tag}] {name} time at {R} lanes: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms")
         return worst_err, worst_out, ms, plain_ms
@@ -1411,6 +1442,248 @@ def main() -> int:
             raise AssertionError(f"{cname}: the NEE image's mean is more "
                                  f"than 5% off")
 
+    # ---- 32: K2's image branch on earth and the image-light scene ----
+    from pathtrace_tpu_torch.models import build as pbuild
+    from pathtrace_tpu_torch.render.film import encode_png
+
+    def image_scene(name):
+        """(scene on the card, camera) of ``earth`` or the image-light scene
+        (``simple_light``'s camera)."""
+        if name == "earth":
+            scene_, cam_ = presets.earth(WIDTH / HEIGHT)
+        else:
+            scene_ = image_light_scene(pbuild,
+                                       presets._procedural_earth_image())
+            cam_ = presets.simple_light(WIDTH / HEIGHT)[1]
+        return scene_.to(dev), cam_
+
+    img_runs = {}
+    for iname in ("earth", "image_light"):
+        iscene, icamera = image_scene(iname)
+        ifeats = SceneFeatures.from_scene(iscene)
+        ilights = build_light_table(iscene) if iname != "earth" else None
+        itables = fp.prep_tables(iscene, ifeats, lights=ilights)
+        iflags = fp.feature_flags(ifeats)
+        if not (iflags & k2.FLAG_IMAGE and itables.table.shape[1] == 28
+                and itables.atlas is not None
+                and bool(iflags & k2.FLAG_RECT) == (iname != "earth")):
+            raise AssertionError(f"{iname} did not get the image tables")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ro, rd, tm = generate_primary_rays(icamera, WIDTH, HEIGHT, SAMPLES,
+                                           gen)
+        ist0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+        del ro, rd, tm
+        it0, iidx0 = fp.closest_hit(itables, ist0, 0, ifeats)
+        ist1 = scattered(itables, iflags, ist0, it0, iidx0)
+        it1, iidx1 = fp.closest_hit(itables, ist1, 1, ifeats)
+        n_img, n_noise = [], []
+        for label, t_, idx_ in (("primary", it0, iidx0),
+                                ("scattered", it1, iidx1)):
+            hit = t_ < 1e30
+            rows = itables.table[idx_.long()]
+            n_img.append(int((hit & (rows[:, 3] == 3.0)).sum()))
+            n_noise.append(int((hit & (rows[:, 3] == 2.0)).sum()))
+            phase(f"[32] {iname} {label}: {R} rays, hit "
+                  f"{hit.float().mean().item():.4f}, image lanes {n_img[-1]} "
+                  f"(rect {int((hit & (rows[:, 3] == 3.0) & (rows[:, 14] == 1.0)).sum())}), "
+                  f"noise lanes {n_noise[-1]}")
+        if n_img[0] <= 0:
+            raise AssertionError(f"{iname}: no image lanes")
+        g = torch.Generator(device=dev)
+        g.manual_seed(1)
+
+        def with_esc_i(st):
+            esc = torch.rand((1, R), generator=g, device=dev)
+            return fp.FastStateP(torch.cat([st.planes[:12], esc]), st.time,
+                                 st.alive, st.lane)
+
+        iest0, iest1 = with_esc_i(ist0), with_esc_i(ist1)
+        eflags_i = iflags | k2.FLAG_EMIT_SCALE
+        run = {"image_lanes": n_img}
+        plain_cases = (("primary", ist0, it0, iidx0, 0),
+                       ("scattered", ist1, it1, iidx1, 1))
+        emit_cases = (("primary", iest0, it0, iidx0, 0),
+                      ("scattered", iest1, it1, iidx1, 1))
+        # earth: the image flag alone, then with the MIS flag; the
+        # image-light scene: rect, image and MIS flags (its main path)
+        variants = [("emit_scale", eflags_i, emit_cases)]
+        if iname == "earth":
+            variants.insert(0, ("plain", iflags, plain_cases))
+        for key, fl, cases in variants:
+            err, out_share, ms, plain_ms = shade_check(
+                "32", f"K2 ({iname}, flags {fl})", itables, fl, cases)
+            ops = (R * K2_OPS + n_img[0] * K2_OPS_IMAGE
+                   + n_noise[0] * K2_OPS_NOISE)
+            extra = 4 + 28 if fl & k2.FLAG_EMIT_SCALE else 0
+            bnd = bound(R * (114 + extra) + itables.table.numel() * 4
+                        + itables.atlas.numel() * 4, ops)
+            run[key] = {"max_abs_err": err, "lanes_outside": out_share,
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                        "bound_by": bnd[1]}
+            phase(f"[32] K2 ({iname}, flags {fl}) bound {bnd[0]:.4f} ms "
+                  f"({bnd[1]}; {smi})")
+        # texel-index flips: image lanes whose albedo rows (the texel)
+        # differ between the kernel and its plain version
+        flips = []
+        for label, st, t_, idx_, depth in emit_cases:
+            args = (itables.table, idx_, t_, st.planes, st.time, st.alive,
+                    st.lane, 7, depth, DEPTH, itables.sky4, eflags_i)
+            out = k2.shade_from_winners(*args, atlas=itables.atlas)[0]
+            out_p = k2.shade_from_winners_plain(*args, atlas=itables.atlas)[0]
+            is_img = (t_ < 1e30) & (itables.table[idx_.long(), 3] == 3.0)
+            flips.append(int((is_img & (out[k2.ALBEDO] != out_p[k2.ALBEDO])
+                              .any(dim=0)).sum()))
+            phase(f"[32] {iname} {label}: {flips[-1]} of "
+                  f"{int(is_img.sum())} image lanes with another texel "
+                  f"than the plain version")
+        if sum(flips) > 0.005 * max(sum(n_img), 1):
+            raise AssertionError(f"{iname}: texel flips beyond the contract")
+        run["texel_flips"] = flips
+        # the reference's XLA pre-pass, as the plain version computes it:
+        # what K2 folds in (UV and one texel read per lane)
+        rows0 = itables.table.index_select(0, iidx0.long())
+        col0 = list(rows0.unbind(1))
+        hit0 = it0 < 1e30
+        ts0 = torch.where(hit0, it0, 0.0)
+        p0 = [ist0.planes[k] + ts0 * ist0.planes[3 + k] for k in range(3)]
+
+        def prepass():
+            return k2.image_rgb_planes(col0, *p0, ist0.time, itables.atlas,
+                                       iflags)
+
+        pre_ms = time_ms(prepass, 10)
+        pre_launches = device_launches(prepass)
+        run["prepass_plain_ms"], run["prepass_launches"] = pre_ms, pre_launches
+        phase(f"[32] {iname}: the plain texel pre-pass at {R} lanes "
+              f"{pre_ms:.3f} ms, {pre_launches} device launches (folded into "
+              f"K2 on the card)")
+        img_runs[iname] = run
+        del ist0, ist1, iest0, iest1, it0, it1, iidx0, iidx1, rows0, col0, p0
+
+    # ---- 33: the CUDA traces of the image fixtures against JAX ----
+    for fixture, iname, nee in ((EARTH_FIXTURE, "earth", False),
+                                (IMAGE_LIGHT_FIXTURE, "image_light", True)):
+        ref_ = np.load(fixture)
+        iscene = image_scene(iname)[0]
+        kw = ({"nee_lights": build_light_table(iscene),
+               "rr_start": int(ref_["rr_start"])} if nee else {})
+        depth = int(ref_["max_depth"])
+        reset_counts(k1, k2, k7)
+        res = fp.trace_fast(iscene, *(torch.from_numpy(ref_[k]).to(dev)
+                                      for k in ("rays.ro", "rays.rd",
+                                                "rays.time")),
+                            int(ref_["seed"]), depth,
+                            SceneFeatures.from_scene(iscene), min_size=128,
+                            **kw)
+        counts = read_counts(k1, k2, k7)
+        n_out, frac = rays_outside(res.radiance, ref_["radiance"])
+        count, ref_count = int(res.ray_count), int(ref_["ray_count"])
+        label = f"{iname} {'NEE + roulette' if nee else 'plain'}"
+        phase(f"[33] {label} fixture: {len(res.radiance)} rays depth {depth}, "
+              f"{n_out} rays ({frac:.4%}) outside 1e-3 (budget "
+              f"{DEPTH10_BUDGET:.0%}), segments {count} vs JAX {ref_count}; "
+              f"launches {counts}")
+        img_runs.setdefault("fixture_share_outside", {})[label] = frac
+        others = [counts[k] for k in ("K3", "K4", "K5", "K6", "K7")]
+        if (frac > DEPTH10_BUDGET or counts["K1"] <= 0
+                or not 0 < counts["K2"] <= depth + 1 or any(others)
+                or counts["plain"]
+                or abs(count - ref_count) > 2 * n_out * depth):
+            raise AssertionError(f"{label}: trace outside the slice contract")
+
+    # ---- 34: earth through the CLI, the image-light scene by frames ----
+    earth_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        map_path = os.path.join(tmp, "map.png")
+        # a user's map: red land in the north, blue sea in the south
+        user_map = np.zeros((64, 128, 3), np.uint8)
+        user_map[:32] = (200, 40, 40)
+        user_map[32:] = (30, 60, 200)
+        with open(map_path, "wb") as f:
+            f.write(encode_png(user_map))
+        for label, extra in (("default map", []),
+                             ("--image", ["--image", map_path])):
+            out_path = os.path.join(tmp, "earth.npy")
+            argv = ["-P", "earth", "-W", str(WIDTH), "-H", str(HEIGHT),
+                    "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F",
+                    str(FRAMES), "--out", out_path, *extra]
+            counts, got = cli_frames(f"34 earth {label}", argv)
+            image = np.load(out_path)
+            others = [counts[k] for k in ("K3", "K4", "K5", "K6", "K7")]
+            if (counts["K1"] <= 0 or counts["K2"] <= 0 or any(others)
+                    or counts["plain"]):
+                raise AssertionError(f"earth {label} did not run through K1 "
+                                     f"and K2 alone: {counts}")
+            mean = float(image.mean())
+            if not (np.isfinite(image).all()
+                    and image.shape == (HEIGHT, WIDTH, 3) and 0.0 < mean):
+                raise AssertionError(f"bad earth {label} image: {mean}")
+            for i, (ms, rays_n, rb) in enumerate(got):
+                phase(f"[34] earth {label} frame {i + 1}: {ms:.2f} ms (CUDA "
+                      f"events), {rays_n} segments, {rays_n / ms / 1e3:.2f} "
+                      f"Mrays/s, {rb} readbacks ({smi})")
+            globe = image[HEIGHT // 2 - 40:HEIGHT // 2 + 40,
+                          WIDTH // 2 - 40:WIDTH // 2 + 40].reshape(-1, 3)
+            phase(f"[34] earth {label}: launches {counts}, image mean "
+                  f"{mean:.6f}, globe centre rgb "
+                  f"{np.round(globe.mean(axis=0), 4).tolist()}")
+            if label == "--image" and mean == earth_runs["default map"]["mean"]:
+                raise AssertionError("--image did not change the earth image")
+            earth_runs[label] = {"frame_ms": [ms for ms, _, _ in got],
+                                 "segments": [r for _, r, _ in got],
+                                 "readbacks": [rb for _, _, rb in got],
+                                 "launches": counts, "mean": mean}
+    iscene, icamera = image_scene("image_light")
+    ifeats = SceneFeatures.from_scene(iscene)
+    ilights = build_light_table(iscene)
+    il_runs = {}
+    for label, kw in (("plain", {}),
+                      ("nee_rr", {"nee_lights": ilights,
+                                  "rr_start": RR_START})):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(3)
+        reset_counts(k1, k2, k7)
+        frame_ms, segs, rbs, acc = [], [], [], None
+        for frame in range(FRAMES):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            ro, rd, tm = generate_primary_rays(icamera, WIDTH, HEIGHT,
+                                               SAMPLES, gen)
+            res = fp.trace_frame(iscene, ro.reshape(R, 3), rd.reshape(R, 3),
+                                 tm.reshape(R), WIDTH, HEIGHT, SAMPLES, DEPTH,
+                                 1000 + frame, ifeats, **kw)
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            segs.append(int(res.ray_count))
+            rbs.append(res.readbacks)
+            acc = res.image if acc is None else acc + res.image
+        counts = read_counts(k1, k2, k7)
+        image = (acc / FRAMES).cpu().numpy()
+        mean = float(image.mean())
+        others = [counts[k] for k in ("K3", "K4", "K5", "K6", "K7")]
+        if (counts["K1"] <= 0 or counts["K2"] <= 0 or any(others)
+                or counts["plain"] or not np.isfinite(image).all()
+                or mean <= 0.0):
+            raise AssertionError(f"image_light {label}: {counts}, {mean}")
+        for i in range(FRAMES):
+            phase(f"[34] image_light {label} frame {i + 1}: {frame_ms[i]:.2f} "
+                  f"ms (CUDA events), {segs[i]} segments, "
+                  f"{segs[i] / frame_ms[i] / 1e3:.2f} Mrays/s, {rbs[i]} "
+                  f"readbacks ({smi})")
+        phase(f"[34] image_light {label}: launches {counts}, image mean "
+              f"{mean:.6f}")
+        il_runs[label] = {"frame_ms": frame_ms, "segments": segs,
+                          "readbacks": rbs, "launches": counts, "mean": mean}
+    plain_mean, nee_mean = il_runs["plain"]["mean"], il_runs["nee_rr"]["mean"]
+    phase(f"[34] image_light NEE + roulette: image mean {nee_mean:.6f} vs "
+          f"plain {plain_mean:.6f} ({nee_mean / plain_mean - 1.0:+.3%})")
+    if abs(nee_mean / plain_mean - 1.0) > 0.05:
+        raise AssertionError("image_light: the NEE image's mean is more than "
+                             "5% off")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -1484,6 +1757,21 @@ def main() -> int:
          **k7_runs["random_spheres"],
          "random": k7_runs["random"], "simple_light": k7_runs["simple_light"],
          "frame_ms": k7_frames, "library_ms": None},
+        {"name": "shade_from_winners, image branch (FLAG_IMAGE)",
+         "route": "cuda", "source": "pathtrace_tpu_torch/csrc/shade.cu",
+         "replaces": "pathtrace_tpu/ops/shade_pallas.py:116",
+         "launches": earth_runs["default map"]["launches"]["K2"],
+         **img_runs["earth"]["plain"],
+         "emit_scale": img_runs["earth"]["emit_scale"],
+         "texel_flips": img_runs["earth"]["texel_flips"],
+         "image_lanes": img_runs["earth"]["image_lanes"],
+         "prepass_plain_ms": img_runs["earth"]["prepass_plain_ms"],
+         "prepass_launches": img_runs["earth"]["prepass_launches"],
+         "image_light": img_runs["image_light"],
+         "image_light_launches": il_runs["nee_rr"]["launches"]["K2"],
+         "fixture_share_outside": img_runs["fixture_share_outside"],
+         "earth_frames": earth_runs, "image_light_frames": il_runs,
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

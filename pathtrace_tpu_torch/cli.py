@@ -1,8 +1,9 @@
 """Command-line interface of the port: ``python -m pathtrace_tpu_torch``.
 
 The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
-next-event estimation (``--nee``) and Russian roulette (``--rr DEPTH``),
-plus ``--device`` (default ``cuda``). Every other flag of the JAX package's
+next-event estimation (``--nee``), Russian roulette (``--rr DEPTH``) and
+a user's own texture map for ``earth`` (``--image PNG``), plus
+``--device`` (default ``cuda``). Every other flag of the JAX package's
 CLI is refused as not ported yet. With ``-O`` (offline) the render runs
 ``-F`` accumulated frames (default 1); without ``-O`` the reference opens
 its live preview, which is not ported, so ``-F`` is required.
@@ -31,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtrace_tpu_torch",
         description="Path tracer, PyTorch/CUDA port (fast path: spheres, "
-                    "rects, boxes and media)",
+                    "rects, boxes, media and image textures)",
     )
     p.add_argument("-W", "--width", type=int, default=1280, help="Image width")
     p.add_argument("-H", "--height", type=int, default=720, help="Image height")
@@ -53,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--rr", type=int, default=0, metavar="DEPTH",
                    help="Russian-roulette path termination from this bounce "
                         "depth (0 = off). Unbiased")
+    p.add_argument("--image", default=None, metavar="PNG",
+                   help="Texture map for presets with an image texture "
+                        "(earth): a PNG or JPEG; default: a procedural map")
     p.add_argument("--out", default="output.png",
                    help="Output path: .png (sRGB) or .npy (linear float)")
     p.add_argument("--device", default="cuda",
@@ -84,10 +88,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f" with {params.samples} samples per pixel")
     try:
         scene, camera = presets.from_name(args.preset, params.aspect,
-                                          seed=params.seed)
+                                          seed=params.seed,
+                                          image_path=args.image)
         features = SceneFeatures.from_scene(scene)
         fastpath_supported(features, scene)
-    except ValueError as e:
+    except (ValueError, OSError) as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
     print(f"scene features: {features}")

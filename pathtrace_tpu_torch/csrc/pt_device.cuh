@@ -27,6 +27,7 @@ constexpr int FLAG_RECT = 128;
 constexpr int FLAG_EMIT_SCALE = 256;
 constexpr int FLAG_BOX = 512;
 constexpr int FLAG_MEDIUM = 1024;
+constexpr int FLAG_IMAGE = 2048;
 
 // material and texture kinds, as the attribute tables store them (f32)
 constexpr float MAT_LAMBERTIAN = 0.f;
@@ -35,6 +36,7 @@ constexpr float MAT_DIELECTRIC = 2.f;
 constexpr float MAT_DIFFUSE_LIGHT = 3.f;
 constexpr float TEX_CHECKER = 1.f;
 constexpr float TEX_NOISE = 2.f;
+constexpr float TEX_IMAGE = 3.f;
 // primitive kinds at column 14 of a row
 constexpr float KIND_RECT = 1.f;
 constexpr float KIND_BOX = 2.f;

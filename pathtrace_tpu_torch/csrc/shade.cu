@@ -26,16 +26,39 @@
 // the albedo it computed, six planes the estimator's tail reads instead of
 // recomputing them (the 7-octave noise above all).
 //
+// With FLAG_IMAGE (28-column rows, whose last three columns are the atlas
+// entry of the row's texture: y-offset, height, width) a lane whose
+// winner texture is an image (kind 3) takes the texel at its UV as its
+// albedo, after the checker and the noise (shade_pallas.py:231-236). The
+// reference computes that UV and gathers the texel in an XLA pre-pass
+// (fastpath.py _image_rgb_planes, ~40 element-wise ops a bounce) because a
+// Pallas TPU kernel cannot gather; here the thread does both: the sphere UV
+// from (p - c) * inv_r (the lerped centre under FLAG_MOTION), a rect row's
+// in-plane fractions under FLAG_RECT (no flip), ii = int(u w), jj =
+// int((1 - v) h - 0.001), each clamped into its image (a NaN or an
+// out-of-range product cannot index outside it), then one read. The atlas
+// stays in the builder's [H, W, 3] layout, so a texel is one 12-byte row:
+// neighbouring lanes hit neighbouring texels, and three reads of one row
+// touch one or two 32-byte sectors where the reference's [3, H*W] planes
+// (chosen against the TPU's 128x padding of a minor dimension of 3) would
+// touch three. The earth atlas, 256 x 512 x 3 floats (1.5 MB), stays in L2.
+//
 // What bounds it: bytes. Per lane it reads 15 state planes, t and idx and
 // the winner row (about 120 bytes from device memory; the table itself,
 // a few hundred rows, stays in L2) and writes 13 planes, against a few
 // hundred flops (more with the noise texture, ~100 more for a box
-// winner); with FLAG_EMIT_SCALE one plane more in and seven more out.
+// winner, ~60 and an atan2 and an asin for an image lane); with
+// FLAG_EMIT_SCALE one plane more in and seven more out; with FLAG_IMAGE
+// 16 bytes more of row and 12 of texel for an image lane.
 //
 // The arithmetic follows the plain PyTorch version in
 // pathtrace_tpu_torch/ops/shade_kernel.py operation for operation; built
 // with -fmad=false, the + - * / sqrt results round identically. sinf,
-// cosf, expf, logf and rsqrtf may differ from PyTorch's by a few ULPs.
+// cosf, expf, logf, rsqrtf, atan2f and asinf may differ from PyTorch's by
+// a few ULPs; a texel index truncates the UV, so such a ULP on a texel
+// boundary picks the neighbouring texel. The UV constants are the
+// reference's (3.14159265, 1.5707963, 0.5 / 3.14159265, 1.0 / 3.14159265),
+// each a double rounded once to float, as Python scalars are.
 //
 // The feature flags are one runtime bitmask, uniform across the launch.
 
@@ -50,6 +73,11 @@ using namespace pt;
 
 constexpr int kThreads = 256;
 constexpr int kGeo = 15;
+constexpr float kUvPi = static_cast<float>(3.14159265);
+constexpr float kUvHalfPi = static_cast<float>(1.5707963);
+constexpr float kUvInvTwoPi = static_cast<float>(0.5 / 3.14159265);
+constexpr float kUvInvPi = static_cast<float>(1.0 / 3.14159265);
+constexpr float kUvBias = static_cast<float>(0.001);
 
 __device__ __forceinline__ float cbrt_pos(float x) {
   return expf(logf(fmaxf(x, 1e-38f)) * (1.0f / 3.0f));
@@ -58,6 +86,53 @@ __device__ __forceinline__ float cbrt_pos(float x) {
 // jnp.sign / torch.sign: 0 for a zero (copysignf would give +-1)
 __device__ __forceinline__ float sign_of(float x) {
   return static_cast<float>((x > 0.0f) - (x < 0.0f));
+}
+
+// int(x) truncated toward zero and clamped to [0, max(size - 1, 0)]; x is
+// first held to [-1, size] (fmaxf drops a NaN for -1), so the conversion
+// never leaves int32 (shade_kernel.py _trunc_clamp)
+__device__ __forceinline__ int trunc_clamp(float x, float size) {
+  const float v = fminf(fmaxf(x, -1.0f), size);
+  const int hi = max(static_cast<int>(size) - 1, 0);
+  return min(max(static_cast<int>(v), 0), hi);
+}
+
+// The texel of an image winner whose row is ``a`` (k_attr columns, the
+// atlas entry in the last three) hit at (px, py, pz); (snx, sny) is the
+// sphere normal's x and y from the row's (lerped) centre, computed for
+// every kind. The twin of image_texel_index in shade_kernel.py.
+__device__ __forceinline__ void image_texel(
+    const float* a, int k_attr, float px, float py, float pz, float snx,
+    float sny, int flags, const float* __restrict__ atlas, int atlas_w,
+    float rgb[3]) {
+  const float phi = atan2f(snx, sny);
+  const float ny_c = sny < -1.0f ? -1.0f : (sny > 1.0f ? 1.0f : sny);
+  const float theta = asinf(ny_c);
+  float uu = 1.0f - (phi + kUvPi) * kUvInvTwoPi;
+  float vv = (theta + kUvHalfPi) * kUvInvPi;
+  if ((flags & FLAG_RECT) && a[kGeo - 1] == KIND_RECT) {
+    const int axis = static_cast<int>(a[kGeo]);
+    const float pa = axis == 0 ? py : px;
+    const float pb = axis == 2 ? py : pz;
+    const float a0 = a[kGeo + 1], a1 = a[kGeo + 2];
+    const float b0 = a[kGeo + 3], b1 = a[kGeo + 4];
+    float da = a1 - a0;
+    float db = b1 - b0;
+    da = fabsf(da) < 1e-12f ? 1.0f : da;
+    db = fabsf(db) < 1e-12f ? 1.0f : db;
+    uu = (pa - a0) / da;
+    vv = (pb - b0) / db;
+  }
+  const float img_y = a[k_attr - 3], img_h = a[k_attr - 2],
+              img_w = a[k_attr - 1];
+  const int ii = trunc_clamp(uu * img_w, img_w);
+  const int jj = trunc_clamp((1.0f - vv) * img_h - kUvBias, img_h);
+  const long long flat =
+      (static_cast<long long>(static_cast<int>(img_y) + jj)) * atlas_w + ii;
+  const float* texel = atlas + flat * 3;
+  rgb[0] = texel[0];
+  rgb[1] = texel[1];
+  rgb[2] = texel[2];
 }
 
 // The normal of a box winner whose row is ``a`` (48 columns: p0, p1 at
@@ -111,6 +186,7 @@ __device__ __forceinline__ void box_normal(const float* a, float rox,
 
 __global__ void __launch_bounds__(kThreads)
 shade_kernel(const float* __restrict__ table, int k_attr,
+             const float* __restrict__ atlas, int atlas_w,
              const int* __restrict__ idx, const float* __restrict__ t_in,
              const float* __restrict__ planes, long long pstride,
              const float* __restrict__ time_in,
@@ -152,6 +228,7 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   float nx = (px - cx) * inv_r;
   float ny = (py - cy) * inv_r;
   float nz = (pz - cz) * inv_r;
+  const float snx = nx, sny = ny;  // the sphere UV's, for every kind
   if ((flags & FLAG_RECT) && a[kGeo - 1] == KIND_RECT) {
     const float axis = a[kGeo], flip = a[kGeo + 6];
     nx = (axis == 0.0f ? 1.0f : 0.0f) * flip;
@@ -184,6 +261,9 @@ shade_kernel(const float* __restrict__ table, int k_attr,
     const float marble =
         0.5f * (1.0f + sinf(a[13] * pz + 10.0f * fast_turb(px, py, pz)));
     rgb[0] = rgb[1] = rgb[2] = marble;
+  }
+  if ((flags & FLAG_IMAGE) && tex_kind == TEX_IMAGE) {
+    image_texel(a, k_attr, px, py, pz, snx, sny, flags, atlas, atlas_w, rgb);
   }
 
   const float mat_kind = a[0];
@@ -298,17 +378,17 @@ shade_kernel(const float* __restrict__ table, int k_attr,
 }  // namespace
 
 extern "C" int pt_shade_from_winners(
-    const float* table, int k_attr, const int* idx,
-    const float* t, const float* planes, long long plane_stride,
+    const float* table, int k_attr, const float* atlas, int atlas_w,
+    const int* idx, const float* t, const float* planes, long long plane_stride,
     const float* time, const bool* alive, const int32_t* lane, int n,
     int seed, int depth, int max_depth, const float* sky4, int flags,
     float* planes_out, bool* alive_out, cudaStream_t stream) {
   if (n > 0) {
     const int blocks = (n + kThreads - 1) / kThreads;
     shade_kernel<<<blocks, kThreads, 0, stream>>>(
-        table, k_attr, idx, t, planes, plane_stride, time, alive, lane, n,
-        static_cast<uint32_t>(seed), depth, max_depth, sky4, flags,
-        planes_out, alive_out);
+        table, k_attr, atlas, atlas_w, idx, t, planes, plane_stride, time,
+        alive, lane, n, static_cast<uint32_t>(seed), depth, max_depth, sky4,
+        flags, planes_out, alive_out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,13 +3,13 @@
 Counterpart of ``pathtrace_tpu/models/build.py`` for spheres (static and
 moving), axis-aligned rects, transformed boxes, constant-density media
 (box or sphere boundary, isotropic phase function), materials,
-constant/checker/noise textures and the affine helpers. ``finish`` pads
-the sphere array with far-away, masked-off spheres and can Morton-sort it
-by the mid-shutter centres, pads the rects with masked-off ones on a far
-plane and the boxes and media with masked-off ones at 1e18, exactly as
-the JAX builder does, so a preset built here equals the reference leaf
-for leaf. Instanced spheres and rects (the JAX builder's ``transform``)
-are not ported.
+constant/checker/noise/image textures and the affine helpers. ``finish``
+pads the sphere array with far-away, masked-off spheres and can
+Morton-sort it by the mid-shutter centres, pads the rects with masked-off
+ones on a far plane and the boxes and media with masked-off ones at 1e18,
+exactly as the JAX builder does, and packs the images into one atlas, so
+a preset built here equals the reference leaf for leaf. Instanced spheres
+and rects (the JAX builder's ``transform``) are not ported.
 """
 
 from __future__ import annotations
@@ -126,22 +126,38 @@ class SceneBuilder:
         self._boxes = []  # (p0, p1, world_from_obj, mat)
         self._media = []  # (kind, p0, p1, radius, world_from_obj, density, mat)
         self._mats = []  # (kind, tex, fuzz, ref_idx)
-        self._texs = []  # (kind, color, odd, even, scale)
+        self._texs = []  # (kind, color, odd, even, scale, image)
+        self._images = []  # [h, w, 3] f32 arrays
         self.sky: Optional[Vec3] = None  # None => gradient sky
 
     # ---- textures ----
     def constant_texture(self, color: Vec3) -> int:
-        self._texs.append((T.TEX_CONSTANT, _v3(color), 0, 0, 0.0))
+        self._texs.append((T.TEX_CONSTANT, _v3(color), 0, 0, 0.0, 0))
         return len(self._texs) - 1
 
     def checker_texture(self, odd_id: int, even_id: int) -> int:
         self._texs.append((T.TEX_CHECKER, np.zeros(3, np.float32), odd_id,
-                           even_id, 0.0))
+                           even_id, 0.0, 0))
         return len(self._texs) - 1
 
     def noise_texture(self, scale: float) -> int:
         self._texs.append((T.TEX_NOISE, np.zeros(3, np.float32), 0, 0,
-                           float(scale)))
+                           float(scale), 0))
+        return len(self._texs) - 1
+
+    def image_texture(self, image) -> int:
+        """Image texture from an [h, w, 3] float array in [0, 1] or a PNG
+        or JPEG path, read at build time: its 8-bit values map to [0, 1]
+        by / 255 with no sRGB decode, as the reference loads them."""
+        if isinstance(image, (str, bytes)) or hasattr(image, "__fspath__"):
+            from pathtrace_tpu_torch.render.film import read_image
+
+            path = image.decode() if isinstance(image, bytes) else str(image)
+            image = read_image(path).astype(np.float32) / 255.0
+        img_id = len(self._images)
+        self._images.append(np.asarray(image, dtype=np.float32))
+        self._texs.append((T.TEX_IMAGE, np.zeros(3, np.float32), 0, 0, 0.0,
+                           img_id))
         return len(self._texs) - 1
 
     # ---- materials ----
@@ -314,6 +330,7 @@ class SceneBuilder:
             md_mat[i] = mat
             md_mask[i] = True
 
+        t = torch.from_numpy
         nmat = max(len(self._mats), 1)
         ma_kind = np.zeros(nmat, i32)
         ma_tex = np.zeros(nmat, i32)
@@ -328,13 +345,32 @@ class SceneBuilder:
         tx_odd = np.zeros(ntex, i32)
         tx_even = np.zeros(ntex, i32)
         tx_scale = np.zeros(ntex, f32)
-        for i, (kind, color, odd, even, scale) in enumerate(self._texs):
+        tx_img = np.zeros(ntex, i32)
+        for i, (kind, color, odd, even, scale, img) in enumerate(self._texs):
             tx_kind[i] = kind
             tx_color[i] = color
             tx_odd[i], tx_even[i] = odd, even
             tx_scale[i] = scale
+            tx_img[i] = img
 
-        t = torch.from_numpy
+        # the atlas: images stacked vertically, left-aligned
+        if self._images:
+            atlas = np.zeros((sum(im.shape[0] for im in self._images),
+                              max(im.shape[1] for im in self._images), 3), f32)
+            yoffs, hs, ws = [], [], []
+            y = 0
+            for im in self._images:
+                h, w = im.shape[:2]
+                atlas[y:y + h, :w] = im
+                yoffs.append(y)
+                hs.append(h)
+                ws.append(w)
+                y += h
+            at = T.ImageAtlas(t(atlas), t(np.asarray(yoffs, i32)),
+                              t(np.asarray(hs, i32)), t(np.asarray(ws, i32)))
+        else:
+            at = T.ImageAtlas.placeholder()
+
         sky = np.zeros(3, f32) if self.sky is None else _v3(self.sky)
         return T.Scene(
             spheres=T.Spheres(
@@ -350,7 +386,7 @@ class SceneBuilder:
             ),
             materials=T.Materials(t(ma_kind), t(ma_tex), t(ma_fuzz), t(ma_ref)),
             textures=T.Textures(t(tx_kind), t(tx_color), t(tx_odd), t(tx_even),
-                                t(tx_scale), t(np.zeros(ntex, i32))),
+                                t(tx_scale), t(tx_img)),
             sky=t(sky),
             use_gradient_sky=torch.tensor(1.0 if self.sky is None else 0.0,
                                           dtype=torch.float32),
@@ -358,4 +394,5 @@ class SceneBuilder:
                           t(bx_mask)),
             media=T.Media(t(md_kind), t(md_p0), t(md_p1), t(md_rad), t(md_wfo),
                           t(md_ofw), t(md_den), t(md_mat), t(md_mask)),
+            atlas=at,
         )

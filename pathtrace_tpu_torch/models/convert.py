@@ -2,7 +2,7 @@
 
 The reference's ``Scene`` and ``Camera`` are trees of arrays. Flattened to
 numpy under dotted keys (``"spheres.center"``, ``"materials.kind"``,
-``"sky"``, ``"camera.origin"``, ...), they load here as the port's
+``"atlas.data"``, ``"sky"``, ``"camera.origin"``, ...), they load here as the port's
 dataclasses, on the card unless the caller names another device. Nothing here imports jax: the caller does the
 flattening (``np.asarray`` per leaf), so a saved ``.npz`` works as well.
 """
@@ -19,7 +19,8 @@ from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models import types as T
 
 _GROUPS = {"spheres": T.Spheres, "rects": T.Rects, "boxes": T.Boxes,
-           "media": T.Media, "materials": T.Materials, "textures": T.Textures}
+           "media": T.Media, "materials": T.Materials, "textures": T.Textures,
+           "atlas": T.ImageAtlas}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -28,18 +29,25 @@ def _tensor(a, device) -> torch.Tensor:
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene:
     """Build the port's Scene from the reference's flattened leaves.
-    Instanced spheres or rects and image textures are refused."""
+    Instanced spheres or rects are refused. The atlas leaves may be left
+    out of a scene without image textures (it then gets the placeholder);
+    the reference's ``atlas.data_planes``, a transposed copy of
+    ``atlas.data``, is not read."""
     for kind in ("spheres", "rects"):
         if f"{kind}.world_from_obj" in leaves:
             raise ValueError(f"scene has instanced {kind}: not in this port yet")
-    tex_kind = np.asarray(leaves["textures.kind"])
-    if np.any(tex_kind == T.TEX_IMAGE):
-        raise ValueError("scene has image textures: not in this port yet")
-    parts = {
+    groups = dict(_GROUPS)
+    parts = {}
+    if "atlas.data" not in leaves:
+        if np.any(np.asarray(leaves["textures.kind"]) == T.TEX_IMAGE):
+            raise ValueError("scene has image textures but no atlas leaves")
+        del groups["atlas"]
+        parts["atlas"] = T.ImageAtlas.placeholder().to(device)
+    parts.update({
         name: cls(**{f.name: _tensor(leaves[f"{name}.{f.name}"], device)
                      for f in dataclasses.fields(cls)})
-        for name, cls in _GROUPS.items()
-    }
+        for name, cls in groups.items()
+    })
     return T.Scene(
         **parts,
         sky=_tensor(np.asarray(leaves["sky"], np.float32), device),

@@ -4,14 +4,15 @@ cover scene, whose small diffuse spheres move over the shutter),
 ``random_spheres`` (the same scene with static spheres), its 64x64-grid
 variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
 default), ``simple_light`` (an emissive sphere and rect over marble),
-``cornell`` (six rects, a rect light and two rotated boxes) and
-``cornell_smoke`` (the same walls and two rotated media boxes). Each builds its
+``cornell`` (six rects, a rect light and two rotated boxes),
+``cornell_smoke`` (the same walls and two rotated media boxes) and ``earth``
+(an image-textured globe). Each builds its
 scene with the same numpy generator calls as the JAX preset, so both
 packages produce identical leaves."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -23,7 +24,7 @@ from pathtrace_tpu_torch.models.build import (
 from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this slice cannot render
-NOT_PORTED = ("aras", "earth", "final", "final_full", "smallpt")
+NOT_PORTED = ("aras", "final", "final_full", "smallpt")
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -198,9 +199,55 @@ def cornell_smoke(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     return b.finish(), _cornell_camera(aspect)
 
 
+def _procedural_earth_image(size: int = 256, seed: int = 7) -> np.ndarray:
+    """The stand-in for the reference's ``media/earthmap.jpg`` (a file its
+    repository does not ship): a [size, 2 size, 3] continent-like map from
+    four octaves of bilinear value noise, bit for bit the JAX package's."""
+    rng = np.random.default_rng(seed)
+    h, w = size, size * 2
+    acc = np.zeros((h, w), np.float32)
+    for octave in range(4):
+        n = 2 ** (octave + 2)
+        coarse = rng.random((n, n + n)).astype(np.float32)
+        yy = np.linspace(0, n - 1, h, dtype=np.float32)
+        xx = np.linspace(0, 2 * n - 1, w, dtype=np.float32)
+        y0 = np.floor(yy).astype(int)
+        x0 = np.floor(xx).astype(int)
+        fy = (yy - y0)[:, None]
+        fx = (xx - x0)[None, :]
+        y1 = np.minimum(y0 + 1, n - 1)
+        x1 = np.minimum(x0 + 1, 2 * n - 1)
+        v = (
+            coarse[np.ix_(y0, x0)] * (1 - fy) * (1 - fx)
+            + coarse[np.ix_(y1, x0)] * fy * (1 - fx)
+            + coarse[np.ix_(y0, x1)] * (1 - fy) * fx
+            + coarse[np.ix_(y1, x1)] * fy * fx
+        )
+        acc += v * (0.5 ** octave)
+    acc /= acc.max()
+    land = acc > 0.55
+    img = np.empty((h, w, 3), np.float32)
+    img[..., 0] = np.where(land, 0.35 + 0.3 * acc, 0.05)
+    img[..., 1] = np.where(land, 0.45 + 0.3 * acc, 0.15 + 0.2 * acc)
+    img[..., 2] = np.where(land, 0.25, 0.45 + 0.3 * acc)
+    return img
+
+
+def earth(aspect: float, seed: int = 0,
+          image_path: Optional[str] = None) -> Tuple[Scene, Camera]:
+    """An image-textured globe of radius 2 at the origin. ``image_path``:
+    a PNG or JPEG map; by default the procedural stand-in."""
+    b = SceneBuilder()
+    tex = b.image_texture(image_path if image_path
+                          else _procedural_earth_image())
+    b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
+    return b.finish(), _standard_camera(aspect, time1=0.0, aperture=0.0)
+
+
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
     "cornell": cornell,
     "cornell_smoke": cornell_smoke,
+    "earth": earth,
     "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,
@@ -214,11 +261,16 @@ def names():
     return sorted(_REGISTRY)
 
 
-def from_name(name: str, aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+def from_name(name: str, aspect: float, seed: int = 0,
+              image_path: Optional[str] = None) -> Tuple[Scene, Camera]:
     """Preset lookup; raises ``ValueError`` for presets this port cannot
-    render yet and for unknown names."""
+    render yet and for unknown names. ``image_path`` feeds the presets
+    with an image texture (``earth``); the others ignore it, as the
+    reference's do."""
     fn = _REGISTRY.get(name)
     if fn is not None:
+        if name == "earth" and image_path:
+            return fn(aspect, seed=seed, image_path=image_path)
         return fn(aspect, seed=seed)
     if name in NOT_PORTED:
         raise ValueError(

@@ -1,9 +1,9 @@
 """Scene representation: dataclasses of tensors.
 
 Counterpart of ``pathtrace_tpu/models/types.py`` for spheres, axis-aligned
-rects, transformed boxes, constant-density media, materials, textures and
-the sky. Instanced spheres and rects and the image atlas are not ported
-yet. Every leaf is a tensor; ``.to(device)`` moves a whole dataclass.
+rects, transformed boxes, constant-density media, materials, textures, the
+image atlas and the sky. Instanced spheres and rects are not ported yet.
+Every leaf is a tensor; ``.to(device)`` moves a whole dataclass.
 """
 
 from __future__ import annotations
@@ -174,14 +174,37 @@ class Textures(_TensorData):
     odd_id: torch.Tensor    # [T] i32
     even_id: torch.Tensor   # [T] i32
     scale: torch.Tensor     # [T] f32 noise scale
-    image_id: torch.Tensor  # [T] i32 (always 0: no image textures yet)
+    image_id: torch.Tensor  # [T] i32 atlas entry of an image texture (else 0)
+
+
+@dataclasses.dataclass
+class ImageAtlas(_TensorData):
+    """Every image texture of a scene in one array: the images stacked
+    vertically, left-aligned, with each one's (y_offset, height, width),
+    so a texel lookup is one clamped read. A scene without images holds
+    the builder's 1x1 black placeholder (0, 1, 1)."""
+
+    data: torch.Tensor      # [H, W, 3] f32
+    y_offset: torch.Tensor  # [I] i32
+    height: torch.Tensor    # [I] i32
+    width: torch.Tensor     # [I] i32
+
+    @staticmethod
+    def placeholder() -> "ImageAtlas":
+        return ImageAtlas(
+            data=torch.zeros((1, 1, 3), dtype=torch.float32),
+            y_offset=torch.zeros(1, dtype=torch.int32),
+            height=torch.ones(1, dtype=torch.int32),
+            width=torch.ones(1, dtype=torch.int32),
+        )
 
 
 @dataclasses.dataclass
 class Scene:
     """``sky`` is the constant sky colour, used when ``use_gradient_sky``
     is 0; otherwise the gradient sky. A scene built without boxes or media
-    holds one dead entry of each, as the builder pads them."""
+    holds one dead entry of each, as the builder pads them, and one
+    without images the placeholder atlas."""
 
     spheres: Spheres
     rects: Rects
@@ -191,6 +214,8 @@ class Scene:
     use_gradient_sky: torch.Tensor  # [] f32, 1.0 or 0.0
     boxes: Boxes = dataclasses.field(default_factory=Boxes.empty)
     media: Media = dataclasses.field(default_factory=Media.empty)
+    atlas: ImageAtlas = dataclasses.field(
+        default_factory=ImageAtlas.placeholder)
 
     def to(self, device) -> "Scene":
         return Scene(
@@ -202,6 +227,7 @@ class Scene:
             use_gradient_sky=self.use_gradient_sky.to(device),
             boxes=self.boxes.to(device),
             media=self.media.to(device),
+            atlas=self.atlas.to(device),
         )
 
 

@@ -62,6 +62,7 @@ _SIGNATURES = {
     ],
     "pt_shade_from_winners": [
         _c_void_p, _c_int,                       # table, k_attr
+        _c_void_p, _c_int,                       # atlas or NULL, atlas width
         _c_void_p, _c_void_p,                    # idx, t
         _c_void_p, _c_longlong,                  # planes, plane stride
         _c_void_p, _c_void_p, _c_void_p, _c_int,  # time, alive, lane, n

@@ -2,7 +2,8 @@
 host-driven stream compaction.
 
 Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour: static
-or moving spheres, rects, transformed boxes and constant-density media).
+or moving spheres, rects, transformed boxes and constant-density media;
+image textures on spheres and rects).
 One bounce is two kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
@@ -26,7 +27,8 @@ One bounce is two kernels:
   scatter in one pass (the sphere normal from the time-lerped centre when
   the scene moves; a rect's axis normal; a box's face normal from the
   slab test redone in object space; (1, 0, 0) in a medium, whose
-  isotropic material scatters into the unit-sphere direction).
+  isotropic material scatters into the unit-sphere direction; an image
+  texture's texel read from the atlas at the winner's UV).
 
 With next-event estimation (``nee_lights``) a plain-PyTorch tail follows
 K2 each bounce: one light sample per Lambertian or isotropic lane, a
@@ -51,8 +53,8 @@ through :class:`~pathtrace_tpu_torch.ops.intersect_kernel.SphereNearest`
 plain PyTorch under autograd, as the reference shades its diff path in
 XLA.
 
-Attribute row layout (24 columns, 48 in scenes with boxes or media, as
-in the JAX package):
+Attribute row layout (24 columns, 28 in image scenes, 48 in scenes with
+boxes or media, as in the JAX package):
   cols 0-13   shading: mat_kind, fuzz, ref_idx, tex_kind, col_rgb,
               odd_rgb, even_rgb, noise_scale
   col  14     kind (0: sphere, 1: rect, 2: box, 3: medium)
@@ -61,6 +63,8 @@ in the JAX package):
   cols 15-41  box: p0 xyz, p1 xyz, obj_from_world (3x4 row-major),
               world_from_obj's linear part (3x3 row-major)
   cols 15-34  medium: p0 xyz, p1 xyz, obj_from_world, density, radius
+  last 3     (28 and 48 columns) the atlas entry of the row's texture:
+             y-offset, height, width (image 0's on rows of other textures)
 
 The bounce RNG is the stateless counter hash of the JAX package, keyed on
 (lane, seed, depth, draw) and reproduced bit for bit. torch on the CPU has
@@ -125,6 +129,7 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
     FLAG_CHECKER,
     FLAG_DIELECTRIC,
     FLAG_EMIT_SCALE,
+    FLAG_IMAGE,
     FLAG_LAMBERTIAN,
     FLAG_LIGHT,
     FLAG_MEDIUM,
@@ -255,12 +260,12 @@ def fast_turb_c(px: torch.Tensor, py: torch.Tensor, pz: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def attr_width(features: SceneFeatures) -> int:
-    """24 columns, or 48 in scenes with boxes or media, whose rows carry
-    affine transforms (image textures, which widen the row in the JAX
-    package, are not in this port yet)."""
+    """24 columns; 48 in scenes with boxes or media, whose rows carry
+    affine transforms; 28 in other image scenes, whose rows end in their
+    texture's atlas entry (the 48-column rows end in it too)."""
     if features.has_boxes or features.has_media:
         return K_ATTR_AFFINE
-    return K_ATTR
+    return K_ATTR_IMG if features.has_image else K_ATTR
 
 
 def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
@@ -268,20 +273,21 @@ def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
     spheres, world-space rects (at most ``RECT_ROWS``), transformed boxes
     and constant-density media with Lambertian, metal, dielectric,
     emissive or isotropic materials and constant, checker (constant
-    children) or noise textures. Raises ``ValueError`` naming what is
-    missing for anything else."""
+    children), noise or, in scenes without boxes or media, image
+    textures. Raises ``ValueError`` naming what is missing for anything
+    else."""
     if scene.rects.count > RECT_ROWS:
         raise ValueError(f"scene has {scene.rects.count} rects; the fast "
                          f"path takes at most {RECT_ROWS}")
-    missing = [name for name, on in (
-        ("image textures", features.has_image),
-        ("checker textures with non-constant children",
-         features.has_checker and not features.checker_children_const),
-    ) if on]
-    if missing:
+    if features.has_checker and not features.checker_children_const:
+        raise ValueError("scene needs checker textures with non-constant "
+                         "children: not ported yet")
+    if features.has_image and (features.has_boxes or features.has_media):
         raise ValueError(
-            f"scene needs {', '.join(missing)}: not ported yet"
-        )
+            "scene needs image textures in a scene with boxes or media: the "
+            "reference shades such scenes outside the fused kernel "
+            "(fused_shade_supported: the non-fused bounce with box normals "
+            "and box UV), which is not ported yet")
     return True
 
 
@@ -297,7 +303,8 @@ def feature_flags(features: SceneFeatures) -> int:
                     (features.has_motion, FLAG_MOTION),
                     (features.has_rects, FLAG_RECT),
                     (features.has_boxes, FLAG_BOX),
-                    (features.has_media, FLAG_MEDIUM)):
+                    (features.has_media, FLAG_MEDIUM),
+                    (features.has_image, FLAG_IMAGE)):
         if on:
             flags |= bit
     return flags
@@ -322,17 +329,30 @@ def _shade_cols(scene: Scene, mat_id: torch.Tensor):
     ]
 
 
-def _finish_table(cols, mask, dead_col: int, n_pad: int, k_attr: int):
+def _img_cols(scene: Scene, mat_id: torch.Tensor, k_attr: int):
+    """The atlas entry (y-offset, height, width) of each primitive's
+    texture, the last three columns of rows of 28 columns or more (None
+    for narrower rows): image 0's for textures that are not images, as in
+    the reference."""
+    if k_attr < K_ATTR_IMG:
+        return None
+    tid = scene.materials.tex_id[mat_id.long()].long()
+    img_id = scene.textures.image_id[tid].long()
+    at = scene.atlas
+    return [at.y_offset[img_id].to(torch.float32),
+            at.height[img_id].to(torch.float32),
+            at.width[img_id].to(torch.float32)]
+
+
+def _finish_table(cols, mask, dead_col: int, n_pad: int, k_attr: int,
+                  img_cols=None):
     """Stack the columns into rows; dead and padding rows are zero with
     1e18 in ``dead_col``. Out of place, so gradients reach the leaves.
-    Rows of 28 columns or more end, as the reference's do, in the image
-    atlas entry of the row's texture (y-offset, height, width): the port
-    has no image textures, so every live row holds the builder's 1x1
-    placeholder, (0, 1, 1)."""
-    if k_attr >= K_ATTR_IMG:
+    ``img_cols`` (:func:`_img_cols`, for rows of 28 columns or more) end
+    each row, as in the reference."""
+    if img_cols is not None:
         fill = cols[0].new_zeros(cols[0].shape)
-        cols = (cols + [fill] * (k_attr - 3 - len(cols))
-                + [fill, fill + 1.0, fill + 1.0])
+        cols = cols + [fill] * (k_attr - 3 - len(cols)) + img_cols
     table = torch.stack(cols, dim=1)
     is_dead_col = torch.arange(table.shape[1], device=table.device) == dead_col
     dead_row = torch.where(is_dead_col, 1.0e18, 0.0).to(table.dtype)
@@ -359,7 +379,8 @@ def build_sphere_table(scene: Scene, k_attr: int) -> torch.Tensor:
         sp.time0, sp.inv_time_delta, sp.radius,          # radius at GEO+8
     ]
     n_pad = ((sp.count + TILE_N - 1) // TILE_N) * TILE_N
-    return _finish_table(cols, sp.mask, GEO, n_pad, k_attr)
+    return _finish_table(cols, sp.mask, GEO, n_pad, k_attr,
+                         _img_cols(scene, sp.mat_id, k_attr))
 
 
 def build_rect_table(scene: Scene, k_attr: int) -> torch.Tensor:
@@ -371,7 +392,8 @@ def build_rect_table(scene: Scene, k_attr: int) -> torch.Tensor:
         torch.ones_like(rc.k),                           # kind = 1 (rect)
         rc.axis.to(torch.float32), rc.a0, rc.a1, rc.b0, rc.b1, rc.k, rc.flip,
     ]
-    table = _finish_table(cols, rc.mask, GEO + 5, RECT_ROWS, k_attr)
+    table = _finish_table(cols, rc.mask, GEO + 5, RECT_ROWS, k_attr,
+                          _img_cols(scene, rc.mat_id, k_attr))
     dead = torch.cat([~rc.mask, rc.mask.new_ones(RECT_ROWS - rc.count)])
     k = torch.arange(table.shape[1], device=table.device)
     interval = (k == GEO + 1) | (k == GEO + 2)
@@ -404,7 +426,8 @@ def build_box_table(scene: Scene, k_attr: int) -> torch.Tensor:
     bx = scene.boxes
     cols = (_slab_cols(scene, bx, KIND_BOX)
             + _affine_cols(bx.world_from_obj, linear_only=True))
-    return _finish_table(cols, bx.mask, GEO, bx.count, k_attr)
+    return _finish_table(cols, bx.mask, GEO, bx.count, k_attr,
+                         _img_cols(scene, bx.mat_id, k_attr))
 
 
 def build_media_table(scene: Scene, k_attr: int) -> torch.Tensor:
@@ -413,7 +436,8 @@ def build_media_table(scene: Scene, k_attr: int) -> torch.Tensor:
     boundary's radius at GEO + 19."""
     md = scene.media
     cols = _slab_cols(scene, md, KIND_MEDIUM) + [md.density, md.radius]
-    return _finish_table(cols, md.mask, GEO, md.count, k_attr)
+    return _finish_table(cols, md.mask, GEO, md.count, k_attr,
+                         _img_cols(scene, md.mat_id, k_attr))
 
 
 def build_sphere_soa(scene: Scene, n_pad: Optional[int] = None,
@@ -459,7 +483,7 @@ class TableRows(NamedTuple):
 
 
 class FastTables(NamedTuple):
-    table: torch.Tensor   # [rows, 24 or 48] winner rows (see TableRows)
+    table: torch.Tensor   # [rows, 24, 28 or 48] winner rows (see TableRows)
     soa: torch.Tensor     # [5, Nslots] closest-hit operand ([12, Npad]: K3)
     sky4: torch.Tensor    # [4] sky rgb + use_gradient_sky
     rows: TableRows       # where the rect, box and medium blocks start
@@ -469,6 +493,7 @@ class FastTables(NamedTuple):
     media: Optional[Media] = None     # the media sweep's media (media scenes)
     lights: Optional[LightTable] = None  # NEE's light table (host)
     light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
+    atlas: Optional[torch.Tensor] = None  # [H, W, 3] image atlas (images)
 
 
 def table_rows(scene: Scene, features: SceneFeatures) -> TableRows:
@@ -516,9 +541,10 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     """Per-trace tables, on the scene's device. ``cull``: build the boxes
     of the cull :func:`cull_mode` picks, and pad the closest-hit operand
     to its tiles (and supertiles). Rect, box and media scenes get their
-    blocks after the sphere rows. ``lights``: the light table of
-    next-event estimation, whose lights must all have constant
-    textures."""
+    blocks after the sphere rows, image scenes the atlas K2 reads texels
+    from, whose entries must lie inside its data (K2's clamps keep each
+    read inside its entry). ``lights``: the light table of next-event
+    estimation, whose lights must all have constant textures."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     boxes, n_slots = None, None
@@ -529,6 +555,14 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         boxes = cull_boxes(sp.center, sp.radius, sp.mask, n_slots, hier,
                            s_tiles)
     table = winner_table(scene, features)
+    atlas = None
+    if features.has_image:
+        at = scene.atlas
+        h, w = at.data.shape[:2]
+        if bool(((at.y_offset < 0) | (at.height < 0) | (at.width < 0)
+                 | (at.y_offset + at.height > h) | (at.width > w)).any()):
+            raise ValueError("atlas entries reach outside the atlas data")
+        atlas = at.data.contiguous()
     light_rgb = None
     if lights is not None:
         if lights.color is None:
@@ -546,6 +580,7 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         media=scene.media if features.has_media else None,
         lights=lights,
         light_rgb=light_rgb,
+        atlas=atlas,
     )
 
 
@@ -777,6 +812,7 @@ def fast_bounce_fused(tables: FastTables, state: FastStateP, seed: int,
     planes, alive = shade_from_winners(
         tables.table, idx, t, state.planes, state.time, state.alive,
         state.lane, seed, depth, max_depth, tables.sky4, flags,
+        atlas=tables.atlas,
     )
     shadow = 0
     if nee:
@@ -1219,7 +1255,8 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
 def diff_supported(features: SceneFeatures, scene: Scene) -> bool:
     """The differentiable path's scenes: those of :func:`fastpath_supported`
     without boxes or media, whose normals and silhouette gradients it does
-    not have yet. Raises ``ValueError`` naming them."""
+    not have yet, and without image textures, whose branch its bounce
+    does not have yet. Raises ``ValueError`` naming them."""
     fastpath_supported(features, scene)
     missing = [name for name, on in (("boxes", features.has_boxes),
                                      ("media", features.has_media)) if on]
@@ -1227,6 +1264,9 @@ def diff_supported(features: SceneFeatures, scene: Scene) -> bool:
         raise ValueError(f"the differentiable path takes no "
                          f"{' or '.join(missing)} yet (their silhouette "
                          f"gradients are not ported)")
+    if features.has_image:
+        raise ValueError("the differentiable path takes no image textures "
+                         "yet (its bounce has no image branch)")
     return True
 
 

@@ -12,8 +12,9 @@ rows of kind 1 under ``FLAG_RECT``; a box's, for rows of kind 2 under
 ``FLAG_BOX``: the slab test redone in object space picks the entry or
 exit face, signed against the ray and mapped back through
 ``world_from_obj``; (1, 0, 0) for a medium, rows of kind 3 under
-``FLAG_MEDIUM``), the albedo (constant, checker, or
-hash-turbulence marble), emission or the gradient/constant sky into the
+``FLAG_MEDIUM``), the albedo (constant, checker, hash-turbulence
+marble, or under ``FLAG_IMAGE`` the texel of an image texture, read from
+the atlas at the winner's UV), emission or the gradient/constant sky into the
 radiance (the emission scaled by the lane's MIS weight, the 13th state
 plane, under ``FLAG_EMIT_SCALE``), counter-hash draws 0-3, the Lambertian
 / metal / dielectric scatter (an isotropic medium's material takes the
@@ -25,9 +26,10 @@ through), the normal and the albedo: the next-event estimator's tail
 reads them there.
 
 On the card it is bound by bytes: about 120 per lane (15 state planes in,
-13 out, t and idx, and the winner row, 96 or 192 bytes, from L2), against
-a few hundred flops (more with noise textures, ~100 more for a box
-winner); under ``FLAG_EMIT_SCALE`` 4 bytes more in and 28 more out. One
+13 out, t and idx, and the winner row, 96, 112 or 192 bytes, from L2),
+against a few hundred flops (more with noise textures, ~100 more for a
+box winner, ~150 and a 12-byte texel from L2 for an image winner); under
+``FLAG_EMIT_SCALE`` 4 bytes more in and 28 more out. One
 thread per lane; the feature flags are uniform across a launch, so their
 branches diverge only where lanes of one warp hit different kinds.
 
@@ -48,6 +50,7 @@ from pathtrace_tpu_torch.models.types import (
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
+    TEX_IMAGE,
     TEX_NOISE,
 )
 
@@ -66,6 +69,7 @@ FLAG_RECT = 128
 FLAG_EMIT_SCALE = 256
 FLAG_BOX = 512
 FLAG_MEDIUM = 1024
+FLAG_IMAGE = 2048
 
 TWO_PI = 6.283185307179586
 _INF = float(MAX_T)
@@ -163,11 +167,77 @@ def normal_planes(col, ro, rd, t_safe, px, py, pz, time, flags):
     return nx, ny, nz
 
 
-def albedo_planes(col, px, py, pz, flags):
+def _trunc_clamp(x, size):
+    """``int(x)`` truncated toward zero and clamped to
+    ``[0, max(size - 1, 0)]`` (``size`` an integral float plane), as the
+    reference's ``clip(x.astype(int32), ...)``, whose conversion gives 0
+    for a NaN and saturates out of range: ``x`` is first held to
+    ``[-1, size]`` by ``fmax``/``fmin`` (which drop a NaN for the other
+    operand, -1), so no conversion leaves int32 and every device agrees."""
+    v = torch.fmin(torch.fmax(x, x.new_tensor(-1.0)), size)
+    hi = torch.clamp(size.to(torch.int32) - 1, min=0)
+    return torch.minimum(torch.clamp(v.to(torch.int32), min=0), hi)
+
+
+def image_texel_index(col, px, py, pz, time, flags):
+    """The atlas texel (ii, jj, the image's first atlas row) of each lane's
+    winner, from its row's columns ``col`` and the hit point: the sphere
+    UV from ``(p - c) * inv_r`` (the centre lerped to ``time`` under
+    ``FLAG_MOTION``), u = 1 - (atan2(nx, ny) + pi) / (2 pi), v = (asin(ny)
+    + pi / 2) / pi; under ``FLAG_RECT`` a rect row's in-plane fractions
+    (no flip: both sides read the same texel). Then ii = int(u w), jj =
+    int((1 - v) h - 0.001), clamped into the image whose (y-offset,
+    height, width) end the row. The twin of the JAX package's
+    ``_image_rgb_planes`` (``fastpath.py:1121``) up to its gather, in its
+    order and with its constants."""
+    cx, cy, cz, r = col[_GEO], col[_GEO + 1], col[_GEO + 2], col[_GEO + 8]
+    if flags & FLAG_MOTION:
+        s = (time - col[_GEO + 6]) * col[_GEO + 7]
+        cx = cx + s * col[_GEO + 3]
+        cy = cy + s * col[_GEO + 4]
+        cz = cz + s * col[_GEO + 5]
+    inv_r = 1.0 / torch.where(torch.abs(r) < 1e-12, 1.0, r)
+    nx = (px - cx) * inv_r
+    ny = (py - cy) * inv_r
+    phi = torch.atan2(nx, ny)
+    theta = torch.asin(torch.clamp(ny, -1.0, 1.0))
+    uu = 1.0 - (phi + 3.14159265) * (0.5 / 3.14159265)
+    vv = (theta + 1.5707963) * (1.0 / 3.14159265)
+    if flags & FLAG_RECT:
+        is_rect = col[_GEO - 1] == KIND_RECT
+        axis = col[_GEO].to(torch.int32)
+        pa = torch.where(axis == 0, py, px)
+        pb = torch.where(axis == 2, py, pz)
+        a0, a1, b0, b1 = (col[_GEO + k] for k in range(1, 5))
+        da = a1 - a0
+        db = b1 - b0
+        da = torch.where(torch.abs(da) < 1e-12, 1.0, da)
+        db = torch.where(torch.abs(db) < 1e-12, 1.0, db)
+        uu = torch.where(is_rect, (pa - a0) / da, uu)
+        vv = torch.where(is_rect, (pb - b0) / db, vv)
+    img_y, img_h, img_w = col[-3], col[-2], col[-1]
+    ii = _trunc_clamp(uu * img_w, img_w)
+    jj = _trunc_clamp((1.0 - vv) * img_h - 0.001, img_h)
+    return ii, jj, img_y.to(torch.int32)
+
+
+def image_rgb_planes(col, px, py, pz, time, atlas, flags):
+    """The texel of each lane's winner (:func:`image_texel_index`) read
+    from ``atlas`` [H, W, 3]: three [R] planes. Every lane reads one, as
+    the reference's pre-pass does; the index is clamped into the atlas."""
+    ii, jj, y0 = image_texel_index(col, px, py, pz, time, flags)
+    flat = (y0 + jj) * atlas.shape[1] + ii
+    texel = atlas.reshape(-1, 3).index_select(0, flat.long())
+    return texel.unbind(1)
+
+
+def albedo_planes(col, px, py, pz, flags, img_rgb=None):
     """The winner's albedo as three [R] planes: its constant colour, the
-    checker's odd or even colour, or the marble of the hash turbulence.
-    The twin of the JAX package's ``_albedo_planes``
-    (``fastpath.py:1263``)."""
+    checker's odd or even colour, or the marble of the hash turbulence;
+    under ``FLAG_IMAGE`` the texel ``img_rgb`` (three planes) on lanes
+    whose texture is an image, after the checker and the noise. The twin
+    of the JAX package's ``_albedo_planes`` (``fastpath.py:1263``) and of
+    the fused kernel's image override (``shade_pallas.py:231-236``)."""
     from pathtrace_tpu_torch.ops.fastpath import fast_turb_c
 
     tex_kind = col[3]
@@ -184,11 +254,14 @@ def albedo_planes(col, px, py, pz, flags):
                                         + 10.0 * fast_turb_c(px, py, pz)))
         is_noise = tex_kind == float(TEX_NOISE)
         rgb = [torch.where(is_noise, marble, rgb[c]) for c in range(3)]
+    if flags & FLAG_IMAGE:
+        is_img = tex_kind == float(TEX_IMAGE)
+        rgb = [torch.where(is_img, img_rgb[c], rgb[c]) for c in range(3)]
     return rgb
 
 
 def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
-                             depth, max_depth, sky4, flags):
+                             depth, max_depth, sky4, flags, atlas=None):
     """Plain PyTorch version; same arguments and results as
     :func:`shade_from_winners`."""
     from pathtrace_tpu_torch.ops.fastpath import cbrt_pos, counter_uniform
@@ -207,7 +280,10 @@ def shade_from_winners_plain(table, idx, t, planes, time, alive, lane, seed,
     pz = roz + t_safe * rdz
     nx, ny, nz = normal_planes(col, (rox, roy, roz), (rdx, rdy, rdz), t_safe,
                                px, py, pz, time, flags)
-    rgb = albedo_planes(col, px, py, pz, flags)
+    img_rgb = None
+    if flags & FLAG_IMAGE:
+        img_rgb = image_rgb_planes(col, px, py, pz, time, atlas, flags)
+    rgb = albedo_planes(col, px, py, pz, flags, img_rgb)
 
     mat_kind = col[0]
     sky_t = 0.5 * (rdy + 1.0)
@@ -318,7 +394,7 @@ def _int32(x: int) -> int:
     return ((int(x) + (1 << 31)) % (1 << 32)) - (1 << 31)
 
 
-def _check(table, idx, t, planes, time, alive, lane, sky4,
+def _check(table, idx, t, planes, time, alive, lane, sky4, atlas,
            n_planes: int, k_min: int) -> None:
     dev = t.device
     R = t.shape[0]
@@ -331,7 +407,10 @@ def _check(table, idx, t, planes, time, alive, lane, sky4,
         ("alive", alive, torch.bool, (R,)),
         ("lane", lane, torch.int32, (R,)),
         ("sky4", sky4, torch.float32, (4,)),
+        ("atlas", atlas, torch.float32, None),
     ):
+        if x is None:
+            continue
         if x.device != dev:
             raise ValueError(f"{name} on {x.device}, t on {dev}")
         if x.dtype != dtype:
@@ -348,15 +427,21 @@ def _check(table, idx, t, planes, time, alive, lane, sky4,
                          f"{tuple(planes.shape)}")
     if planes.stride(1) != 1:
         raise ValueError("planes rows must be unit-stride")
+    if atlas is not None and (atlas.dim() != 3 or atlas.shape[2] != 3):
+        raise ValueError(f"atlas must be [H, W, 3], got {tuple(atlas.shape)}")
 
 
 def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
-                       depth: int, max_depth: int, sky4, flags: int):
+                       depth: int, max_depth: int, sky4, flags: int,
+                       atlas=None):
     """Shade and scatter one wavefront.
 
     ``table`` [N, 24] winner rows (spheres, then with ``FLAG_RECT`` the
     rect block; [N, 48] with ``FLAG_BOX`` or ``FLAG_MEDIUM``, the box and
-    medium blocks after it); ``idx`` [R] int32 and ``t`` [R] f32 from
+    medium blocks after it; [N, 28] with ``FLAG_IMAGE``, whose rows end in
+    their texture's atlas entry); ``atlas`` [H, W, 3] the scene's image
+    atlas, which ``FLAG_IMAGE`` needs (its width is the row stride of the
+    texel reads); ``idx`` [R] int32 and ``t`` [R] f32 from
     the closest hit; ``planes`` [12, R] (ro xyz, rd xyz, radiance rgb,
     throughput rgb; [13, R] with the MIS weight under ``FLAG_EMIT_SCALE``),
     ``time`` [R], ``alive`` [R] bool, ``lane`` [R] int32 (the 15 state
@@ -372,15 +457,20 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
     the current stream (raising if it cannot launch)."""
     global LAUNCHES, PLAIN_CALLS
     n_out = 19 if flags & FLAG_EMIT_SCALE else 12
-    # a box row reads up to its world_from_obj at columns 33-41
+    if flags & FLAG_IMAGE and atlas is None:
+        raise ValueError("FLAG_IMAGE needs the atlas")
+    # a box row reads up to its world_from_obj at columns 33-41; an image
+    # row ends in its three atlas columns
     _check(table, idx, t, planes, time, alive, lane, sky4,
+           atlas if flags & FLAG_IMAGE else None,
            13 if flags & FLAG_EMIT_SCALE else 12,
-           _GEO + 27 if flags & FLAG_BOX else _GEO + 9)
+           _GEO + 27 if flags & FLAG_BOX
+           else _GEO + 13 if flags & FLAG_IMAGE else _GEO + 9)
     if t.device.type == "cpu":
         PLAIN_CALLS += 1
         return shade_from_winners_plain(table, idx, t, planes, time, alive,
                                         lane, seed, depth, max_depth, sky4,
-                                        flags)
+                                        flags, atlas)
     if t.device.type != "cuda":
         raise ValueError(f"shade_from_winners: unsupported device {t.device}")
     from pathtrace_tpu_torch.ops import _cuda_build
@@ -392,8 +482,10 @@ def shade_from_winners(table, idx, t, planes, time, alive, lane, seed: int,
     if R == 0:
         return out, alive_out
     stream = torch.cuda.current_stream(t.device).cuda_stream
+    image = bool(flags & FLAG_IMAGE)
     code = lib.pt_shade_from_winners(
         table.data_ptr(), table.shape[1],
+        atlas.data_ptr() if image else None, atlas.shape[1] if image else 0,
         idx.data_ptr(), t.data_ptr(), planes.data_ptr(), planes.stride(0),
         time.data_ptr(), alive.data_ptr(), lane.data_ptr(), R,
         _int32(seed), int(depth), int(max_depth), sky4.data_ptr(), int(flags),

@@ -6,6 +6,7 @@
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset random
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset simple_light --nee --rr 3
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset cornell_smoke --nee --rr 3
+    python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset earth
     python -m pathtrace_tpu_torch.tools.profile_step --what megakernel --preset simple_light
 
 ``train``: the inverse-rendering trainer on ``--preset`` (default

@@ -34,7 +34,7 @@
   the card's trace needs against JAX's.
 * The gates: the fast path and the CLI take ``cornell``; the megakernel,
   ``trace_fast_diff`` and the trainer refuse it with a ``ValueError``;
-  ``convert`` still refuses image textures.
+  an image texture on a box is refused.
 """
 
 import os
@@ -437,8 +437,8 @@ def test_one_ulp_nudge_of_the_rays():
 def test_gates_on_box_scenes():
     """The fast path takes ``cornell`` and ``cornell_smoke``; the
     megakernel, the differentiable trace and the trainer refuse them, as
-    the reference's megakernel does; ``convert`` still refuses image
-    textures."""
+    the reference's megakernel does; an image texture on a box is refused
+    (the reference shades it outside the fused kernel)."""
     from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
 
     for name, kind in (("cornell", "boxes"), ("cornell_smoke", "media")):
@@ -455,9 +455,12 @@ def test_gates_on_box_scenes():
             tfp.trace_fast_diff(scene, ro, rd, torch.zeros(8), 0, 4, feats)
         with pytest.raises(ValueError, match=kind):
             make_inverse_renderer(scene, cam, 8, 8, device="cpu")
-    jscene, _ = jpresets.earth(1.0)
+    b = build.SceneBuilder()
+    b.box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+          b.lambertian(b.image_texture(np.ones((2, 2, 3), np.float32))))
+    scene = b.finish()
     with pytest.raises(ValueError, match="image textures"):
-        convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
+        tfp.fastpath_supported(SceneFeatures.from_scene(scene), scene)
 
 
 def test_cli_renders_cornell(tmp_path, capsys):

@@ -14,6 +14,7 @@ torch.set_num_threads(2)
 
 import jax.numpy as jnp  # noqa: E402
 
+from pathtrace_tpu.models import build as jbuild  # noqa: E402
 from pathtrace_tpu.models import presets as jpresets  # noqa: E402
 from pathtrace_tpu.models.types import SceneFeatures as JFeatures  # noqa: E402
 from pathtrace_tpu.ops import fastpath as jfp  # noqa: E402
@@ -155,10 +156,18 @@ class TestSceneState:
             assert _bits_equal(cam_leaves[key], val), key
 
     def test_scene_from_numpy_refuses_unported_kinds(self):
-        # earth's image texture is not ported (cornell's boxes are)
+        # instanced spheres are not ported (earth's image texture and
+        # cornell's boxes are: earth converts, its atlas included)
+        b = jbuild.SceneBuilder()
+        b.sphere((0.0, 0.0, 0.0), 1.0, b.lambertian_color((0.5, 0.5, 0.5)),
+                 transform=np.eye(3, 4, dtype=np.float32))
+        with pytest.raises(ValueError, match="instanced spheres"):
+            convert.scene_from_numpy(jax_scene_leaves(b.finish()),
+                                     device="cpu")
         jscene, _ = jpresets.earth(1.0)
-        with pytest.raises(ValueError, match="image textures"):
-            convert.scene_from_numpy(jax_scene_leaves(jscene), device="cpu")
+        scene = convert.scene_from_numpy(jax_scene_leaves(jscene),
+                                         device="cpu")
+        assert tuple(scene.atlas.data.shape) == (256, 512, 3)
 
     def test_fastpath_refuses_moving_spheres(self):
         """Moving spheres are ported (K3): the converted JAX ``random``
@@ -172,13 +181,16 @@ class TestSceneState:
         tables = tfp.prep_tables(scene, feats)
         assert tuple(tables.soa.shape) == (12, 512)
         assert np.count_nonzero(tables.soa[9].numpy()) == 391  # inv_dt
+        # image textures are ported, but not in a scene with boxes
         feats.has_image = True
+        assert tfp.fastpath_supported(feats, scene)
+        feats.has_boxes = True
         with pytest.raises(ValueError, match="image textures"):
             tfp.fastpath_supported(feats, scene)
 
     def test_unported_preset_raises(self):
         with pytest.raises(ValueError, match="not ported yet"):
-            presets.from_name("earth", 1.0)
+            presets.from_name("final_full", 1.0)
 
 
 class TestCamera:

@@ -159,8 +159,9 @@ def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
 
 
 def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
-    """The fast path and the CLI refuse image textures (``earth``) and
-    render ``simple_light``, whose rect both paths take now."""
+    """The megakernel refuses image textures (``earth``), which the fast
+    path takes now; the CLI refuses a preset not ported (``final_full``)
+    and renders ``simple_light``, whose rect both paths take now."""
     scene, _ = presets.simple_light(ASPECT)
     feats = SceneFeatures.from_scene(scene)
     assert tmk.megakernel_supported(feats)
@@ -170,10 +171,14 @@ def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
                      "-H", "9", "-S", "1", "--out", str(out)]) == 0
     assert np.isfinite(np.load(out)).all()
     feats.has_image = True
-    with pytest.raises(ValueError, match="image textures: not ported yet"):
-        tfp.fastpath_supported(feats, scene)
+    assert tfp.fastpath_supported(feats, scene)
+    assert not tmk.megakernel_supported(feats)
+    with pytest.raises(ValueError, match="image textures"):
+        tmk.trace_megakernel(tmk.prep_tables(scene), torch.zeros(8, 3),
+                             torch.tensor([[0.0, 0.0, 1.0]] * 8),
+                             torch.zeros(8), 0, 2, feats)
     capsys.readouterr()
-    assert cli.main(["-P", "earth", "-O", "--device", "cpu"]) == 2
+    assert cli.main(["-P", "final_full", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

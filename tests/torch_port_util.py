@@ -20,18 +20,22 @@ PLANE_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz",
                "rad_r", "rad_g", "rad_b", "thr_r", "thr_g", "thr_b")
 
 _SCENE_GROUPS = ("spheres", "rects", "boxes", "media", "materials",
-                 "textures")
+                 "textures", "atlas")
 
 
-def jax_scene_leaves(scene) -> dict:
+def jax_scene_leaves(scene, atlas: bool = True) -> dict:
     """The JAX Scene flattened to dotted-key numpy leaves (the format of
-    ``pathtrace_tpu_torch.models.convert.scene_from_numpy``)."""
+    ``pathtrace_tpu_torch.models.convert.scene_from_numpy``). The atlas's
+    ``data_planes``, a transposed copy of ``data`` the port does not
+    keep, is left out; ``atlas=False`` leaves out the whole atlas (the
+    leaves of fixtures written before it, which convert with the
+    placeholder atlas)."""
     out = {}
-    for group in _SCENE_GROUPS:
+    for group in _SCENE_GROUPS if atlas else _SCENE_GROUPS[:-1]:
         obj = getattr(scene, group)
         for f in dataclasses.fields(obj):
             val = getattr(obj, f.name)
-            if val is not None:
+            if val is not None and f.name != "data_planes":
                 out[f"{group}.{f.name}"] = np.asarray(val)
     out["sky"] = np.asarray(scene.sky)
     out["use_gradient_sky"] = np.asarray(scene.use_gradient_sky)
@@ -85,6 +89,37 @@ def boards_scene(builder):
     b.rect_xz(-1.0, 1.0, -2.0, 2.0, 2.5, False, light)
     b.rect_yz(0.0, 2.0, -1.0, 1.0, 1.0, True, mat)
     b.rect_xy(-3.0, 3.0, 0.0, 4.0, -4.0, False, mat)
+    return b.finish()
+
+
+def wall_image() -> np.ndarray:
+    """A 40 x 72 texture of random texels (numpy, seed 3): the second
+    image of :func:`image_light_scene`, so neighbouring texels differ and
+    a texel picked wrongly shows in the albedo."""
+    return np.random.default_rng(3).random((40, 72, 3), dtype=np.float32)
+
+
+def image_light_scene(build, earth_image):
+    """``simple_light``'s geometry with image textures: the big sphere
+    wears ``earth_image`` (either package's ``_procedural_earth_image()``)
+    instead of the marble, and two walls wear :func:`wall_image`, the
+    atlas's second image: a yz rect behind the spheres as the camera sees
+    them (simple_light's camera looks down -x) and an xy rect beside them,
+    seen at a grazing angle and by scattered rays. The marble ground,
+    the emissive sphere and rect and the black sky stay. ``build`` is
+    either package's build module; both build identical leaves."""
+    b = build.SceneBuilder()
+    noise = b.noise_texture(4.0)
+    light_tex = b.constant_texture((4.0, 4.0, 4.0))
+    earth = b.lambertian(b.image_texture(earth_image))
+    wall = b.lambertian(b.image_texture(wall_image()))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
+    b.sphere((0.0, 2.0, 0.0), 2.0, earth)
+    b.sphere((0.0, 7.0, 0.0), 2.0, b.diffuse_light(light_tex))
+    b.rect_xy(3.0, 5.0, 1.0, 3.0, -2.0, False, b.diffuse_light(light_tex))
+    b.rect_yz(0.0, 8.0, -7.0, 7.0, -6.0, False, wall)
+    b.rect_xy(-6.0, 6.0, 0.0, 8.0, -7.0, False, wall)
+    b.sky = (0.0, 0.0, 0.0)
     return b.finish()
 
 
@@ -209,10 +244,14 @@ def _jax_shade():
 def jax_shade_planes(jscene, table, t, idx, st, seed, depth, max_depth,
                      emit_scale=None):
     """``shade_bounce_planes`` on the port's state ``st`` and the winners
-    (t, idx) in ``table`` (numpy): the 13 output planes (numpy)."""
+    (t, idx) in ``table`` (numpy): the 13 output planes (numpy). In an
+    image scene the texels come from the reference's pre-pass
+    ``_image_rgb_planes`` over its [3, N] atlas, as its fused bounce
+    computes them."""
     import jax.numpy as jnp
 
     from pathtrace_tpu.models.types import SceneFeatures as JFeatures
+    from pathtrace_tpu.ops import fastpath as jfp
 
     jfeat = JFeatures.from_scene(jscene)
     planes = st.planes.numpy()
@@ -222,10 +261,16 @@ def jax_shade_planes(jscene, table, t, idx, st, seed, depth, max_depth,
     sp.update(time=jnp.asarray(st.time.numpy()),
               alive=jnp.asarray(st.alive.numpy().astype(np.float32)),
               lane=jnp.asarray(st.lane.numpy()))
+    img_planes = None
+    if jfeat.has_image:
+        img_planes = jfp._image_rgb_planes(
+            jfp._atlas_planes(jscene), jnp.asarray(t),
+            jnp.asarray(np.ascontiguousarray(attrs3)), jax_fused_state(st),
+            jfeat)
     outs = _jax_shade()(
         jnp.asarray(t), jnp.asarray(np.ascontiguousarray(attrs3)), sp, seed,
         depth, jscene.sky, jscene.use_gradient_sky, features=jfeat,
-        max_depth=max_depth,
+        max_depth=max_depth, img_planes=img_planes,
         emit_scale=None if emit_scale is None else jnp.asarray(emit_scale))
     return [np.asarray(o) for o in outs]
 
