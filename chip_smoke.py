@@ -156,13 +156,30 @@ Phases (each prints a line before the next starts):
     ``trace_frame``, plain and with NEE + roulette from depth 3, 3 frames
     each timed with CUDA events: K1 and K2 launched, no other kernel and
     no plain version; frame times, readbacks, segments, image means (NEE
-    within 5% of plain).
+    within 5% of plain);
+35. P1, the reduced-precision sphere sweep probe
+    (``pathtrace_tpu_torch.tools.bf16_probe``), at the reference's size
+    (2^20 rays x 640 spheres, its input distributions): the kernel
+    against its plain version in float32 and in bf16, bit for bit, on
+    those inputs and on rows whose every disc <= 0 (t = 1e30
+    everywhere); the share of rays whose bf16 t leaves the float32 one
+    by more than 1e-3 and the rays that hit in one type and miss in the
+    other; kernel (device time), plain and bound times; then the probe's
+    ``main`` at its defaults, which must launch P1 and no plain version;
+36. P2-P4, the winner-attribute layout probes
+    (``pathtrace_tpu_torch.tools.split_probe``), 2^20 winners of a
+    640 x 24 table: each kernel against its plain version bit for bit on
+    its layout (split planes, (rows, K, 128), (K, rows, 128)),
+    ``torch.sum`` within 1e-5 (P3, P4); kernel, gather + layout, plain,
+    library and bound times; then the probe's ``main`` at its defaults,
+    which must launch P2, P3 and P4 and no plain version.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
 trainer's, phase 10 for K4, phase 13 for K5, phases 17 and 20 for K3
 and the motion runs of K2 and K6, phase 31 for K2's box and medium
-runs; phase 34's ``earth`` frames for K2's image entry), its largest
+runs; phase 34's ``earth`` frames for K2's image entry, phases 35 and 36's
+probe runs for P1-P4), its largest
 difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
@@ -171,7 +188,12 @@ run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test;
 for K3 ~42 per pair; for K7 those of the segments this run traced, ~25
 per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
 rect) pair and the shading per segment; phase 24 for K7's launches)
-and ``library_ms`` (null: no single PyTorch call computes any of them).
+and ``library_ms``: ``torch.sum`` over the attribute dimension for P3 and
+P4 (device time; a yardstick the port never calls), null for the rest
+(no single PyTorch call computes them; P2's K planes are K tensors). P1's
+bound counts 16 operations a ray-sphere pair in its type (bf16 at the
+white paper's packed 133.8 TFLOP/s) and 6 in float32; P2-P4's the bytes,
+(K + 1) x 4 per winner.
 K4 and K5 also carry the share of sweeps skipped and K1's time on the
 same rays. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
@@ -242,6 +264,11 @@ EARTH_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_earth.npz")
 # hash noise texture
 K7_OPS_PAIR, K7_OPS_PAIR_MOTION, K7_OPS_RECT = 25, 31, 20
 K7_OPS_SHADE, K7_OPS_NOISE = 250, 1800
+# the probes at the reference's sizes (tools/bf16_probe.py,
+# tools/split_probe.py): P1 2^20 rays x 640 spheres; P2-P4 2^20 winners
+# (of the probe's 640 x 24 table)
+P1_RAYS, P1_SPHERES = 1 << 20, 640
+P24_RAYS = 1 << 20
 
 
 def phase(msg: str) -> None:
@@ -309,22 +336,55 @@ def rel_l2(a, b) -> float:
 
 def reset_counts(k1, k2, k7) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
+    from pathtrace_tpu_torch.tools import bf16_probe, split_probe
+
     for name in ("LAUNCHES", "PLAIN_CALLS", "BWD_LAUNCHES", "BWD_PLAIN_CALLS",
                  "FLAT_LAUNCHES", "FLAT_PLAIN_CALLS", "HIER_LAUNCHES",
                  "HIER_PLAIN_CALLS", "MOVING_LAUNCHES", "MOVING_PLAIN_CALLS"):
         setattr(k1, name, 0)
     k2.LAUNCHES = k2.PLAIN_CALLS = 0
     k7.LAUNCHES = k7.PLAIN_CALLS = 0
+    bf16_probe.LAUNCHES = bf16_probe.PLAIN_CALLS = 0
+    for kind in ("SPLIT", "MINOR", "MAJOR"):
+        setattr(split_probe, f"{kind}_LAUNCHES", 0)
+        setattr(split_probe, f"{kind}_PLAIN_CALLS", 0)
 
 
 def read_counts(k1, k2, k7) -> dict:
     """Launches per kernel, and the plain versions' calls summed."""
+    from pathtrace_tpu_torch.tools import bf16_probe as p1
+    from pathtrace_tpu_torch.tools import split_probe as p24
+
     return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k1.MOVING_LAUNCHES,
             "K4": k1.FLAT_LAUNCHES, "K5": k1.HIER_LAUNCHES,
-            "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES,
+            "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES, "P1": p1.LAUNCHES,
+            "P2": p24.SPLIT_LAUNCHES, "P3": p24.MINOR_LAUNCHES,
+            "P4": p24.MAJOR_LAUNCHES,
             "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
-                      + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS)}
+                      + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS
+                      + p1.PLAIN_CALLS + p24.SPLIT_PLAIN_CALLS
+                      + p24.MINOR_PLAIN_CALLS + p24.MAJOR_PLAIN_CALLS)}
+
+
+def probe_main(tag: str, probe, argv, k1, k2, k7):
+    """Drive a probe's entry point (``probe.main(argv)``) with every count
+    at 0: (the counts just after, its JSON lines). Raises unless it exits
+    0 and launched no render or training kernel."""
+    reset_counts(k1, k2, k7)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = probe.main(argv)
+    counts = read_counts(k1, k2, k7)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for ln in lines:
+        phase(f"[{tag}] {probe.__name__.rsplit('.', 1)[-1]}: {json.dumps(ln)}")
+    phase(f"[{tag}] launches {counts}")
+    if rc != 0:
+        raise AssertionError(f"{probe.__name__}.main returned {rc}")
+    if any(counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")):
+        raise AssertionError(f"{probe.__name__} launched a render kernel")
+    return counts, lines
 
 
 def main() -> int:
@@ -348,6 +408,9 @@ def main() -> int:
     from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
     from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
     from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.tools import _probe
+    from pathtrace_tpu_torch.tools import bf16_probe as p1
+    from pathtrace_tpu_torch.tools import split_probe as p24
     from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.parallel.inverse import split_scene
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
@@ -1684,6 +1747,85 @@ def main() -> int:
         raise AssertionError("image_light: the NEE image's mean is more than "
                              "5% off")
 
+    # ---- 35: P1, the reduced-precision sphere sweep probe ----
+    cols, rows = p1.make_inputs(P1_RAYS, P1_SPHERES, 0, dev)
+    rows_miss = rows.clone()
+    rows_miss[3] += 1e4  # every disc <= 0: the 1e30 branch
+    p1_runs, t_f32 = {}, None
+    for name, dtype in p1.DTYPES.items():
+        t = p1.sphere_min_t(cols, rows, dtype)
+        t_p = p1.sphere_min_t_plain(cols, rows, dtype)
+        t_m = p1.sphere_min_t(cols, rows_miss, dtype)
+        t_mp = p1.sphere_min_t_plain(cols, rows_miss, dtype)
+        n_diff = int((t != t_p).sum()) + int((t_m != t_mp).sum())
+        err = max(float((t - t_p).abs().max()), float((t_m - t_mp).abs().max()))
+        t_f32 = t if t_f32 is None else t_f32
+        outside, flips = p1.compare(t, t_f32)
+        run = {"ms": _probe.event_ms(lambda: p1.sphere_min_t(cols, rows, dtype)),
+               "plain_ms": time_ms(lambda: p1.sphere_min_t_plain(
+                   cols, rows, dtype), 2),
+               "max_abs_err": err, "rays_differing": n_diff,
+               "share_outside_f32": outside, "miss_flips": flips,
+               "all_miss_ok": bool((t_m == p1.MISS_T).all())}
+        run["bound_ms"], run["bound_by"] = p1.bound(P1_RAYS, P1_SPHERES, dtype)
+        p1_runs[name] = run
+        phase(f"[35] P1 {name}: {P1_RAYS} rays x {P1_SPHERES} spheres, "
+              f"kernel vs plain {n_diff} rays differ (max |diff| {err}; the "
+              f"all-miss rows: every t 1e30 {run['all_miss_ok']}); "
+              f"share outside 1e-3 of f32 {outside:.6f}, miss flips {flips}; "
+              f"kernel {run['ms']:.4f} ms, plain {run['plain_ms']:.3f} ms, "
+              f"bound {run['bound_ms']:.4f} ms ({run['bound_by']})")
+        if n_diff or not run["all_miss_ok"]:
+            raise AssertionError(f"P1 {name}: the kernel differs from its "
+                                 "plain version")
+    phase(f"[35] P1 bf16 / f32 kernel time: "
+          f"{p1_runs['bf16']['ms'] / p1_runs['f32']['ms']:.3f}")
+    c35, probe_lines = probe_main("35", p1, [], k1, k2, k7)
+    if c35["P1"] <= 0 or c35["plain"] != 0:
+        raise AssertionError("bf16_probe did not run through P1")
+    if [ln["bench"] for ln in probe_lines] != ["bf16_probe/f32",
+                                               "bf16_probe/bf16"]:
+        raise AssertionError("bf16_probe printed other lines")
+
+    # ---- 36: P2-P4, the winner-attribute layout probes ----
+    table, idx = p24.make_inputs(P24_RAYS, p24.TABLE_ROWS, p24.ATTRS, 0, dev)
+    attrs = p24.gather_attrs(table, idx, 0)
+    p24_runs = {}
+    for name in p24.VARIANTS:
+        laid = p24.LAYOUT[name](attrs)
+        got, plain = p24.KERNEL[name](laid), p24.PLAIN[name](laid)
+        n_diff = int((got != plain).sum())
+        library = p24.LIBRARY[name]
+        run = {"ms": _probe.event_ms(lambda: p24.KERNEL[name](laid)),
+               "plain_ms": time_ms(lambda: p24.PLAIN[name](laid), 5),
+               "layout_ms": _probe.event_ms(
+                   lambda: p24.LAYOUT[name](p24.gather_attrs(table, idx, 0))),
+               "library_ms": (None if library is None else
+                              _probe.event_ms(lambda: library(laid))),
+               "max_abs_err": float((got - plain).abs().max()),
+               "library_max_abs_err": (None if library is None else float(
+                   (library(laid) - plain).abs().max())),
+               "bound_ms": p24.bound_ms(P24_RAYS, p24.ATTRS), "bound_by": "bytes"}
+        p24_runs[name] = run
+        phase(f"[36] {name}: {P24_RAYS} winners x {p24.ATTRS} attributes, kernel "
+              f"vs plain {n_diff} elements differ; kernel {run['ms']:.4f} ms, "
+              f"gather + layout {run['layout_ms']:.4f} ms, plain "
+              f"{run['plain_ms']:.4f} ms, library {run['library_ms']} ms "
+              f"(max |diff| {run['library_max_abs_err']}), bound "
+              f"{run['bound_ms']:.4f} ms (bytes)")
+        if n_diff:
+            raise AssertionError(f"{name}: the kernel differs from its plain "
+                                 "version")
+        if library is not None and not torch.allclose(
+                library(laid), plain, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"{name}: torch.sum disagrees beyond 1e-5")
+    c36, probe_lines = probe_main("36", p24, [], k1, k2, k7)
+    if min(c36["P2"], c36["P3"], c36["P4"]) <= 0 or c36["plain"] != 0:
+        raise AssertionError("split_probe did not run through P2, P3 and P4")
+    if [ln["bench"] for ln in probe_lines] != [
+            f"split_probe/{v}" for v in ("floor", *p24.VARIANTS)]:
+        raise AssertionError("split_probe printed other lines")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -1772,6 +1914,18 @@ def main() -> int:
          "fixture_share_outside": img_runs["fixture_share_outside"],
          "earth_frames": earth_runs, "image_light_frames": il_runs,
          "library_ms": None},
+        {"name": "sphere_min_t (P1, bf16 probe)", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/bf16_probe.cu",
+         "replaces": "tools/bf16_probe.py:37", "launches": c35["P1"],
+         **p1_runs["f32"], "bf16": p1_runs["bf16"],
+         "max_abs_err": max(r["max_abs_err"] for r in p1_runs.values()),
+         "library_ms": None},
+        *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
+           "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",
+           "replaces": f"tools/split_probe.py:{line}", "launches": c36[pid],
+           **p24_runs[name]}
+          for pid, name, line in (("P2", "split", 70), ("P3", "minor_t", 95),
+                                  ("P4", "major_t", 122))],
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -96,6 +96,23 @@ _SIGNATURES = {
         _c_int, _c_int, _c_int, _c_float,        # seed, max_depth, flags, t_min
         _c_void_p, _c_void_p, _c_void_p,         # out, segments, stream
     ],
+    "pt_sphere_min_t": [
+        _c_void_p, _c_longlong, _c_int,          # cols [6, R], row stride, R
+        _c_void_p, _c_int, _c_int,               # rows [4, N], N, bf16
+        _c_void_p, _c_void_p,                    # t_out, stream
+    ],
+    "pt_sum_split": [
+        ctypes.POINTER(_c_void_p), _c_int,       # host array of plane ptrs, K
+        _c_longlong, _c_void_p, _c_void_p,       # elements a plane, out, stream
+    ],
+    "pt_sum_minor": [
+        _c_void_p, _c_int, _c_longlong,          # (rows, K, 128), K, rows*128
+        _c_void_p, _c_void_p,                    # out, stream
+    ],
+    "pt_sum_major": [
+        _c_void_p, _c_int, _c_longlong,          # (K, rows, 128), K, rows*128
+        _c_void_p, _c_void_p,                    # out, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 
