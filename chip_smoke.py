@@ -171,8 +171,11 @@ Phases (each prints a line before the next starts):
     640 x 24 table: each kernel against its plain version bit for bit on
     its layout (split planes, (rows, K, 128), (K, rows, 128)),
     ``torch.sum`` within 1e-5 (P3, P4); kernel, gather + layout, plain,
-    library and bound times; then the probe's ``main`` at its defaults,
-    which must launch P2, P3 and P4 and no plain version.
+    library and bound times; the kernel and ``torch.sum`` timed in turns
+    on inputs rotated past the L2 cache (``_probe.alternated_cold_ms``:
+    [min, median, max] of each, the ratio of the medians); then the
+    probe's ``main`` at its defaults, which must launch P2, P3 and P4 and
+    no plain version.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
@@ -189,7 +192,9 @@ for K3 ~42 per pair; for K7 those of the segments this run traced, ~25
 per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
 rect) pair and the shading per segment; phase 24 for K7's launches)
 and ``library_ms``: ``torch.sum`` over the attribute dimension for P3 and
-P4 (device time; a yardstick the port never calls), null for the rest
+P4 (device time; a yardstick the port never calls; P2-P4 also carry
+``kernel_cold_ms``, ``library_cold_ms`` and ``kernel_over_library``,
+phase 36's alternated times on cold inputs), null for the rest
 (no single PyTorch call computes them; P2's K planes are K tensors). P1's
 bound counts 16 operations a ray-sphere pair in its type (bf16 at the
 white paper's packed 133.8 TFLOP/s) and 6 in float32; P2-P4's the bytes,
@@ -1806,6 +1811,8 @@ def main() -> int:
                "library_max_abs_err": (None if library is None else float(
                    (library(laid) - plain).abs().max())),
                "bound_ms": p24.bound_ms(P24_RAYS, p24.ATTRS), "bound_by": "bytes"}
+        run.update(_probe.alternated_cold_ms(p24.KERNEL[name], library,
+                                             p24.cold_copies(laid)))
         p24_runs[name] = run
         phase(f"[36] {name}: {P24_RAYS} winners x {p24.ATTRS} attributes, kernel "
               f"vs plain {n_diff} elements differ; kernel {run['ms']:.4f} ms, "
@@ -1813,6 +1820,10 @@ def main() -> int:
               f"{run['plain_ms']:.4f} ms, library {run['library_ms']} ms "
               f"(max |diff| {run['library_max_abs_err']}), bound "
               f"{run['bound_ms']:.4f} ms (bytes)")
+        phase(f"[36] {name} cold, in turns with torch.sum: kernel "
+              f"[min, median, max] {run['kernel_cold_ms']} ms, library "
+              f"{run['library_cold_ms']} ms, kernel / library "
+              f"{run['kernel_over_library']}")
         if n_diff:
             raise AssertionError(f"{name}: the kernel differs from its plain "
                                  "version")

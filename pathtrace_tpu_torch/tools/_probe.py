@@ -1,12 +1,15 @@
 """What the two probes (``bf16_probe``, ``split_probe``) share: the card's
-published peaks, their two clocks and the device line they print."""
+published peaks, their clocks and the device line they print."""
 
 from __future__ import annotations
 
+import itertools
+import math
+import statistics
 import subprocess
 import sys
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -15,6 +18,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 66.9e12
 BF16_FLOP_PER_S = 133.8e12
+L2_BYTES = 50e6  # the H100's L2 cache
 
 
 def probe_device(name: str, prog: str) -> Optional[torch.device]:
@@ -74,3 +78,49 @@ def event_ms(fn: Callable[[], object], reps: int = 20) -> float:
         cycles *= 4
     raise RuntimeError("event_ms: the host could not queue the runs ahead of "
                        "the device (does fn synchronise?)")
+
+
+def cold_copies(first, nbytes: int, clone: Callable) -> List:
+    """``first`` and enough ``clone(first)`` copies that no launch of a
+    rotation over them finds its input in L2: at least 3, and at least 6
+    L2 caches (300 MB) of ``nbytes`` each in all."""
+    n = max(3, math.ceil(6 * L2_BYTES / max(nbytes, 1)))
+    return [first] + [clone(first) for _ in range(n - 1)]
+
+
+def _spread(samples: Sequence[float]) -> List[float]:
+    return [min(samples), statistics.median(samples), max(samples)]
+
+
+def alternated_cold_ms(kernel: Callable, library: Optional[Callable],
+                       copies: Sequence, rounds: int = 5,
+                       reps: int = 20) -> dict:
+    """A kernel against its yardstick, timed in turns on cold inputs.
+
+    Each round takes samples in the order kernel, library, library,
+    kernel; a sample is :func:`event_ms` of ``reps`` launches queued behind
+    the device-side sleep. Consecutive launches, the kernel's and the
+    library's alike, take the next of ``copies`` (:func:`cold_copies`), so
+    none finds its input in L2. Returns ``kernel_cold_ms`` and
+    ``library_cold_ms`` as [min, median, max] over the samples, and
+    ``kernel_over_library``, the ratio of the medians; without a
+    ``library`` (None) the kernel alone is timed and the other two are
+    None."""
+    turn = itertools.count()
+
+    def rotating(fn):
+        return lambda: fn(copies[next(turn) % len(copies)])
+
+    order = ((kernel, library, library, kernel) if library is not None
+             else (kernel, kernel))
+    samples = {kernel: [], library: []}
+    for _ in range(rounds):
+        for fn in order:
+            samples[fn].append(event_ms(rotating(fn), reps))
+    k_ms = _spread(samples[kernel])
+    if library is None:
+        return {"kernel_cold_ms": k_ms, "library_cold_ms": None,
+                "kernel_over_library": None}
+    l_ms = _spread(samples[library])
+    return {"kernel_cold_ms": k_ms, "library_cold_ms": l_ms,
+            "kernel_over_library": k_ms[1] / l_ms[1]}

@@ -20,7 +20,9 @@ gathered from an [N, K] attribute table (``table[(idx + e) % N]`` ->
 XLA materialises each layout before its kernel, so the layout functions
 here return contiguous tensors (a PyTorch transpose alone is a view).
 Each kernel sums k = 0..K-1 left to right, as its plain version does, and
-equals it bit for bit; it is bound by bytes, (K + 1) x 4 x R.
+equals it bit for bit; it is bound by bytes, (K + 1) x 4 x R. P3 and P4
+load 16 bytes at a time and refuse an input whose base is not 16-byte
+aligned (``ValueError``, on the CPU too).
 
 The entry point runs on the card unless ``--device cpu`` is given (the
 plain versions); without a card the default exits non-zero. Defaults are
@@ -45,6 +47,14 @@ line per variant, ``bench`` ``split_probe/floor``, ``split_probe/split``,
   order (``a3.sum(dim=1)`` for minor_t, ``a3.sum(dim=0)`` for major_t),
   timed as a yardstick only; null for split (no single call sums K
   separate tensors) and on the CPU;
+- ``kernel_cold_ms`` and ``library_cold_ms``, each [min, median, max],
+  and ``kernel_over_library``, the ratio of the medians: the kernel and
+  its yardstick timed in turns (kernel, library, library, kernel; 5
+  rounds), each launch on the next of at least 3 copies of the layout (at
+  least 300 MB in all), so that no launch finds its input in L2
+  (``_probe.alternated_cold_ms``); ``kernel_ms`` and ``library_ms`` time
+  20 launches back to back on one copy. split has the kernel's alone;
+  null on the CPU;
 - ``bound_ms`` (bytes, null on the CPU) and ``device``.
 """
 
@@ -73,8 +83,9 @@ MAX_PLANES = 64    # planes the split kernel takes (csrc/split_probe.cu)
 TABLE_ROWS, ATTRS = 640, 24  # the reference probe's table: N rows, K columns
 VARIANTS = ("split", "minor_t", "major_t")
 # what a line holds only from the card (null on the CPU and for floor)
-CARD_KEYS = ("gather_ms", "layout_ms", "kernel_ms", "library_ms", "bound_ms",
-             "bound_by")
+CARD_KEYS = ("gather_ms", "layout_ms", "kernel_ms", "library_ms",
+             "kernel_cold_ms", "library_cold_ms", "kernel_over_library",
+             "bound_ms", "bound_by")
 
 
 # ---------------------------------------------------------------------------
@@ -153,6 +164,14 @@ def _check_plane(t: torch.Tensor, what: str, dim: int) -> None:
         raise ValueError(f"{what}: the input must be contiguous")
 
 
+def _check_aligned(t: torch.Tensor, what: str) -> None:
+    """P3 and P4 load 16 bytes at a time: the base must be 16-byte aligned
+    (a contiguous slice at another storage offset is refused)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: the input must start on a 16-byte "
+                         f"boundary (data_ptr() % 16 == {t.data_ptr() % 16})")
+
+
 def _launch(device: torch.device, shape, name: str, *args) -> torch.Tensor:
     """Launch ``pt_<name>``(*args, n, out, stream); the (rows, 128) output."""
     from pathtrace_tpu_torch.ops import _cuda_build
@@ -200,6 +219,7 @@ def sum_minor(a3: torch.Tensor) -> torch.Tensor:
     _check_plane(a3, "sum_minor", 3)
     if a3.shape[1] < 1:
         raise ValueError("sum_minor: K must be at least 1")
+    _check_aligned(a3, "sum_minor")
     if a3.device.type == "cpu":
         MINOR_PLAIN_CALLS += 1
         return sum_minor_plain(a3)
@@ -216,6 +236,7 @@ def sum_major(a3: torch.Tensor) -> torch.Tensor:
     _check_plane(a3, "sum_major", 3)
     if a3.shape[0] < 1:
         raise ValueError("sum_major: K must be at least 1")
+    _check_aligned(a3, "sum_major")
     if a3.device.type == "cpu":
         MAJOR_PLAIN_CALLS += 1
         return sum_major_plain(a3)
@@ -244,6 +265,15 @@ def make_inputs(n_rays: int, n_rows: int, k: int, seed: int,
     table = torch.rand(n_rows, k, generator=gen, device=device)
     idx = torch.randint(0, n_rows, (n_rays,), generator=gen, device=device)
     return table, idx
+
+
+def cold_copies(laid) -> list:
+    """``laid`` (a layout: one tensor, or P2's list of planes) and clones
+    of it, for :func:`_probe.alternated_cold_ms`."""
+    if isinstance(laid, torch.Tensor):
+        return _probe.cold_copies(laid, laid.nbytes, torch.clone)
+    return _probe.cold_copies(laid, sum(p.nbytes for p in laid),
+                              lambda planes: [p.clone() for p in planes])
 
 
 def bound_ms(n_rays: int, k: int) -> float:
@@ -291,6 +321,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             kernel_ms=_probe.event_ms(lambda: kernel(laid)),
             library_ms=(None if library is None
                         else _probe.event_ms(lambda: library(laid))),
+            **_probe.alternated_cold_ms(kernel, library, cold_copies(laid)),
             bound_ms=bound_ms(args.rays, ATTRS), bound_by="bytes")
         if name == "major_t":
             table_t = table.t().contiguous()

@@ -1,9 +1,11 @@
 """PyTorch port vs the JAX package: bounce RNG, hash noise, attribute
 tables, presets, the scene boundary and the camera.
 
-Everything here is exact: the hash is integer arithmetic, the noise and
-tables are + - * on identical inputs, and eager JAX on the CPU rounds every
-operation on its own as PyTorch does.
+Everything here is exact but ``cbrt_pos``: the hash is integer
+arithmetic, the noise and tables are + - * on identical inputs, and eager
+JAX on the CPU rounds every operation on its own as PyTorch does.
+``cbrt_pos`` calls the libraries' ``exp`` and ``log`` and is held to a
+bound derived from their rounding (``cbrt_bound``).
 """
 
 import numpy as np
@@ -38,6 +40,54 @@ def _preset_pair(name, aspect):
         return (jpresets._random_impl(aspect, True, 0, half_extent=20),
                 presets._random_impl(aspect, True, 0, half_extent=20))
     return jpresets.from_name(name, aspect), presets.from_name(name, aspect)
+
+
+# ``fastpath.cbrt_pos`` over the whole domain its callers reach: the
+# counter uniforms ``k * 2^-24``, k = 1 .. 2^24 - 1 (k = 0 is its own case),
+# in chunks of 2^22 so that a test worker's memory stays small
+CBRT_DOMAIN, CBRT_CHUNK = 1 << 24, 1 << 22
+
+
+def cbrt_domain(start: int) -> np.ndarray:
+    """The chunk ``k * 2^-24``, k in [max(start, 1), start + CBRT_CHUNK),
+    as float32 (exact: k has at most 24 bits)."""
+    k = np.arange(max(start, 1), min(start + CBRT_CHUNK, CBRT_DOMAIN))
+    return k.astype(np.float32) * np.float32(2.0 ** -24)
+
+
+def cbrt_bound(x: np.ndarray) -> np.ndarray:
+    """The largest relative gap between two implementations of
+    ``cbrt_pos(x) = exp(fl(log(x) * c))``, c = fl32(1/3), whose ``log`` and
+    ``exp`` are each within 1 float32 ULP of the exact value:
+
+    - the two logs differ by at most 2u, u = ulp32(|ln x|) (one ULP on
+      each side, in opposite directions);
+    - multiplied by the same c the products differ by at most 2u c, and
+      each side's rounding of its product adds at most half an ULP of it:
+      an exponent gap d <= 2u c + ulp32(|ln x| / 3);
+    - exact exponentials of exponents d apart differ by e^d - 1 relative,
+      and each side's ``exp`` adds at most 1 ULP, at most 2^-23 relative:
+      |a / b - 1| <= e^d (1 + 2^-23) / (1 - 2^-23) - 1, about
+      2u/3 + ulp32(|ln x| / 3) + 4 * 2^-24.
+
+    A ULP of ``ln x`` is worth ~u/3 of the result, 2.7-5.3 result ULPs
+    once |ln x| >= 8, so no fixed ULP count bounds the gap."""
+    ln = np.abs(np.log(x.astype(np.float64)))
+    u = np.spacing(ln.astype(np.float32)).astype(np.float64)
+    u3 = np.spacing((ln / 3.0).astype(np.float32)).astype(np.float64)
+    d = 2.0 * u * float(np.float32(1.0 / 3.0)) + u3
+    eps = 2.0 ** -23
+    return np.exp(d) * (1.0 + eps) / (1.0 - eps) - 1.0
+
+
+def cbrt_gap(x: np.ndarray, got: np.ndarray, ref: np.ndarray):
+    """(largest gap in float32 ULPs, largest |got / ref - 1| over
+    :func:`cbrt_bound`) of two float32 ``cbrt_pos`` results on ``x``
+    (positive, so the bit patterns order as the values)."""
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - ref.view(np.int32).astype(np.int64))
+    rel = np.abs(got.astype(np.float64) / ref.astype(np.float64) - 1.0)
+    return int(ulps.max()), float((rel / cbrt_bound(x)).max())
 
 
 def _bits_equal(a, b):
@@ -79,11 +129,34 @@ class TestHash:
 
     def test_cbrt_pos_within_ulps(self):
         # exp and log are library functions: XLA's and PyTorch's may round
-        # differently in the last place, so cbrt_pos agrees to ULPs, not bits
-        x = np.random.default_rng(3).random(1 << 14, dtype=np.float32)
-        ref = np.asarray(jfp.cbrt_pos(jnp.asarray(x)))
-        got = tfp.cbrt_pos(torch.from_numpy(x)).numpy()
-        np.testing.assert_array_max_ulp(got, ref, maxulp=4)
+        # differently in the last place, and a ULP of log x is up to ~5
+        # ULPs of the result, so cbrt_pos agrees to the bound derived in
+        # cbrt_bound, element by element, over every k * 2^-24
+        # (k = 1 .. 2^24 - 1) that the counter uniforms take
+        worst_ulp, worst_ratio = 0, 0.0
+        for start in range(0, CBRT_DOMAIN, CBRT_CHUNK):
+            x = cbrt_domain(start)
+            ref = np.asarray(jfp.cbrt_pos(jnp.asarray(x)))
+            got = tfp.cbrt_pos(torch.from_numpy(x)).numpy()
+            ulp, ratio = cbrt_gap(x, got, ref)
+            worst_ulp, worst_ratio = max(worst_ulp, ulp), max(worst_ratio,
+                                                              ratio)
+        print(f"cbrt_pos over {CBRT_DOMAIN - 1} points: largest gap "
+              f"{worst_ulp} ULPs, {worst_ratio:.4f} of the bound")
+        assert worst_ratio <= 1.0, (worst_ulp, worst_ratio)
+
+    def test_cbrt_pos_at_zero(self):
+        # both clamp x to 1e-38 first, a float32 subnormal: XLA's CPU
+        # flushes it to 0, so JAX returns exp(log(0) / 3) = 0; PyTorch
+        # keeps it, so the port returns exp(log(1e-38) / 3) ~ 2.15e-13.
+        # Against the 1e-3 lane contract both are 0.
+        ref = np.asarray(jfp.cbrt_pos(jnp.zeros(4, jnp.float32)))
+        got = tfp.cbrt_pos(torch.zeros(4)).numpy()
+        assert (ref == 0.0).all()
+        clamp = np.array([1e-38], np.float32)
+        exact = np.exp(np.log(clamp.astype(np.float64)) / 3.0)
+        assert 2.15e-13 < exact[0] < 2.16e-13
+        assert (np.abs(got / exact - 1.0) <= cbrt_bound(clamp)).all(), got
 
 
 class TestSceneState:

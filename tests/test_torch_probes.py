@@ -258,6 +258,15 @@ def test_sum_wrappers_refuse_bad_inputs():
         split_probe.sum_split([torch.zeros(2, 128)] * 65)
     with pytest.raises(TypeError):
         split_probe.sum_major(a3.double())
+    # P3 and P4 load 16 bytes at a time: a contiguous view 4 bytes off a
+    # 16-byte boundary is refused before the device branch, here too
+    base = torch.zeros(K * 2 * 128 + 4)
+    assert base.data_ptr() % 16 == 0
+    off = base.view(-1)[1:1 + K * 2 * 128]
+    with pytest.raises(ValueError, match="16-byte"):
+        split_probe.sum_minor(off.view(2, K, 128))
+    with pytest.raises(ValueError, match="16-byte"):
+        split_probe.sum_major(off.view(K, 2, 128))
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +289,10 @@ def test_entry_point_on_cpu_prints_reference_names(probe, argv, names,
         assert ln["device"] == "cpu" and ln["ms"] > 0.0
         # no device metric from a CPU run
         assert ln["kernel_ms"] is None and ln["bound_ms"] is None
+        if probe is split_probe:
+            assert ln["kernel_cold_ms"] is None
+            assert ln["library_cold_ms"] is None
+            assert ln["kernel_over_library"] is None
     if probe is bf16_probe:
         assert lines[0]["share_outside_f32"] == 0.0
         assert lines[1]["share_outside_f32"] > 0.5
