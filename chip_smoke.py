@@ -14,7 +14,9 @@ Phases (each prints a line before the next starts):
 2. build: nvcc on ``pathtrace_tpu_torch/csrc``, with the build seconds;
 3. K1 (closest hit) against its plain version on the primary rays of
    ``random_spheres`` at 1280x720x4 and on once-scattered rays: t and idx
-   must be equal;
+   must be equal; K1's time on both ray sets, each as a share of the
+   bound and of the issue ceiling under ``-fmad=false``, and ptxas's
+   registers and spills for each rays-a-thread instance;
 4. K2 (fused shade) against its plain version on the same winners, under
    the lane contract (1e-3, at most 0.5% of lanes outside);
 5. the port's CUDA trace of the fixture's rays against the JAX radiance
@@ -62,7 +64,9 @@ Phases (each prints a line before the next starts):
     primary rays of ``random`` at 1280x720x4 (camera times in [0, 1)) and
     on once-scattered rays: t and idx must be equal; K3 on random_spheres
     with its zero motion operand must equal K1 bit for bit; the times of
-    K3, of its plain version and of K1 on the same rays, and the bound;
+    K3 (primary and scattered rays), of its plain version and of K1 on the
+    same rays, the bound and the issue ceiling and K3's shares of both,
+    and ptxas's registers and spills;
 15. K2 with the motion flag against its plain version on phase 14's
     winners, under the lane contract;
 16. the port's CUDA trace of the rays in ``tests/goldens/torch_port_random.npz``
@@ -186,9 +190,15 @@ probe runs for P1-P4), its largest
 difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
-from this run's shapes; for K4 and K5 the operations of the sweeps this
-run's data needs, 32 x 128 pairs of ~20 each, plus ~30 per ray-box test;
-for K3 ~42 per pair; for K7 those of the segments this run traced, ~25
+from this run's shapes; K1 and K3 count the operations their function
+needs, 16 a (ray, live sphere) pair and 38 where the sphere moves, with
+``tools/nearest_bench.yardsticks``, and also carry ``ms_scattered``, their
+time on once-scattered rays, ``issue_ceiling_ms``, the least time when
+each fp32 operation is one instruction (``-fmad=false``) at one warp
+instruction a clock per SM sub-partition, 33.5 T a second, and ptxas's
+``registers``; for K4 and K5 the operations of the sweeps this
+run's data needs, 32 x 128 pairs of 16 each, plus ~30 per ray-box test;
+for K7 those of the segments this run traced, ~25
 per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
 rect) pair and the shading per segment; phase 24 for K7's launches)
 and ``library_ms``: ``torch.sum`` over the attribute dimension for P3 and
@@ -237,7 +247,8 @@ RTOL = ATOL = 1e-3
 # expected); per-sphere sums are atomics in another order
 K6_MAX_ULP = 4
 K6_SPHERE_RTOL = 1e-4
-# the card's published peaks (H100 SXM data sheet, 700 W)
+# the card's published peaks (H100 SXM data sheet, 700 W), as
+# tools/nearest_bench.py has them
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
@@ -309,6 +320,25 @@ def bound(bytes_moved: float, ops: float):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = ops / FP32_FLOP_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nearest_registers(log: str, moving: bool) -> dict:
+    """{rays a thread: "registers, spill bytes"} of the closest-hit
+    kernel's instances (K3 when ``moving``) from ptxas's build log."""
+    out, rays = {}, None
+    tag = "sphere_nearest_kernelILb1E" if moving else "sphere_nearest_kernelILb0E"
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(tag + r"Li(\d+)E", m.group(1))
+            rays = int(k.group(1)) if k else None
+        elif rays is not None and "spill stores" in ln:
+            out[rays] = ln.split("stack frame, ")[-1].strip()
+        elif rays is not None and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln).group(1)
+            out[rays] = f"{regs} registers, {out.get(rays, '')}".rstrip(", ")
+            rays = None
+    return out
 
 
 def rays_outside(radiance, ref_radiance):
@@ -415,6 +445,7 @@ def main() -> int:
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.tools import _probe
     from pathtrace_tpu_torch.tools import bf16_probe as p1
+    from pathtrace_tpu_torch.tools import nearest_bench as nb
     from pathtrace_tpu_torch.tools import split_probe as p24
     from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.parallel.inverse import split_scene
@@ -490,10 +521,22 @@ def main() -> int:
     st1 = scattered(tables, flags, st0, t0_, idx0)
     t1_, idx1, err_b = nearest_check("3", "K1", tables.soa, st1, "scattered")
     k1_ms = time_ms(lambda: k1.sphere_nearest(tables.soa, st0.planes[:6]), 20)
+    k1_ms_scattered = time_ms(
+        lambda: k1.sphere_nearest(tables.soa, st1.planes[:6]), 20)
     k1_plain_ms = time_ms(
         lambda: k1.sphere_nearest_plain(tables.soa, st0.planes[:6]), 2)
+    k1_ys = nb.yardsticks(tables.soa, R)
+    k1_bound = (k1_ys["bound_ms"], k1_ys["bound_by"])
+    k1_ceiling = k1_ys["issue_ceiling_ms"]
+    k1_regs = nearest_registers(info.log, moving=False)
     phase(f"[3] K1 time at {R} rays x {tables.soa.shape[1]} spheres: kernel "
-          f"{k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms")
+          f"{k1_ms:.3f} ms (primary), {k1_ms_scattered:.3f} ms (scattered), "
+          f"plain {k1_plain_ms:.3f} ms")
+    for label, ms in (("primary", k1_ms), ("scattered", k1_ms_scattered)):
+        phase(f"[3] K1 {label}: {k1_bound[0] / ms:.1%} of the bound "
+              f"{k1_bound[0]:.4f} ms ({k1_bound[1]}), {k1_ceiling / ms:.1%} "
+              f"of the -fmad=false issue ceiling {k1_ceiling:.4f} ms")
+    phase(f"[3] K1 registers and spills (ptxas, per rays a thread): {k1_regs}")
 
     # ---- 4: K2 on the same winners ----
     def shade_check(tag, name, tables_, flags_, cases):
@@ -531,10 +574,6 @@ def main() -> int:
     k2_err, k2_out, k2_ms, k2_plain_ms = shade_check(
         "4", "K2", tables, flags, (("primary", st0, t0_, idx0, 0),
                                    ("scattered", st1, t1_, idx1, 1)))
-    n_live = int(scene.spheres.mask.sum())
-    # K1: ~20 fp32 operations per (ray, live sphere) pair; 24 B in and
-    # 8 B out per ray, 20 B per sphere
-    k1_bound = bound(R * 32 + tables.soa.numel() * 4, R * n_live * 20)
     # K2: per lane 65 B in (12 planes, time, alive, lane, t, idx) and 49 B
     # out (12 planes, alive), the winner table once; ~300 operations
     k2_bound = bound(R * 114 + tables.table.numel() * 4, R * K2_OPS)
@@ -824,12 +863,12 @@ def main() -> int:
         k1_ms_ = time_ms(lambda: k1.sphere_nearest(tables_c.soa, rays), 5)
         plain_ms = time_ms(lambda: k1.sphere_nearest_culled_plain(
             tables_c.soa, rays, tables_c.cull), 1)
-        # 24 B in and 8 B out per ray, the operand and boxes once; ~20
+        # 24 B in and 8 B out per ray, the operand and boxes once; K1's 16
         # operations per pair of the sweeps run (32 x 128 pairs each) and
         # ~30 per ray-box test
         box_bytes = sum(b.numel() * 4 for b in tables_c.cull[:2] if b is not None)
         bnd = bound(R * 32 + tables_c.soa.numel() * 4 + box_bytes,
-                    sw0 * 32 * 128 * 20 + tests0 * 30)
+                    sw0 * 32 * 128 * nb.OPS_PAIR + tests0 * 30)
         phase(f"[{tag}] time on primary rays: kernel {ms:.3f} ms, K1 "
               f"{k1_ms_:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
               f"({bnd[1]})")
@@ -959,17 +998,25 @@ def main() -> int:
     mrays = mst0.planes[:6]
     k3_ms = time_ms(lambda: k1.sphere_nearest_moving(mtables.soa, mrays,
                                                      mst0.time), 20)
+    k3_ms_scattered = time_ms(lambda: k1.sphere_nearest_moving(
+        mtables.soa, mst1.planes[:6], mst1.time), 20)
     soa5 = mtables.soa[:5].contiguous()
     k3_k1_ms = time_ms(lambda: k1.sphere_nearest(soa5, mrays), 20)
     k3_plain_ms = time_ms(lambda: k1.sphere_nearest_plain(
         mtables.soa, mrays, time=mst0.time), 2)
-    m_live = int(mscene.spheres.mask.sum())
-    # K3: ~42 fp32 operations per (ray, live sphere) pair; 28 B in (ray,
-    # time) and 8 B out per ray, 48 B per sphere
-    k3_bound = bound(R * 36 + mtables.soa.numel() * 4, R * m_live * 42)
+    k3_ys = nb.yardsticks(mtables.soa, R)
+    k3_bound = (k3_ys["bound_ms"], k3_ys["bound_by"])
+    k3_ceiling = k3_ys["issue_ceiling_ms"]
+    k3_regs = nearest_registers(info.log, moving=True)
     phase(f"[14] K3 time at {R} rays x {mtables.soa.shape[1]} spheres: kernel "
-          f"{k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, K1 on the same rays "
+          f"{k3_ms:.3f} ms (primary), {k3_ms_scattered:.3f} ms (scattered), "
+          f"plain {k3_plain_ms:.3f} ms, K1 on the same rays "
           f"{k3_k1_ms:.3f} ms, bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
+    for label, ms in (("primary", k3_ms), ("scattered", k3_ms_scattered)):
+        phase(f"[14] K3 {label}: {k3_bound[0] / ms:.1%} of the bound, "
+              f"{k3_ceiling / ms:.1%} of the -fmad=false issue ceiling "
+              f"{k3_ceiling:.4f} ms")
+    phase(f"[14] K3 registers and spills (ptxas, per rays a thread): {k3_regs}")
 
     # ---- 15: K2 with the motion flag on phase 14's winners ----
     k2m_err, k2m_out, k2m_ms, k2m_plain_ms = shade_check(
@@ -1240,8 +1287,8 @@ def main() -> int:
                      20)
     k1l_plain_ms = time_ms(
         lambda: k1.sphere_nearest_plain(ltables.soa, lst0.planes[:6]), 2)
-    k1l_bound = bound(R * 32 + ltables.soa.numel() * 4,
-                      R * int(lscene.spheres.mask.sum()) * 20)
+    k1l_ys = nb.yardsticks(ltables.soa, R)
+    k1l_bound = (k1l_ys["bound_ms"], k1l_ys["bound_by"])
     phase(f"[25] K1 time at {R} rays x {ltables.soa.shape[1]} slots: kernel "
           f"{k1l_ms:.3f} ms, plain {k1l_plain_ms:.3f} ms, bound "
           f"{k1l_bound[0]:.4f} ms ({k1l_bound[1]})")
@@ -1849,15 +1896,20 @@ def main() -> int:
          "simple_light_ms": k1l_ms, "simple_light_plain_ms": k1l_plain_ms,
          "simple_light_bound_ms": k1l_bound[0],
          "simple_light_bound_by": k1l_bound[1],
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
-         "bound_by": k1_bound[1], "library_ms": None},
+         "ms": k1_ms, "ms_scattered": k1_ms_scattered,
+         "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1], "issue_ceiling_ms": k1_ceiling,
+         "registers": k1_regs, "library_ms": None},
         {"name": "sphere_nearest_moving (K3)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:340",
          "launches": c17["K3"], "train_launches": c20["K3"],
          "max_abs_err": max(k3_err_a, k3_err_b),
-         "ms": k3_ms, "plain_ms": k3_plain_ms, "k1_ms": k3_k1_ms,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "ms": k3_ms, "ms_scattered": k3_ms_scattered,
+         "plain_ms": k3_plain_ms, "k1_ms": k3_k1_ms,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "issue_ceiling_ms": k3_ceiling, "registers": k3_regs,
+         "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:92",

@@ -16,12 +16,23 @@ lerped to the ray's time, ``c = c0 + s * delta``, ``s = (time - time0) *
 inv_dt``, in the reference's expanded form over the precomputed ``c0.delta``
 and ``|delta|^2`` (``b -= s * delta.d``; ``c += -2 s delta.ro + 2 s c0.delta
 + s^2 |delta|^2``). Its operand is [12, N]; a static sphere (delta = 0,
-inv_dt = 0) gives K1's result bit for bit. About 42 flops per pair.
+inv_dt = 0) gives K1's result bit for bit. 38 operations a moving pair,
+K1's 16 a static one.
 
-On the card the kernel is bound by fp32 arithmetic, about 20 flops per
-ray-sphere pair (R x N x 20 per bounce), not by bytes: it reads 24 bytes
-and writes 8 per ray. The sphere operand streams through shared memory in
-tiles; each thread keeps its ray and running (t, idx) in registers.
+On the card both are bound by issue slots, not by bytes (they read 24
+bytes, 28 with the time, and write 8 per ray): built with ``-fmad=false``,
+each of a pair's 16 additions and multiplications (38 for K3) is an
+instruction of its own, and an SM sub-partition issues one warp
+instruction a clock. Each thread keeps 4 rays (2 or 1 on a wavefront too
+narrow to give the SMs 1.5 blocks each) and their running (t, idx) in registers; a tile's live spheres
+are staged in shared memory as float4 rows in index order, each read once
+for all of a thread's rays. The kernel's shortcuts are exact, and each
+has a plain predicate here that the tests hold to the plain version
+(tests/test_torch_sweep.py): it stages only the live slots
+(:func:`staged_slots`), K3 skips the motion terms on static slots
+(:func:`static_slots`) in blocks whose rays are all finite
+(:func:`static_rays_ok`), and it picks the root without a t_max test
+(:func:`kernel_root`).
 
 Built with ``-fmad=false`` and IEEE sqrt, the kernel rounds every
 operation as the plain version does, so the two agree bit for bit (t and
@@ -132,6 +143,46 @@ def sphere_nearest_plain(soa: torch.Tensor, rays: torch.Tensor,
         t_out[lo:hi] = tmin
         i_out[lo:hi] = imin.to(torch.int32)
     return t_out, i_out
+
+
+# |time0| and |ray time| at most this: K3 may skip a static slot's motion
+# terms (csrc/sphere_nearest.cu kTimeBound)
+STATIC_TIME_BOUND = 1e30
+
+
+def staged_slots(soa: torch.Tensor) -> torch.Tensor:
+    """The slots K1/K3 stage and sweep, in index order: the live ones
+    (mask > 0). The plain version takes a pair only where the mask is
+    set, so a masked slot never wins and leaving it out changes nothing.
+    For tests."""
+    return torch.nonzero(soa[4] > 0).flatten()
+
+
+def static_slots(soa: torch.Tensor) -> torch.Tensor:
+    """K3's static slots ([N] bool), whose motion terms the kernel skips:
+    delta, inv_dt, c.delta and |delta|^2 all zero (either sign) and
+    |time0| <= ``STATIC_TIME_BOUND``. With finite rays and times (see
+    :func:`static_rays_ok`) every motion term is then +-0, so b and c keep
+    their values up to the sign of a zero, b*b - c keeps its bits, and t
+    does too (disc > 0 makes the root nonzero). For tests."""
+    zero = (soa[5:8] == 0).all(dim=0) & (soa[9:12] == 0).all(dim=0)
+    return zero & (soa[8].abs() <= STATIC_TIME_BOUND)
+
+
+def static_rays_ok(rays: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
+    """Per ray ([R] bool): origin and direction finite and |time| <=
+    ``STATIC_TIME_BOUND``. K3 takes the static shortcut in a block of
+    rays only when every ray of the block passes. For tests."""
+    return torch.isfinite(rays).all(dim=0) & (time.abs() <= STATIC_TIME_BOUND)
+
+
+def kernel_root(b: torch.Tensor, sq: torch.Tensor, t_min: float):
+    """The kernel's root of a pair with disc > 0: t0 = -b - sq where
+    t0 > t_min, else t1 = -b + sq; the pair wins where t > t_min and t is
+    below the running best. No t_max test is needed: t0 <= t1 (rounding
+    is monotone) and the running best never exceeds t_max. For tests."""
+    t0 = -b - sq
+    return torch.where(t0 > t_min, t0, -b + sq)
 
 
 def _check(soa: torch.Tensor, rays: torch.Tensor, rows: int = 5) -> None:

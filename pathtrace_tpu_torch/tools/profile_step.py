@@ -47,7 +47,7 @@ KINDS = (
     ("sphere_nearest_bwd", "K6 closest-hit backward"),
     ("sphere_nearest_culled_kernel<false>", "K4 closest hit, flat cull"),
     ("sphere_nearest_culled_kernel<true>", "K5 closest hit, two-level cull"),
-    ("sphere_nearest_kernel<true>", "K3 closest hit, moving spheres"),
+    ("sphere_nearest_kernel<true", "K3 closest hit, moving spheres"),
     ("sphere_nearest_kernel", "K1 closest hit"),
     ("shade_kernel", "K2 fused shade"),
     ("indexFuncLargeIndex", _SCATTER),
