@@ -46,10 +46,17 @@ Phases (each prints a line before the next starts):
     spheres, 13 tiles) and 11. K5 (the two-level cull) on
     random_spheres_xl (4100 spheres in 6144 slots, 48 tiles in
     supertiles of 16), each on the 1280x720x4 primary rays in 64x64
-    tile order and on once-scattered rays: t and idx equal to the plain
-    version and to K1's kernel, the (warp, tile) sweep count equal to
-    the plain version's, the share of sweeps skipped, and the times of
-    the kernel, of K1 on the same rays and of the plain version; phase
+    tile order, on once-scattered rays and on ``CULL_NARROW`` of those
+    compacted (the first alive lanes, the width of a late rung of the
+    ladder; together the three sets reach every rays-a-thread instance the
+    path launches, else the phase fails): the rays a thread the
+    launcher picks (its C entry, held to its Python mirror), t and idx
+    equal to the plain version and to K1's kernel, the (warp, tile) sweep
+    count equal to the plain version's at the kernel's unit (a warp's 32
+    x rays a thread), the share of sweeps skipped, the (ray, live slot)
+    pairs swept, and the times of the kernel on the three ray sets, of K1 on
+    the same rays and of the plain version, with the bound, the issue
+    ceiling and ptxas's registers for each rays-a-thread instance; phase
     10 then renders 3 frames of its scene through ``render_progressive``
     (K4's path: K4 launched, K1, K5 and every plain version not);
 12. the port's CUDA trace of the xl fixture's tile-ordered rays against
@@ -197,7 +204,13 @@ time on once-scattered rays, ``issue_ceiling_ms``, the least time when
 each fp32 operation is one instruction (``-fmad=false``) at one warp
 instruction a clock per SM sub-partition, 33.5 T a second, and ptxas's
 ``registers``; for K4 and K5 the operations of the sweeps this
-run's data needs, 32 x 128 pairs of 16 each, plus ~30 per ray-box test;
+run's data needs, 16 a (ray, live slot) pair swept plus ~30 a ray-box
+test, both counted at the fixed unit of a 32-ray warp
+(``tools/nearest_bench.cull_yardsticks``), with the same
+``ms_scattered``, ``issue_ceiling_ms`` and ``registers``, the pairs
+swept at that unit (``slots_swept``) and the extra pairs the kernel's
+own unit sweeps (``slots_swept_extra``), and ``ms_narrow``, the time on
+``narrow_rays`` compacted scattered rays at ``narrow_rays_per_thread``;
 for K7 those of the segments this run traced, ~25
 per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
 rect) pair and the shading per segment; phase 24 for K7's launches)
@@ -243,6 +256,10 @@ TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
 # of rays allowed outside is 0.5% per bounce, 1% after ten bounces
 RTOL = ATOL = 1e-3
+# K4 and K5 are also checked and timed on this many compacted scattered
+# rays: a rung of the ladder's late bounces, below K4's switch to 2 rays a
+# thread (202,752 rays on 132 SMs)
+CULL_NARROW = 131_072
 # K6 per-ray gradients repeat autograd's operations one for one (bitwise
 # expected); per-sphere sums are atomics in another order
 K6_MAX_ULP = 4
@@ -322,11 +339,13 @@ def bound(bytes_moved: float, ops: float):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def nearest_registers(log: str, moving: bool) -> dict:
-    """{rays a thread: "registers, spill bytes"} of the closest-hit
-    kernel's instances (K3 when ``moving``) from ptxas's build log."""
+def kernel_registers(log: str, tag: str) -> dict:
+    """{rays a thread: "registers, spill bytes"} of a kernel template's
+    instances for one value of its first argument, from ptxas's build
+    log. ``tag``: the mangled name up to that argument, as
+    "sphere_nearest_kernelILb1E" (K3) or "sphere_nearest_culled_kernelILb0E"
+    (K4)."""
     out, rays = {}, None
-    tag = "sphere_nearest_kernelILb1E" if moving else "sphere_nearest_kernelILb0E"
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
@@ -461,6 +480,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -470,7 +490,9 @@ def main() -> int:
     phase(f"[1] nvidia-smi: {smi}")
 
     info = _cuda_build.build()
-    ptxas = [ln.strip() for ln in info.log.splitlines()
+    # a library built earlier from the same sources keeps its log beside it
+    build_log = info.log or (info.path.parent / "build.log").read_text()
+    ptxas = [ln.strip() for ln in build_log.splitlines()
              if "registers" in ln or "spill" in ln]
     phase(f"[2] build: {info.seconds:.1f} s nvcc -> {info.path}")
     for ln in ptxas:
@@ -528,7 +550,7 @@ def main() -> int:
     k1_ys = nb.yardsticks(tables.soa, R)
     k1_bound = (k1_ys["bound_ms"], k1_ys["bound_by"])
     k1_ceiling = k1_ys["issue_ceiling_ms"]
-    k1_regs = nearest_registers(info.log, moving=False)
+    k1_regs = kernel_registers(build_log, "sphere_nearest_kernelILb0E")
     phase(f"[3] K1 time at {R} rays x {tables.soa.shape[1]} spheres: kernel "
           f"{k1_ms:.3f} ms (primary), {k1_ms_scattered:.3f} ms (scattered), "
           f"plain {k1_plain_ms:.3f} ms")
@@ -809,31 +831,43 @@ def main() -> int:
     train_launches = runs["default"][0]
 
     # ---- 10-11: K4 on the 13-tile cover scene, K5 on random_spheres_xl ----
-    def cull_check(tag, label, tables_c, st):
-        """K4/K5 on one state's rays: kernel == plain (t, idx, sweeps) and
-        == K1's kernel (t, idx). Returns (t, idx, max |dt|, skipped share,
-        sweeps, box tests)."""
-        rays = st.planes[:6]
+    def cull_check(tag, label, tables_c, rays):
+        """K4/K5 on one ray set: kernel == plain (t, idx, sweeps) at the
+        kernel's unit (32 x the rays a thread its launcher picks for this
+        width) and == K1's kernel (t, idx). Returns (t, idx, max |dt|,
+        skipped share, plain counts, rays a thread)."""
+        W = rays.shape[1]
+        hier = tables_c.cull.supers is not None
+        k_rays = k1.culled_kernel_rays(W, hier)
+        mirror = k1.culled_rays_per_thread(W, hier, n_sm)
+        if k_rays != mirror:
+            raise AssertionError(f"[{tag}] the launcher picks {k_rays} rays a "
+                                 f"thread at {W} rays, its Python mirror "
+                                 f"{mirror}")
         t, idx, sweeps = k1.sphere_nearest_culled(tables_c.soa, rays,
                                                   tables_c.cull,
                                                   count_sweeps=True)
-        t_p, idx_p, sweeps_p, tests = k1.sphere_nearest_culled_plain(
-            tables_c.soa, rays, tables_c.cull)
+        plain = k1.sphere_nearest_culled_plain(tables_c.soa, rays,
+                                               tables_c.cull, k_rays=k_rays)
         t_1, idx_1 = k1.sphere_nearest(tables_c.soa, rays)
         torch.cuda.synchronize()
         hit = t < 1e30
-        err = (t[hit] - t_p[hit]).abs().max().item() if hit.any() else 0.0
-        same_p = torch.equal(t, t_p) and torch.equal(idx, idx_p)
+        err = (t[hit] - plain.t[hit]).abs().max().item() if hit.any() else 0.0
+        same_p = torch.equal(t, plain.t) and torch.equal(idx, plain.idx)
         same_1 = torch.equal(t, t_1) and torch.equal(idx, idx_1)
-        brute = (R + 31) // 32 * tables_c.cull.tiles.shape[1]
-        skipped = 1.0 - int(sweeps) / brute
-        phase(f"[{tag}] {label}: {R} rays, hit {hit.float().mean().item():.4f}; "
-              f"t and idx equal to plain: {same_p}, to K1: {same_1}; sweeps "
-              f"{int(sweeps)} (plain {int(sweeps_p)}) of {brute} (warp, tile) "
-              f"pairs, {skipped:.4%} skipped; {int(tests)} ray-box tests")
-        if not (same_p and same_1 and int(sweeps) == int(sweeps_p)):
+        units = -(-W // (32 * k_rays)) * tables_c.cull.tiles.shape[1]
+        skipped = 1.0 - int(sweeps) / units
+        live = int((tables_c.soa[4] > 0).sum())
+        phase(f"[{tag}] {label}: {W} rays, hit {hit.float().mean().item():.4f}; "
+              f"t and idx equal to plain: {same_p}, to K1: {same_1}; "
+              f"{k_rays} rays a thread; sweeps {int(sweeps)} (plain "
+              f"{int(plain.sweeps)}) of {units} (warp, tile) pairs, "
+              f"{skipped:.4%} skipped; {int(plain.slots)} (ray, live slot) "
+              f"pairs swept ({int(plain.slots) / (W * live):.4%} of all); "
+              f"{int(plain.tests)} ray-box tests")
+        if not (same_p and same_1 and int(sweeps) == int(plain.sweeps)):
             raise AssertionError(f"culled kernel differs ({tag} {label})")
-        return t, idx, err, skipped, int(sweeps), int(tests)
+        return t, idx, err, skipped, plain, k_rays
 
     def cull_phase(tag, name, scene_c, camera_c, hier):
         feats_c = SceneFeatures.from_scene(scene_c)
@@ -850,31 +884,67 @@ def main() -> int:
         order, _ = fp._tile_perm(HEIGHT, WIDTH, dev)
         st = fp.make_state(*fp.permute_rays(ro_.reshape(R, 3), rd_.reshape(R, 3),
                                             tm_.reshape(R), order, SAMPLES))
-        t_, idx_, err0, skip0, sw0, tests0 = cull_check(
-            tag, "primary, tile order", tables_c, st)
+        rays = st.planes[:6]
+        t_, idx_, err0, skip0, plain0, kr0 = cull_check(
+            tag, "primary, tile order", tables_c, rays)
         planes_, alive_ = k2.shade_from_winners(
             tables_c.table, idx_, t_, st.planes, st.time, st.alive, st.lane, 7,
             0, DEPTH, tables_c.sky4, fp.feature_flags(feats_c))
-        st1_ = fp.FastStateP(planes_, st.time, alive_, st.lane)
-        _, _, err1, skip1, _, _ = cull_check(tag, "scattered", tables_c, st1_)
-        rays = st.planes[:6]
+        rays1 = planes_[:6].contiguous()
+        _, _, err1, skip1, plain1, _ = cull_check(tag, "scattered", tables_c,
+                                                  rays1)
+        # a late rung's width of the compaction ladder: the first
+        # CULL_NARROW alive lanes of the scattered state, in lane order
+        # (K4 takes its 1-ray instance there)
+        alive_lanes = torch.nonzero(alive_).reshape(-1)
+        if alive_lanes.numel() < CULL_NARROW:
+            raise AssertionError(f"[{tag}] only {alive_lanes.numel()} rays alive")
+        rays_n = rays1[:, alive_lanes[:CULL_NARROW]].contiguous()
+        _, _, err2, _, plain2, kr2 = cull_check(
+            tag, "scattered, compacted", tables_c, rays_n)
+        instances = {kr0, kr2}
+        if instances != ({1} if hier else {1, 2}):
+            raise AssertionError(f"[{tag}] checked rays a thread {instances}, "
+                                 "not every instance the path runs")
         ms = time_ms(lambda: k1.sphere_nearest_culled(tables_c.soa, rays,
                                                       tables_c.cull), 20)
+        ms1 = time_ms(lambda: k1.sphere_nearest_culled(tables_c.soa, rays1,
+                                                       tables_c.cull), 20)
+        ms2 = time_ms(lambda: k1.sphere_nearest_culled(tables_c.soa, rays_n,
+                                                       tables_c.cull), 20)
         k1_ms_ = time_ms(lambda: k1.sphere_nearest(tables_c.soa, rays), 5)
         plain_ms = time_ms(lambda: k1.sphere_nearest_culled_plain(
             tables_c.soa, rays, tables_c.cull), 1)
-        # 24 B in and 8 B out per ray, the operand and boxes once; K1's 16
-        # operations per pair of the sweeps run (32 x 128 pairs each) and
-        # ~30 per ray-box test
-        box_bytes = sum(b.numel() * 4 for b in tables_c.cull[:2] if b is not None)
-        bnd = bound(R * 32 + tables_c.soa.numel() * 4 + box_bytes,
-                    sw0 * 32 * 128 * nb.OPS_PAIR + tests0 * 30)
-        phase(f"[{tag}] time on primary rays: kernel {ms:.3f} ms, K1 "
-              f"{k1_ms_:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]})")
-        return {"max_abs_err": max(err0, err1), "skipped_share": skip0,
-                "skipped_share_scattered": skip1, "ms": ms, "k1_ms": k1_ms_,
-                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1]}
+        # K1's 16 operations per (ray, live slot) pair of the tiles swept
+        # and ~30 per ray-box test, counted at the fixed 32-ray warp; 24 B
+        # in and 8 B out per ray, the operand and boxes once
+        # (tools/nearest_bench.cull_yardsticks)
+        sticks = nb.cull_yardsticks(tables_c.soa, tables_c.cull, rays)
+        sticks1 = nb.cull_yardsticks(tables_c.soa, tables_c.cull, rays1)
+        regs = kernel_registers(
+            build_log, f"sphere_nearest_culled_kernelILb{int(hier)}E")
+        phase(f"[{tag}] time: kernel {ms:.3f} ms on primary rays at {kr0} "
+              f"rays a thread, {ms1:.3f} ms on scattered, {ms2:.3f} ms on "
+              f"{CULL_NARROW} compacted scattered rays at {kr2}, K1 "
+              f"{k1_ms_:.3f} ms, plain {plain_ms:.3f} ms, bound "
+              f"{sticks['bound_ms']:.4f} ms ({sticks['bound_by']}), issue "
+              f"ceiling {sticks['issue_ceiling_ms']:.4f} ms "
+              f"({sticks['issue_ceiling_ms'] / ms:.1%} of it), "
+              f"{sticks['slots_swept']} pairs at the 32-ray warp, "
+              f"{int(plain0.slots) - sticks['slots_swept']} more at the "
+              f"kernel's unit; registers and spills (ptxas, per rays a "
+              f"thread): {regs}")
+        return {"max_abs_err": max(err0, err1, err2), "skipped_share": skip0,
+                "skipped_share_scattered": skip1, "ms": ms,
+                "ms_scattered": ms1, "ms_narrow": ms2,
+                "narrow_rays": CULL_NARROW, "narrow_rays_per_thread": kr2,
+                "k1_ms": k1_ms_, "plain_ms": plain_ms, **sticks,
+                "slots_swept_extra": int(plain0.slots) - sticks["slots_swept"],
+                "registers": regs, "rays_per_thread": kr0,
+                "slots_swept_scattered": sticks1["slots_swept"],
+                "slots_swept_extra_scattered": (int(plain1.slots)
+                                                - sticks1["slots_swept"]),
+                "issue_ceiling_ms_scattered": sticks1["issue_ceiling_ms"]}
 
     def render_counts(tag, scene_c, camera_c, frames):
         """Launch counts of ``render_progressive`` at the smoke's film."""
@@ -1007,7 +1077,7 @@ def main() -> int:
     k3_ys = nb.yardsticks(mtables.soa, R)
     k3_bound = (k3_ys["bound_ms"], k3_ys["bound_by"])
     k3_ceiling = k3_ys["issue_ceiling_ms"]
-    k3_regs = nearest_registers(info.log, moving=True)
+    k3_regs = kernel_registers(build_log, "sphere_nearest_kernelILb1E")
     phase(f"[14] K3 time at {R} rays x {mtables.soa.shape[1]} spheres: kernel "
           f"{k3_ms:.3f} ms (primary), {k3_ms_scattered:.3f} ms (scattered), "
           f"plain {k3_plain_ms:.3f} ms, K1 on the same rays "

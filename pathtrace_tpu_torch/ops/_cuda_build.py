@@ -89,6 +89,7 @@ _SIGNATURES = {
         _c_void_p, _c_void_p,                    # t_out, idx_out
         _c_void_p, _c_void_p,                    # sweep counter or NULL, stream
     ],
+    "pt_sphere_nearest_culled_rays": [_c_int, _c_int],  # n_rays, hier
     "pt_megakernel": [
         _c_void_p, _c_void_p, _c_void_p, _c_int,  # ro, rd, time, n_rays
         _c_void_p, _c_int,                       # sphere table, rows

@@ -54,12 +54,15 @@ inv_dt) and to the rays' time.
 :func:`sphere_nearest_culled` is the same closest hit with per-tile AABB
 culls, the kernel ``csrc/sphere_nearest_culled.cu``: K4, the flat cull
 (the reference's ``_kernel_static_culled``, ``intersect_pallas.py:111``),
-and K5, the two-level cull (``_kernel_static_culled2``, ``:212``). A warp
-of 32 rays skips a 128-sphere tile when no ray of it can beat its running
-best inside the tile's box (K5: first the supertile's box); the sweeps it
-does run are K1's, so the result equals K1's bit for bit. The plain
-version mirrors the skip unit, group of 32 rays by group, and counts the
-same (warp, tile) sweeps.
+and K5, the two-level cull (``_kernel_static_culled2``, ``:212``). Each
+thread holds 2 or 1 rays (:func:`culled_rays_per_thread`, the launcher's
+rule: K4 2 on wide wavefronts, K5 1), mapped as K1 maps them, and a warp
+of 32 x that many rays skips a 128-sphere tile when no ray of it can beat
+its running best inside the tile's box (K5: first the supertile's box);
+the sweeps it does run are K1's, live slots staged as float4 rows, so the
+result equals K1's bit for bit. The plain version groups the rays as the
+kernel does (:func:`cull_groups`) and counts the same (warp, tile)
+sweeps, and the (ray, live slot) pairs they sweep.
 """
 
 from __future__ import annotations
@@ -83,7 +86,9 @@ HIER_PLAIN_CALLS = 0  # K5 calls served with the plain version
 
 TILE_N = 128       # spheres per cull tile
 SUPER_TILES = 16   # member tiles per supertile of the two-level cull
-WARP = 32          # rays per skip decision of the culled kernels
+WARP = 32          # lanes a warp, the culled kernels' skip unit
+CULL_THREADS = 256  # threads a block of the culled kernels
+H100_SMS = 132     # SMs the plain culls assume off the card
 
 # rays per plain-version chunk: each [chunk, N] temporary takes
 # chunk * N * 4 bytes whatever the wavefront size
@@ -530,33 +535,96 @@ def _box_want(box, k, origin, inv, par, best_t, t_min, t_max):
             & (tenter < torch.clamp(best_t, max=t_max)))
 
 
+class CulledPlain(NamedTuple):
+    """What :func:`sphere_nearest_culled_plain` returns."""
+
+    t: torch.Tensor       # [R] f32
+    idx: torch.Tensor     # [R] int32
+    sweeps: torch.Tensor  # (group, tile) sweeps run, 0-d int64
+    tests: torch.Tensor   # (ray, box) tests made, 0-d int64
+    slots: torch.Tensor   # (ray, live slot) pairs swept, 0-d int64
+
+
+def cull_groups(n_rays: int, k_rays: int, device=None) -> torch.Tensor:
+    """The skip units of the culled kernels: [G, 32 * k_rays] ray indices,
+    row g the rays of warp g % 8 of block g // 8. A block of
+    ``CULL_THREADS`` threads holds ``CULL_THREADS * k_rays`` consecutive
+    rays; thread ``x`` owns rays ``x + k * CULL_THREADS`` (k < k_rays), so
+    a warp's rays are 32 consecutive ones in each of k_rays slices of the
+    block (``csrc/sphere_nearest_culled.cu``, as K1 maps them). Indices
+    of ``n_rays`` and above are the last block's missing rays."""
+    per_block = CULL_THREADS * k_rays
+    n_blocks = (n_rays + per_block - 1) // per_block
+    b = torch.arange(n_blocks, device=device)[:, None, None, None]
+    w = torch.arange(CULL_THREADS // WARP, device=device)[None, :, None, None]
+    k = torch.arange(k_rays, device=device)[None, None, :, None]
+    lane = torch.arange(WARP, device=device)[None, None, None, :]
+    i = b * per_block + k * CULL_THREADS + w * WARP + lane
+    return i.reshape(n_blocks * (CULL_THREADS // WARP), k_rays * WARP)
+
+
+def culled_rays_per_thread(n_rays: int, hier: bool, n_sm: int = H100_SMS) -> int:
+    """Rays a thread the culled kernels launch ``n_rays`` rays with on a
+    card of ``n_sm`` SMs (``hier``: K5, else K4): the launcher's rule of
+    ``csrc/sphere_nearest_culled.cu`` (``culled_rays_per_thread``),
+    mirrored. K4 takes 2 when every SM gets at least 3 blocks of 2-ray
+    threads, else 1; K5 takes 1 (measured on the H100, PERF.md)."""
+    if hier:
+        return 1
+    return 2 if n_rays >= 3 * n_sm * CULL_THREADS * 2 else 1
+
+
+def culled_kernel_rays(n_rays: int, hier: bool) -> int:
+    """The rays a thread the kernel's launcher picks for ``n_rays`` rays on
+    the current card (its C entry ``pt_sphere_nearest_culled_rays``)."""
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    return int(_cuda_build.library().pt_sphere_nearest_culled_rays(
+        int(n_rays), int(hier)))
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).multi_processor_count
+    return H100_SMS
+
+
 def sphere_nearest_culled_plain(soa: torch.Tensor, rays: torch.Tensor,
                                 cull: CullBoxes, t_min: float = MIN_T,
-                                t_max: float = MAX_T):
-    """Plain PyTorch version of K4/K5, with the kernel's skip unit: rays
-    in groups of 32 in index order (the kernel's warps), tiles (and
-    supertiles) in index order; per tile the slab test against each ray's
-    running best, ``any`` per group, K1's arithmetic on the groups that
-    want the tile. Returns (t [R] f32, idx [R] int32, sweeps, box tests):
-    the (group, tile) sweeps run and the (ray, box) tests made, 0-d int64
-    tensors."""
+                                t_max: float = MAX_T,
+                                k_rays: Optional[int] = None) -> CulledPlain:
+    """Plain PyTorch version of K4/K5, with the kernel's skip unit: the
+    rays in the kernel's warps of 32 x ``k_rays`` (:func:`cull_groups`;
+    by default the launcher's choice for R rays on a card of this device's
+    SM count, 132 on the CPU), tiles (and supertiles) in index order; per
+    tile the slab test against each ray's running best, ``any`` per
+    group, K1's arithmetic on the groups that want the tile. Empty tiles
+    and supertiles are skipped untested. Returns :class:`CulledPlain`:
+    (t, idx, sweeps, box tests, slots swept), where ``slots`` counts a
+    group's rays (those below R) times the tile's live slots for each
+    sweep, the figure that compares across units."""
     R = rays.shape[1]
     dev = rays.device
-    G = (R + WARP - 1) // WARP
-    if G * WARP > R:
-        rays = torch.cat([rays, rays.new_zeros((6, G * WARP - R))], dim=1)
-    live = torch.arange(G * WARP, device=dev) < R
+    if k_rays is None:
+        k_rays = culled_rays_per_thread(R, cull.supers is not None,
+                                        _sm_count(dev))
+    groups = cull_groups(R, k_rays, dev)
+    n_pad = groups.numel()
+    if n_pad > R:
+        rays = torch.cat([rays, rays.new_zeros((6, n_pad - R))], dim=1)
+    live = torch.arange(n_pad, device=dev) < R
     origin = rays[0:3]
     d = rays[3:6]
     inv = torch.where(d.abs() > _EPS, 1.0 / d, _BIG)
     par = d.abs() <= _EPS
-    best_t = torch.full((G * WARP,), t_max, dtype=torch.float32, device=dev)
-    best_i = torch.zeros(G * WARP, dtype=torch.int32, device=dev)
+    best_t = torch.full((n_pad,), t_max, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(n_pad, dtype=torch.int32, device=dev)
     sweeps = torch.zeros((), dtype=torch.int64, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
-    lanes = torch.arange(WARP, device=dev)
+    slots = torch.zeros((), dtype=torch.int64, device=dev)
     n_tiles = cull.tiles.shape[1]
     tile_live = (cull.tiles[0] <= cull.tiles[3]).tolist()
+    live_slots = (soa[4] > 0).reshape(n_tiles, TILE_N).sum(dim=1)
     supers = cull.supers
     n_inner = 1 if supers is None else cull.s_tiles
     super_live = (supers[0] <= supers[3]).tolist() if supers is not None else []
@@ -568,8 +636,9 @@ def sphere_nearest_culled_plain(soa: torch.Tensor, rays: torch.Tensor,
             want = live & _box_want(supers, s, origin, inv, par, best_t,
                                     t_min, t_max)
             tests += live.sum()
-            group_super = want.view(G, WARP).any(dim=1)
-            tested = live & group_super.repeat_interleave(WARP)
+            tested = torch.zeros_like(live)
+            tested[groups[want[groups].any(dim=1)].reshape(-1)] = True
+            tested &= live
         for m in range(n_inner):
             k = s * n_inner + m
             if not tile_live[k]:
@@ -577,10 +646,11 @@ def sphere_nearest_culled_plain(soa: torch.Tensor, rays: torch.Tensor,
             want = tested & _box_want(cull.tiles, k, origin, inv, par,
                                       best_t, t_min, t_max)
             tests += tested.sum()
-            groups = want.view(G, WARP).any(dim=1).nonzero()[:, 0]
-            sweeps += groups.numel()
-            rows = (groups[:, None] * WARP + lanes).reshape(-1)
+            swept = want[groups].any(dim=1)
+            sweeps += swept.sum()
+            rows = groups[swept].reshape(-1)
             rows = rows[rows < R]
+            slots += rows.numel() * live_slots[k]
             sl = slice(k * TILE_N, (k + 1) * TILE_N)
             spheres = ([soa[j, sl][None, :] for j in range(4)]
                        + [soa[4, sl][None, :] > 0])
@@ -593,7 +663,7 @@ def sphere_nearest_culled_plain(soa: torch.Tensor, rays: torch.Tensor,
                 best_t[sel] = torch.where(better, tmin, cur)
                 best_i[sel] = torch.where(better, (imin + k * TILE_N).int(),
                                           best_i[sel])
-    return best_t[:R], best_i[:R], sweeps, tests
+    return CulledPlain(best_t[:R], best_i[:R], sweeps, tests, slots)
 
 
 def _check_cull(soa: torch.Tensor, rays: torch.Tensor,
@@ -623,7 +693,8 @@ def sphere_nearest_culled(soa: torch.Tensor, rays: torch.Tensor,
     operand of ``cull``'s tiles. Returns (t [R] f32, idx [R] int32,
     sweeps): equal to :func:`sphere_nearest` bit for bit; ``sweeps`` (a 0-d
     int64 tensor when ``count_sweeps``, else None) counts the (warp, tile)
-    sweeps run.
+    sweeps run, a warp being 32 x :func:`culled_rays_per_thread` rays (on
+    the card: :func:`culled_kernel_rays`).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream (raising if it cannot launch)."""
@@ -635,8 +706,8 @@ def sphere_nearest_culled(soa: torch.Tensor, rays: torch.Tensor,
             HIER_PLAIN_CALLS += 1
         else:
             FLAT_PLAIN_CALLS += 1
-        t, idx, sweeps, _ = sphere_nearest_culled_plain(soa, rays, cull,
-                                                        t_min, t_max)
+        t, idx, sweeps, _, _ = sphere_nearest_culled_plain(soa, rays, cull,
+                                                           t_min, t_max)
         return t, idx, sweeps if count_sweeps else None
     if rays.device.type != "cuda":
         raise ValueError(

@@ -1,7 +1,7 @@
-"""The closest-hit sweeps K1 and K3 timed on the card, at the main path's
-widths, with their yardsticks.
+"""The closest-hit sweeps K1, K3, K4 and K5 timed on the card, at the main
+path's widths, with their yardsticks.
 
-    python -m pathtrace_tpu_torch.tools.nearest_bench [--out FILE]
+    python -m pathtrace_tpu_torch.tools.nearest_bench [--what all|nearest|cull] [--out FILE]
 
 K1 (``sphere_nearest``) on ``random_spheres`` and K3
 (``sphere_nearest_moving``) on ``random``, 1280x720 at 4 spp: the camera
@@ -25,6 +25,21 @@ them at 4 rays a thread (``warp128``), or 32 consecutive rays at one ray
 a thread (``warp32``). Then ``profile_step``'s wavefront frames of
 ``random_spheres`` and ``random`` and the ``random`` train step, in this
 process.
+
+The culls (``--what cull``): K4 (``sphere_nearest_culled``, flat) on the
+13-tile cover scene (``presets._random_impl(..., half_extent=20)``) and K5
+(two-level) on ``random_spheres_xl``, 1280x720 at 4 spp: the camera rays
+in 64x64 tile order and the once-scattered rays, each held bit for bit to
+the plain version and to K1's kernel, its (warp, tile) sweep count to the
+plain version's, then timed as above at full width and at ``CULL_WIDTHS``
+(the ladder's compacted widths: prefixes of each ray set). Beside each
+time: the sweeps, the share of (warp, tile) pairs skipped, the (ray, live
+slot) pairs swept at the kernel's unit, and :func:`cull_yardsticks`
+with its counts at the fixed 32-ray unit (pairs, box tests) and the
+extra pairs of the kernel's unit. Then one wavefront frame
+of each scene (depth 10, tile order, the cull on every bounce): the
+median of ``FRAME_REPS`` frames (CUDA events) and the device busy time of
+one more under ``torch.profiler``.
 
 It calls only functions that every version of the port has, so, run by
 path with another checkout first on ``PYTHONPATH``, it times that
@@ -57,10 +72,20 @@ ISSUE_PER_S = FP32_FLOP_PER_S / 2
 # once). A static slot of K3's operand needs K1's 16: its motion terms
 # are zeros.
 OPS_PAIR, OPS_PAIR_MOTION = 16, 38
+# fp32 operations of a ray-box slab test, about: 18 in the three slab
+# intervals (2 subtractions, 2 multiplications, min and max each), 4 for
+# entry and exit, 3 comparisons and the best's min, and the axis-parallel
+# selects (csrc/sphere_nearest_culled.cu any_wants)
+OPS_BOX = 30
 # the camera rays cut to these widths: 4 rays a thread at the first two,
 # 2 at the next two, 1 at the rest (on 132 SMs)
 WIDTHS = (921_637, 230_437, 150_037, 120_037, 80_037, 57_637, 14_437)
+# the culls' widths below the full one, prefixes of each ray set: the
+# ladder's rungs on both scenes (1,048,576 to 65,536) and two between
+CULL_WIDTHS = (1_048_576, 524_288, 262_144, 180_000, 131_072, 90_000,
+               65_536)
 REPS = 20  # launches a timed sample
+FRAME_REPS = 5  # timed frames after two warm-up frames
 
 
 def pair_ops(soa) -> int:
@@ -80,8 +105,32 @@ def yardsticks(soa, R: int) -> dict:
     ceiling of one sweep of ``R`` rays over ``soa`` (K1's [5, N] or K3's
     [12, N] operand): 24 B of ray in (28 with the time), 8 B out, the
     operand once."""
-    ops = R * pair_ops(soa)
     nbytes = R * (36 if soa.shape[0] == 12 else 32) + soa.numel() * 4
+    return _sticks(nbytes, R * pair_ops(soa))
+
+
+def cull_yardsticks(soa, cull, rays) -> dict:
+    """Stated bound and issue ceiling of one culled sweep (K4/K5) of
+    ``rays``: ``OPS_PAIR`` a (ray, live slot) pair of the tiles swept and
+    ``OPS_BOX`` a ray-box test, both counted by the plain version at a
+    fixed unit, the 32-ray warp (one ray a thread), whatever unit the
+    kernel picks: a coarser unit's extra pairs are its own cost, not
+    work the function needs. 24 B of ray in and 8 B out, the operand and
+    the boxes once. Returns the counts too (``slots_swept``,
+    ``box_tests``)."""
+    from pathtrace_tpu_torch.ops.intersect_kernel import (
+        sphere_nearest_culled_plain)
+
+    plain = sphere_nearest_culled_plain(soa, rays, cull, k_rays=1)
+    slots, tests = int(plain.slots), int(plain.tests)
+    boxes = [b for b in (cull.tiles, cull.supers) if b is not None]
+    nbytes = (rays.shape[1] * 32 + soa.numel() * 4
+              + sum(b.numel() * 4 for b in boxes))
+    return {**_sticks(nbytes, slots * OPS_PAIR + tests * OPS_BOX),
+            "slots_swept": slots, "box_tests": tests}
+
+
+def _sticks(nbytes: float, ops: float) -> dict:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / FP32_FLOP_PER_S * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
@@ -228,8 +277,150 @@ def frames() -> list:
     return lines
 
 
+def _cull_scene(name: str):
+    from pathtrace_tpu_torch.models import presets
+
+    if name == "cover20":
+        return presets._random_impl(WIDTH / HEIGHT, True, 0, half_extent=20)
+    return presets.from_name(name, WIDTH / HEIGHT)
+
+
+def culls() -> list:
+    """The culls' lines: K4 on the cover scene, K5 on xl, every (ray set,
+    width) checked and timed."""
+    import torch
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import intersect_kernel as k1
+    from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    dev = torch.device("cuda")
+    R = WIDTH * HEIGHT * SAMPLES
+    lines = []
+    for name, kernel in (("cover20", "K4"), ("random_spheres_xl", "K5")):
+        scene, camera = _cull_scene(name)
+        scene = scene.to(dev)
+        feats = SceneFeatures.from_scene(scene)
+        tables = fp.prep_tables(scene, feats, cull=True)
+        soa, cull = tables.soa, tables.cull
+        n_tiles = cull.tiles.shape[1]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES, gen)
+        order, _ = fp._tile_perm(HEIGHT, WIDTH, dev)
+        st = fp.make_state(*fp.permute_rays(ro.reshape(R, 3), rd.reshape(R, 3),
+                                            tm.reshape(R), order, SAMPLES))
+        t0, idx0 = k1.sphere_nearest(soa, st.planes[:6])
+        planes, _ = k2.shade_from_winners(
+            tables.table, idx0, t0, st.planes, st.time, st.alive, st.lane, 7,
+            0, 10, tables.sky4, fp.feature_flags(feats))
+        sets = (("primary", st.planes[:6]),
+                ("scattered", planes[:6].contiguous()))
+        for label, rays in sets:
+            for width in (R, *CULL_WIDTHS):
+                r_rays = rays[:, :width]
+                t, idx, sweeps = k1.sphere_nearest_culled(
+                    soa, r_rays, cull, count_sweeps=True)
+                plain = k1.sphere_nearest_culled_plain(soa, r_rays, cull)
+                t_1, idx_1 = k1.sphere_nearest(soa, r_rays)
+                # the kernel's unit: 32 x rays a thread (32 in a checkout
+                # from before the rays-a-thread template)
+                k_rays = (k1.culled_kernel_rays(width, kernel == "K5")
+                          if hasattr(k1, "culled_kernel_rays") else 1)
+                units = -(-width // (32 * k_rays)) * n_tiles
+                ms = event_ms(lambda: k1.sphere_nearest_culled(
+                    soa, r_rays, cull), REPS)
+                # the plain version of a checkout from before the
+                # rays-a-thread template returns (t, idx, sweeps, tests)
+                # and counts no pairs
+                slots = int(plain[4]) if len(plain) > 4 else None
+                ln = {"bench": "cull", "scene": name, "kernel": kernel,
+                      "rays": label, "width": width, "tiles": n_tiles,
+                      "ms": ms,
+                      "equal_to_plain": bool(torch.equal(t, plain[0])
+                                             and torch.equal(idx, plain[1])),
+                      "equal_to_k1": bool(torch.equal(t, t_1)
+                                          and torch.equal(idx, idx_1)),
+                      "rays_per_thread": k_rays, "sweeps": int(sweeps),
+                      "skipped_share": 1.0 - int(sweeps) / units,
+                      "sweeps_equal": int(sweeps) == int(plain[2]),
+                      "slots_swept_unit": slots, "box_tests": int(plain[3])}
+                if slots is not None:
+                    # pairs and tests at the 32-ray warp; the kernel's
+                    # unit sweeps slots_swept_extra pairs more
+                    ln.update(cull_yardsticks(soa, cull, r_rays))
+                    ln["slots_swept_extra"] = slots - ln["slots_swept"]
+                    ln["issue_share"] = ln["issue_ceiling_ms"] / ms
+                if width == R:
+                    ln["k1_ms"] = event_ms(lambda: k1.sphere_nearest(
+                        soa, r_rays), 5)
+                lines.append(ln)
+        del planes, st, tables
+    return lines
+
+
+def _frame_line(name: str) -> dict:
+    """One wavefront frame of a culled scene at the bench's film: the
+    median of ``FRAME_REPS`` frames and one profiled frame's device
+    busy time."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
+
+    dev = torch.device("cuda")
+    scene, cam = _cull_scene(name)
+    scene, cam = scene.to(dev), cam.to(dev)
+    feats = SceneFeatures.from_scene(scene)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    box = {"frame": 0}
+
+    def frame():
+        box["frame"] += 1
+        render_frame_fast(scene, cam, WIDTH, HEIGHT, SAMPLES, 10, gen,
+                          box["frame"], feats)
+
+    for _ in range(2):
+        frame()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(FRAME_REPS):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        frame()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        frame()
+        torch.cuda.synchronize()
+    busy, culled = 0.0, {}
+    for evt in prof.key_averages():
+        if str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            us = float(getattr(evt, "self_device_time_total",
+                               getattr(evt, "self_cuda_time_total", 0.0)))
+            busy += us / 1e3
+            if "sphere_nearest_culled" in evt.key:
+                culled[evt.key[:90]] = {"ms": us / 1e3, "launches": evt.count}
+    median = statistics.median(times)
+    return {"bench": "cull_frame", "scene": name, "frame_ms_median": median,
+            "frame_ms": times, "device_busy_ms": busy,
+            "idle_share_unprofiled": 1.0 - busy / median, "culled": culled}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="nearest_bench")
+    ap.add_argument("--what", choices=("all", "nearest", "cull"),
+                    default="all", help="K1/K3 and their frames, the culls "
+                    "and theirs, or both")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -242,15 +433,21 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from pathtrace_tpu_torch.tools._probe import device_line
 
     card = device_line(torch.device("cuda"))
-    lines = sweeps() + frames()
+    lines = []
+    if args.what in ("all", "nearest"):
+        lines += sweeps() + frames()
+    if args.what in ("all", "cull"):
+        lines += culls() + [_frame_line(n) for n in ("cover20",
+                                                    "random_spheres_xl")]
     for ln in lines:
         ln["card"] = card
         print(json.dumps(ln), flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(ln) + "\n" for ln in lines)
-    if not all(ln.get("equal_to_plain", True) for ln in lines):
-        print("nearest_bench: a kernel differs from its plain version",
+    if not all(ln.get(k, True) for ln in lines
+               for k in ("equal_to_plain", "equal_to_k1", "sweeps_equal")):
+        print("nearest_bench: a kernel differs from its plain version or K1",
               file=sys.stderr)
         return 1
     return 0

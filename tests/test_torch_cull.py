@@ -4,7 +4,9 @@ their plain versions: tests/test_torch_cuda.py.
 
 * The plain K4 and K5 equal the plain K1 bit for bit in (t, idx) on the
   cases of tests/test_pallas.py:88-231 (scattered and axis-parallel rays,
-  an uneven supertile, the 4096-sphere grid), and hold K1's contract
+  an uneven supertile, the 4096-sphere grid) at 1, 2 and 4 rays a thread
+  (the kernels' skip unit, tests/test_torch_cull_sweep.py), count the
+  (ray, live slot) pairs they sweep, and hold K1's contract
   against the JAX package's ``cull="flat"``/``"hier"`` kernels.
 * The cull culls: on tile-ordered camera rays of random_spheres_xl the
   plain version's (group, tile) sweep count is far below brute force's,
@@ -109,8 +111,14 @@ BRUTE_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(BRUTE_CASES))
-def test_plain_culls_equal_plain_k1(case):
+# each case at one ray a thread (the unit the launcher picks at these
+# widths), then at 2 and 4 rays a thread: a warp of 64 or 128 rays
+CULL_UNITS = [pytest.param(case, k, id=case if k == 1 else f"{case}-k{k}")
+              for case in BRUTE_CASES for k in (1, 2, 4)]
+
+
+@pytest.mark.parametrize("case, k_rays", CULL_UNITS)
+def test_plain_culls_equal_plain_k1(case, k_rays):
     rays, hier, s_tiles = BRUTE_CASES[case]
     if rays == "grid":
         spheres, ro, rd = _grid_spheres()
@@ -123,11 +131,42 @@ def test_plain_culls_equal_plain_k1(case):
     assert (cull.supers is not None) == hier
     rays6 = _rays6(ro, rd)
     t, idx = ik.sphere_nearest_plain(soa, rays6)
-    t_c, idx_c, sweeps, _ = ik.sphere_nearest_culled_plain(soa, rays6, cull)
+    t_c, idx_c, sweeps, _, _ = ik.sphere_nearest_culled_plain(
+        soa, rays6, cull, k_rays=k_rays)
     assert (t < 1e30).float().mean() > 0.05
     assert torch.equal(t_c, t) and torch.equal(idx_c, idx)
-    groups = (rays6.shape[1] + 31) // 32
-    assert 0 < int(sweeps) < groups * cull.tiles.shape[1]
+    # the units holding a ray (cull_groups: the kernel's indexing)
+    units = int((ik.cull_groups(rays6.shape[1], k_rays)
+                 < rays6.shape[1]).any(dim=1).sum())
+    # scattered rays over random_spheres' ground tile: a unit of 64 or
+    # 128 of them may want every tile
+    assert 0 < int(sweeps) <= units * cull.tiles.shape[1]
+    if k_rays == 1:
+        assert int(sweeps) < units * cull.tiles.shape[1]
+
+
+@pytest.mark.parametrize("k_rays", [1, 2, 4])
+def test_slots_count_the_pairs_swept(k_rays):
+    """The pair count by hand: one tile of 100 live spheres in 128 slots
+    and 96 rays, of which only rays 0-31 look at the tile. At every unit
+    one sweep runs, and it counts its rays below R (32, however many the
+    unit holds) times the live slots."""
+    b = SceneBuilder()
+    mat = b.lambertian_color((0.5, 0.5, 0.5))
+    rng = np.random.default_rng(4)
+    for c in rng.uniform(-2.0, 2.0, (100, 3)):
+        b.sphere((float(c[0]), float(c[1]), float(c[2]) - 10.0), 0.3, mat)
+    soa, cull = _operand(b.finish().spheres, False, 1)
+    assert cull.tiles.shape[1] == 1 and int((soa[4] > 0).sum()) == 100
+    R = 96
+    rd = _unit(rng.normal(size=(R, 3)) * 0.05 + np.array([0.0, 0.0, 1.0]))
+    rd[:32, 2] *= -1.0  # towards the spheres
+    rays = _rays6(np.zeros((R, 3), np.float32), rd)
+    res = ik.sphere_nearest_culled_plain(soa, rays, cull, k_rays=k_rays)
+    assert (res.t[:32] < 1e30).any() and not (res.t[32:] < 1e30).any()
+    assert int(res.sweeps) == 1
+    assert int(res.slots) == 32 * 100
+    assert int(res.tests) == R
 
 
 def test_boxes_equal_the_reference_formula():
@@ -226,7 +265,7 @@ def test_cull_culls():
     cull = tables.cull
     assert cull.supers is not None and cull.s_tiles == 16
     t, idx = ik.sphere_nearest_plain(tables.soa, rays)
-    t_c, idx_c, sweeps, tests = ik.sphere_nearest_culled_plain(
+    t_c, idx_c, sweeps, tests, _ = ik.sphere_nearest_culled_plain(
         tables.soa, rays, cull)
     assert torch.equal(t_c, t) and torch.equal(idx_c, idx)
     groups = rays.shape[1] // 32
@@ -239,7 +278,7 @@ def test_cull_culls():
     k = int(idx[t < 1e30][0]) // 128
     tiles = cull.tiles.clone()
     tiles[3:, k] = tiles[:3, k]
-    _, _, cut, _ = ik.sphere_nearest_culled_plain(
+    _, _, cut, _, _ = ik.sphere_nearest_culled_plain(
         tables.soa, rays, cull._replace(tiles=tiles))
     assert int(cut) < int(sweeps)
 
