@@ -28,7 +28,9 @@ Phases (each prints a line before the next starts):
 7. K6 (the closest hit's backward) against its plain version on the
    winners of phase 3: per-ray g_ro and g_rd equal bit for bit (at most
    ``K6_MAX_ULP`` ULPs allowed), per-sphere sums within relative L2 1e-4
-   (atomics sum in another order);
+   (warp trees and atomics sum in another order); K6's time, its share
+   of the byte bound, its grid and instance (``bwd_launch``) and ptxas's
+   registers for each instance;
 8. the port's CUDA ``trace_fast_diff`` (depth 4) of the gradient
    fixture's rays: radiance under the lane contract and per-leaf
    gradients within ``FIXTURE_GRAD_TOL`` (``tests/torch_port_util.py``)
@@ -95,8 +97,11 @@ Phases (each prints a line before the next starts):
 21. K7 (the megakernel: the whole bounce loop in one kernel) against its
     plain version on the 1280x720x4 primary rays of ``random_spheres``
     at depth 10: at most 1% of rays outside 1e-3, the segment counts
-    within 0.5%; the times of the kernel and of the plain version, and
-    the bound;
+    within 0.5%; the resident rows, the lane occupancy (segments over
+    K7's lane-passes, and over those of a block-uniform loop, from the
+    plain version's per-ray segments), the times of the kernel and of
+    the plain version, the bound and the ``-fmad=false`` issue ceiling
+    (``tools/nearest_bench.k7_yardsticks``);
 22. the same on ``random`` (moving spheres) and ``simple_light`` (a rect,
     diffuse lights, the noise texture, a black sky);
 23. K7 on the rays of ``tests/goldens/torch_port_megakernel.npz`` against
@@ -211,9 +216,13 @@ test, both counted at the fixed unit of a 32-ray warp
 swept at that unit (``slots_swept``) and the extra pairs the kernel's
 own unit sweeps (``slots_swept_extra``), and ``ms_narrow``, the time on
 ``narrow_rays`` compacted scattered rays at ``narrow_rays_per_thread``;
-for K7 those of the segments this run traced, ~25
-per (segment, live sphere) pair, ~31 with motion, ~20 per (segment, live
-rect) pair and the shading per segment; phase 24 for K7's launches)
+for K7 those of the segments this run traced, 17
+per (segment, live sphere) pair, 30 where the sphere moves, 6 per
+(segment, live rect) pair and ~250 of shading per segment
+(``tools/nearest_bench.k7_yardsticks``), with ``issue_ceiling_ms``,
+``lane_occupancy`` (and a block-uniform loop's) and ptxas's
+``registers``; phase 24 for K7's launches; K6 also carries its
+``issue_ceiling_ms``, grid, instance and ``registers``)
 and ``library_ms``: ``torch.sum`` over the attribute dimension for P3 and
 P4 (device time; a yardstick the port never calls; P2-P4 also carry
 ``kernel_cold_ms``, ``library_cold_ms`` and ``kernel_over_library``,
@@ -289,14 +298,6 @@ K2_OPS_IMAGE = 150
 IMAGE_LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                    "torch_port_image_light_nee.npz")
 EARTH_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_earth.npz")
-# K7's operations, counted from csrc/megakernel.cu: per (segment, live
-# sphere) pair ~25 (the quadratic's b, c and disc; most pairs stop at
-# disc <= 0), ~31 with the centre lerped; per (segment, live rect) pair
-# ~20; per segment that hits (a miss takes the sky and stops) ~250 of
-# shading and scatter, and ~1800 more where the winner has the 7-octave
-# hash noise texture
-K7_OPS_PAIR, K7_OPS_PAIR_MOTION, K7_OPS_RECT = 25, 31, 20
-K7_OPS_SHADE, K7_OPS_NOISE = 250, 1800
 # the probes at the reference's sizes (tools/bf16_probe.py,
 # tools/split_probe.py): P1 2^20 rays x 640 spheres; P2-P4 2^20 winners
 # (of the probe's 640 x 24 table)
@@ -340,23 +341,27 @@ def bound(bytes_moved: float, ops: float):
 
 
 def kernel_registers(log: str, tag: str) -> dict:
-    """{rays a thread: "registers, spill bytes"} of a kernel template's
-    instances for one value of its first argument, from ptxas's build
-    log. ``tag``: the mangled name up to that argument, as
-    "sphere_nearest_kernelILb1E" (K3) or "sphere_nearest_culled_kernelILb0E"
-    (K4)."""
-    out, rays = {}, None
+    """{template arguments after ``tag``: "registers, spill bytes"} of a
+    kernel template's instances, from ptxas's build log. ``tag``: the
+    mangled name up to those arguments, as "sphere_nearest_kernelILb1E"
+    (K3, keyed by rays a thread), "sphere_nearest_culled_kernelILb0E" (K4)
+    or "megakernelI" (K7, keyed "<true>", "<false>")."""
+    out, key = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            k = re.search(tag + r"Li(\d+)E", m.group(1))
-            rays = int(k.group(1)) if k else None
-        elif rays is not None and "spill stores" in ln:
-            out[rays] = ln.split("stack frame, ")[-1].strip()
-        elif rays is not None and "registers" in ln:
+            k = re.search(tag + r"((?:L[bi]\d+E)+)E", m.group(1))
+            args = re.findall(r"L([bi])(\d+)E", k.group(1)) if k else []
+            key = (None if not args else int(args[0][1])
+                   if args == [("i", args[0][1])] else "<" + ", ".join(
+                       {"0": "false", "1": "true"}[v] if t == "b" else v
+                       for t, v in args) + ">")
+        elif key is not None and "spill stores" in ln:
+            out[key] = ln.split("stack frame, ")[-1].strip()
+        elif key is not None and "registers" in ln:
             regs = re.search(r"Used (\d+) registers", ln).group(1)
-            out[rays] = f"{regs} registers, {out.get(rays, '')}".rstrip(", ")
-            rays = None
+            out[key] = f"{regs} registers, {out.get(key, '')}".rstrip(", ")
+            key = None
     return out
 
 
@@ -726,10 +731,14 @@ def main() -> int:
                                                           winners, 1)
     # K6: per ray ro, rd, t, idx, g_t in (36 B) and g_ro, g_rd out (24 B),
     # the sphere leaves in and their gradients out once; ~60 operations
-    k6_bound = bound(R * 60 + sp.center.numel() * 4 * 2 + sp.radius.numel() * 4 * 2,
-                     R * 60)
+    k6_ys = nb.k6_yardsticks(R, sp.radius.shape[0], False)
+    k6_bound = (k6_ys["bound_ms"], k6_ys["bound_by"])
+    k6_launch = k1.bwd_launch(R, sp.radius.shape[0], False)
     phase(f"[7] K6 time at {R} rays: kernel {k6_ms:.3f} ms, plain "
-          f"{k6_plain_ms:.3f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]})")
+          f"{k6_plain_ms:.3f} ms, bound {k6_bound[0]:.4f} ms ({k6_bound[1]}, "
+          f"{k6_bound[0] / k6_ms:.1%} of it); {k6_launch[0]} blocks, sums in "
+          f"{'shared' if k6_launch[1] else 'device'} memory; registers "
+          f"{kernel_registers(build_log, 'sphere_nearest_bwd_kernelI')}")
     del winners
 
     # ---- 8: the CUDA trace's gradients against the JAX fixture ----
@@ -1127,9 +1136,11 @@ def main() -> int:
     # per ray ro, rd, time, t, idx, g_t in (40 B) and g_ro, g_rd, g_time
     # out (28 B), the nine sphere floats in and their gradients out once;
     # ~80 operations
-    k6m_bound = bound(R * 68 + msp.center.shape[0] * 9 * 4 * 2, R * 80)
+    k6m_ys = nb.k6_yardsticks(R, msp.radius.shape[0], True)
+    k6m_bound = (k6m_ys["bound_ms"], k6m_ys["bound_by"])
     phase(f"[18] K6 (motion) time at {R} rays: kernel {k6m_ms:.3f} ms, plain "
-          f"{k6m_plain_ms:.3f} ms, bound {k6m_bound[0]:.4f} ms ({k6m_bound[1]})")
+          f"{k6m_plain_ms:.3f} ms, bound {k6m_bound[0]:.4f} ms ({k6m_bound[1]}, "
+          f"{k6m_bound[0] / k6m_ms:.1%} of it)")
     del mwinners, mscene
 
     # ---- 19: the CUDA trace's gradients against the random JAX fixture ----
@@ -1166,7 +1177,9 @@ def main() -> int:
         rays_ = tuple(x.reshape(R, -1).squeeze(-1) for x in
                       generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES, g))
         tables_ = k7.prep_tables(scene_)
-        rad, segs = k7.trace_megakernel(tables_, *rays_, 7, DEPTH, feats_)
+        kwork = {}
+        rad, segs = k7.trace_megakernel(tables_, *rays_, 7, DEPTH, feats_,
+                                        work=kwork)
         work = {}
         (rad_p, segs_p), plain_ms = time_once(
             lambda: k7.trace_megakernel_plain(tables_, *rays_, 7, DEPTH, feats_,
@@ -1179,29 +1192,40 @@ def main() -> int:
                                                  feats_), 5)
         n_sph = int(scene_.spheres.mask.sum())
         n_rect = int(scene_.rects.mask.sum())
-        sweep = (n_sph * (K7_OPS_PAIR_MOTION if feats_.has_motion
-                          else K7_OPS_PAIR) + n_rect * K7_OPS_RECT)
-        ops = count * sweep + shaded * K7_OPS_SHADE + noisy * K7_OPS_NOISE
-        # 28 B in (ro, rd, time) and 12 B out per ray, the tables once
-        table_bytes = 4 * (tables_.spheres.numel() + tables_.sky4.numel()
-                           + (tables_.rects.numel() if feats_.has_rects else 0))
-        bnd = bound(R * 40 + table_bytes, ops)
+        ys = nb.k7_yardsticks(scene_, tables_, feats_, R, count_p, shaded,
+                              noisy)
+        passes = int(kwork["lane_passes"])
+        uniform = nb.k7_lane_passes(work["ray_segments"])
         phase(f"[{tag}] K7 {preset}: {R} rays depth {DEPTH}, {n_sph} live "
-              f"spheres in {tables_.spheres.shape[0]} rows, {n_rect} live "
-              f"rects; {n_out} rays ({frac:.6%}) outside 1e-3 of plain, max "
-              f"|diff| {err}; segments {count} (plain {count_p}, "
-              f"{count / R:.3f} per ray), {shaded} of them shaded, {noisy} "
-              f"with the noise texture")
+              f"spheres in {tables_.spheres.shape[0]} rows "
+              f"({tables_.sphere_rows.shape[0]} resident, "
+              f"{tables_.n_static} static), {n_rect} live rects "
+              f"({tables_.rect_rows.shape[0]} resident); {n_out} rays "
+              f"({frac:.6%}) outside 1e-3 of plain, max |diff| {err}; "
+              f"segments {count} (plain {count_p}, {count / R:.3f} per ray), "
+              f"{shaded} of them shaded, {noisy} with the noise texture")
+        phase(f"[{tag}] K7 {preset} lane occupancy (segments / lane-passes): "
+              f"{count / passes:.4f} ({passes} lane-passes); a block-uniform "
+              f"loop's {count_p / uniform:.4f} ({uniform})")
         phase(f"[{tag}] K7 {preset} time: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})")
+              f"{plain_ms:.3f} ms, bound {ys['bound_ms']:.4f} ms "
+              f"({ys['bound_by']}, {ys['ops_a_segment']} operations a "
+              f"segment's sweep), {ys['issue_ceiling_ms'] / ms:.1%} of the "
+              f"-fmad=false issue ceiling {ys['issue_ceiling_ms']:.4f} ms "
+              f"({smi})")
         if (frac > 0.01 or abs(count - count_p) > 0.005 * count_p
                 or not bool(torch.isfinite(rad).all())):
             raise AssertionError(f"K7 differs from its plain version ({preset})")
         return (rays_, rad, count), {
             "max_abs_err": err, "lanes_outside": frac, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "plain_ms": plain_ms, "bound_ms": ys["bound_ms"],
+            "bound_by": ys["bound_by"],
+            "issue_ceiling_ms": ys["issue_ceiling_ms"],
+            "ops_a_segment": ys["ops_a_segment"],
             "segments": count, "shaded_segments": shaded,
-            "noise_segments": noisy}
+            "noise_segments": noisy, "lane_passes": passes,
+            "lane_occupancy": count / passes,
+            "lane_occupancy_block_uniform": count_p / uniform}
 
     k7_runs = {p: k7_check(tag, p) for tag, p in (
         ("21", "random_spheres"), ("22", "random"), ("22", "simple_light"))}
@@ -2012,11 +2036,17 @@ def main() -> int:
          "launches": train_launches[1], "max_abs_err": k6_err,
          "max_ulp": k6_ulp, "sphere_rel_l2": k6_sph,
          "ms": k6_ms, "plain_ms": k6_plain_ms, "bound_ms": k6_bound[0],
-         "bound_by": k6_bound[1], "motion_launches": c20["K6"],
+         "bound_by": k6_bound[1], "issue_ceiling_ms": k6_ys["issue_ceiling_ms"],
+         "blocks": k6_launch[0], "shared_sums": k6_launch[1],
+         "registers": kernel_registers(build_log,
+                                       "sphere_nearest_bwd_kernelI"),
+         "motion_launches": c20["K6"],
          "motion_max_abs_err": k6m_err, "motion_max_ulp": k6m_ulp,
          "motion_sphere_rel_l2": k6m_sph, "motion_ms": k6m_ms,
          "motion_plain_ms": k6m_plain_ms, "motion_bound_ms": k6m_bound[0],
-         "motion_bound_by": k6m_bound[1], "library_ms": None},
+         "motion_bound_by": k6m_bound[1],
+         "motion_issue_ceiling_ms": k6m_ys["issue_ceiling_ms"],
+         "library_ms": None},
         {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:111",
@@ -2031,6 +2061,7 @@ def main() -> int:
          "launches": c24["K7"], "launches_per_frame": c24["K7"] // (3 * FRAMES),
          **k7_runs["random_spheres"],
          "random": k7_runs["random"], "simple_light": k7_runs["simple_light"],
+         "registers": kernel_registers(build_log, "megakernelI"),
          "frame_ms": k7_frames, "library_ms": None},
         {"name": "shade_from_winners, image branch (FLAG_IMAGE)",
          "route": "cuda", "source": "pathtrace_tpu_torch/csrc/shade.cu",

@@ -78,7 +78,8 @@ _SIGNATURES = {
         _c_float, _c_float,                      # t_min, t_max
         _c_void_p, _c_void_p, _c_void_p,         # g_ro, g_rd, g_time
         _c_void_p, _c_void_p, _c_void_p,         # g_center, g_delta, g_time0
-        _c_void_p, _c_void_p, _c_void_p,         # g_inv_dt, g_radius, stream
+        _c_void_p, _c_void_p,                    # g_inv_dt, g_radius
+        _c_int, _c_int, _c_void_p,               # blocks, shared, stream
     ],
     "pt_sphere_nearest_culled": [
         _c_void_p, _c_longlong, _c_int,          # rays, row stride, n_rays
@@ -92,11 +93,14 @@ _SIGNATURES = {
     "pt_sphere_nearest_culled_rays": [_c_int, _c_int],  # n_rays, hier
     "pt_megakernel": [
         _c_void_p, _c_void_p, _c_void_p, _c_int,  # ro, rd, time, n_rays
-        _c_void_p, _c_int,                       # sphere table, rows
-        _c_void_p, _c_void_p,                    # rect table or NULL, sky4
+        _c_void_p, _c_void_p,                    # sphere table, resident rows
+        _c_int, _c_int,                          # static rows, moving rows
+        _c_void_p, _c_void_p, _c_int,            # rect table, rows, count
+        _c_void_p,                               # sky4
         _c_int, _c_int, _c_int, _c_float,        # seed, max_depth, flags, t_min
-        _c_void_p, _c_void_p, _c_void_p,         # out, segments, stream
+        _c_void_p, _c_void_p, _c_void_p,         # out, counts, stream
     ],
+    "pt_megakernel_shared_bytes": [_c_int, _c_int, _c_int, _c_int],
     "pt_sphere_min_t": [
         _c_void_p, _c_longlong, _c_int,          # cols [6, R], row stride, R
         _c_void_p, _c_int, _c_int,               # rows [4, N], N, bf16
@@ -199,7 +203,9 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = _c_int if name != "pt_cuda_error_string" else ctypes.c_char_p
+            fn.restype = {"pt_cuda_error_string": ctypes.c_char_p,
+                          "pt_megakernel_shared_bytes": _c_longlong}.get(
+                              name, _c_int)
         _LIB = lib
     return _LIB
 

@@ -46,7 +46,10 @@ flip (see tests/test_torch_kernels.py).
 counterpart of the reference's custom VJP (``_sphere_nearest_vjp``,
 ``intersect_pallas.py:639-683``): the forward is the kernel above, the
 backward is the kernel ``csrc/sphere_nearest_bwd.cu`` (K6), which
-recomputes the winner's root from (t, idx) and differentiates it in O(R).
+recomputes the winner's root from (t, idx) and differentiates it in O(R),
+four rays a thread, a warp's per-sphere terms summed before any atomic;
+:func:`bwd_launch` is its launch rule (grid, and sums in shared or device
+memory).
 For moving spheres the forward is K3 and the backward differentiates the
 lerped centre too: it gives gradients to the motion leaves (delta, time0,
 inv_dt) and to the rays' time.
@@ -89,6 +92,12 @@ SUPER_TILES = 16   # member tiles per supertile of the two-level cull
 WARP = 32          # lanes a warp, the culled kernels' skip unit
 CULL_THREADS = 256  # threads a block of the culled kernels
 H100_SMS = 132     # SMs the plain culls assume off the card
+# K6's launch (bwd_launch): 4 rays a thread, 256 threads a block, a block
+# per 1024 rays (a persistent grid of two blocks an SM was slower, PERF.md);
+# per-block sums in shared memory up to the 227 KB a block may opt into on
+# the H100 (faster than adding into device memory at 4096 spheres)
+BWD_RAYS, BWD_THREADS = 4, 256
+BWD_SHARED_BYTES = 232_448
 
 # rays per plain-version chunk: each [chunk, N] temporary takes
 # chunk * N * 4 bytes whatever the wavefront size
@@ -354,6 +363,23 @@ def _check_bwd(center, radius, ro, rd, t, idx, g_t, motion) -> None:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
 
 
+def bwd_launch(n_rays: int, n_spheres: int, moving: bool) -> tuple:
+    """K6's launch rule: (blocks, shared). A block per ``BWD_THREADS``
+    steps of ``BWD_RAYS`` rays. ``shared``: the per-block sums (4 floats a
+    sphere, 9 with motion) fit in ``BWD_SHARED_BYTES`` (read at the
+    call), else the warps add straight into device memory."""
+    shared = (9 if moving else 4) * 4 * n_spheres <= BWD_SHARED_BYTES
+    quads = -(-n_rays // BWD_RAYS)
+    return max(1, -(-quads // BWD_THREADS)), shared
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous on a 16-byte boundary (K6 moves rays in float4s):
+    a view that starts off it is copied."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
                        t_min: float = MIN_T, t_max: float = MAX_T,
                        motion=None):
@@ -377,14 +403,15 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     from pathtrace_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.library()
-    center, radius, ro, rd, t, idx, g_t = (
-        x.contiguous() for x in (center, radius, ro, rd, t, idx, g_t))
+    center, radius = center.contiguous(), radius.contiguous()
+    ro, rd, t, idx, g_t = (_aligned(x) for x in (ro, rd, t, idx, g_t))
     R, N = t.shape[0], radius.shape[0]
     grads = [torch.zeros_like(center), torch.zeros_like(radius),
              torch.empty_like(ro), torch.empty_like(rd)]
     delta = time0 = inv_dt = time = None
     if motion is not None:
-        delta, time0, inv_dt, time = (x.contiguous() for x in motion)
+        delta, time0, inv_dt = (x.contiguous() for x in motion[:3])
+        time = _aligned(motion[3])
         grads += [torch.zeros_like(delta), torch.zeros_like(time0),
                   torch.zeros_like(inv_dt), torch.empty_like(time)]
     if R == 0:
@@ -395,13 +422,14 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     def ptr(x):
         return None if x is None else x.data_ptr()
 
+    blocks, shared = bwd_launch(R, N, motion is not None)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     code = lib.pt_sphere_nearest_bwd(
         ptr(ro), ptr(rd), ptr(time), ptr(t), ptr(idx), ptr(g_t), R,
         ptr(center), ptr(delta), ptr(time0), ptr(inv_dt), ptr(radius), N,
         float(t_min), float(t_max), ptr(g_ro), ptr(g_rd), ptr(g_time),
         ptr(g_center), ptr(g_delta), ptr(g_time0), ptr(g_inv_dt),
-        ptr(g_radius), stream,
+        ptr(g_radius), blocks, int(shared), stream,
     )
     _cuda_build.check(code, "sphere_nearest_bwd launch")
     BWD_LAUNCHES += 1

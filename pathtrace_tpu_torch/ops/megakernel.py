@@ -6,7 +6,9 @@ traces a wavefront of rays through up to ``max_depth + 1`` closest-hit
 passes over sphere (static or moving) and rect scenes with no boxes, media
 or image textures, and returns each ray's radiance and the segments traced.
 There is no host ladder and no compaction: each ray runs its loop to its
-end in the kernel, and a block of rays stops when none of them is alive.
+end in the kernel, and a lane whose ray has ended takes the next ray of
+the wavefront (a persistent grid; ray ``i``'s result does not depend on
+the thread that traces it).
 
 Tables, in the megakernel's own layouts (bit for bit the JAX package's,
 dead rows included):
@@ -19,15 +21,22 @@ dead rows included):
   columns and three zeros. Dead rects have k = 1e18, a0 = 1 and a1 = -1
   (an empty interval); padding rows k = 1e18 and zeros elsewhere.
 
-Per pass the closest hit is the megakernel's own arithmetic, not K1's: the
-quadratic from the (time-lerped) centre, ``b = ro.d - c.d`` and
+Per pass the closest hit is the megakernel's own arithmetic, not K1's:
+the quadratic from the (time-lerped) centre, ``b = ro.d - c.d`` and
 ``c = ((|ro|^2 - 2 c.ro) + |c|^2) - r^2``, over every row, dead ones
-included; ties go to the lowest index, and a rect beats the sphere winner
-only when strictly nearer. Shading then follows the JAX megakernel, whose
-constants differ from the fast path's in places (the metal cbrt's 1e-30
-floor, the dielectric's clamped exit cosine). The bounce RNG is the counter
-hash keyed on the ray's global index, the same stream as the fast path's,
-so the two paths agree ray for ray wherever no rounding flips a decision.
+included; ties go to the lowest index, and a rect beats the sphere
+winner only when strictly nearer. K7 keeps the rows that can win
+resident in shared memory (:func:`prep_tables`: ``sphere_rows`` and
+``rect_rows``, every row whose geometry differs from all rows before it,
+since a later copy never wins a tie), static sphere rows apart from
+moving ones; :func:`resident_sweep_plain` is its sweep over them, for
+tests. A scene whose resident rows take more than ``SHARED_LIMIT`` bytes
+(:func:`scene_shared_bytes`) is refused. Shading then follows the JAX
+megakernel, whose constants differ from the fast path's in places (the
+metal cbrt's 1e-30 floor, the dielectric's clamped exit cosine). The
+bounce RNG is the counter hash keyed on the ray's global index, the same
+stream as the fast path's, so the two paths agree ray for ray wherever
+no rounding flips a decision.
 """
 
 from __future__ import annotations
@@ -65,6 +74,13 @@ SPHERE_SHADE = 9    # first shading column of a sphere row
 RECT_SHADE = 7      # first shading column of a rect row
 RECT_ROWS = TILE_N  # rows of the rect table: at most 128 rects
 _INF = float(MAX_T)
+SPHERE_GEOMETRY = 9  # cx, cy, cz, dx, dy, dz, time0, inv_dt, radius
+RECT_GEOMETRY = 6    # axis, a0, a1, b0, b1, k
+# |time0| at most this: a row with zero delta and inv_dt skips the lerp
+STATIC_TIME_BOUND = 1e30
+# shared memory a block may opt into on the H100 (227 KB): the most
+# K7's resident scene may take
+SHARED_LIMIT = 232_448
 
 
 def megakernel_supported(features: SceneFeatures) -> bool:
@@ -115,14 +131,115 @@ class MegaTables(NamedTuple):
     spheres: torch.Tensor  # [Npad, 24]
     rects: torch.Tensor    # [128, 24]
     sky4: torch.Tensor     # [4]: sky rgb, use_gradient_sky
+    # K7's resident rows (int32): the static sphere rows, then the moving
+    # ones, each in increasing index; and the rect rows
+    sphere_rows: torch.Tensor
+    n_static: int
+    rect_rows: torch.Tensor
+
+
+def resident_rows(table: torch.Tensor, cols: int) -> torch.Tensor:
+    """Rows of ``table`` whose first ``cols`` columns differ bit for bit
+    from those of every row before them, in increasing index (int64). A
+    later copy of a row's geometry gives the same t and loses the tie to
+    it, so the sweep over these rows picks what the sweep over all rows
+    picks: the dead and padding rows, all alike, keep one."""
+    bits = table[:, :cols].contiguous().view(torch.int32)
+    _, inverse = torch.unique(bits, dim=0, return_inverse=True)
+    n = table.shape[0]
+    first = torch.full((int(inverse.max()) + 1 if n else 0,), n,
+                       dtype=torch.int64, device=table.device)
+    first.scatter_reduce_(0, inverse, torch.arange(n, device=table.device),
+                          "amin")
+    return torch.sort(first).values
+
+
+def static_rows(spheres: torch.Tensor) -> torch.Tensor:
+    """Sphere rows ([N] bool) K7 sweeps without the lerp: delta and inv_dt
+    zero (either sign) and |time0| <= ``STATIC_TIME_BOUND``. With a finite
+    ray time the lerp then adds +-0 to the centre, which leaves the bits
+    of b*b - c and of t as they are (the sign of a zero at most)."""
+    return ((spheres[:, 3:6] == 0).all(dim=1) & (spheres[:, 7] == 0)
+            & (spheres[:, 6].abs() <= STATIC_TIME_BOUND))
+
+
+def scene_shared_bytes(n_static: int, n_moving: int, n_rects: int,
+                       motion: bool) -> int:
+    """Shared bytes of K7's resident scene (``csrc/megakernel.cu``
+    scene_bytes, mirrored): 24 a static sphere row, 40 a moving one, each
+    list padded to a multiple of 4, and 28 a rect. Without motion every
+    sphere row takes the static form."""
+    def pad4(n):
+        return (n + 3) // 4 * 4
+
+    n_s = n_static if motion else n_static + n_moving
+    n_m = n_moving if motion else 0
+    return 24 * pad4(n_s) + 40 * pad4(n_m) + 28 * n_rects
 
 
 def prep_tables(scene: Scene) -> MegaTables:
-    """The megakernel's tables, on the scene's device."""
+    """The megakernel's tables, on the scene's device, with K7's resident
+    rows (one host sync, once per scene)."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
-    return MegaTables(build_sphere_table(scene), build_rect_table(scene),
-                      sky4.contiguous())
+    spheres, rects = build_sphere_table(scene), build_rect_table(scene)
+    rows = resident_rows(spheres, SPHERE_GEOMETRY)
+    fixed = static_rows(spheres).index_select(0, rows)
+    sphere_rows = torch.cat([rows[fixed], rows[~fixed]]).to(torch.int32)
+    rect_rows = resident_rows(rects, RECT_GEOMETRY).to(torch.int32)
+    return MegaTables(spheres, rects, sky4.contiguous(),
+                      sphere_rows.contiguous(), int(fixed.sum()),
+                      rect_rows.contiguous())
+
+
+def shared_bytes(tables: MegaTables, features: SceneFeatures) -> int:
+    """The shared bytes K7 takes for ``tables`` under ``features``."""
+    n = tables.sphere_rows.shape[0]
+    return scene_shared_bytes(
+        tables.n_static, n - tables.n_static,
+        tables.rect_rows.shape[0] if features.has_rects else 0,
+        features.has_motion)
+
+
+def resident_sweep_plain(tables: MegaTables, o, d, tm, motion: bool):
+    """K7's sphere sweep over its resident rows, in the kernel's
+    arithmetic: static rows with |c|^2 and r^2 taken per row, moving rows
+    lerped (with ``motion``; a ray whose time is not finite sweeps from a
+    NaN origin), the least t and on equal t the lowest row. Returns (t
+    [r], row [r]); a miss gives (MAX_T, 2^31 - 1). For tests: it must pick
+    what :func:`_sphere_sweep` picks over every row."""
+    sph = tables.spheres
+    rows = tables.sphere_rows.long()
+    n_s = tables.n_static if motion else rows.shape[0]
+    ox, oy, oz = (o[:, k:k + 1] for k in range(3))
+    dx, dy, dz = (d[:, k:k + 1] for k in range(3))
+    sx = (torch.where(torch.isfinite(tm)[:, None], ox, float("nan"))
+          if motion else ox)
+    ro_d = sx * dx + oy * dy + oz * dz
+    ro_ro = sx * sx + oy * oy + oz * oz
+    ts, row_ids = [], []
+    for part, lerp in ((rows[:n_s], False), (rows[n_s:], True)):
+        g = sph.index_select(0, part)
+        cx, cy, cz, r = (g[None, :, k] for k in (0, 1, 2, 8))
+        if lerp:
+            s = (tm[:, None] - g[None, :, 6]) * g[None, :, 7]
+            cx = cx + s * g[None, :, 3]
+            cy = cy + s * g[None, :, 4]
+            cz = cz + s * g[None, :, 5]
+        cc = cx * cx + cy * cy + cz * cz
+        b = ro_d - (cx * dx + cy * dy + cz * dz)
+        c = ((ro_ro - 2.0 * (cx * ox + cy * oy + cz * oz)) + cc) - r * r
+        disc = b * b - c
+        sq = _sqrt(torch.clamp(disc, min=0.0))
+        t0 = -b - sq
+        t = torch.where(t0 > MIN_T, t0, -b + sq)
+        ts.append(torch.where((disc > 0.0) & (t > MIN_T), t, _INF))
+        row_ids.append(part.expand(o.shape[0], -1))
+    t = torch.cat(ts, dim=1)
+    row_id = torch.cat(row_ids, dim=1)
+    best = t.min(dim=1).values
+    tied = torch.where(t == best[:, None], row_id, 2 ** 31 - 1)
+    return best, torch.where(best < _INF, tied.min(dim=1).values, 2 ** 31 - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -188,7 +305,7 @@ def _bounce_plain(tables: MegaTables, o, d, tm, th, ra, lane, seed: int,
     """One pass of the loop for live rays: (o, d, th, ra, alive, hit,
     noise), the last two the rays that were shaded and those whose winner
     has the noise texture (the work the kernel does past the sweeps)."""
-    sph, rect, sky4 = tables
+    sph, rect, sky4 = tables.spheres, tables.rects, tables.sky4
     t, best = _sphere_sweep(sph, o, d, tm, f.has_motion)
     row = sph.index_select(0, best)
     centre = row[:, 0:3]
@@ -310,7 +427,9 @@ def trace_megakernel_plain(tables: MegaTables, ro: torch.Tensor,
 
     ``work``, if given, receives the segments that hit something and were
     shaded (``"shaded"``) and those whose winner has the noise texture
-    (``"noise"``), int64 on the device: what K7's operation bound counts."""
+    (``"noise"``), int64 on the device: what K7's operation bound counts;
+    and each ray's segments (``"ray_segments"``, [R] int64), from which a
+    lane occupancy follows (``tools/nearest_bench.k7_lane_passes``)."""
     _refuse_unsupported(features)
     R = ro.shape[0]
     dev = ro.device
@@ -322,12 +441,14 @@ def trace_megakernel_plain(tables: MegaTables, ro: torch.Tensor,
     segs = torch.zeros((), dtype=torch.int64, device=dev)
     shaded = torch.zeros((), dtype=torch.int64, device=dev)
     noise = torch.zeros((), dtype=torch.int64, device=dev)
+    per_ray = torch.zeros(R, dtype=torch.int64, device=dev)
     seed = int(seed)
     for depth in range(max_depth + 1):
         live = alive.nonzero()[:, 0]
         if live.numel() == 0:
             break
         segs += live.numel()
+        per_ray[live] += 1
         for lo in range(0, live.numel(), PLAIN_CHUNK):
             sel = live[lo:lo + PLAIN_CHUNK]
             (o[sel], d[sel], th[sel], ra[sel], alive[sel], hit,
@@ -336,7 +457,7 @@ def trace_megakernel_plain(tables: MegaTables, ro: torch.Tensor,
             shaded += hit.sum()
             noise += noisy.sum()
     if work is not None:
-        work.update(shaded=shaded, noise=noise)
+        work.update(shaded=shaded, noise=noise, ray_segments=per_ray)
     return ra, segs
 
 
@@ -364,24 +485,34 @@ def _check(tables: MegaTables, ro, rd, time) -> None:
 
 def trace_megakernel(tables: MegaTables, ro: torch.Tensor, rd: torch.Tensor,
                      time: torch.Tensor, seed: int, max_depth: int,
-                     features: SceneFeatures):
+                     features: SceneFeatures, work: dict | None = None):
     """Trace a wavefront (ro, rd [R, 3] unit directions, time [R]) through
     the megakernel over a scene's tables (:func:`prep_tables`, built once
     per scene): (radiance [R, 3] f32, segments traced [] int64 on the
     device). ``seed`` keys the bounce RNG (its int32 bit pattern); ray
-    ``i``'s stream is keyed on ``i``.
+    ``i``'s stream is keyed on ``i``. A scene whose resident rows exceed
+    ``SHARED_LIMIT`` bytes (:func:`shared_bytes`) is refused.
 
-    CPU tensors run the plain version; CUDA tensors launch K7 on the
-    current stream, with no host sync (raising if it cannot launch)."""
+    CPU tensors run the plain version (``work`` as there); CUDA tensors
+    launch K7 on the current stream, with no host sync (raising if it
+    cannot launch), and ``work``, if given, receives its lane-passes
+    (``"lane_passes"``: 32 for each pass a warp made, [] int64)."""
     global LAUNCHES, PLAIN_CALLS
     _refuse_unsupported(features)
     ro, rd = ro.contiguous(), rd.contiguous()
     time = time.to(torch.float32).contiguous()
     _check(tables, ro, rd, time)
+    need = shared_bytes(tables, features)
+    if need > SHARED_LIMIT:
+        raise ValueError(
+            f"the megakernel keeps the scene in shared memory: its "
+            f"{tables.sphere_rows.shape[0]} sphere and "
+            f"{tables.rect_rows.shape[0]} rect rows take {need} bytes, more "
+            f"than the {SHARED_LIMIT} a block may hold")
     if ro.device.type == "cpu":
         PLAIN_CALLS += 1
         return trace_megakernel_plain(tables, ro, rd, time, seed, max_depth,
-                                      features)
+                                      features, work=work)
     if ro.device.type != "cuda":
         raise ValueError(f"trace_megakernel: unsupported device {ro.device}")
     from pathtrace_tpu_torch.ops import _cuda_build
@@ -389,18 +520,26 @@ def trace_megakernel(tables: MegaTables, ro: torch.Tensor, rd: torch.Tensor,
     lib = _cuda_build.library()
     R = ro.shape[0]
     out = torch.empty((R, 3), dtype=torch.float32, device=ro.device)
-    segs = torch.zeros((), dtype=torch.int64, device=ro.device)
+    # segments, lane-passes and the kernel's ray counter, zeroed on the
+    # device
+    counts = torch.zeros(3, dtype=torch.int64, device=ro.device)
+    if work is not None:
+        work["lane_passes"] = counts[1]
     if R == 0:
-        return out, segs
+        return out, counts[0]
+    rects = features.has_rects
     stream = torch.cuda.current_stream(ro.device).cuda_stream
     code = lib.pt_megakernel(
         ro.data_ptr(), rd.data_ptr(), time.data_ptr(), R,
-        tables.spheres.data_ptr(), tables.spheres.shape[0],
-        tables.rects.data_ptr() if features.has_rects else None,
+        tables.spheres.data_ptr(), tables.sphere_rows.data_ptr(),
+        tables.n_static, tables.sphere_rows.shape[0] - tables.n_static,
+        tables.rects.data_ptr() if rects else None,
+        tables.rect_rows.data_ptr() if rects else None,
+        tables.rect_rows.shape[0] if rects else 0,
         tables.sky4.data_ptr(), _int32(seed), int(max_depth),
         feature_flags(features), float(MIN_T), out.data_ptr(),
-        segs.data_ptr(), stream,
+        counts.data_ptr(), stream,
     )
     _cuda_build.check(code, "megakernel launch")
     LAUNCHES += 1
-    return out, segs
+    return out, counts[0]

@@ -41,6 +41,28 @@ of each scene (depth 10, tile order, the cull on every bounce): the
 median of ``FRAME_REPS`` frames (CUDA events) and the device busy time of
 one more under ``torch.profiler``.
 
+The backward (``--what bwd``): K6 (``sphere_nearest_bwd``) on the
+winners of K1 on ``random_spheres`` and of K3 on ``random`` (static and
+with motion), camera and once-scattered rays, at full width and at
+``BWD_WIDTHS`` (prefixes), with a seeded cotangent: per-ray gradients held
+bit for bit and per-sphere sums to relative L2 1e-4 against the plain
+version, the time, :func:`k6_yardsticks`, and the sha256 of the per-ray
+gradients (g_ro, g_rd, and g_time with motion); then K6 on a 4096-sphere
+scene under each of its two instances (``shared_bytes``: the per-block
+sums in shared memory, opted in past 48 KB, or added straight into
+device memory), and ``profile_step``'s train steps of ``random`` and
+``random_spheres``, whose ``kinds_ms`` give K6's device time a step.
+
+The megakernel (``--what mega``): K7 (``trace_megakernel``) on the camera
+rays of ``random_spheres``, ``random`` and ``simple_light``, 1280x720 at 4
+spp, depth 10: the time, the sha256 of the radiance bytes and the segment
+count, and where the checkout has them the lane-passes (K7's own count)
+and, from the plain version's per-ray segments, the yardsticks
+(:func:`k7_yardsticks`) and the lane-passes of a block-uniform loop
+(:func:`k7_lane_passes`, the design before the persistent one); then
+``profile_step``'s megakernel and wavefront frames of both sphere
+presets.
+
 It calls only functions that every version of the port has, so, run by
 path with another checkout first on ``PYTHONPATH``, it times that
 checkout's kernels (a comparison in turns, within one card call):
@@ -86,6 +108,25 @@ CULL_WIDTHS = (1_048_576, 524_288, 262_144, 180_000, 131_072, 90_000,
                65_536)
 REPS = 20  # launches a timed sample
 FRAME_REPS = 5  # timed frames after two warm-up frames
+# K6 at full width and at these prefixes of each ray set
+BWD_WIDTHS = (262_144, 65_536)
+BWD_SPHERE_RTOL = 1e-4  # per-sphere sums, relative L2 (chip_smoke's)
+# K6 reads ro, rd, t, idx, g_t (36 B) and writes g_ro, g_rd (24 B) a ray;
+# with motion also the time in and g_time out (68 B); ~60 operations a ray
+# (~80 with motion), and the sphere leaves in and their gradients out
+K6_BYTES, K6_BYTES_MOTION, K6_OPS, K6_OPS_MOTION = 60, 68, 60, 80
+# K7's operations, counted from the plain sweep (ops/megakernel.py
+# _sphere_sweep) as OPS_PAIR counts K1's, a sphere's own terms once per
+# sphere: a static pair b 6, c 9 (c.ro 5, 2x, |ro|^2 -, + |c|^2, - r^2),
+# b*b - c 2; a moving pair adds the lerp s 2 and c0 + s delta 6, and
+# takes |c|^2 (5) per pair. A (ray, rect) pair (_rect_sweep): the hit
+# distance (k - o_n) / d_n 2 and the two in-plane coordinates 2 each (its
+# window's comparisons are not counted, as disc > 0 is not). A shaded
+# segment ~250 (csrc/megakernel.cu), ~1800 more under the noise texture
+K7_OPS_PAIR, K7_OPS_PAIR_MOTION, K7_OPS_RECT = 17, 30, 6
+K7_OPS_SHADE, K7_OPS_NOISE = 250, 1800
+MEGA_DEPTH = 10
+MEGA_REPS = 5
 
 
 def pair_ops(soa) -> int:
@@ -107,6 +148,50 @@ def yardsticks(soa, R: int) -> dict:
     operand once."""
     nbytes = R * (36 if soa.shape[0] == 12 else 32) + soa.numel() * 4
     return _sticks(nbytes, R * pair_ops(soa))
+
+
+def k6_yardsticks(R: int, n_spheres: int, moving: bool) -> dict:
+    """Stated bound (bytes, as a rule) and issue ceiling of K6 on ``R``
+    rays over ``n_spheres`` spheres."""
+    nbytes = R * (K6_BYTES_MOTION if moving else K6_BYTES) + n_spheres * (
+        9 if moving else 4) * 4 * 2
+    return _sticks(nbytes, R * (K6_OPS_MOTION if moving else K6_OPS))
+
+
+def k7_yardsticks(scene, tables, features, R: int, segments: int,
+                  shaded: int, noise: int) -> dict:
+    """Stated bound and issue ceiling of one K7 trace of ``R`` rays that
+    traced ``segments`` segments, ``shaded`` of them shaded and ``noise``
+    of those under the noise texture (``trace_megakernel_plain``'s
+    ``work``): every segment sweeps the live spheres (17 operations a
+    static one, 30 a moving one under motion) and the live rects (6);
+    28 B of ray in and 12 out per ray, the tables once."""
+    from pathtrace_tpu_torch.ops.megakernel import static_rows
+
+    live = scene.spheres.mask
+    n_moving = (int((live & ~static_rows(tables.spheres)[:live.shape[0]])
+                    .sum()) if features.has_motion else 0)
+    n_rect = int(scene.rects.mask.sum()) if features.has_rects else 0
+    sweep = ((int(live.sum()) - n_moving) * K7_OPS_PAIR
+             + n_moving * K7_OPS_PAIR_MOTION + n_rect * K7_OPS_RECT)
+    ops = segments * sweep + shaded * K7_OPS_SHADE + noise * K7_OPS_NOISE
+    nbytes = R * 40 + 4 * (tables.spheres.numel() + tables.sky4.numel()
+                           + (tables.rects.numel() if features.has_rects
+                              else 0))
+    return {**_sticks(nbytes, ops), "ops_a_segment": sweep}
+
+
+def k7_lane_passes(ray_segments, warp: int = 32) -> int:
+    """Lane-passes of a block-uniform megakernel (one ray a thread, rays
+    in order, a warp sweeping while any of its rays lives): ``warp`` times
+    the longest ray's segments, summed over warps of consecutive rays."""
+    import torch
+
+    segs = ray_segments.to(torch.int64)
+    pad = (-segs.numel()) % warp
+    if pad:
+        segs = torch.cat([segs, segs.new_zeros(pad)])
+    return warp * int(segs.reshape(-1, warp).max(dim=1).values.sum())
 
 
 def cull_yardsticks(soa, cull, rays) -> dict:
@@ -253,14 +338,15 @@ def sweeps() -> list:
     return lines
 
 
-def frames() -> list:
-    """``profile_step``'s frames and train step, in this process."""
+def frames(argvs=(("frame", "random_spheres"), ("frame", "random"),
+                  ("train", "random"))) -> list:
+    """``profile_step``'s steps (``--what``, ``--preset`` pairs), in this
+    process."""
     from pathtrace_tpu_torch.tools import profile_step
 
     lines = []
-    for argv in (["--what", "frame", "--preset", "random_spheres"],
-                 ["--what", "frame", "--preset", "random"],
-                 ["--what", "train", "--preset", "random"]):
+    for what, preset in argvs:
+        argv = ["--what", what, "--preset", preset]
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = profile_step.main(argv)
@@ -275,6 +361,208 @@ def frames() -> list:
                       "idle_share_unprofiled": res["idle_share_unprofiled"],
                       "kinds_ms": res["kinds_ms"]})
     return lines
+
+
+def _sha256(*tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _rel_l2(a, b) -> float:
+    a64, b64 = a.double(), b.double()
+    return float((a64 - b64).norm() / max(float(b64.norm()), 1e-30))
+
+
+def _many_spheres(n: int = 4096):
+    """A ground sphere and ``n - 1`` small ones over the random_spheres
+    floor (64 KB of K6's static sums a block: past the 48 KB a block gets
+    without opting in)."""
+    import numpy as np
+
+    from pathtrace_tpu_torch.models.build import SceneBuilder
+
+    b = SceneBuilder()
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian_color((0.5, 0.5, 0.5)))
+    mat = b.lambertian_color((0.2, 0.4, 0.6))
+    rng = np.random.default_rng(0)
+    for x, z in rng.uniform(-11.0, 11.0, (n - 1, 2)):
+        b.sphere((float(x), 0.1, float(z)), 0.1, mat)
+    return b.finish()
+
+
+def bwd() -> list:
+    """K6's lines: static and moving, camera and scattered winners, every
+    width checked against the plain version, timed and hashed; the
+    4096-sphere scene under each instance; the train steps."""
+    import torch
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import intersect_kernel as k1
+    from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    dev = torch.device("cuda")
+    lines = []
+    per_ray = {False: (2, 3), True: (2, 3, 7)}
+    per_sphere = {False: (0, 1), True: (0, 1, 4, 5, 6)}
+    for name, moving in (("random_spheres", False), ("random", True)):
+        scene, feats, tables, st0 = _rays(name, dev)
+        soa, sp = tables.soa, scene.spheres
+
+        def nearest(st):
+            if moving:
+                return k1.sphere_nearest_moving(soa, st.planes[:6], st.time)
+            return k1.sphere_nearest(soa, st.planes[:6])
+
+        t0, idx0 = nearest(st0)
+        planes, alive = k2.shade_from_winners(
+            tables.table, idx0, t0, st0.planes, st0.time, st0.alive,
+            st0.lane, 7, 0, 10, tables.sky4, fp.feature_flags(feats))
+        st1 = fp.FastStateP(planes[:12], st0.time, alive, st0.lane)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        g_full = torch.rand(st0.time.shape[0], generator=gen, device=dev) + 0.5
+        for label, st in (("primary", st0), ("scattered", st1)):
+            t, idx = nearest(st)
+            ro = st.planes[0:3].T.contiguous()
+            rd = st.planes[3:6].T.contiguous()
+            for R in (t.shape[0], *BWD_WIDTHS):
+                args = (sp.center, sp.radius, ro[:R], rd[:R], t[:R], idx[:R],
+                        g_full[:R])
+                motion = ((sp.center_delta, sp.time0, sp.inv_time_delta,
+                           st.time[:R]) if moving else None)
+                got = k1.sphere_nearest_bwd(*args, motion=motion)
+                ref = k1.sphere_nearest_bwd_plain(*args, motion=motion)
+                ms = event_ms(lambda: k1.sphere_nearest_bwd(
+                    *args, motion=motion), REPS)
+                ln = {"bench": "bwd", "scene": name, "kernel": "K6",
+                      "moving": moving, "rays": label, "width": R,
+                      "spheres": sp.radius.shape[0], "ms": ms,
+                      **k6_yardsticks(R, sp.radius.shape[0], moving),
+                      "equal_to_plain": all(torch.equal(got[k], ref[k])
+                                            for k in per_ray[moving]),
+                      "sphere_rel_l2": [_rel_l2(got[k], ref[k])
+                                        for k in per_sphere[moving]],
+                      "sha256": _sha256(*(got[k] for k in per_ray[moving]))}
+                ln["bound_share"] = ln["bound_ms"] / ms
+                ln["sums_within"] = max(ln["sphere_rel_l2"]) <= BWD_SPHERE_RTOL
+                lines.append(ln)
+        del planes, alive, st0, st1, tables
+    lines += _bwd_many(dev)
+    return lines + frames((("train", "random"), ("train", "random_spheres")))
+
+
+def _bwd_many(dev) -> list:
+    """K6 on the 4096-sphere scene's camera winners at full width under
+    each instance, where the checkout has the choice
+    (``intersect_kernel.BWD_SHARED_BYTES``)."""
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.ops import intersect_kernel as k1
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    scene = _many_spheres().to(dev)
+    cam = presets.random_spheres(WIDTH / HEIGHT)[1]
+    soa = fp.build_sphere_soa(scene)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ro, rd, _ = generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES, gen)
+    R = WIDTH * HEIGHT * SAMPLES
+    ro, rd = ro.reshape(R, 3).contiguous(), rd.reshape(R, 3).contiguous()
+    t, idx = k1.sphere_nearest(soa, torch.cat([ro, rd], 1).T.contiguous())
+    g_t = torch.rand(R, generator=gen, device=dev) + 0.5
+    sp = scene.spheres
+    args = (sp.center, sp.radius, ro, rd, t, idx, g_t)
+    ref = k1.sphere_nearest_bwd_plain(*args)
+    default = getattr(k1, "BWD_SHARED_BYTES", None)
+    limits = (None,) if default is None else (48 * 1024, 232_448)
+    lines = []
+    for limit in limits:
+        if limit is not None:
+            k1.BWD_SHARED_BYTES = limit
+        got = k1.sphere_nearest_bwd(*args)
+        ms = event_ms(lambda: k1.sphere_nearest_bwd(*args), REPS)
+        ln = {"bench": "bwd_many", "spheres": sp.radius.shape[0],
+              "width": R, "shared_bytes": limit, "ms": ms,
+              "instance": (None if limit is None else
+                           "shared" if k1.bwd_launch(
+                               R, sp.radius.shape[0], False)[1] else "global"),
+              **k6_yardsticks(R, sp.radius.shape[0], False),
+              "equal_to_plain": bool(torch.equal(got[2], ref[2])
+                                     and torch.equal(got[3], ref[3])),
+              "sphere_rel_l2": [_rel_l2(got[k], ref[k]) for k in (0, 1)]}
+        ln["sums_within"] = max(ln["sphere_rel_l2"]) <= BWD_SPHERE_RTOL
+        lines.append(ln)
+    if default is not None:
+        k1.BWD_SHARED_BYTES = default
+    return lines
+
+
+def mega() -> list:
+    """K7's lines on the three presets, then the megakernel and wavefront
+    frames of both sphere presets."""
+    import inspect
+
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import megakernel as k7
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    dev = torch.device("cuda")
+    R = WIDTH * HEIGHT * SAMPLES
+    counted = "work" in inspect.signature(k7.trace_megakernel).parameters
+    lines = []
+    for name in ("random_spheres", "random", "simple_light"):
+        scene, cam = presets.from_name(name, WIDTH / HEIGHT)
+        scene = scene.to(dev)
+        feats = SceneFeatures.from_scene(scene)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        rays = tuple(x.reshape(R, -1).squeeze(-1) for x in
+                     generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES, gen))
+        tables = k7.prep_tables(scene)
+        work = {}
+        rad, segs = (k7.trace_megakernel(tables, *rays, 7, MEGA_DEPTH, feats,
+                                         work=work) if counted else
+                     k7.trace_megakernel(tables, *rays, 7, MEGA_DEPTH, feats))
+        ms = event_ms(lambda: k7.trace_megakernel(tables, *rays, 7, MEGA_DEPTH,
+                                                  feats), MEGA_REPS)
+        ln = {"bench": "mega", "scene": name, "kernel": "K7", "width": R,
+              "depth": MEGA_DEPTH, "ms": ms, "segments": int(segs),
+              "sha256": _sha256(rad, segs.reshape(1))}
+        if "lane_passes" in work:
+            ln["lane_passes"] = int(work["lane_passes"])
+            ln["lane_occupancy"] = ln["segments"] / ln["lane_passes"]
+        if counted:  # this checkout's plain version counts the work
+            pwork = {}
+            rad_p, segs_p = k7.trace_megakernel_plain(
+                tables, *rays, 7, MEGA_DEPTH, feats, work=pwork)
+            ln.update(k7_yardsticks(scene, tables, feats, R, int(segs_p),
+                                    int(pwork["shaded"]),
+                                    int(pwork["noise"])))
+            ln["issue_share"] = ln["issue_ceiling_ms"] / ms
+            passes = k7_lane_passes(pwork["ray_segments"])
+            ln["block_uniform_lane_passes"] = passes
+            ln["block_uniform_lane_occupancy"] = int(segs_p) / passes
+            ln["max_abs_err_plain"] = float((rad - rad_p).abs().max())
+            ln["segments_plain"] = int(segs_p)
+            del rad_p
+        lines.append(ln)
+        del rad, tables, rays
+    return lines + frames((("megakernel", "random_spheres"),
+                           ("frame", "random_spheres"),
+                           ("megakernel", "random"), ("frame", "random")))
 
 
 def _cull_scene(name: str):
@@ -418,9 +706,11 @@ def _frame_line(name: str) -> dict:
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="nearest_bench")
-    ap.add_argument("--what", choices=("all", "nearest", "cull"),
+    ap.add_argument("--what", choices=("all", "nearest", "cull", "bwd",
+                                       "mega"),
                     default="all", help="K1/K3 and their frames, the culls "
-                    "and theirs, or both")
+                    "and theirs, or both; K6 and the train steps; K7 and "
+                    "the megakernel frames")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -439,6 +729,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.what in ("all", "cull"):
         lines += culls() + [_frame_line(n) for n in ("cover20",
                                                     "random_spheres_xl")]
+    if args.what == "bwd":
+        lines += bwd()
+    if args.what == "mega":
+        lines += mega()
     for ln in lines:
         ln["card"] = card
         print(json.dumps(ln), flush=True)
@@ -446,7 +740,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         with open(args.out, "w") as f:
             f.writelines(json.dumps(ln) + "\n" for ln in lines)
     if not all(ln.get(k, True) for ln in lines
-               for k in ("equal_to_plain", "equal_to_k1", "sweeps_equal")):
+               for k in ("equal_to_plain", "equal_to_k1", "sweeps_equal",
+                         "sums_within")):
         print("nearest_bench: a kernel differs from its plain version or K1",
               file=sys.stderr)
         return 1
