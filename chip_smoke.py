@@ -18,7 +18,9 @@ Phases (each prints a line before the next starts):
    bound and of the issue ceiling under ``-fmad=false``, and ptxas's
    registers and spills for each rays-a-thread instance;
 4. K2 (fused shade) against its plain version on the same winners, under
-   the lane contract (1e-3, at most 0.5% of lanes outside);
+   the lane contract (1e-3, at most 0.5% of lanes outside), with its
+   time, bound and issue ceiling (``tools/nearest_bench.k2_yardsticks``;
+   every K2 check of the later phases prints the same);
 5. the port's CUDA trace of the fixture's rays against the JAX radiance
    in ``tests/goldens/torch_port_random_spheres.npz`` (depth 10: 1e-3, at
    most 1% of rays outside; K1 at every bounce, no plain version);
@@ -119,9 +121,13 @@ Phases (each prints a line before the next starts):
     and the rect sweep merged) of ``simple_light``'s 1280x720x4 primary
     rays and once-scattered rays, then with the MIS flag on a random
     ``emit_scale`` plane (its extra rows, the plane copied through, the
-    normal and the albedo, included), under the lane contract; the times
-    of the kernel, of its plain version, its bound, and per full-width
-    bounce the rect sweep and the NEE and roulette tails (plain PyTorch);
+    normal and the albedo, included), under the lane contract; then K2
+    with the noise flag and no rect on ``two_perlin_spheres``' winners
+    (two marble spheres); the times of the kernel, of its plain version,
+    its bound and issue ceiling, the share of lanes that take the noise
+    branch and their occupancy (noise lanes over 32 x the warps with
+    one), and per full-width bounce the rect sweep and the NEE and
+    roulette tails (plain PyTorch);
 26. the CUDA trace of the rays in ``tests/goldens/torch_port_simple_light.npz``
     against JAX's radiance, plain and with NEE and roulette from depth 3
     (``torch_port_simple_light_nee.npz``), depth 10, ``DEPTH10_BUDGET``;
@@ -154,7 +160,7 @@ Phases (each prints a line before the next starts):
 32. image textures: K2 with the image flag against its plain version on
     ``earth``'s winners (1280x720x4 primary and once-scattered rays; with
     and without the MIS flag) and on the image-light scene's
-    (``tests/torch_port_util.image_light_scene``: ``simple_light`` with an
+    (``models/presets.image_light_scene``: ``simple_light`` with an
     image globe and two image walls) with the rect, image and MIS flags:
     lanes outside the contract, the image lanes whose albedo (the texel)
     differs between kernel and plain version (texel-index flips), the
@@ -180,8 +186,12 @@ Phases (each prints a line before the next starts):
     those inputs and on rows whose every disc <= 0 (t = 1e30
     everywhere); the share of rays whose bf16 t leaves the float32 one
     by more than 1e-3 and the rays that hit in one type and miss in the
-    other; kernel (device time), plain and bound times; then the probe's
-    ``main`` at its defaults, which must launch P1 and no plain version;
+    other; kernel (device time), plain, bound and issue-ceiling times;
+    then both types bit for bit on a ragged shape (``P1_RAGGED``: 2^20 + 3
+    rays, 1031 spheres, two tiles of an odd count) with its time, and
+    ptxas's registers and spills of each type's instance; then the
+    probe's ``main`` at its defaults, which must launch P1 and no plain
+    version;
 36. P2-P4, the winner-attribute layout probes
     (``pathtrace_tpu_torch.tools.split_probe``), 2^20 winners of a
     640 x 24 table: each kernel against its plain version bit for bit on
@@ -222,7 +232,18 @@ per (segment, live sphere) pair, 30 where the sphere moves, 6 per
 (``tools/nearest_bench.k7_yardsticks``), with ``issue_ceiling_ms``,
 ``lane_occupancy`` (and a block-uniform loop's) and ptxas's
 ``registers``; phase 24 for K7's launches; K6 also carries its
-``issue_ceiling_ms``, grid, instance and ``registers``)
+``issue_ceiling_ms``, grid, instance and ``registers``; K2, per flag set
+(``random_spheres``' at the top level, then ``motion_``, ``rect_``,
+``emit_scale_``, ``noise`` (two_perlin_spheres), ``box``, ``medium`` and
+the image entry's), ``issue_ceiling_ms``, counted from the plain
+version's operations on the lanes that take each branch (~300 a lane,
+1708 more a noise lane, ~100 a box lane, ~150 an image lane:
+``tools/nearest_bench.k2_yardsticks``), ``noise_lane_share`` and
+``noise_occupancy`` on the timed camera winners, and ptxas's
+``registers``; P1 also ``issue_ceiling_ms`` (22 instructions a float32
+pair, 16 a bf16 pair: ``bf16_probe.issue_ceiling``),
+``rays_per_thread`` (the launcher's, held to its Python mirror),
+``registers`` and the ragged shape's results)
 and ``library_ms``: ``torch.sum`` over the attribute dimension for P3 and
 P4 (device time; a yardstick the port never calls; P2-P4 also carry
 ``kernel_cold_ms``, ``library_cold_ms`` and ``kernel_over_library``,
@@ -273,10 +294,6 @@ CULL_NARROW = 131_072
 # expected); per-sphere sums are atomics in another order
 K6_MAX_ULP = 4
 K6_SPHERE_RTOL = 1e-4
-# the card's published peaks (H100 SXM data sheet, 700 W), as
-# tools/nearest_bench.py has them
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                              "torch_port_simple_light.npz")
 NEE_FIXTURE = os.path.join(ROOT, "tests", "goldens",
@@ -286,15 +303,6 @@ CORNELL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
 SMOKE_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                              "torch_port_cornell_smoke_nee.npz")
 RR_START = 3
-# K2's operations, counted from csrc/shade.cu: ~300 per lane, and ~1800
-# more per lane whose winner has the 7-octave hash noise texture
-K2_OPS, K2_OPS_NOISE = 300, 1800
-# ~100 more per lane whose winner is a box (the slab test redone, the face
-# picked and its normal mapped back)
-K2_OPS_BOX = 100
-# ~150 more per lane whose winner has an image texture (the UV: an atan2f,
-# an asinf and ~40 more; the clamps and the texel address)
-K2_OPS_IMAGE = 150
 IMAGE_LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                    "torch_port_image_light_nee.npz")
 EARTH_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_earth.npz")
@@ -302,6 +310,9 @@ EARTH_FIXTURE = os.path.join(ROOT, "tests", "goldens", "torch_port_earth.npz")
 # tools/split_probe.py): P1 2^20 rays x 640 spheres; P2-P4 2^20 winners
 # (of the probe's 640 x 24 table)
 P1_RAYS, P1_SPHERES = 1 << 20, 640
+# and a ragged ray count with an odd sphere count, not a multiple of the
+# kernel's tile (1024 spheres): a ragged last block, two tiles
+P1_RAGGED = ((1 << 20) + 3, 1031)
 P24_RAYS = 1 << 20
 
 
@@ -330,14 +341,6 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(bytes_moved: float, ops: float):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    fp32 operations over the fp32 peak."""
-    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / FP32_FLOP_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def kernel_registers(log: str, tag: str) -> dict:
@@ -480,7 +483,7 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_port_util import (
         DEPTH10_BUDGET, FIXTURE_GRAD_TOL, MOTION_FIXTURE_GRAD_TOL,
-        XL_DEPTH10_BUDGET, image_light_scene,
+        XL_DEPTH10_BUDGET,
     )
 
     dev = torch.device("cuda")
@@ -569,8 +572,11 @@ def main() -> int:
     def shade_check(tag, name, tables_, flags_, cases):
         """K2 against its plain version on each (label, state, t, idx,
         depth) case, under the lane contract, then both timed on the
-        first case. Returns (max |diff|, worst share outside, ms,
-        plain ms)."""
+        first case, with that case's yardsticks
+        (``tools/nearest_bench.k2_yardsticks``: the bound, the issue
+        ceiling, the noise lanes' share and occupancy). Returns the run:
+        max |diff|, worst share outside, ms, plain ms and the
+        yardsticks."""
         worst_err, worst_out = 0.0, 0.0
         kw = {"atlas": tables_.atlas}
         for label, st, t_, idx_, depth in cases:
@@ -594,16 +600,21 @@ def main() -> int:
         ms = time_ms(lambda: k2.shade_from_winners(*args, **kw), 20)
         plain_ms = time_ms(lambda: k2.shade_from_winners_plain(*args, **kw),
                            3)
+        ys = nb.k2_yardsticks(tables_.table, flags_, idx_, t_, tables_.atlas)
+        occ = ys["noise_occupancy"]
         phase(f"[{tag}] {name} time at {R} lanes: kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms")
-        return worst_err, worst_out, ms, plain_ms
+              f"plain {plain_ms:.3f} ms, bound {ys['bound_ms']:.4f} ms "
+              f"({ys['bound_by']}, {ys['bound_ms'] / ms:.1%}), issue ceiling "
+              f"{ys['issue_ceiling_ms']:.4f} ms "
+              f"({ys['issue_ceiling_ms'] / ms:.1%}); noise lanes "
+              f"{ys['noise_lanes']} ({ys['noise_lane_share']:.4f}), "
+              f"occupancy {'-' if occ is None else f'{occ:.4f}'}")
+        return {"max_abs_err": worst_err, "lanes_outside": worst_out,
+                "ms": ms, "plain_ms": plain_ms, **ys}
 
-    k2_err, k2_out, k2_ms, k2_plain_ms = shade_check(
+    k2_run = shade_check(
         "4", "K2", tables, flags, (("primary", st0, t0_, idx0, 0),
                                    ("scattered", st1, t1_, idx1, 1)))
-    # K2: per lane 65 B in (12 planes, time, alive, lane, t, idx) and 49 B
-    # out (12 planes, alive), the winner table once; ~300 operations
-    k2_bound = bound(R * 114 + tables.table.numel() * 4, R * K2_OPS)
     def winners_of(cases):
         """K6's inputs per state: [R, 3] rays, time and the (t, idx)."""
         return [(st.planes[0:3].T.contiguous(), st.planes[3:6].T.contiguous(),
@@ -1098,7 +1109,7 @@ def main() -> int:
     phase(f"[14] K3 registers and spills (ptxas, per rays a thread): {k3_regs}")
 
     # ---- 15: K2 with the motion flag on phase 14's winners ----
-    k2m_err, k2m_out, k2m_ms, k2m_plain_ms = shade_check(
+    k2m_run = shade_check(
         "15", "K2 (motion)", mtables, mflags,
         (("primary", mst0, mt0, midx0, 0), ("scattered", mst1, mt1, midx1, 1)))
     mwinners = winners_of(((mst0, mt0, midx0), (mst1, mt1, midx1)))
@@ -1341,12 +1352,9 @@ def main() -> int:
               f"{int((hit & (idx_ >= rect_row0)).sum())}, light hits "
               f"{int((hit & (rows[:, 0] == 3.0)).sum())}, noise winners "
               f"{int((hit & (rows[:, 3] == 2.0)).sum())}")
-    n_noise = int(((lt0 < 1e30) & (ltables.table[lidx0.long(), 3] == 2.0)).sum())
-    k2r_err, k2r_out, k2r_ms, k2r_plain_ms = shade_check(
+    k2r_run = shade_check(
         "25", "K2 (rect)", ltables, lflags,
         (("primary", lst0, lt0, lidx0, 0), ("scattered", lst1, lt1, lidx1, 1)))
-    k2r_bound = bound(R * 114 + ltables.table.numel() * 4,
-                      R * K2_OPS + n_noise * K2_OPS_NOISE)
     g = torch.Generator(device=dev)
     g.manual_seed(1)
 
@@ -1356,15 +1364,31 @@ def main() -> int:
                              st.alive, st.lane)
 
     est0, est1 = with_esc(lst0), with_esc(lst1)
-    k2e_err, k2e_out, k2e_ms, k2e_plain_ms = shade_check(
+    k2e_run = shade_check(
         "25", "K2 (rect, emit_scale)", ltables, eflags,
         (("primary", est0, lt0, lidx0, 0), ("scattered", est1, lt1, lidx1, 1)))
-    # one plane more in, seven more out (MIS plane, normal, albedo)
-    k2e_bound = bound(R * (114 + 4 + 28) + ltables.table.numel() * 4,
-                      R * K2_OPS + n_noise * K2_OPS_NOISE)
-    phase(f"[25] K2 bounds: rect {k2r_bound[0]:.4f} ms ({k2r_bound[1]}), "
-          f"rect + emit_scale {k2e_bound[0]:.4f} ms ({k2e_bound[1]}); "
-          f"{n_noise} noise lanes")
+    # the noise branch without rects: two_perlin_spheres (marble spheres)
+    pscene, pcamera = presets.from_name("two_perlin_spheres", WIDTH / HEIGHT)
+    pscene = pscene.to(dev)
+    pfeats = SceneFeatures.from_scene(pscene)
+    ptables = fp.prep_tables(pscene, pfeats)
+    pflags = fp.feature_flags(pfeats)
+    if not pflags & k2.FLAG_NOISE or pflags & k2.FLAG_RECT:
+        raise AssertionError("two_perlin_spheres did not get the noise flag")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ro, rd, tm = generate_primary_rays(pcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    pst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+    del ro, rd, tm
+    pt0, pidx0 = fp.closest_hit(ptables, pst0, 0, pfeats)
+    pst1 = scattered(ptables, pflags, pst0, pt0, pidx0)
+    pt1, pidx1 = fp.closest_hit(ptables, pst1, 1, pfeats)
+    k2n_run = shade_check(
+        "25", "K2 (noise, two_perlin_spheres)", ptables, pflags,
+        (("primary", pst0, pt0, pidx0, 0), ("scattered", pst1, pt1, pidx1, 1)))
+    if not k2n_run["noise_lanes"]:
+        raise AssertionError("two_perlin_spheres: no noise lanes")
+    del pst0, pst1, pt0, pt1, pidx0, pidx1, ptables, pscene
     # the plain-PyTorch pieces around K2, per full-width bounce
     rect_ms = time_ms(lambda: rect_nearest(ltables.rects, *lst0.planes[:6]), 10)
     eout, ealive = k2.shade_from_winners(
@@ -1524,20 +1548,14 @@ def main() -> int:
             raise AssertionError(f"{cname}: no {key} winners")
         cases = (("primary", cst0, ct0, cidx0, 0),
                  ("scattered", cst1, ct1, cidx1, 1))
-        err, out_share, ms, plain_ms = shade_check(
+        c_run = shade_check(
             "29", f"K2 ({cname}, {flag_name})", ctables, cflags, cases)
-        # the timed case is the primary one: its box lanes do the slab test
-        ops = R * K2_OPS + (n_kind[0] * K2_OPS_BOX if key == "box" else 0)
-        bnd = bound(R * 114 + ctables.table.numel() * 4, ops)
         est0, est1 = with_esc(cst0), with_esc(cst1)
         eflags_c = cflags | k2.FLAG_EMIT_SCALE
-        e_err, e_out, e_ms, e_plain_ms = shade_check(
+        e_run = shade_check(
             "29", f"K2 ({cname}, {flag_name} + FLAG_EMIT_SCALE)", ctables,
             eflags_c, (("primary", est0, ct0, cidx0, 0),
                        ("scattered", est1, ct1, cidx1, 1)))
-        ebnd = bound(R * (114 + 4 + 28) + ctables.table.numel() * 4, ops)
-        phase(f"[29] K2 bounds on {cname}: {flag_name} {bnd[0]:.4f} ms "
-              f"({bnd[1]}), + FLAG_EMIT_SCALE {ebnd[0]:.4f} ms ({ebnd[1]})")
         # the plain-PyTorch pieces around K2, per full-width bounce
         rays = cst0.planes[:6]
         eout, ealive = k2.shade_from_winners(
@@ -1570,13 +1588,9 @@ def main() -> int:
         phase(f"[29] {cname} device launches per full-width bounce: "
               f"{piece_launches}")
         box_runs[key] = {
-            "max_abs_err": err, "lanes_outside": out_share, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
-            "winners": n_kind, "emit_scale_max_abs_err": e_err,
-            "emit_scale_lanes_outside": e_out, "emit_scale_ms": e_ms,
-            "emit_scale_plain_ms": e_plain_ms, "emit_scale_bound_ms": ebnd[0],
-            "emit_scale_bound_by": ebnd[1], "bounce_ms": piece_ms,
-            "bounce_device_launches": piece_launches}
+            **c_run, "winners": n_kind,
+            **{f"emit_scale_{k}": v for k, v in e_run.items()},
+            "bounce_ms": piece_ms, "bounce_device_launches": piece_launches}
         del cst0, cst1, est0, est1, eout, ealive, ct0, ct1, cidx0, cidx1
         del rays, pieces, cscene, ctables
 
@@ -1661,8 +1675,8 @@ def main() -> int:
         if name == "earth":
             scene_, cam_ = presets.earth(WIDTH / HEIGHT)
         else:
-            scene_ = image_light_scene(pbuild,
-                                       presets._procedural_earth_image())
+            scene_ = presets.image_light_scene(
+                pbuild, presets._procedural_earth_image())
             cam_ = presets.simple_light(WIDTH / HEIGHT)[1]
         return scene_.to(dev), cam_
 
@@ -1720,18 +1734,8 @@ def main() -> int:
         if iname == "earth":
             variants.insert(0, ("plain", iflags, plain_cases))
         for key, fl, cases in variants:
-            err, out_share, ms, plain_ms = shade_check(
-                "32", f"K2 ({iname}, flags {fl})", itables, fl, cases)
-            ops = (R * K2_OPS + n_img[0] * K2_OPS_IMAGE
-                   + n_noise[0] * K2_OPS_NOISE)
-            extra = 4 + 28 if fl & k2.FLAG_EMIT_SCALE else 0
-            bnd = bound(R * (114 + extra) + itables.table.numel() * 4
-                        + itables.atlas.numel() * 4, ops)
-            run[key] = {"max_abs_err": err, "lanes_outside": out_share,
-                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                        "bound_by": bnd[1]}
-            phase(f"[32] K2 ({iname}, flags {fl}) bound {bnd[0]:.4f} ms "
-                  f"({bnd[1]}; {smi})")
+            run[key] = shade_check(
+                "32", f"K2 ({iname}, flags {fl}; {smi})", itables, fl, cases)
         # texel-index flips: image lanes whose albedo rows (the texel)
         # differ between the kernel and its plain version
         flips = []
@@ -1895,6 +1899,7 @@ def main() -> int:
 
     # ---- 35: P1, the reduced-precision sphere sweep probe ----
     cols, rows = p1.make_inputs(P1_RAYS, P1_SPHERES, 0, dev)
+    cols_r, rows_r = p1.make_inputs(*P1_RAGGED, 1, dev)
     rows_miss = rows.clone()
     rows_miss[3] += 1e4  # every disc <= 0: the 1e30 branch
     p1_runs, t_f32 = {}, None
@@ -1914,16 +1919,39 @@ def main() -> int:
                "share_outside_f32": outside, "miss_flips": flips,
                "all_miss_ok": bool((t_m == p1.MISS_T).all())}
         run["bound_ms"], run["bound_by"] = p1.bound(P1_RAYS, P1_SPHERES, dtype)
+        run["issue_ceiling_ms"] = p1.issue_ceiling(P1_RAYS, P1_SPHERES, dtype)
+        # a ragged ray count and an odd sphere count over two tiles
+        t_r = p1.sphere_min_t(cols_r, rows_r, dtype)
+        t_rp = p1.sphere_min_t_plain(cols_r, rows_r, dtype)
+        run["ragged_rays_differing"] = int((t_r != t_rp).sum())
+        run["ragged_ms"] = _probe.event_ms(
+            lambda: p1.sphere_min_t(cols_r, rows_r, dtype))
         p1_runs[name] = run
         phase(f"[35] P1 {name}: {P1_RAYS} rays x {P1_SPHERES} spheres, "
               f"kernel vs plain {n_diff} rays differ (max |diff| {err}; the "
               f"all-miss rows: every t 1e30 {run['all_miss_ok']}); "
               f"share outside 1e-3 of f32 {outside:.6f}, miss flips {flips}; "
               f"kernel {run['ms']:.4f} ms, plain {run['plain_ms']:.3f} ms, "
-              f"bound {run['bound_ms']:.4f} ms ({run['bound_by']})")
-        if n_diff or not run["all_miss_ok"]:
+              f"bound {run['bound_ms']:.4f} ms ({run['bound_by']}, "
+              f"{run['bound_ms'] / run['ms']:.1%}), issue ceiling "
+              f"{run['issue_ceiling_ms']:.4f} ms "
+              f"({run['issue_ceiling_ms'] / run['ms']:.1%})")
+        phase(f"[35] P1 {name} ragged: {P1_RAGGED[0]} rays x {P1_RAGGED[1]} "
+              f"spheres, kernel vs plain {run['ragged_rays_differing']} rays "
+              f"differ; kernel {run['ragged_ms']:.4f} ms")
+        if n_diff or run["ragged_rays_differing"] or not run["all_miss_ok"]:
             raise AssertionError(f"P1 {name}: the kernel differs from its "
                                  "plain version")
+    p1_regs = {("bf16" if "nv_bfloat16" in k else "f32"): v
+               for k, v in nb.ptxas_usage("sphere_min_t_kernel").items()}
+    p1_rays = {name: p1.kernel_rays_per_thread(dtype)
+               for name, dtype in p1.DTYPES.items()}
+    phase(f"[35] P1 registers and spills (ptxas): {p1_regs}; "
+          f"rays a thread {p1_rays} (launcher), {p1.RAYS_PER_THREAD} "
+          "(Python mirror)")
+    if p1_rays != p1.RAYS_PER_THREAD:
+        raise AssertionError(f"P1's launcher takes {p1_rays} rays a thread, "
+                             f"its Python mirror {p1.RAYS_PER_THREAD}")
     phase(f"[35] P1 bf16 / f32 kernel time: "
           f"{p1_runs['bf16']['ms'] / p1_runs['f32']['ms']:.3f}")
     c35, probe_lines = probe_main("35", p1, [], k1, k2, k7)
@@ -2007,24 +2035,19 @@ def main() -> int:
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:92",
-         "launches": launches[1], "max_abs_err": k2_err,
-         "lanes_outside": k2_out, "ms": k2_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1],
-         "motion_launches": c17["K2"], "motion_max_abs_err": k2m_err,
-         "motion_lanes_outside": k2m_out, "motion_ms": k2m_ms,
-         "motion_plain_ms": k2m_plain_ms,
+         "launches": launches[1], **k2_run,
+         "motion_launches": c17["K2"],
+         **{f"motion_{k}": v for k, v in k2m_run.items()},
          "flags": {"FLAG_RECT": k2.FLAG_RECT,
                    "FLAG_EMIT_SCALE": k2.FLAG_EMIT_SCALE,
                    "FLAG_BOX": k2.FLAG_BOX, "FLAG_MEDIUM": k2.FLAG_MEDIUM},
-         "rect_launches": c27["K2"], "rect_max_abs_err": k2r_err,
-         "rect_lanes_outside": k2r_out, "rect_ms": k2r_ms,
-         "rect_plain_ms": k2r_plain_ms, "rect_bound_ms": k2r_bound[0],
-         "rect_bound_by": k2r_bound[1],
-         "emit_scale_launches": c27n["K2"], "emit_scale_max_abs_err": k2e_err,
-         "emit_scale_lanes_outside": k2e_out, "emit_scale_ms": k2e_ms,
-         "emit_scale_plain_ms": k2e_plain_ms,
-         "emit_scale_bound_ms": k2e_bound[0],
-         "emit_scale_bound_by": k2e_bound[1],
+         "rect_launches": c27["K2"],
+         **{f"rect_{k}": v for k, v in k2r_run.items()},
+         "emit_scale_launches": c27n["K2"],
+         **{f"emit_scale_{k}": v for k, v in k2e_run.items()},
+         "noise": k2n_run,
+         "registers": next(iter(nb.ptxas_usage("shade_kernel").values()),
+                           None),
          "box_launches": box_runs["box"]["plain_launches"],
          "medium_launches": box_runs["medium"]["plain_launches"],
          "box": box_runs["box"], "medium": box_runs["medium"],
@@ -2083,6 +2106,7 @@ def main() -> int:
          "replaces": "tools/bf16_probe.py:37", "launches": c35["P1"],
          **p1_runs["f32"], "bf16": p1_runs["bf16"],
          "max_abs_err": max(r["max_abs_err"] for r in p1_runs.values()),
+         "rays_per_thread": p1_rays, "registers": p1_regs,
          "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",

@@ -63,49 +63,73 @@ __device__ __forceinline__ float counter_uniform(uint32_t lane, uint32_t seed,
          (1.0f / 16777216.0f);
 }
 
-__device__ __forceinline__ uint32_t hash3(int32_t ix, int32_t iy,
-                                          int32_t iz) {
-  uint32_t h = static_cast<uint32_t>(ix) * 374761393u +
-               static_cast<uint32_t>(iy) * 668265263u +
-               static_cast<uint32_t>(iz) * 1103515245u;
-  h = h ^ (h >> 13);
-  h = h * 1274126177u;
-  return h ^ (h >> 16);
+// hash3's lattice constants: the hash of the corner (ix, iy, iz) mixes
+// kHashX * ix + kHashY * iy + kHashZ * iz (mod 2^32)
+constexpr uint32_t kHashX = 374761393u;
+constexpr uint32_t kHashY = 668265263u;
+constexpr uint32_t kHashZ = 1103515245u;
+
+// hash3 after its lattice sum s = kHashX * ix + kHashY * iy + kHashZ * iz
+__device__ __forceinline__ uint32_t hash_mix(uint32_t s) {
+  s = s ^ (s >> 13);
+  s = s * 1274126177u;
+  return s ^ (s >> 16);
 }
 
+// The reference's unit float(h >> 8) * 2^-23 - 1 (fastpath.py _hash_unit)
+// in one rounding: v = h >> 8 < 2^24 converts exactly, and v 2^-23 - 1, a
+// multiple of 2^-23 of magnitude at most 1, is a float, so the FMA returns
+// it exactly, as the reference's exact product and exact difference do:
+// the same bits for every h (tests/test_torch_noise_rule.py runs all 2^24
+// values of v), one instruction fewer than the product and the difference.
 __device__ __forceinline__ float hash_unit(uint32_t h) {
-  return static_cast<float>(static_cast<int32_t>(h >> 8)) *
-             (2.0f / 16777216.0f) -
-         1.0f;
+  return __fmaf_rn(__uint2float_rn(h >> 8), 0x1p-23f, -1.0f);
 }
 
+// One octave of the hash noise: fastpath.py fast_noise_c, operation for
+// operation where floats round, with its integer work shared across the
+// eight corners.
+// - floor: __float2int_rd(x) is (int32) floorf(x) for every float x (both
+//   exact in range, both saturate alike, NaN gives 0), one conversion.
+// - hash3 (ix + di, iy + dj, iz + dk) mixes kHashX (ix + di) + ... mod
+//   2^32, and kHashX (ix + 1) = kHashX ix + kHashX: two terms an axis, six
+//   an octave, then one three-way add a corner.
+// - u - di: u - 0 is u, and u - 1 is computed once; the weight product
+//   wu * wv * wwk * dot rounds left to right, so wu * wv is shared by the
+//   two corners that differ in dk.
 __device__ inline float fast_noise(float px, float py, float pz) {
   const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-  const int32_t ix = static_cast<int32_t>(fx);
-  const int32_t iy = static_cast<int32_t>(fy);
-  const int32_t iz = static_cast<int32_t>(fz);
+  const uint32_t ix = static_cast<uint32_t>(__float2int_rd(px));
+  const uint32_t iy = static_cast<uint32_t>(__float2int_rd(py));
+  const uint32_t iz = static_cast<uint32_t>(__float2int_rd(pz));
   const float u = px - fx, v = py - fy, w = pz - fz;
   const float uu = u * u * (3.0f - 2.0f * u);
   const float vv = v * v * (3.0f - 2.0f * v);
   const float ww = w * w * (3.0f - 2.0f * w);
+  const float off_u[2] = {u, u - 1.0f};
+  const float off_v[2] = {v, v - 1.0f};
+  const float off_w[2] = {w, w - 1.0f};
+  const float wt_u[2] = {1.0f - uu, uu};
+  const float wt_v[2] = {1.0f - vv, vv};
+  const float wt_w[2] = {1.0f - ww, ww};
+  const uint32_t hx0 = ix * kHashX, hy0 = iy * kHashY, hz0 = iz * kHashZ;
+  const uint32_t hx[2] = {hx0, hx0 + kHashX};
+  const uint32_t hy[2] = {hy0, hy0 + kHashY};
+  const uint32_t hz[2] = {hz0, hz0 + kHashZ};
   float accum = 0.0f;
 #pragma unroll
   for (int di = 0; di < 2; ++di) {
-    const float wu = di ? uu : (1.0f - uu);
 #pragma unroll
     for (int dj = 0; dj < 2; ++dj) {
-      const float wv = dj ? vv : (1.0f - vv);
+      const float wuv = wt_u[di] * wt_v[dj];
 #pragma unroll
       for (int dk = 0; dk < 2; ++dk) {
-        const float wwk = dk ? ww : (1.0f - ww);
-        const uint32_t h = hash3(ix + di, iy + dj, iz + dk);
+        const uint32_t h = hash_mix(hx[di] + hy[dj] + hz[dk]);
         const float gx = hash_unit(h);
         const float gy = hash_unit(h * 1664525u + 1013904223u);
         const float gz = hash_unit(h * 22695477u + 1u);
-        const float dot = gx * (u - static_cast<float>(di)) +
-                          gy * (v - static_cast<float>(dj)) +
-                          gz * (w - static_cast<float>(dk));
-        accum = accum + wu * wv * wwk * dot;
+        const float dot = gx * off_u[di] + gy * off_v[dj] + gz * off_w[dk];
+        accum = accum + wuv * wt_w[dk] * dot;
       }
     }
   }

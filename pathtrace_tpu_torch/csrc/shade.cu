@@ -49,7 +49,13 @@
 // hundred flops (more with the noise texture, ~100 more for a box
 // winner, ~60 and an atan2 and an asin for an image lane); with
 // FLAG_EMIT_SCALE one plane more in and seven more out; with FLAG_IMAGE
-// 16 bytes more of row and 12 of texel for an image lane.
+// 16 bytes more of row and 12 of texel for an image lane. A lane whose
+// winner wears the noise texture issues ~1,750 instructions more (7
+// octaves of ~250, csrc/pt_device.cuh), so the noise lanes bind a launch
+// by issue slots where they are many: 54% of simple_light's camera lanes
+// (99.6% of a warp wherever there is one, nothing for a compaction to
+// gain), and 97% under FLAG_EMIT_SCALE, where its misses need the albedo
+// of row 0 too (PERF.md).
 //
 // The arithmetic follows the plain PyTorch version in
 // pathtrace_tpu_torch/ops/shade_kernel.py operation for operation; built
@@ -248,21 +254,30 @@ shade_kernel(const float* __restrict__ table, int k_attr,
     nz = 0.0f;
   }
 
+  // The albedo reaches the outputs of a lane that hits (its emission and
+  // throughput) and, under FLAG_EMIT_SCALE, the albedo rows of every lane.
+  // A miss without FLAG_EMIT_SCALE uses none of it, so it skips the
+  // textures: its winner is row 0, whose texture may be the 7-octave noise
+  // (the ground of simple_light, where 43% of the camera lanes miss). The
+  // launch-uniform flag is tested first, so a launch without the texture
+  // pays nothing for the test.
+  const bool nee = flags & FLAG_EMIT_SCALE;
+  const bool textured = hit || nee;
   const float tex_kind = a[3];
   float rgb[3] = {a[4], a[5], a[6]};
-  if ((flags & FLAG_CHECKER) && tex_kind == TEX_CHECKER) {
+  if ((flags & FLAG_CHECKER) && tex_kind == TEX_CHECKER && textured) {
     const float sines = sinf(10.0f * px) * sinf(10.0f * py) * sinf(10.0f * pz);
     const int base = sines < 0.0f ? 7 : 10;
     rgb[0] = a[base];
     rgb[1] = a[base + 1];
     rgb[2] = a[base + 2];
   }
-  if ((flags & FLAG_NOISE) && tex_kind == TEX_NOISE) {
+  if ((flags & FLAG_NOISE) && tex_kind == TEX_NOISE && textured) {
     const float marble =
         0.5f * (1.0f + sinf(a[13] * pz + 10.0f * fast_turb(px, py, pz)));
     rgb[0] = rgb[1] = rgb[2] = marble;
   }
-  if ((flags & FLAG_IMAGE) && tex_kind == TEX_IMAGE) {
+  if ((flags & FLAG_IMAGE) && tex_kind == TEX_IMAGE && textured) {
     image_texel(a, k_attr, px, py, pz, snx, sny, flags, atlas, atlas_w, rgb);
   }
 
@@ -270,7 +285,6 @@ shade_kernel(const float* __restrict__ table, int k_attr,
   const bool is_light = mat_kind == MAT_DIFFUSE_LIGHT;
   const float sky_t = 0.5f * (rdy + 1.0f);
   const bool use_grad = sky4[3] > 0.5f;
-  const bool nee = flags & FLAG_EMIT_SCALE;
   const float esc = nee ? planes[12 * pstride + i] : 1.0f;
   const float grad_k[3] = {0.15f, 0.21f, 0.30f};
 #pragma unroll

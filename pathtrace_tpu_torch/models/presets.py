@@ -6,9 +6,10 @@ variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
 default), ``simple_light`` (an emissive sphere and rect over marble),
 ``cornell`` (six rects, a rect light and two rotated boxes),
 ``cornell_smoke`` (the same walls and two rotated media boxes) and ``earth``
-(an image-textured globe). Each builds its
-scene with the same numpy generator calls as the JAX preset, so both
-packages produce identical leaves."""
+(an image-textured globe). Each builds its scene with the same numpy
+generator calls as the JAX preset, so both packages produce identical
+leaves. :func:`image_light_scene` is no preset but a test and bench scene:
+``simple_light`` with image textures."""
 
 from __future__ import annotations
 
@@ -242,6 +243,40 @@ def earth(aspect: float, seed: int = 0,
                           else _procedural_earth_image())
     b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
     return b.finish(), _standard_camera(aspect, time1=0.0, aperture=0.0)
+
+
+def wall_image() -> np.ndarray:
+    """A 40 x 72 texture of random texels (numpy, seed 3): the second
+    image of :func:`image_light_scene`, so neighbouring texels differ and
+    a texel picked wrongly shows in the albedo."""
+    return np.random.default_rng(3).random((40, 72, 3), dtype=np.float32)
+
+
+def image_light_scene(build, earth_image: np.ndarray):
+    """``simple_light``'s geometry with image textures (a test and bench
+    scene, not a preset; ``simple_light``'s camera sees it): the big
+    sphere wears ``earth_image`` (:func:`_procedural_earth_image`, or the
+    reference package's, which is the same) instead of the marble, and two
+    walls wear :func:`wall_image`, the atlas's second image: a yz rect
+    behind the spheres as the camera sees them (the camera looks down -x)
+    and an xy rect beside them, seen at a grazing angle and by scattered
+    rays. The marble ground, the emissive sphere and rect and the black
+    sky stay. ``build`` is a build module: this package's
+    (``pathtrace_tpu_torch.models.build``) or one with the same
+    ``SceneBuilder`` (the reference package's builds identical leaves)."""
+    b = build.SceneBuilder()
+    noise = b.noise_texture(4.0)
+    light_tex = b.constant_texture((4.0, 4.0, 4.0))
+    earth = b.lambertian(b.image_texture(earth_image))
+    wall = b.lambertian(b.image_texture(wall_image()))
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
+    b.sphere((0.0, 2.0, 0.0), 2.0, earth)
+    b.sphere((0.0, 7.0, 0.0), 2.0, b.diffuse_light(light_tex))
+    b.rect_xy(3.0, 5.0, 1.0, 3.0, -2.0, False, b.diffuse_light(light_tex))
+    b.rect_yz(0.0, 8.0, -7.0, 7.0, -6.0, False, wall)
+    b.rect_xy(-6.0, 6.0, 0.0, 8.0, -7.0, False, wall)
+    b.sky = (0.0, 0.0, 0.0)
+    return b.finish()
 
 
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {

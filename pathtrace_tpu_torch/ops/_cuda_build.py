@@ -106,6 +106,7 @@ _SIGNATURES = {
         _c_void_p, _c_int, _c_int,               # rows [4, N], N, bf16
         _c_void_p, _c_void_p,                    # t_out, stream
     ],
+    "pt_sphere_min_t_rays": [_c_int],             # bf16
     "pt_sum_split": [
         ctypes.POINTER(_c_void_p), _c_int,       # host array of plane ptrs, K
         _c_longlong, _c_void_p, _c_void_p,       # elements a plane, out, stream

@@ -1,5 +1,6 @@
-"""What the two probes (``bf16_probe``, ``split_probe``) share: the card's
-published peaks, their clocks and the device line they print."""
+"""What the probes (``bf16_probe``, ``split_probe``) and ``nearest_bench``
+share: the card's published peaks, their clocks and the device line they
+print."""
 
 from __future__ import annotations
 
@@ -13,11 +14,15 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
-# the H100 SXM5's published peaks at 700 W (NVIDIA's Hopper white paper:
-# float32 and packed bf16 on the CUDA cores, not the tensor cores; HBM3)
+# the H100 SXM's published peaks at 700 W, the one copy of them in the
+# port: HBM3 and float32 on the CUDA cores from NVIDIA's data sheet, packed
+# bf16 on the CUDA cores (not the tensor cores) from the Hopper white paper
 HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 66.9e12
+FP32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 133.8e12
+# thread-instructions a second: 132 SMs x 4 sub-partitions x 32 lanes at
+# 1.98 GHz, half the fp32 peak (which counts an FMA as two operations)
+ISSUE_PER_S = FP32_FLOP_PER_S / 2
 L2_BYTES = 50e6  # the H100's L2 cache
 
 

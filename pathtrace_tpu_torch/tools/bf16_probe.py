@@ -9,10 +9,13 @@ The port of the JAX package's ``tools/bf16_probe.py``. :func:`sphere_min_t`
 (``pallas_call`` at ``:81``): per ray, the minimum over every sphere of
 ``-b - sqrt(disc)`` where ``disc > 0``, else 1e30, the quadratic in
 ``dtype`` (float32 or bf16), the sqrt and the minimum in float32. It is
-bound by operations, ~22 per ray-sphere pair, 16 of them in ``dtype``; the
+bound by operations, 22 per ray-sphere pair, 16 of them in ``dtype``; the
 bf16 instance packs two spheres per ``__nv_bfloat162`` to run those at the
-CUDA cores' packed bf16 rate. :func:`sphere_min_t_plain` is its plain
-PyTorch version, which the kernel equals bit for bit in both types.
+CUDA cores' packed bf16 rate. A thread sweeps 4 rays in float32, 2 in
+bf16 (``RAYS_PER_THREAD``), over sphere rows staged as one 16-byte row a
+slot. :func:`sphere_min_t_plain` is its plain PyTorch version, which the
+kernel equals bit for bit in both types. The operation counts behind
+:func:`bound` and :func:`issue_ceiling` are kept here, in one place.
 
 The entry point runs on the card unless ``--device cpu`` is given (then
 the plain versions run); without a card the default exits non-zero. At
@@ -28,7 +31,7 @@ distributions do not. For each type it prints one JSON line:
   readback of the sum, best of 4, with ``cols[0] + e`` varied each time;
 - ``kernel_ms``: the kernel alone, device time from CUDA events
   (``_probe.event_ms``; null on the CPU);
-- ``bound_ms`` and ``bound_by`` (null on the CPU);
+- ``bound_ms`` and ``bound_by``, ``issue_ceiling_ms`` (null on the CPU);
 - ``share_outside_f32``: the share of rays whose t leaves the float32
   result's by more than 1e-3 (rel and abs); 0 for f32;
 - ``miss_flips``: rays that hit (t < 1e30) in one type and miss in the
@@ -56,10 +59,19 @@ PLAIN_CHUNK = 1 << 15  # rays per plain-version chunk ([chunk, 128] temps)
 OUTSIDE_TOL = 1e-3     # rel and abs tolerance of share_outside_f32
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-# operations per ray-sphere pair, counted from csrc/bf16_probe.cu: 16 in
-# the quadratic's type, 6 in float32 (compare, sqrt, root, select, min);
-# per ray 10 more in the type (|ro|^2 and ro.d)
+# operations per ray-sphere pair, counted from the plain version: 16 in
+# the quadratic's type (b 6, c 8, disc 2), 6 in float32 (compare, sqrt,
+# the root's negation and subtraction, select, min); per ray 10 more in the
+# type (|ro|^2 and ro.d)
 OPS_PAIR_DTYPE, OPS_PAIR_F32, OPS_RAY_DTYPE = 16, 6, 10
+# as instructions: the bf16 instance runs two pairs' quadratic in one
+# bf16x2 instruction and unpacks each pair's b and disc to float32 (2 a
+# pair); its per-ray terms, broadcast to both halves, are 10 bf16x2
+# instructions
+UNPACKS_PAIR_BF16 = 2
+# rays a thread (csrc/bf16_probe.cu kRaysOf; the launcher's own answer is
+# kernel_rays_per_thread)
+RAYS_PER_THREAD = {"f32": 4, "bf16": 2}
 
 
 def _check(cols: torch.Tensor, rows: torch.Tensor, dtype) -> None:
@@ -84,27 +96,35 @@ def sphere_min_t_plain(cols: torch.Tensor, rows: torch.Tensor,
     for operation: ``cols`` [6, R] (ro xyz, rd xyz), ``rows`` [4, N] (cx,
     cy, cz, c2), both float32; the quadratic in ``dtype``, every bf16
     operation rounded on its own; t [R] float32."""
+    t_out = torch.full((cols.shape[1],), MISS_T, dtype=torch.float32,
+                       device=cols.device)
+    for lo, b, disc in _quadratics(cols, rows, dtype):
+        # float64 root rounded once = the correctly rounded float32 sqrt
+        # (torch's CPU float32 sqrt can be one ULP off)
+        sq = torch.sqrt(torch.clamp(disc, min=0).double()).float()
+        t = torch.where(disc > 0, (-b).float() - sq, MISS_T)
+        best = t_out[lo:lo + PLAIN_CHUNK]
+        torch.minimum(best, t.min(dim=1).values, out=best)
+    return t_out
+
+
+def _quadratics(cols: torch.Tensor, rows: torch.Tensor, dtype):
+    """(first ray, b, disc) for each chunk of ``PLAIN_CHUNK`` rays and
+    tile of ``TILE_N`` spheres: the reference's quadratic in ``dtype``,
+    [chunk, tile] each."""
     R, N = cols.shape[1], rows.shape[1]
-    t_out = torch.full((R,), MISS_T, dtype=torch.float32, device=cols.device)
     sph = rows.to(dtype)
     for lo in range(0, R, PLAIN_CHUNK):
         ro_x, ro_y, ro_z, rd_x, rd_y, rd_z = (
             cols[k, lo:lo + PLAIN_CHUNK].to(dtype)[:, None] for k in range(6))
         ro_d = ro_x * rd_x + ro_y * rd_y + ro_z * rd_z
         ro_ro = ro_x * ro_x + ro_y * ro_y + ro_z * ro_z
-        best = t_out[lo:lo + PLAIN_CHUNK]
         for s0 in range(0, N, TILE_N):
             scx, scy, scz, sc2 = (sph[k, None, s0:s0 + TILE_N]
                                   for k in range(4))
             b = ro_d - (scx * rd_x + scy * rd_y + scz * rd_z)
             c = ro_ro - 2.0 * (scx * ro_x + scy * ro_y + scz * ro_z) + sc2
-            disc = b * b - c
-            # float64 root rounded once = the correctly rounded float32
-            # sqrt (torch's CPU float32 sqrt can be one ULP off)
-            sq = torch.sqrt(torch.clamp(disc, min=0).double()).float()
-            t = torch.where(disc > 0, (-b).float() - sq, MISS_T)
-            torch.minimum(best, t.min(dim=1).values, out=best)
-    return t_out
+            yield lo, b, b * b - c
 
 
 def sphere_min_t(cols: torch.Tensor, rows: torch.Tensor,
@@ -136,6 +156,15 @@ def sphere_min_t(cols: torch.Tensor, rows: torch.Tensor,
     return t_out
 
 
+def kernel_rays_per_thread(dtype) -> int:
+    """The rays a thread the kernel launches ``dtype``'s instance with (its
+    C entry ``pt_sphere_min_t_rays``); :data:`RAYS_PER_THREAD` mirrors it."""
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    return int(_cuda_build.library().pt_sphere_min_t_rays(
+        int(dtype == torch.bfloat16)))
+
+
 def make_inputs(n_rays: int, n_spheres: int, seed: int,
                 device: torch.device):
     """The reference probe's distributions: cols [6, R] uniform in [0, 1),
@@ -165,8 +194,37 @@ def bound(n_rays: int, n_spheres: int, dtype):
             else _probe.FP32_FLOP_PER_S)
     by_ops = ((pairs * OPS_PAIR_DTYPE + n_rays * OPS_RAY_DTYPE) / rate
               + pairs * OPS_PAIR_F32 / _probe.FP32_FLOP_PER_S) * 1e3
-    by_bytes = (n_rays * 7 + n_spheres * 4) * 4 / _probe.HBM_BYTES_PER_S * 1e3
+    by_bytes = _bytes_ms(n_rays, n_spheres)
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def _bytes_ms(n_rays: int, n_spheres: int) -> float:
+    return (n_rays * 7 + n_spheres * 4) * 4 / _probe.HBM_BYTES_PER_S * 1e3
+
+
+def issue_ceiling(n_rays: int, n_spheres: int, dtype) -> float:
+    """The least time (ms) at one warp instruction a clock on every SM
+    sub-partition when each operation is one instruction (``-fmad=false``):
+    22 a pair in float32; in bf16 the quadratic's 16 as 8 bf16x2
+    instructions, 2 unpacks and 6 float32; 10 a ray; or the bytes, if
+    longer."""
+    pairs = n_rays * n_spheres
+    if dtype == torch.bfloat16:
+        per_pair = OPS_PAIR_DTYPE / 2 + UNPACKS_PAIR_BF16 + OPS_PAIR_F32
+    else:
+        per_pair = OPS_PAIR_DTYPE + OPS_PAIR_F32
+    by_issue = ((pairs * per_pair + n_rays * OPS_RAY_DTYPE)
+                / _probe.ISSUE_PER_S * 1e3)
+    return max(by_issue, _bytes_ms(n_rays, n_spheres))
+
+
+def positive_share(cols: torch.Tensor, rows: torch.Tensor,
+                   dtype=torch.float32) -> float:
+    """Share of ray-sphere pairs with disc > 0 (the pairs that take the
+    root), from the plain version's quadratic."""
+    hits = sum(int((disc > 0).sum()) for _, _, disc in
+               _quadratics(cols, rows, dtype))
+    return hits / max(cols.shape[1] * rows.shape[1], 1)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -201,6 +259,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(json.dumps({
             "bench": f"bf16_probe/{name}", "ms": ms, "kernel_ms": kernel_ms,
             "bound_ms": bnd[0], "bound_by": bnd[1],
+            "issue_ceiling_ms": (issue_ceiling(args.rays, args.spheres, dtype)
+                                 if on_card else None),
             "share_outside_f32": outside, "miss_flips": flips,
             "rays": args.rays, "spheres": args.spheres, "device": card,
         }), flush=True)

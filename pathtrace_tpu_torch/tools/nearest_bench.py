@@ -1,7 +1,7 @@
 """The closest-hit sweeps K1, K3, K4 and K5 timed on the card, at the main
 path's widths, with their yardsticks.
 
-    python -m pathtrace_tpu_torch.tools.nearest_bench [--what all|nearest|cull] [--out FILE]
+    python -m pathtrace_tpu_torch.tools.nearest_bench [--what all|nearest|cull|bwd|mega|shade|p1|shade-turns] [--out FILE]
 
 K1 (``sphere_nearest``) on ``random_spheres`` and K3
 (``sphere_nearest_moving``) on ``random``, 1280x720 at 4 spp: the camera
@@ -63,9 +63,41 @@ and, from the plain version's per-ray segments, the yardsticks
 ``profile_step``'s megakernel and wavefront frames of both sphere
 presets.
 
-It calls only functions that every version of the port has, so, run by
-path with another checkout first on ``PYTHONPATH``, it times that
-checkout's kernels (a comparison in turns, within one card call):
+The fused shade (``--what shade``): K2 (``shade_from_winners``) on the
+winners of the camera rays and of the once-scattered rays, 1280x720 at 4
+spp, for every flag set ``chip_smoke.py`` times: ``random_spheres``
+(spheres), ``random`` (motion), ``simple_light`` (rect, rect + MIS),
+``two_perlin_spheres`` (noise without rects), ``cornell`` (box, box + MIS),
+``cornell_smoke`` (medium, medium + MIS), ``earth`` (image, image + MIS) and
+the image-light scene (rect + image + MIS). Per flag set: the lane contract
+against the plain version, the sha256 of the output planes and alive
+flags (both ray sets), the time on the camera winners, and
+:func:`k2_yardsticks`: the bound, the issue ceiling, and the lanes that
+take the noise branch, their share and their occupancy (noise lanes over
+32 x the warps with at least one), and where there are noise lanes the
+time of the same launch with the noise flag off (``ms_no_noise``). Then K7's lines (as ``--what mega``,
+without the frames), whose radiance and segments share the noise with K2
+(``csrc/pt_device.cuh``), and ptxas's registers and spills of K2, K7 and P1.
+
+``--what shade --sets sphere,motion`` times those flag sets alone. In
+turns (``--what shade-turns --tree parent=PATH --tree change=PATH --sets
+... --rounds N``): K2's time on those sets in each tree, a process a run,
+N rounds of every tree forth and back, with each tree's quartiles and its
+median's distance from the first tree's (:func:`shade_turns`).
+
+The bf16 probe's sweep (``--what p1``): P1 (``bf16_probe.sphere_min_t``)
+in float32 and bf16 at the probe's size (2^20 rays x 640 spheres) and on a
+ragged shape (2^20 + 3 rays x 1031 spheres: a ragged block, two sphere
+tiles, an odd count), each held bit for bit to the plain version, timed,
+hashed, with the bound, the issue ceiling (where the checkout's probe has
+one), the share of pairs with disc > 0, the all-miss rows, and ptxas's
+registers and spills.
+
+It calls only functions that every version of the port has whose
+``tools/_probe.py`` holds ``ISSUE_PER_S`` and whose presets hold
+``image_light_scene``, so, run by path with another such checkout first on
+``PYTHONPATH``, it times that checkout's kernels (a comparison in turns,
+within one card call):
 
     PYTHONPATH=/path/to/checkout python pathtrace_tpu_torch/tools/nearest_bench.py
 
@@ -78,16 +110,18 @@ import argparse
 import contextlib
 import io
 import json
+import os
+import re
+import statistics
+import subprocess
 import sys
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
+
+from pathtrace_tpu_torch.tools._probe import (  # the card's peaks
+    FP32_FLOP_PER_S, HBM_BYTES_PER_S, ISSUE_PER_S,
+)
 
 WIDTH, HEIGHT, SAMPLES = 1280, 720, 4
-# the card's published peaks (H100 SXM data sheet, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-# thread-instructions a second: 132 SMs x 4 sub-partitions x 32 lanes at
-# 1.98 GHz, half the fp32 peak
-ISSUE_PER_S = FP32_FLOP_PER_S / 2
 # fp32 operations a ray-sphere pair needs, counted from the plain version
 # (csrc/sphere_nearest.cu keeps its order): b 6, c 8, b*b - c 2; a moving
 # slot adds s 2, delta.d and delta.ro 10, b's motion term 2 and c's 8 (2s
@@ -122,11 +156,42 @@ K6_BYTES, K6_BYTES_MOTION, K6_OPS, K6_OPS_MOTION = 60, 68, 60, 80
 # takes |c|^2 (5) per pair. A (ray, rect) pair (_rect_sweep): the hit
 # distance (k - o_n) / d_n 2 and the two in-plane coordinates 2 each (its
 # window's comparisons are not counted, as disc > 0 is not). A shaded
-# segment ~250 (csrc/megakernel.cu), ~1800 more under the noise texture
+# segment ~250 (csrc/megakernel.cu), NOISE_OPS more under the noise
+# texture (csrc/pt_device.cuh, which K2 shares)
 K7_OPS_PAIR, K7_OPS_PAIR_MOTION, K7_OPS_RECT = 17, 30, 6
-K7_OPS_SHADE, K7_OPS_NOISE = 250, 1800
+K7_OPS_SHADE = 250
 MEGA_DEPTH = 10
 MEGA_REPS = 5
+# K2's operations, counted from its plain version (ops/shade_kernel.py):
+# ~300 a lane (the hit point and normal, the sky, four counter draws, the
+# scatter and its normalisation), ~100 more for a box winner (the slab
+# test redone, the face and its normal mapped back), ~150 for an image
+# winner (the UV: an atan2, an asin and ~40 more; the clamps and the
+# texel address)
+K2_OPS, K2_OPS_BOX, K2_OPS_IMAGE = 300, 100, 150
+# the noise texture (csrc/pt_device.cuh fast_turb), counted from
+# fast_noise_c and fast_turb_c at the instructions each operation needs,
+# a term shared by corners once an octave. Per octave: the floors and
+# their ints 6, fractions 3, smoothsteps 12, their complements 3, the
+# offsets u - 1 3 (27); the lattice terms: three products and three
+# + kHash (6); a corner: the lattice sum (one IADD3), the mix 5 (two
+# shift-xors and an IMAD), gy's and gz's words one IMAD each, three units
+# of 3 (shift, convert, FMA), the dot 5, the weight and the sum 3 (25);
+# wu * wv 4; the turbulence's weight, sum and doublings 6: 243 an octave.
+# Once: the abs and the marble around it, 7.
+NOISE_OCTAVE, NOISE_LATTICE, NOISE_CORNER, NOISE_WEIGHTS = 27, 6, 25, 4
+TURB_STEP, MARBLE = 6, 7
+NOISE_OPS = 7 * (NOISE_OCTAVE + NOISE_LATTICE + 8 * NOISE_CORNER
+                 + NOISE_WEIGHTS + TURB_STEP) + MARBLE
+# K2 reads 65 B a lane (12 planes, time, alive, lane, t, idx) and writes
+# 49 (12 planes, alive), the winner table and the atlas once; with
+# FLAG_EMIT_SCALE the MIS plane in (4) and it, the normal and the albedo
+# out (28)
+K2_BYTES, K2_BYTES_EMIT = 114, 32
+SHADE_REPS = 20
+# P1 at the probe's size and on a ragged shape: a ragged last block, two
+# sphere tiles, an odd sphere count
+P1_SHAPES = ((1 << 20, 640), ((1 << 20) + 3, 1031))
 
 
 def pair_ops(soa) -> int:
@@ -174,7 +239,7 @@ def k7_yardsticks(scene, tables, features, R: int, segments: int,
     n_rect = int(scene.rects.mask.sum()) if features.has_rects else 0
     sweep = ((int(live.sum()) - n_moving) * K7_OPS_PAIR
              + n_moving * K7_OPS_PAIR_MOTION + n_rect * K7_OPS_RECT)
-    ops = segments * sweep + shaded * K7_OPS_SHADE + noise * K7_OPS_NOISE
+    ops = segments * sweep + shaded * K7_OPS_SHADE + noise * NOISE_OPS
     nbytes = R * 40 + 4 * (tables.spheres.numel() + tables.sky4.numel()
                            + (tables.rects.numel() if features.has_rects
                               else 0))
@@ -192,6 +257,72 @@ def k7_lane_passes(ray_segments, warp: int = 32) -> int:
     if pad:
         segs = torch.cat([segs, segs.new_zeros(pad)])
     return warp * int(segs.reshape(-1, warp).max(dim=1).values.sum())
+
+
+def k2_yardsticks(table, flags: int, idx, t, atlas=None) -> dict:
+    """Stated bound and issue ceiling of one K2 launch on the winners
+    (``idx``, ``t``) under ``flags``, and its noise branch: the lanes whose
+    winner wears the noise texture (``FLAG_NOISE``) and whose albedo
+    reaches an output (a hit, or any lane under ``FLAG_EMIT_SCALE``, whose
+    albedo rows every lane writes; a miss's winner is row 0), their share,
+    and their occupancy, noise lanes over 32 x the warps (32 consecutive
+    lanes, one thread a lane) with at least one. Operations: ``K2_OPS`` a
+    lane, ``NOISE_OPS`` more a noise lane, ``K2_OPS_BOX`` a box lane
+    that hits, ``K2_OPS_IMAGE`` an image lane (as a noise lane); bytes:
+    ``K2_BYTES`` a lane (and ``K2_BYTES_EMIT`` under ``FLAG_EMIT_SCALE``),
+    the table and the atlas once."""
+    import torch
+
+    from pathtrace_tpu_torch.ops import shade_kernel as k2
+
+    R = t.numel()
+    rows = table.index_select(0, idx.long())
+    hit = t < 1e30
+    textured = hit | bool(flags & k2.FLAG_EMIT_SCALE)
+    noise = (textured & (rows[:, 3] == 2.0) if flags & k2.FLAG_NOISE
+             else torch.zeros_like(hit))
+    n_box = (int((hit & (rows[:, 14] == 2.0)).sum())
+             if flags & k2.FLAG_BOX else 0)
+    n_image = (int((textured & (rows[:, 3] == 3.0)).sum())
+               if flags & k2.FLAG_IMAGE else 0)
+    n_noise = int(noise.sum())
+    pad = (-R) % 32
+    warps = torch.cat([noise, noise.new_zeros(pad)]).reshape(-1, 32)
+    n_warps = int(warps.any(dim=1).sum())
+    nbytes = (R * (K2_BYTES + (K2_BYTES_EMIT if flags & k2.FLAG_EMIT_SCALE
+                               else 0))
+              + table.numel() * 4
+              + (atlas.numel() * 4 if atlas is not None
+                 and flags & k2.FLAG_IMAGE else 0))
+    ops = (R * K2_OPS + n_noise * NOISE_OPS + n_box * K2_OPS_BOX
+           + n_image * K2_OPS_IMAGE)
+    return {**_sticks(nbytes, ops), "noise_lanes": n_noise,
+            "noise_lane_share": n_noise / max(R, 1),
+            "noise_occupancy": (n_noise / (32 * n_warps) if n_warps
+                                else None)}
+
+
+def ptxas_usage(marker: str) -> dict:
+    """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
+    of this checkout's kernels whose name holds ``marker``, from ptxas's
+    output in the library's build log."""
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    info = _cuda_build.build()
+    log = info.log or (info.path.parent / "build.log").read_text()
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1) if marker in m.group(1) else None
+        elif name is not None and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+            out[name] = {"spill_stores": int(st), "spill_loads": int(ld)}
+        elif name is not None and "Used" in ln and "registers" in ln:
+            out.setdefault(name, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+            name = None
+    return out
 
 
 def cull_yardsticks(soa, cull, rays) -> dict:
@@ -509,6 +640,14 @@ def _bwd_many(dev) -> list:
 def mega() -> list:
     """K7's lines on the three presets, then the megakernel and wavefront
     frames of both sphere presets."""
+    return k7_lines() + frames((("megakernel", "random_spheres"),
+                                ("frame", "random_spheres"),
+                                ("megakernel", "random"), ("frame", "random")))
+
+
+def k7_lines() -> list:
+    """K7 on the camera rays of the three presets: time, hashes, and where
+    the checkout counts them, lane-passes and yardsticks."""
     import inspect
 
     import torch
@@ -560,9 +699,215 @@ def mega() -> list:
             del rad_p
         lines.append(ln)
         del rad, tables, rays
-    return lines + frames((("megakernel", "random_spheres"),
-                           ("frame", "random_spheres"),
-                           ("megakernel", "random"), ("frame", "random")))
+    return lines
+
+
+def _shade_scene(name: str):
+    """(scene, camera) of a preset or of the image-light scene."""
+    from pathtrace_tpu_torch.models import build, presets
+
+    if name == "image_light":
+        scene = presets.image_light_scene(build,
+                                          presets._procedural_earth_image())
+        return scene, presets.simple_light(WIDTH / HEIGHT)[1]
+    return presets.from_name(name, WIDTH / HEIGHT)
+
+
+# (scene, flag set, FLAG_EMIT_SCALE on): every flag set chip_smoke.py times
+SHADE_SETS = (("random_spheres", "sphere", False), ("random", "motion", False),
+              ("simple_light", "rect", False),
+              ("simple_light", "rect_mis", True),
+              ("two_perlin_spheres", "noise", False),
+              ("cornell", "box", False), ("cornell", "box_mis", True),
+              ("cornell_smoke", "medium", False),
+              ("cornell_smoke", "medium_mis", True),
+              ("earth", "image", False), ("earth", "image_mis", True),
+              ("image_light", "rect_image_mis", True))
+
+
+def _lanes_outside(out, out_p, alive, alive_p):
+    """(worst plane's share of lanes outside 1e-3, alive agreement)."""
+    a, b = out.double(), out_p.double()
+    close = (a - b).abs() <= 1e-3 + 1e-3 * b.abs()
+    worst = 1.0 - float(close.double().mean(dim=1).min())
+    return worst, float((alive == alive_p).double().mean())
+
+
+def shades(sets: Optional[Sequence[str]] = None) -> list:
+    """K2's lines, one per flag set (``sets``: those flag sets only): the
+    lane contract, hashes of both ray sets, the time and the yardsticks on
+    the camera winners."""
+    import torch
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    dev = torch.device("cuda")
+    R = WIDTH * HEIGHT * SAMPLES
+    lines, cache = [], {}
+    for name, flag_set, mis in SHADE_SETS:
+        if sets is not None and flag_set not in sets:
+            continue
+        if name not in cache:
+            cache.clear()
+            scene, camera = _shade_scene(name)
+            scene = scene.to(dev)
+            feats = SceneFeatures.from_scene(scene)
+            tables = fp.prep_tables(scene, feats)
+            flags = fp.feature_flags(feats)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT,
+                                               SAMPLES, gen)
+            st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3),
+                                tm.reshape(R))
+            t0, idx0 = fp.closest_hit(tables, st0, 0, feats, seed=7)
+            planes, alive = k2.shade_from_winners(
+                tables.table, idx0, t0, st0.planes, st0.time, st0.alive,
+                st0.lane, 7, 0, 10, tables.sky4, flags, atlas=tables.atlas)
+            st1 = fp.FastStateP(planes[:12], st0.time, alive, st0.lane)
+            t1, idx1 = fp.closest_hit(tables, st1, 1, feats, seed=7)
+            g = torch.Generator(device=dev)
+            g.manual_seed(1)
+            esc = torch.rand((2, R), generator=g, device=dev)
+            cache[name] = (tables, flags, ((st0, t0, idx0), (st1, t1, idx1)),
+                           esc)
+            del planes, alive
+        tables, flags, cases, esc = cache[name]
+        fl = flags | (k2.FLAG_EMIT_SCALE if mis else 0)
+        ln = {"bench": "shade", "scene": name, "flag_set": flag_set,
+              "kernel": "K2", "flags": fl, "width": R, "sha256": {},
+              "lanes_outside": {}, "noise_lanes": {}, "noise_lane_share": {},
+              "noise_occupancy": {}}
+        ok = True
+        for k, (label, (st, t_, idx_)) in enumerate(
+                zip(("primary", "scattered"), cases)):
+            planes = (torch.cat([st.planes[:12], esc[k:k + 1]]) if mis
+                      else st.planes)
+            args = (tables.table, idx_, t_, planes, st.time, st.alive,
+                    st.lane, 7, k, 10, tables.sky4, fl)
+            out, alive = k2.shade_from_winners(*args, atlas=tables.atlas)
+            out_p, alive_p = k2.shade_from_winners_plain(*args,
+                                                         atlas=tables.atlas)
+            worst, agree = _lanes_outside(out, out_p, alive, alive_p)
+            ok = ok and worst <= 0.005 and agree >= 0.995
+            ln["sha256"][label] = _sha256(out, alive)
+            ln["lanes_outside"][label] = worst
+            ys = k2_yardsticks(tables.table, fl, idx_, t_, tables.atlas)
+            for key in ("noise_lanes", "noise_lane_share", "noise_occupancy"):
+                ln[key][label] = ys[key]
+            if label == "primary":
+                ln["ms"] = event_ms(lambda: k2.shade_from_winners(
+                    *args, atlas=tables.atlas), SHADE_REPS)
+                if ys["noise_lanes"]:
+                    # the same launch with the noise branch switched off:
+                    # what the noise lanes add
+                    off = args[:11] + (fl & ~k2.FLAG_NOISE,)
+                    ln["ms_no_noise"] = event_ms(lambda: k2.shade_from_winners(
+                        *off, atlas=tables.atlas), SHADE_REPS)
+                ln.update({k_: ys[k_] for k_ in ("bound_ms", "bound_by",
+                                                 "issue_ceiling_ms")})
+                ln["bound_share"] = ln["bound_ms"] / ln["ms"]
+                ln["issue_share"] = ln["issue_ceiling_ms"] / ln["ms"]
+            del out, alive, out_p, alive_p, planes
+        ln["lane_contract"] = ok
+        lines.append(ln)
+    cache.clear()
+    return lines
+
+
+def shade_turns(trees: Sequence[Tuple[str, str]], sets: Sequence[str],
+                rounds: int) -> list:
+    """K2's time on ``sets`` in several trees, in turns: each round runs
+    this file's ``--what shade --sets`` once a tree with that tree first on
+    ``PYTHONPATH``, in the order of ``trees`` and then in reverse, each
+    run a process of its own. One line a flag set: each tree's samples
+    and their [min, q1, median, q3, max], its median less the first
+    tree's, and whether its output hashes equal the first tree's."""
+    runs = {name: [] for name, _ in trees}
+    for _ in range(rounds):
+        for name, path in list(trees) + list(trees)[::-1]:
+            proc = subprocess.run(
+                [sys.executable, os.path.abspath(__file__), "--what",
+                 "shade", "--sets", ",".join(sets)],
+                env={**os.environ, "PYTHONPATH": os.path.abspath(path)},
+                capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{name}: nearest_bench --what shade "
+                                   f"failed:\n{proc.stderr[-4000:]}")
+            got = [json.loads(ln) for ln in proc.stdout.splitlines()
+                   if ln.startswith("{")]
+            runs[name].append({ln["flag_set"]: ln for ln in got
+                               if ln.get("bench") == "shade"})
+    first = trees[0][0]
+    lines = []
+    for flag_set in sets:
+        ms = {name: [r[flag_set]["ms"] for r in rs]
+              for name, rs in runs.items()}
+        spread = {name: [min(v), *statistics.quantiles(v, n=4), max(v)]
+                  for name, v in ms.items()}
+        lines.append({
+            "bench": "shade_turns", "flag_set": flag_set, "rounds": rounds,
+            "ms": ms, "spread_ms": spread,
+            "median_less_first_ms": {n: spread[n][2] - spread[first][2]
+                                     for n in ms},
+            "sha256_equal_first": {n: all(
+                r[flag_set]["sha256"] == runs[first][0][flag_set]["sha256"]
+                for r in rs) for n, rs in runs.items()}})
+    return lines
+
+
+def p1_lines() -> list:
+    """P1's lines: float32 and bf16 on ``P1_SHAPES``, each against the
+    plain version bit for bit; at the probe's size also the all-miss rows
+    and the share of pairs with disc > 0."""
+    import torch
+
+    from pathtrace_tpu_torch.tools import bf16_probe as p1
+    from pathtrace_tpu_torch.tools._probe import event_ms
+
+    dev = torch.device("cuda")
+    lines = []
+    for n_rays, n_spheres in P1_SHAPES:
+        cols, rows = p1.make_inputs(n_rays, n_spheres, 0, dev)
+        for name, dtype in p1.DTYPES.items():
+            t = p1.sphere_min_t(cols, rows, dtype)
+            t_p = p1.sphere_min_t_plain(cols, rows, dtype)
+            ms = event_ms(lambda: p1.sphere_min_t(cols, rows, dtype), REPS)
+            bnd = p1.bound(n_rays, n_spheres, dtype)
+            ln = {"bench": "p1", "kernel": "P1", "dtype": name,
+                  "rays": n_rays, "spheres": n_spheres, "ms": ms,
+                  "equal_to_plain": bool(torch.equal(t, t_p)),
+                  "sha256": _sha256(t), "bound_ms": bnd[0],
+                  "bound_by": bnd[1], "bound_share": bnd[0] / ms}
+            if hasattr(p1, "issue_ceiling"):
+                ln["issue_ceiling_ms"] = p1.issue_ceiling(n_rays, n_spheres,
+                                                          dtype)
+                ln["issue_share"] = ln["issue_ceiling_ms"] / ms
+            if (n_rays, n_spheres) == P1_SHAPES[0]:
+                miss = rows.clone()
+                miss[3] += 1e4  # every disc <= 0
+                t_m = p1.sphere_min_t(cols, miss, dtype)
+                ln["all_miss_equal"] = bool(
+                    torch.equal(t_m, p1.sphere_min_t_plain(cols, miss, dtype))
+                    and bool((t_m == p1.MISS_T).all()))
+                sub = cols[:, :1 << 16]  # the share on a prefix of the rays
+                ln["disc_positive_share"] = (
+                    p1.positive_share(sub, rows, dtype)
+                    if hasattr(p1, "positive_share") else None)
+            lines.append(ln)
+            del t, t_p
+    return lines
+
+
+def kernel_usage() -> dict:
+    """ptxas's registers and spills of K2, K7 and P1 in this checkout."""
+    return {"bench": "ptxas",
+            **{k: ptxas_usage(k) for k in ("shade_kernel", "megakernel",
+                                           "sphere_min_t_kernel")}}
 
 
 def _cull_scene(name: str):
@@ -707,12 +1052,28 @@ def _frame_line(name: str) -> dict:
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="nearest_bench")
     ap.add_argument("--what", choices=("all", "nearest", "cull", "bwd",
-                                       "mega"),
+                                       "mega", "shade", "p1", "shade-turns"),
                     default="all", help="K1/K3 and their frames, the culls "
                     "and theirs, or both; K6 and the train steps; K7 and "
-                    "the megakernel frames")
+                    "the megakernel frames; K2 on every flag set and K7's "
+                    "hashes; P1 in both types; K2 in several trees in "
+                    "turns")
+    ap.add_argument("--sets", default=None,
+                    help="comma-separated flag sets of SHADE_SETS: K2 on "
+                    "these alone (without K7's lines and ptxas's)")
+    ap.add_argument("--tree", action="append", default=[],
+                    metavar="NAME=PATH", help="shade-turns: a checkout to "
+                    "time (repeat; the first is the one compared against)")
+    ap.add_argument("--rounds", type=int, default=6,
+                    help="shade-turns: rounds, each every tree forth and "
+                    "back")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
+    sets = args.sets.split(",") if args.sets else None
+    if sets and not set(sets) <= {fs for _, fs, _ in SHADE_SETS}:
+        ap.error(f"--sets: flag sets are {[fs for _, fs, _ in SHADE_SETS]}")
+    if args.what == "shade-turns" and (len(args.tree) < 2 or not sets):
+        ap.error("shade-turns takes two --tree or more and --sets")
 
     import torch
 
@@ -733,6 +1094,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         lines += bwd()
     if args.what == "mega":
         lines += mega()
+    if args.what == "shade":
+        lines += shades(sets)
+        if sets is None:
+            lines += k7_lines() + [kernel_usage()]
+    if args.what == "shade-turns":
+        lines += shade_turns([tuple(t.split("=", 1)) for t in args.tree],
+                             sets, args.rounds)
+    if args.what == "p1":
+        lines += p1_lines() + [kernel_usage()]
     for ln in lines:
         ln["card"] = card
         print(json.dumps(ln), flush=True)
@@ -741,8 +1111,13 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             f.writelines(json.dumps(ln) + "\n" for ln in lines)
     if not all(ln.get(k, True) for ln in lines
                for k in ("equal_to_plain", "equal_to_k1", "sweeps_equal",
-                         "sums_within")):
+                         "sums_within", "lane_contract", "all_miss_equal")):
         print("nearest_bench: a kernel differs from its plain version or K1",
+              file=sys.stderr)
+        return 1
+    if not all(all(ln.get("sha256_equal_first", {}).values())
+               for ln in lines):
+        print("nearest_bench: a tree's K2 outputs differ from the first's",
               file=sys.stderr)
         return 1
     return 0

@@ -12,8 +12,8 @@
   texture is not an image included (they carry image 0's atlas entry).
 * The pre-pass: the port's ``image_texel_index`` against the reference's
   ``_image_rgb_planes`` run on an atlas whose texels hold their own
-  (row, column), on earth's primary and scattered winners and on
-  :func:`torch_port_util.image_light_scene`'s (sphere and rect UV): the
+  (row, column), on earth's primary and scattered winners and on the
+  port's ``presets.image_light_scene``'s (sphere and rect UV): the
   share of lanes whose texel differs is printed and must fit the lane
   contract (0.5%; measured 0). Edge lanes: the poles, both sides of the
   seam (``atan2(+-0, ny < 0)``), rect corners, lanes on dead rows (an
@@ -71,7 +71,7 @@ from pathtrace_tpu_torch.ops import shade_kernel  # noqa: E402
 from pathtrace_tpu_torch.render import film, jpeg  # noqa: E402
 from torch_port_util import (  # noqa: E402
     DEPTH10_BUDGET, PLANE_NAMES, assert_lanes_close, check_slice_contract,
-    image_light_scene, jax_camera_rays, jax_fused_state, jax_scene_leaves,
+    jax_camera_rays, jax_fused_state, jax_scene_leaves,
     jax_scene_winners, jax_shade_planes,
 )
 
@@ -99,9 +99,11 @@ def _scenes(name):
         jscene, jcam = jpresets.earth(ASPECT)
         return jscene, jcam, presets.earth(ASPECT)[0]
     if name == "image_light":
-        return (image_light_scene(jbuild, jpresets._procedural_earth_image()),
+        return (presets.image_light_scene(
+                    jbuild, jpresets._procedural_earth_image()),
                 jpresets.simple_light(ASPECT)[1],
-                image_light_scene(build, presets._procedural_earth_image()))
+                presets.image_light_scene(build,
+                                          presets._procedural_earth_image()))
     scenes = []
     for mod, pre in ((jbuild, jpresets), (build, presets)):
         b = mod.SceneBuilder()

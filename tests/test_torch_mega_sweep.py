@@ -252,7 +252,7 @@ def test_k7_yardsticks_count_live_pairs(name, ops):
     feats = SceneFeatures.from_scene(scene)
     ys = nb.k7_yardsticks(scene, tables, feats, 1000, 2000, 1500, 10)
     assert ys["ops_a_segment"] == ops
-    total = 2000 * ops + 1500 * nb.K7_OPS_SHADE + 10 * nb.K7_OPS_NOISE
+    total = 2000 * ops + 1500 * nb.K7_OPS_SHADE + 10 * nb.NOISE_OPS
     assert ys["issue_ceiling_ms"] == pytest.approx(
         max(total / nb.ISSUE_PER_S * 1e3,
             (1000 * 40 + 4 * (tables.spheres.numel() + 4 + (

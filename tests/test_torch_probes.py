@@ -122,6 +122,43 @@ def test_p1_all_miss(name):
     np.testing.assert_array_equal(_p1_port(cols, rows, name), ref)
 
 
+def _padded_reference(cols, rows, dtype):
+    """The reference's kernel on a shape its grid cannot take (a ray count
+    that is not a multiple of its 512-ray tile, a sphere count that is not
+    a multiple of 128): rays padded with copies of the first ray, spheres
+    with rows whose disc is <= 0 for every ray (centre 0, c2 = 1e4, as in
+    ``_p1_inputs(miss=True)``), which never lower a minimum; the padded
+    rays' results are dropped."""
+    R, N = cols.shape[1], rows.shape[1]
+    pad_r, pad_n = (-R) % TILE_R, (-N) % TILE_N
+    cols_p = np.concatenate([cols, np.repeat(cols[:, :1], pad_r, axis=1)],
+                            axis=1)
+    filler = np.zeros((4, pad_n), np.float32)
+    filler[3] = np.float32(1e4)
+    rows_p = np.concatenate([rows, filler], axis=1)
+    return _p1_reference(cols_p, rows_p, dtype)[:R]
+
+
+@pytest.mark.parametrize("name", ["f32", "bf16"])
+@pytest.mark.parametrize("n_rays,n_spheres", [
+    (517, 128),   # a ragged ray count: not a multiple of 4 x 256 nor of 512
+    (512, 131),   # an odd sphere count: the kernel pairs the last with itself
+])
+def test_p1_plain_matches_reference_on_ragged_shapes(name, n_rays, n_spheres):
+    """The plain version, which the card holds P1 to bit for bit, against
+    the reference's kernel (interpret mode) on shapes P1 takes raggedly."""
+    rng = np.random.default_rng(n_rays + n_spheres)
+    cols = rng.random((6, n_rays), dtype=np.float32)
+    rows = rng.random((4, n_spheres), dtype=np.float32) * np.float32(20.0)
+    ref = _padded_reference(cols, rows, _JDTYPE[name])
+    got = _p1_port(cols, rows, name)
+    assert got.shape == (n_rays,)
+    if name == "bf16":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=F32_TOL, atol=F32_TOL)
+
+
 def test_p1_planted_fault_f32_for_bf16(p1_refs):
     """The float32 result passed off as the bf16 one fails the bf16
     comparison: the two types are told apart."""

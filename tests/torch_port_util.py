@@ -92,37 +92,6 @@ def boards_scene(builder):
     return b.finish()
 
 
-def wall_image() -> np.ndarray:
-    """A 40 x 72 texture of random texels (numpy, seed 3): the second
-    image of :func:`image_light_scene`, so neighbouring texels differ and
-    a texel picked wrongly shows in the albedo."""
-    return np.random.default_rng(3).random((40, 72, 3), dtype=np.float32)
-
-
-def image_light_scene(build, earth_image):
-    """``simple_light``'s geometry with image textures: the big sphere
-    wears ``earth_image`` (either package's ``_procedural_earth_image()``)
-    instead of the marble, and two walls wear :func:`wall_image`, the
-    atlas's second image: a yz rect behind the spheres as the camera sees
-    them (simple_light's camera looks down -x) and an xy rect beside them,
-    seen at a grazing angle and by scattered rays. The marble ground,
-    the emissive sphere and rect and the black sky stay. ``build`` is
-    either package's build module; both build identical leaves."""
-    b = build.SceneBuilder()
-    noise = b.noise_texture(4.0)
-    light_tex = b.constant_texture((4.0, 4.0, 4.0))
-    earth = b.lambertian(b.image_texture(earth_image))
-    wall = b.lambertian(b.image_texture(wall_image()))
-    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
-    b.sphere((0.0, 2.0, 0.0), 2.0, earth)
-    b.sphere((0.0, 7.0, 0.0), 2.0, b.diffuse_light(light_tex))
-    b.rect_xy(3.0, 5.0, 1.0, 3.0, -2.0, False, b.diffuse_light(light_tex))
-    b.rect_yz(0.0, 8.0, -7.0, 7.0, -6.0, False, wall)
-    b.rect_xy(-6.0, 6.0, 0.0, 8.0, -7.0, False, wall)
-    b.sky = (0.0, 0.0, 0.0)
-    return b.finish()
-
-
 def mixed_scene(build):
     """Every primitive kind in one scene, built by either package's build
     module ``build``: a ground sphere, a rect light, a box under an
