@@ -201,14 +201,44 @@ Phases (each prints a line before the next starts):
     on inputs rotated past the L2 cache (``_probe.alternated_cold_ms``:
     [min, median, max] of each, the ratio of the medians); then the
     probe's ``main`` at its defaults, which must launch P2, P3 and P4 and
-    no plain version.
+    no plain version;
+37. the Threefry draw (``csrc/threefry.cu``, the twin of ``jax.random``
+    that keys every frame's primary rays) against the plain twin
+    (``utils/threefry.py``, run on the card for the comparison only), bits
+    and uniforms bit for bit, on a frame's two draws (1280x720x4 x 2 and
+    x 3, 18,432,000 uniforms); the time of that draw, of the plain twin
+    and of ``torch.rand`` of the same shapes, its bound
+    (``tools/nearest_bench.threefry_yardsticks``: 4 bytes written and 76
+    integer operations a draw at the issue rate) and ptxas's registers;
+38. ``render_frame_fast`` on the card at the per-pixel goldens' film (64x48,
+    8 spp, depth 8, ``PRNGKey(0)``, seed 0) for every ported preset,
+    against the JAX package's ``tests/goldens/pixels_<preset>_fast.npz``:
+    at most ``1 - (1 - b)^8`` of the pixels outside 1e-3 (b the preset's
+    per-ray budget);
+39. ``smallpt`` and ``aras``: K1 against its plain version (t, idx equal)
+    on 3.69M primary and once-scattered rays, K2 under the lane contract,
+    K7 against its plain version (phase 21's check), then the CUDA trace,
+    K7 and the bounce chain (``torch_port_util.port_bounce_chain``) of the
+    rays of ``tests/goldens/torch_port_<preset>.npz`` against JAX's
+    radiance, megakernel and path states (``smallpt``: its own path budget,
+    ``SMALLPT_DEPTH10_BUDGET``), and K7 under a white sky against its plain
+    version and JAX's megakernel there, ray by ray, to the same budget
+    (``smallpt``'s own radiance is black on all but a few rays; under the
+    white sky an escaping path returns its throughput); then ``final``: K1
+    over its one dead row
+    misses every ray, and K2 and K7 leave every lane at the gradient sky;
+40. ``cli.main`` renders ``smallpt`` and ``aras`` at 1280x720, 4 spp, depth
+    10, 3 frames each, then ``aras`` with ``--stratify``: K1, K2 and the
+    Threefry kernel launched (2 draws a frame, 4 stratified), no other
+    kernel and no plain version; frame times, segments, finite images, the
+    stratified image's mean within 5% of the iid one's.
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
 trainer's, phase 10 for K4, phase 13 for K5, phases 17 and 20 for K3
 and the motion runs of K2 and K6, phase 31 for K2's box and medium
 runs; phase 34's ``earth`` frames for K2's image entry, phases 35 and 36's
-probe runs for P1-P4), its largest
+probe runs for P1-P4, phase 6 for the Threefry draw), its largest
 difference
 from the plain version, its time, the plain version's time, its bound
 (the larger of bytes over 3.35 TB/s and operations over 67 TFLOP/s fp32,
@@ -253,7 +283,11 @@ bound counts 16 operations a ray-sphere pair in its type (bf16 at the
 white paper's packed 133.8 TFLOP/s) and 6 in float32; P2-P4's the bytes,
 (K + 1) x 4 per winner.
 K4 and K5 also carry the share of sweeps skipped and K1's time on the
-same rays. Then
+same rays. K1, K2 and K7 carry ``sphere_presets`` (phase 39's numbers and
+phase 40's launches on ``smallpt`` and ``aras``); the ``threefry`` entry
+(``"replaces": "jax.random.uniform (XLA)"``, no TPU kernel) carries its
+bound by bytes alone, ``torch_rand_ms`` and phase 38's share of pixels
+outside per preset. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -399,6 +433,7 @@ def rel_l2(a, b) -> float:
 def reset_counts(k1, k2, k7) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
     from pathtrace_tpu_torch.tools import bf16_probe, split_probe
+    from pathtrace_tpu_torch.utils import threefry
 
     for name in ("LAUNCHES", "PLAIN_CALLS", "BWD_LAUNCHES", "BWD_PLAIN_CALLS",
                  "FLAT_LAUNCHES", "FLAT_PLAIN_CALLS", "HIER_LAUNCHES",
@@ -406,6 +441,7 @@ def reset_counts(k1, k2, k7) -> None:
         setattr(k1, name, 0)
     k2.LAUNCHES = k2.PLAIN_CALLS = 0
     k7.LAUNCHES = k7.PLAIN_CALLS = 0
+    threefry.LAUNCHES = threefry.PLAIN_CALLS = 0
     bf16_probe.LAUNCHES = bf16_probe.PLAIN_CALLS = 0
     for kind in ("SPLIT", "MINOR", "MAJOR"):
         setattr(split_probe, f"{kind}_LAUNCHES", 0)
@@ -416,17 +452,19 @@ def read_counts(k1, k2, k7) -> dict:
     """Launches per kernel, and the plain versions' calls summed."""
     from pathtrace_tpu_torch.tools import bf16_probe as p1
     from pathtrace_tpu_torch.tools import split_probe as p24
+    from pathtrace_tpu_torch.utils import threefry as tf
 
     return {"K1": k1.LAUNCHES, "K2": k2.LAUNCHES, "K3": k1.MOVING_LAUNCHES,
             "K4": k1.FLAT_LAUNCHES, "K5": k1.HIER_LAUNCHES,
             "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES, "P1": p1.LAUNCHES,
             "P2": p24.SPLIT_LAUNCHES, "P3": p24.MINOR_LAUNCHES,
-            "P4": p24.MAJOR_LAUNCHES,
+            "P4": p24.MAJOR_LAUNCHES, "threefry": tf.LAUNCHES,
             "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
                       + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS
                       + p1.PLAIN_CALLS + p24.SPLIT_PLAIN_CALLS
-                      + p24.MINOR_PLAIN_CALLS + p24.MAJOR_PLAIN_CALLS)}
+                      + p24.MINOR_PLAIN_CALLS + p24.MAJOR_PLAIN_CALLS
+                      + tf.PLAIN_CALLS)}
 
 
 def probe_main(tag: str, probe, argv, k1, k2, k7):
@@ -477,13 +515,16 @@ def main() -> int:
     from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.parallel.inverse import split_scene
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils import threefry as tf
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
 
     # the tests' helpers, by path: a ``tests`` package installed elsewhere
     # would shadow the repository's directory
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from torch_port_util import (
         DEPTH10_BUDGET, FIXTURE_GRAD_TOL, MOTION_FIXTURE_GRAD_TOL,
-        XL_DEPTH10_BUDGET,
+        SMALLPT_DEPTH10_BUDGET, XL_DEPTH10_BUDGET, check_slice_contract,
+        check_smallpt_contract, port_bounce_chain, states_outside, white_sky,
     )
 
     dev = torch.device("cuda")
@@ -513,9 +554,8 @@ def main() -> int:
     feats = SceneFeatures.from_scene(scene)
     tables = fp.prep_tables(scene, feats)
     flags = fp.feature_flags(feats)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
     R = WIDTH * HEIGHT * SAMPLES
     st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
 
@@ -898,9 +938,8 @@ def main() -> int:
         phase(f"[{tag}] {name}: {int(scene_c.spheres.mask.sum())} spheres in "
               f"{tables_c.soa.shape[1]} slots, {n_tiles} tiles"
               + (f" in supertiles of {tables_c.cull.s_tiles}" if hier else ""))
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-        ro_, rd_, tm_ = generate_primary_rays(camera_c, WIDTH, HEIGHT, SAMPLES, g)
+        ro_, rd_, tm_ = generate_primary_rays(camera_c, WIDTH, HEIGHT, SAMPLES,
+                                              PRNGKey(0), device=dev)
         order, _ = fp._tile_perm(HEIGHT, WIDTH, dev)
         st = fp.make_state(*fp.permute_rays(ro_.reshape(R, 3), rd_.reshape(R, 3),
                                             tm_.reshape(R), order, SAMPLES))
@@ -1057,9 +1096,8 @@ def main() -> int:
     if not (mfeats.has_motion and mflags & k2.FLAG_MOTION
             and tuple(mtables.soa.shape) == (12, 512) and mtables.cull is None):
         raise AssertionError("random did not get the motion tables")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(mcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, tm = generate_primary_rays(mcamera, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
     mst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
     del ro, rd, tm
     phase(f"[14] random: {int(mscene.spheres.mask.sum())} spheres "
@@ -1183,10 +1221,9 @@ def main() -> int:
         scene_, cam_ = presets.from_name(preset, WIDTH / HEIGHT)
         scene_ = scene_.to(dev)
         feats_ = SceneFeatures.from_scene(scene_)
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
         rays_ = tuple(x.reshape(R, -1).squeeze(-1) for x in
-                      generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES, g))
+                      generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
+                                            PRNGKey(0), device=dev))
         tables_ = k7.prep_tables(scene_)
         kwork = {}
         rad, segs = k7.trace_megakernel(tables_, *rays_, 7, DEPTH, feats_,
@@ -1284,12 +1321,10 @@ def main() -> int:
         tables_, tables_ms = time_once(lambda: k7.prep_tables(scene_))
         phase(f"[24] {preset}: the megakernel's tables in {tables_ms:.3f} ms "
               f"(once per scene)")
-        g = torch.Generator(device=dev)
-        g.manual_seed(0)
-
         def frame(seed):
-            ro_, rd_, tm_ = generate_primary_rays(cam_, WIDTH, HEIGHT,
-                                                  SAMPLES, g)
+            ro_, rd_, tm_ = generate_primary_rays(
+                cam_, WIDTH, HEIGHT, SAMPLES, fold_in(PRNGKey(0), seed),
+                device=dev)
             rad, segs = k7.trace_megakernel(
                 tables_, ro_.reshape(R, 3), rd_.reshape(R, 3), tm_.reshape(R),
                 seed, DEPTH, feats_)
@@ -1330,9 +1365,8 @@ def main() -> int:
     if not (lflags & k2.FLAG_RECT and ltables.rects is not None
             and llights.count == 2 and ltables.table.shape[0] == 256):
         raise AssertionError("simple_light did not get the rect tables")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(lcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, tm = generate_primary_rays(lcamera, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
     lst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
     del ro, rd, tm
     lt0, lidx0 = fp.closest_hit(ltables, lst0, 0, lfeats)
@@ -1375,9 +1409,8 @@ def main() -> int:
     pflags = fp.feature_flags(pfeats)
     if not pflags & k2.FLAG_NOISE or pflags & k2.FLAG_RECT:
         raise AssertionError("two_perlin_spheres did not get the noise flag")
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(pcamera, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, tm = generate_primary_rays(pcamera, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
     pst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
     del ro, rd, tm
     pt0, pidx0 = fp.closest_hit(ptables, pst0, 0, pfeats)
@@ -1525,9 +1558,8 @@ def main() -> int:
         if not (cflags & getattr(k2, flag_name) and not cfeats.has_spheres
                 and ctables.table.shape[1] == 48 and clights.count == 1):
             raise AssertionError(f"{cname} did not get the {key} tables")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        ro, rd, tm = generate_primary_rays(ccamera, WIDTH, HEIGHT, SAMPLES, gen)
+        ro, rd, tm = generate_primary_rays(ccamera, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev)
         cst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
         del ro, rd, tm
         ct0, cidx0 = fp.closest_hit(ctables, cst0, 0, cfeats, seed=7)
@@ -1691,10 +1723,8 @@ def main() -> int:
                 and itables.atlas is not None
                 and bool(iflags & k2.FLAG_RECT) == (iname != "earth")):
             raise AssertionError(f"{iname} did not get the image tables")
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
         ro, rd, tm = generate_primary_rays(icamera, WIDTH, HEIGHT, SAMPLES,
-                                           gen)
+                                           PRNGKey(0), device=dev)
         ist0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
         del ro, rd, tm
         it0, iidx0 = fp.closest_hit(itables, ist0, 0, ifeats)
@@ -1854,16 +1884,15 @@ def main() -> int:
     for label, kw in (("plain", {}),
                       ("nee_rr", {"nee_lights": ilights,
                                   "rr_start": RR_START})):
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(3)
         reset_counts(k1, k2, k7)
         frame_ms, segs, rbs, acc = [], [], [], None
         for frame in range(FRAMES):
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             start.record()
-            ro, rd, tm = generate_primary_rays(icamera, WIDTH, HEIGHT,
-                                               SAMPLES, gen)
+            ro, rd, tm = generate_primary_rays(
+                icamera, WIDTH, HEIGHT, SAMPLES, fold_in(PRNGKey(3), frame),
+                device=dev)
             res = fp.trace_frame(iscene, ro.reshape(R, 3), rd.reshape(R, 3),
                                  tm.reshape(R), WIDTH, HEIGHT, SAMPLES, DEPTH,
                                  1000 + frame, ifeats, **kw)
@@ -2006,6 +2035,232 @@ def main() -> int:
             f"split_probe/{v}" for v in ("floor", *p24.VARIANTS)]:
         raise AssertionError("split_probe printed other lines")
 
+    # ---- 37: the Threefry draw of the frames' primary rays ----
+    draw_shapes = ((HEIGHT, WIDTH, SAMPLES, 2), (HEIGHT, WIDTH, SAMPLES, 3))
+    draw_keys = tuple(tf.split(fold_in(PRNGKey(0), 1)))
+    n_draws = sum(R * s_[-1] for s_ in draw_shapes)
+    for label, key_, shape in zip(("jitter", "lens/time"), draw_keys,
+                                  draw_shapes):
+        u = tf.uniform(key_, shape, dev)
+        b = tf.bits(key_, shape, dev)
+        ref_b = tf.bits_plain(key_, shape, dev)  # the plain twin, compared
+        same = (torch.equal(b, ref_b) and torch.equal(
+            u.view(torch.int32), tf.uniform_from_bits(ref_b).view(torch.int32)))
+        phase(f"[37] threefry {label} {tuple(shape)}: bits and uniforms "
+              f"equal to the plain twin: {same}; uniforms in "
+              f"[{float(u.min())}, {float(u.max())}]")
+        if not same:
+            raise AssertionError(f"the Threefry kernel differs ({label})")
+        del u, b, ref_b
+
+    def frame_draw(draw):
+        return [draw(k_, s_) for k_, s_ in zip(draw_keys, draw_shapes)]
+
+    rng = torch.Generator(device=dev)
+    rng.manual_seed(0)
+    tf_ms = time_ms(lambda: frame_draw(lambda k_, s_: tf.uniform(k_, s_, dev)),
+                    20)
+    tf_plain_ms = time_ms(lambda: frame_draw(
+        lambda k_, s_: tf.uniform_plain(k_, s_, dev)), 3)
+    rand_ms = time_ms(lambda: frame_draw(
+        lambda k_, s_: torch.rand(s_, generator=rng, device=dev)), 20)
+    tf_ys = nb.threefry_yardsticks(n_draws)
+    tf_regs = kernel_registers(build_log, "threefry_kernelI")
+    phase(f"[37] threefry time of a frame's draw ({n_draws} uniforms, 2 "
+          f"launches): kernel {tf_ms:.4f} ms, plain twin {tf_plain_ms:.3f} "
+          f"ms, torch.rand of the same shapes {rand_ms:.4f} ms; bound "
+          f"{tf_ys['bound_ms']:.4f} ms ({tf_ys['bound_by']}, "
+          f"{tf_ys['bound_ms'] / tf_ms:.1%}; bytes alone "
+          f"{tf_ys['bytes_ms']:.4f} ms); registers {tf_regs} ({smi})")
+
+    # ---- 38: the port's frames on the card against the pixel goldens ----
+    gw, gh, gs, gd = 64, 48, 8, 8
+    golden_share = {}
+    for preset in presets.names():
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"pixels_{preset}_fast.npz"))["img"]
+        scene_, cam_ = presets.from_name(preset, gw / gh, seed=0)
+        scene_ = scene_.to(dev)
+        img = fp.render_frame_fast(scene_, cam_, gw, gh, gs, gd, PRNGKey(0),
+                                   0, SceneFeatures.from_scene(scene_)).image
+        img = img.cpu().double()
+        ref_ = torch.from_numpy(golden).double()
+        outside = ~((img - ref_).abs() <= ATOL + RTOL * ref_.abs()).all(dim=-1)
+        b = XL_DEPTH10_BUDGET if preset == "random_spheres_xl" else DEPTH10_BUDGET
+        budget = 1.0 - (1.0 - b) ** gs
+        share = float(outside.double().mean())
+        golden_share[preset] = share
+        phase(f"[38] {preset}: {int(outside.sum())} of {gw * gh} pixels "
+              f"({share:.4%}) outside 1e-3 of the JAX golden (budget "
+              f"{budget:.2%}), largest difference "
+              f"{float((img - ref_).abs().max()):.6f}")
+        if share > budget or not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{preset}: the card's frame leaves the "
+                                 "pixel golden")
+
+    # ---- 39: K1, K2 and K7 on smallpt, aras and final ----
+    sphere_runs = {}
+    for name in ("smallpt", "aras"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        scene_ = scene_.to(dev)
+        feats_ = SceneFeatures.from_scene(scene_)
+        tables_ = fp.prep_tables(scene_, feats_)
+        flags_ = fp.feature_flags(feats_)
+        ro, rd, tm = generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev)
+        sst0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+        del ro, rd, tm
+        st_, idx_, e0 = nearest_check("39", f"K1 {name}", tables_.soa, sst0,
+                                      "primary")
+        sst1 = scattered(tables_, flags_, sst0, st_, idx_)
+        st1_, idx1_, e1 = nearest_check("39", f"K1 {name}", tables_.soa, sst1,
+                                        "scattered")
+        k1s_ms = time_ms(lambda: k1.sphere_nearest(tables_.soa,
+                                                   sst0.planes[:6]), 20)
+        k1s_plain_ms = time_ms(lambda: k1.sphere_nearest_plain(
+            tables_.soa, sst0.planes[:6]), 2)
+        k1s_ys = nb.yardsticks(tables_.soa, R)
+        phase(f"[39] K1 {name} time at {R} rays x {tables_.soa.shape[1]} "
+              f"slots: kernel {k1s_ms:.4f} ms, plain {k1s_plain_ms:.3f} ms, "
+              f"bound {k1s_ys['bound_ms']:.4f} ms ({k1s_ys['bound_by']})")
+        k2s = shade_check("39", f"K2 {name}", tables_, flags_, (
+            ("primary", sst0, st_, idx_, 0), ("scattered", sst1, st1_, idx1_, 1)))
+        del sst0, sst1
+        _, k7s = k7_check("39", name)
+        ref_ = np.load(os.path.join(ROOT, "tests", "goldens",
+                                    f"torch_port_{name}.npz"))
+        rays_ = tuple(torch.from_numpy(ref_[k]).to(dev)
+                      for k in ("rays.ro", "rays.rd", "rays.time"))
+        seed_, depth_ = int(ref_["seed"]), int(ref_["max_depth"])
+        contract = (check_smallpt_contract if name == "smallpt" else
+                    lambda *a: check_slice_contract(*a, DEPTH10_BUDGET))
+        reset_counts(k1, k2, k7)
+        res = fp.trace_fast(scene_, *rays_, seed_, depth_, feats_,
+                            min_size=128)
+        c39 = read_counts(k1, k2, k7)
+        frac_w = contract(res.radiance.cpu().numpy(), res.ray_count,
+                          ref_["radiance"], ref_["ray_count"], depth_)
+        rad, segs = k7.trace_megakernel(k7.prep_tables(scene_), *rays_, seed_,
+                                        depth_, feats_)
+        frac_m = contract(rad.cpu().numpy(), segs, ref_["mega.radiance"],
+                          ref_["mega.ray_count"], depth_)
+        planes, alive = port_bounce_chain(scene_, *rays_, seed_, depth_)
+        out = states_outside(planes.cpu().numpy(), alive.cpu().numpy(),
+                             ref_["chain.planes"], ref_["chain.alive"])
+        chain_budget = (SMALLPT_DEPTH10_BUDGET if name == "smallpt"
+                        else DEPTH10_BUDGET)
+        # K7 under a white sky, where each ray's radiance shows its path
+        wtables = k7.prep_tables(white_sky(scene_))
+        wrad, wsegs = k7.trace_megakernel(wtables, *rays_, seed_, depth_,
+                                          feats_)
+        wrad_p, wsegs_p = k7.trace_megakernel_plain(wtables, *rays_, seed_,
+                                                    depth_, feats_)
+        frac_white = check_slice_contract(
+            wrad.cpu().numpy(), wsegs, ref_["white.radiance"],
+            ref_["white.ray_count"], depth_, chain_budget)
+        n_white_p, frac_white_p = rays_outside(wrad, wrad_p.cpu().numpy())
+        white_err = float((wrad - wrad_p).abs().max())
+        phase(f"[39] K7 {name} under a white sky: {frac_white:.4%} of rays "
+              f"outside 1e-3 of JAX, {n_white_p} ({frac_white_p:.4%}) of "
+              f"its plain version (max |diff| {white_err}), segments "
+              f"{int(wsegs)} (plain {int(wsegs_p)}, JAX "
+              f"{int(ref_['white.ray_count'])}); rays lit "
+              f"{float((wrad.abs().amax(dim=1) > ATOL).double().mean()):.2%}")
+        if (frac_white_p > chain_budget
+                or abs(int(wsegs) - int(wsegs_p)) > n_white_p * depth_):
+            raise AssertionError(f"{name}: K7 under a white sky leaves its "
+                                 "plain version")
+        phase(f"[39] {name} fixture ({len(ref_['radiance'])} rays, depth "
+              f"{depth_}): wavefront {frac_w:.4%} and K7 {frac_m:.4%} of rays "
+              f"outside 1e-3 of JAX, segments {int(res.ray_count)} / "
+              f"{int(segs)} vs {int(ref_['ray_count'])} / "
+              f"{int(ref_['mega.ray_count'])}; path states after {depth_} "
+              f"bounces {int(out.sum())} ({out.mean():.4%}, budget "
+              f"{chain_budget:.0%}); trace launches {c39}")
+        if (out.mean() > chain_budget or c39["K1"] != depth_ + 1
+                or c39["plain"]):
+            raise AssertionError(f"{name}: the card's trace leaves its fixture")
+        sphere_runs[name] = {
+            "k1": {"max_abs_err": max(e0, e1), "ms": k1s_ms,
+                   "plain_ms": k1s_plain_ms, "bound_ms": k1s_ys["bound_ms"],
+                   "bound_by": k1s_ys["bound_by"]},
+            "k2": k2s, "k7": k7s,
+            "k7_white_sky": {"max_abs_err": white_err,
+                             "lanes_outside": frac_white_p,
+                             "segments": int(wsegs),
+                             "plain_segments": int(wsegs_p)},
+            "fixture_share_outside": {"wavefront": frac_w, "k7": frac_m,
+                                      "k7_white_sky": frac_white,
+                                      "path_states": float(out.mean())}}
+    # final: one dead row; K1, K2 and K7 must leave every lane at the sky
+    fscene, fcam = presets.final(WIDTH / HEIGHT)
+    fscene = fscene.to(dev)
+    ffeats = SceneFeatures.from_scene(fscene)
+    ftables = fp.prep_tables(fscene, ffeats)
+    ro, rd, tm = (x.reshape(R, -1).squeeze(-1) for x in generate_primary_rays(
+        fcam, WIDTH, HEIGHT, SAMPLES, PRNGKey(0), device=dev))
+    fst = fp.make_state(ro, rd, tm)
+    ft, fidx = k1.sphere_nearest(ftables.soa, fst.planes[:6])
+    fplanes, falive = k2.shade_from_winners(
+        ftables.table, fidx, ft, fst.planes, fst.time, fst.alive, fst.lane, 7,
+        0, DEPTH, ftables.sky4, fp.feature_flags(ffeats))
+    frad, fsegs = k7.trace_megakernel(k7.prep_tables(fscene), ro, rd, tm, 7,
+                                      DEPTH, ffeats)
+    sky_t = 0.5 * (rd[:, 1] + 1.0)
+    sky = torch.stack([(1.0 - sky_t) + sky_t * g_ for g_ in (0.15, 0.21, 0.30)],
+                      dim=1)
+    sky_err = (float((fplanes[6:9].T - sky).abs().max()),
+               float((frad - sky).abs().max()))
+    phase(f"[39] final ({ftables.soa.shape[1]} slots, none live): K1 misses "
+          f"on {int((ft == ft.max()).sum())} of {R} rays (idx 0 on "
+          f"{int((fidx == 0).sum())}); sky error K2 {sky_err[0]}, K7 "
+          f"{sky_err[1]}; K7 segments {int(fsegs)}; K2 alive "
+          f"{int(falive.sum())}")
+    if (not bool((ft == float(np.float32(3.402823466e38))).all())
+            or max(sky_err) > 1e-6 or int(fsegs) != R or bool(falive.any())):
+        raise AssertionError("final: a lane left the sky")
+    del ro, rd, tm, fst, fplanes, frad
+
+    # ---- 40: smallpt and aras through the CLI; a stratified frame ----
+    cli_runs = {}
+    for name, extra in (("smallpt", []), ("aras", []),
+                        ("aras", ["--stratify"])):
+        label = name + ("_stratify" if extra else "")
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = os.path.join(tmp, f"{label}.npy")
+            argv = ["-P", name, "-W", str(WIDTH), "-H", str(HEIGHT),
+                    "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F",
+                    str(FRAMES), "--out", out_path, *extra]
+            reset_counts(k1, k2, k7)
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv)
+            counts = read_counts(k1, k2, k7)
+            image = np.load(out_path) if rc == 0 else None
+        log = buf.getvalue()
+        frames_ = [(float(ms), int(rays)) for ms, rays in re.findall(
+            r"frame \d+/\d+: ([\d.]+) ms, (\d+) rays", log)]
+        finite = image is not None and bool(np.isfinite(image).all())
+        mean = float(image.mean()) if finite else float("nan")
+        for i, (ms, rays) in enumerate(frames_):
+            phase(f"[40] {label} frame {i + 1}: {ms:.2f} ms (CUDA events), "
+                  f"{rays} rays, {rays / ms / 1e3:.2f} Mrays/s")
+        phase(f"[40] {label}: launches {counts}, image mean {mean:.6f}, "
+              f"finite {finite}")
+        others = [counts[k] for k in ("K3", "K4", "K5", "K6", "K7")]
+        if (rc != 0 or not finite or len(frames_) != FRAMES
+                or counts["K1"] <= 0 or counts["K2"] <= 0 or any(others)
+                or counts["threefry"] != FRAMES * (4 if extra else 2)
+                or counts["plain"]):
+            raise AssertionError(f"{label}: the CLI run failed its checks")
+        cli_runs[label] = {"frame_ms": [ms for ms, _ in frames_],
+                           "segments": [r for _, r in frames_],
+                           "launches": counts, "image_mean": mean}
+    ratio = cli_runs["aras_stratify"]["image_mean"] / cli_runs["aras"]["image_mean"]
+    phase(f"[40] aras stratified / iid image mean: {ratio:.4f}")
+    if abs(ratio - 1.0) > 0.05:
+        raise AssertionError("the stratified aras image's mean moved")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -2021,7 +2276,10 @@ def main() -> int:
          "ms": k1_ms, "ms_scattered": k1_ms_scattered,
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "issue_ceiling_ms": k1_ceiling,
-         "registers": k1_regs, "library_ms": None},
+         "registers": k1_regs, "library_ms": None,
+         "sphere_presets": {n_: {**r_["k1"],
+                                 "cli_launches": cli_runs[n_]["launches"]["K1"]}
+                            for n_, r_ in sphere_runs.items()}},
         {"name": "sphere_nearest_moving (K3)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:340",
@@ -2052,6 +2310,11 @@ def main() -> int:
          "medium_launches": box_runs["medium"]["plain_launches"],
          "box": box_runs["box"], "medium": box_runs["medium"],
          "box_media_fixture_share_outside": box_runs["fixture_share_outside"],
+         "sphere_presets": {n_: {**r_["k2"],
+                                 "cli_launches": cli_runs[n_]["launches"]["K2"],
+                                 "fixture_share_outside":
+                                     r_["fixture_share_outside"]}
+                            for n_, r_ in sphere_runs.items()},
          "library_ms": None},
         {"name": "sphere_nearest_bwd", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",
@@ -2085,7 +2348,10 @@ def main() -> int:
          **k7_runs["random_spheres"],
          "random": k7_runs["random"], "simple_light": k7_runs["simple_light"],
          "registers": kernel_registers(build_log, "megakernelI"),
-         "frame_ms": k7_frames, "library_ms": None},
+         "frame_ms": k7_frames,
+         "sphere_presets": {n_: {**r_["k7"], "white_sky": r_["k7_white_sky"]}
+                            for n_, r_ in sphere_runs.items()},
+         "library_ms": None},
         {"name": "shade_from_winners, image branch (FLAG_IMAGE)",
          "route": "cuda", "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:116",
@@ -2108,6 +2374,15 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in p1_runs.values()),
          "rays_per_thread": p1_rays, "registers": p1_regs,
          "library_ms": None},
+        {"name": "threefry", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/threefry.cu",
+         "replaces": "jax.random.uniform (XLA)",
+         "launches": c6["threefry"], "max_abs_err": 0.0,
+         "draws": n_draws, "ms": tf_ms, "plain_ms": tf_plain_ms,
+         "bound_ms": tf_ys["bound_ms"], "bound_by": tf_ys["bound_by"],
+         "bytes_ms": tf_ys["bytes_ms"], "torch_rand_ms": rand_ms,
+         "registers": tf_regs, "library_ms": None,
+         "golden_pixel_share_outside": golden_share},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",
            "replaces": f"tools/split_probe.py:{line}", "launches": c36[pid],

@@ -12,7 +12,10 @@ scene's leaves (``parallel/inverse.py``,
 ``python -m pathtrace_tpu_torch.examples.inverse_render``). The third
 culls the closest hit per sphere tile for scenes of scene scale; the
 fourth carries moving spheres (the motion-blurred ``random`` preset)
-through the closest hit, the shade kernel and the backward kernel.
+through the closest hit, the shade kernel and the backward kernel. Frames
+and the trainer draw their primary rays from the Threefry twin of
+``jax.random`` (``utils/threefry.py``; on the card ``csrc/threefry.cu``),
+keyed as the reference's, so a frame reproduces the reference's image.
 
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA

@@ -6,6 +6,8 @@ same operation order, so a camera built here equals the JAX one.
 
 from __future__ import annotations
 
+import ctypes
+import ctypes.util
 import dataclasses
 import math
 
@@ -38,13 +40,23 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
+def _tanf(x: float) -> torch.Tensor:
+    """The C library's float32 ``tanf`` of ``x`` rounded to float32: the
+    function XLA's CPU backend calls for a float32 ``tan``, which is not
+    always correctly rounded (at 30 degrees it is one ULP above, where
+    ``torch.tan`` is not), so the camera basis equals the reference's."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
+    libm.tanf.restype, libm.tanf.argtypes = ctypes.c_float, [ctypes.c_float]
+    return _f32(libm.tanf(float(_f32(x))))
+
+
 def make_camera(lookfrom, lookat, vup, vfov_degrees: float, aspect: float,
                 aperture: float, focus_dist: float, time0: float = 0.0,
                 time1: float = 0.0) -> Camera:
     """Build the precomputed camera basis on the CPU."""
     lookfrom, lookat, vup = _f32(lookfrom), _f32(lookat), _f32(vup)
     theta = vfov_degrees * math.pi / 180.0
-    half_height = torch.tan(_f32(theta * 0.5))
+    half_height = _tanf(theta * 0.5)
     half_width = _f32(aspect) * half_height
     w = pmath.normalize(lookfrom - lookat)
     u = pmath.normalize(torch.linalg.cross(vup, w))

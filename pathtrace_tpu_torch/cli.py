@@ -1,8 +1,9 @@
 """Command-line interface of the port: ``python -m pathtrace_tpu_torch``.
 
 The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
-next-event estimation (``--nee``), Russian roulette (``--rr DEPTH``) and
-a user's own texture map for ``earth`` (``--image PNG``), plus
+Latin-hypercube pixel samples (``--stratify``), next-event estimation
+(``--nee``), Russian roulette (``--rr DEPTH``) and a user's own texture
+map for ``earth`` (``--image PNG``), plus
 ``--device`` (default ``cuda``). Every other flag of the JAX package's
 CLI is refused as not ported yet. With ``-O`` (offline) the render runs
 ``-F`` accumulated frames (default 1); without ``-O`` the reference opens
@@ -47,6 +48,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-O", "--offline", action="store_true",
                    help="Offline render (no live preview)")
     p.add_argument("--seed", type=int, default=0, help="Base RNG seed")
+    p.add_argument("--stratify", action="store_true",
+                   help="Latin-hypercube pixel sampling: each pixel's S "
+                        "samples in distinct 1/S strata on both film axes "
+                        "(unbiased; lower variance than iid jitter)")
     p.add_argument("--nee", action="store_true",
                    help="Next-event estimation: sample lights directly with "
                         "shadow rays, combined with BSDF sampling by MIS "
@@ -103,7 +108,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     result = render_progressive(scene, camera, params,
                                 max_frames=args.frames or 1,
                                 device=args.device, features=features,
-                                nee=args.nee, rr_start=args.rr)
+                                nee=args.nee, rr_start=args.rr,
+                                stratify=args.stratify)
     elapsed = time.monotonic() - start
     # same report shape as the JAX CLI's offline line
     print(f"{elapsed:.2f}secs {result.total_rays}rays "

@@ -14,8 +14,10 @@ the texture colours; ``--trainable default`` trains every leaf of the
 reference's default selector (sphere centres and radii, texture colours,
 fuzz, refractive index; in a scene with moving spheres, such as
 ``--preset random``, the substring ``spheres.center`` also selects the
-motion leaf ``spheres.center_delta``). Each step prints its loss (before the update)
-and its time: CUDA events around the step on the card, the host clock on
+motion leaf ``spheres.center_delta``). Every render is keyed by
+``PRNGKey(0)``, as the reference example's, so the target and every step
+trace the same rays with the same bounce seed. Each step prints its loss
+(before the update) and its time: CUDA events around the step on the card, the host clock on
 the CPU. ``--checkpoint`` and ``--geometry`` are not ported yet.
 """
 
@@ -67,6 +69,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         make_inverse_renderer,
     )
     from pathtrace_tpu_torch.render import film
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
 
     dev = torch.device(args.device)
     on_cuda = dev.type == "cuda"
@@ -90,10 +93,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     print(f"{args.preset} {width}x{height} {args.samples} spp depth "
           f"{args.depth} on {args.device}; trainable parameters: {names}")
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    key = PRNGKey(0)
     with torch.no_grad():
-        target = renderer.render(state.params, gen)
+        target = renderer.render(state.params, key)
         for i, name in enumerate(names):
             if name == "textures.color":
                 state.params[i].copy_((state.params[i] + 0.2).clamp(0.0, 1.0))
@@ -109,7 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             start.record()
         else:
             t0 = time.perf_counter()
-        state, loss = renderer.train_step(state, target, gen)
+        state, loss = renderer.train_step(state, target, key)
         if on_cuda:
             end.record()
             end.synchronize()
@@ -131,7 +133,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"loss: {losses[0]:.8f} -> {losses[-1]:.8f}")
 
     with torch.no_grad():
-        img = renderer.render(state.params, gen)
+        img = renderer.render(state.params, key)
     side_by_side = np.concatenate(
         [target.cpu().numpy(), img.cpu().numpy()], axis=1)
     if args.out.endswith(".npy"):

@@ -5,8 +5,10 @@ cover scene, whose small diffuse spheres move over the shutter),
 variant ``random_spheres_xl``, ``small``, ``two_perlin_spheres`` (the CLI
 default), ``simple_light`` (an emissive sphere and rect over marble),
 ``cornell`` (six rects, a rect light and two rotated boxes),
-``cornell_smoke`` (the same walls and two rotated media boxes) and ``earth``
-(an image-textured globe). Each builds its scene with the same numpy
+``cornell_smoke`` (the same walls and two rotated media boxes), ``earth``
+(an image-textured globe), ``smallpt`` (smallpt's sphere-walled Cornell
+box), ``aras`` (Aras Pranckevicius's 46-sphere ToyPathTracer scene) and
+``final`` (the reference's empty-world stub). Each builds its scene with the same numpy
 generator calls as the JAX preset, so both packages produce identical
 leaves. :func:`image_light_scene` is no preset but a test and bench scene:
 ``simple_light`` with image textures."""
@@ -24,8 +26,8 @@ from pathtrace_tpu_torch.models.build import (
 )
 from pathtrace_tpu_torch.models.types import Scene
 
-# presets of the JAX package whose scene classes this slice cannot render
-NOT_PORTED = ("aras", "final", "final_full", "smallpt")
+# presets of the JAX package whose scene classes this port cannot render
+NOT_PORTED = ("final_full",)
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -245,6 +247,72 @@ def earth(aspect: float, seed: int = 0,
     return b.finish(), _standard_camera(aspect, time1=0.0, aperture=0.0)
 
 
+def smallpt(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """smallpt's Cornell box of spheres: five radius-1e3 walls, a mirror
+    ball, a glass ball and a small bright light (400 W/sr, radius 1.5),
+    black sky."""
+    b = SceneBuilder()
+    b.sphere((1e3 + 1.0, 40.8, 81.6), 1e3, b.lambertian_color((0.75, 0.25, 0.25)))
+    b.sphere((-1e3 + 99.0, 40.8, 81.6), 1e3, b.lambertian_color((0.25, 0.25, 0.75)))
+    b.sphere((50.0, 40.8, 1e3), 1e3, b.lambertian_color((0.75, 0.75, 0.75)))
+    b.sphere((50.0, 1e3, 81.6), 1e3, b.lambertian_color((0.75, 0.75, 0.75)))
+    b.sphere((50.0, -1e3 + 81.6, 81.6), 1e3, b.lambertian_color((0.75, 0.75, 0.75)))
+    b.sphere((27.0, 16.5, 47.0), 16.5, b.metal((0.999, 0.999, 0.999), 0.0))
+    b.sphere((73.0, 16.5, 78.0), 16.5, b.dielectric(1.5))
+    b.sphere((50.0, 81.6 - 16.5, 81.6), 1.5,
+             b.diffuse_light_color((400.0, 400.0, 400.0)))
+    b.sky = (0.0, 0.0, 0.0)
+    cam = make_camera(
+        (50.0, 52.0, 295.6), (50.0, 33.0, 0.0), (0.0, 1.0, 0.0), 30.0, aspect,
+        aperture=0.05, focus_dist=100.0, time0=0.0, time1=1.0,
+    )
+    return b.finish(), cam
+
+
+def final(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """The reference's 'final' stub: an empty world (the builder pads it to
+    one dead sphere) under the gradient sky, seen by the standard camera."""
+    return SceneBuilder().finish(), _standard_camera(aspect)
+
+
+def aras(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """Aras Pranckevicius's ToyPathTracer scene: 46 spheres (a big gray
+    ground ball, a mixed foreground group, a glass ball, two emissives and
+    four 9-sphere rows of gray and coloured Lambertian and mirror metal),
+    gradient sky."""
+    b = SceneBuilder()
+    b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian_color((0.8, 0.8, 0.8)))
+    b.sphere((2.0, 0.0, -1.0), 0.5, b.lambertian_color((0.8, 0.4, 0.4)))
+    b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian_color((0.4, 0.8, 0.4)))
+    b.sphere((-2.0, 0.0, -1.0), 0.5, b.metal((0.4, 0.4, 0.8), 0.0))
+    b.sphere((2.0, 0.0, 1.0), 0.5, b.metal((0.4, 0.8, 0.4), 0.0))
+    b.sphere((0.0, 0.0, 1.0), 0.5, b.metal((0.4, 0.8, 0.4), 0.2))
+    b.sphere((-2.0, 0.0, 1.0), 0.5, b.metal((0.4, 0.8, 0.4), 0.6))
+    b.sphere((0.5, 1.0, 0.5), 0.5, b.dielectric(1.5))
+    b.sphere((-1.5, 1.5, 0.0), 0.3, b.diffuse_light_color((30.0, 25.0, 15.0)))
+
+    # four 9-sphere rows, x = 4..-4 at z = -3/-4/-5/-6
+    grays = [(0.1 * g,) * 3 for g in range(1, 10)]
+    hues = [(0.8, 0.1, 0.1), (0.8, 0.5, 0.1), (0.8, 0.8, 0.1),
+            (0.4, 0.8, 0.1), (0.1, 0.8, 0.1), (0.1, 0.8, 0.5),
+            (0.1, 0.8, 0.8), (0.1, 0.1, 0.8), (0.5, 0.1, 0.8)]
+    for i, x in enumerate(range(4, -5, -1)):
+        b.sphere((x, 0.0, -3.0), 0.5, b.lambertian_color(grays[i]))
+        b.sphere((x, 0.0, -4.0), 0.5, b.metal(grays[i], 0.0))
+        b.sphere((x, 0.0, -5.0), 0.5, b.metal(hues[i], 0.0))
+        # the z = -6 row is Lambertian except its last (x = -4) sphere
+        mat = (b.metal(hues[i], 0.0) if x == -4
+               else b.lambertian_color(hues[i]))
+        b.sphere((x, 0.0, -6.0), 0.5, mat)
+
+    b.sphere((1.5, 1.5, -2.0), 0.3, b.diffuse_light_color((3.0, 10.0, 20.0)))
+    cam = make_camera(
+        (0.0, 2.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 60.0,
+        aspect, aperture=0.02, focus_dist=3.0, time0=0.0, time1=1.0,
+    )
+    return b.finish(), cam
+
+
 def wall_image() -> np.ndarray:
     """A 40 x 72 texture of random texels (numpy, seed 3): the second
     image of :func:`image_light_scene`, so neighbouring texels differ and
@@ -280,14 +348,17 @@ def image_light_scene(build, earth_image: np.ndarray):
 
 
 _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
+    "aras": aras,
     "cornell": cornell,
     "cornell_smoke": cornell_smoke,
     "earth": earth,
+    "final": final,
     "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,
     "simple_light": simple_light,
     "small": small,
+    "smallpt": smallpt,
     "two_perlin_spheres": two_perlin_spheres,
 }
 

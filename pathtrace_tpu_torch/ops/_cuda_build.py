@@ -119,6 +119,10 @@ _SIGNATURES = {
         _c_void_p, _c_int, _c_longlong,          # (K, rows, 128), K, rows*128
         _c_void_p, _c_void_p,                    # out, stream
     ],
+    "pt_threefry": [
+        ctypes.c_uint, ctypes.c_uint, _c_longlong,  # key words, n draws
+        _c_int, _c_void_p, _c_void_p,            # as_float, out, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 

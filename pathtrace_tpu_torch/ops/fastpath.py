@@ -1059,19 +1059,21 @@ def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
 
 
 def render_frame_fast(scene: Scene, camera, width: int, height: int,
-                      samples: int, max_depth: int,
-                      generator: torch.Generator, seed: int,
-                      features: SceneFeatures,
+                      samples: int, max_depth: int, frame_key: torch.Tensor,
+                      seed: int, features: SceneFeatures,
                       nee_lights: Optional[LightTable] = None,
-                      rr_start: int = 0) -> FrameResult:
-    """Whole-frame render through the fast path. ``generator`` (on the
-    scene's device) draws the primary-ray jitter; ``seed`` must be
-    frame-unique and keys the bounce RNG. ``nee_lights``, ``rr_start``:
-    as :func:`trace_fast`'s."""
+                      rr_start: int = 0, stratify: bool = False) -> FrameResult:
+    """Whole-frame render through the fast path on the scene's device.
+    ``frame_key`` (a Threefry key, :mod:`pathtrace_tpu_torch.utils.threefry`)
+    draws the primary rays as the reference's does, ``stratify`` places
+    each pixel's samples Latin-hypercube; ``seed`` must be frame-unique and
+    keys the bounce RNG. ``nee_lights``, ``rr_start``: as
+    :func:`trace_fast`'s."""
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
 
     ro, rd, t = generate_primary_rays(camera, width, height, samples,
-                                      generator)
+                                      frame_key, stratify,
+                                      device=scene.spheres.center.device)
     R = height * width * samples
     return trace_frame(scene, ro.reshape(R, 3), rd.reshape(R, 3),
                        t.reshape(R), width, height, samples, max_depth, seed,

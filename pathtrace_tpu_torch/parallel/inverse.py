@@ -10,10 +10,11 @@ spheres also differentiates the centre lerped to each ray's time),
 normals, attribute rows and the shading. ``torch.optim.Adam`` with its defaults (betas 0.9,
 0.999, eps 1e-8) is ``optax.adam``'s update.
 
-The bounce seed and the primary-ray jitter come from a ``torch.Generator``
-on the device; the reference draws them with ``jax.random``, whose bits
-differ, so parity tests inject the rays and the seed
-(:meth:`InverseRenderer.step_on`).
+A render is keyed as the reference's is: a Threefry key
+(:mod:`pathtrace_tpu_torch.utils.threefry`) gives the bounce seed
+``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` and the primary rays from
+``split(key)[0]``, so the same key gives the reference's rays and seed.
+:meth:`InverseRenderer.step_on` takes given rays and seed instead.
 
 Not ported yet: the multi-device split with its gradient all-reduce, the
 silhouette boundary term, the general-integrator fallback and TrainState
@@ -31,6 +32,7 @@ from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops.fastpath import diff_supported
 from pathtrace_tpu_torch.render.frame import render_frame_diff
+from pathtrace_tpu_torch.utils import threefry
 
 _GROUPS = ("spheres", "materials", "textures")
 
@@ -106,18 +108,21 @@ class InverseRenderer:
     learning_rate: float = 2e-2
     param_names: Tuple[str, ...] = ()
 
-    def render(self, params, generator: torch.Generator) -> torch.Tensor:
-        """Image [H, W, 3], differentiable in ``params``: a bounce seed
-        (int32 range), then the primary rays, drawn from ``generator``."""
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=generator.device).item())
+    def render(self, params, key: torch.Tensor) -> torch.Tensor:
+        """Image [H, W, 3], differentiable in ``params``, keyed as the
+        reference's fast-path render: the bounce seed
+        ``randint(fold_in(key, 7), (), 0, 2^31 - 1)``, the primary rays
+        from ``split(key)[0]``."""
+        seed = int(threefry.randint(threefry.fold_in(key, 7), (), 0,
+                                    2**31 - 1))
         img, _ = render_frame_diff(
             self.rebuild(params), self.camera, self.width, self.height,
-            self.samples, self.max_depth, generator, seed, self.features)
+            self.samples, self.max_depth, threefry.split(key)[0], seed,
+            self.features)
         return img
 
-    def loss(self, params, target, generator: torch.Generator):
-        return torch.mean((self.render(params, generator) - target) ** 2)
+    def loss(self, params, target, key: torch.Tensor):
+        return torch.mean((self.render(params, key) - target) ** 2)
 
     def init(self, params) -> TrainState:
         return TrainState(params, torch.optim.Adam(params,
@@ -131,12 +136,11 @@ class InverseRenderer:
         return state._replace(step=state.step + 1), loss.detach()
 
     def train_step(self, state: TrainState, target: torch.Tensor,
-                   generator: torch.Generator):
-        """One optimization step: render with fresh draws from
-        ``generator``, MSE, backward, Adam. Returns (state, loss before
-        the update)."""
+                   key: torch.Tensor):
+        """One optimization step: render keyed by ``key``, MSE, backward,
+        Adam. Returns (state, loss before the update)."""
         return self._step(
-            state, lambda: self.loss(state.params, target, generator))
+            state, lambda: self.loss(state.params, target, key))
 
     def step_on(self, state: TrainState, target: torch.Tensor, rays,
                 seed: int):

@@ -1,10 +1,10 @@
 """Primary rays and progressive accumulation (counterpart of
 ``pathtrace_tpu/render/frame.py``).
 
-The JAX package draws the in-pixel jitter and lens/time uniforms from
-``jax.random``; here they come from an explicit ``torch.Generator`` on the
-render device. The two streams differ, so tests feed both packages the
-same numpy-made uniforms through :func:`~pathtrace_tpu_torch.camera.get_rays`.
+The in-pixel jitter and the lens/time uniforms come from the Threefry
+twin of ``jax.random`` (:mod:`pathtrace_tpu_torch.utils.threefry`): the
+same key gives the reference's uniforms bit for bit, drawn on the render
+device (the kernel of ``csrc/threefry.cu`` on a CUDA device).
 """
 
 from __future__ import annotations
@@ -12,24 +12,42 @@ from __future__ import annotations
 import torch
 
 from pathtrace_tpu_torch.camera import Camera, get_rays
+from pathtrace_tpu_torch.utils import threefry
 
 
-def pixel_jitter(height: int, width: int, samples: int,
-                 generator: torch.Generator) -> torch.Tensor:
-    """Uniform iid in-pixel offsets [H, W, S, 2] in [0, 1)."""
-    return torch.rand((height, width, samples, 2), generator=generator,
-                      device=generator.device)
+def pixel_jitter(key: torch.Tensor, height: int, width: int, samples: int,
+                 stratify: bool, device="cpu") -> torch.Tensor:
+    """In-pixel sample offsets [H, W, S, 2] in [0, 1) on ``device``.
+
+    Uniform iid by default; with ``stratify`` each pixel's S samples are
+    Latin-hypercube placed: one per 1/S stratum on each axis, the two axes
+    permuted independently by a stable argsort of iid uniforms (as
+    ``jnp.argsort`` sorts), keyed by ``split(fold_in(key, 1))``."""
+    jitter = threefry.uniform(key, (height, width, samples, 2), device)
+    if not stratify or samples <= 1:
+        return jitter
+    ka, kb = threefry.split(threefry.fold_in(key, 1))
+    px, py = (torch.argsort(threefry.uniform(k, (height, width, samples),
+                                             device), dim=-1,
+                            stable=True).to(torch.float32)
+              for k in (ka, kb))
+    return torch.stack([(px + jitter[..., 0]) / samples,
+                        (py + jitter[..., 1]) / samples], dim=-1)
 
 
 def generate_primary_rays(camera: Camera, width: int, height: int,
-                          samples: int, generator: torch.Generator):
-    """Jittered primary rays for the full frame, on ``generator.device``:
-    ``u = (x + U) / W, v = (y + U) / H``, row y = 0 at the bottom of the
-    image. Returns ro, rd [H, W, S, 3] and time [H, W, S]."""
-    dev = generator.device
-    jitter = pixel_jitter(height, width, samples, generator)
-    cam_u = torch.rand((height, width, samples, 3), generator=generator,
-                       device=dev)
+                          samples: int, key: torch.Tensor,
+                          stratify: bool = False, device=None):
+    """Jittered primary rays for the full frame: ``u = (x + U) / W,
+    v = (y + U) / H``, row y = 0 at the bottom of the image, the jitter
+    from ``split(key)[0]`` and the lens/time uniforms from
+    ``split(key)[1]``, as the reference draws them. Drawn and traced on
+    ``device`` (default: the camera's). Returns ro, rd [H, W, S, 3] and
+    time [H, W, S]."""
+    dev = torch.device(device) if device is not None else camera.origin.device
+    kj, kc = threefry.split(key)
+    jitter = pixel_jitter(kj, height, width, samples, stratify, dev)
+    cam_u = threefry.uniform(kc, (height, width, samples, 3), dev)
     x = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
     y = torch.arange(height, dtype=torch.float32, device=dev)[:, None, None]
     s = (x + jitter[..., 0]) / width
@@ -47,22 +65,24 @@ def accumulate(acc_image: torch.Tensor, new_image: torch.Tensor,
 
 def render_frame_diff(scene, camera: Camera, width: int, height: int,
                       samples: int, max_depth: int,
-                      generator, seed: int, features, rays=None):
+                      key, seed: int, features, rays=None):
     """Differentiable whole-frame render: primary rays, then
     :func:`~pathtrace_tpu_torch.ops.fastpath.trace_fast_diff`, then the
     per-pixel sample mean. The one-device case of the reference's
     ``render_frame_sharded(..., differentiable=True, mode="fast")``
-    (``parallel/mesh.py:148-228``); one device needs no padding lanes.
-    ``generator`` draws the primary-ray jitter, unless ``rays`` (ro, rd
-    [H*W*S, 3], time [H*W*S], in [H, W, S] order) gives the rays; ``seed``
-    keys the bounce RNG. Returns (image [H, W, 3], segments [] int64 on
-    the device)."""
+    (``parallel/mesh.py:148-228``): on one device the reference's padding
+    lanes are born dead, so its image is this unpadded trace's.
+    ``key`` draws the primary rays on the scene's device, unless ``rays``
+    (ro, rd [H*W*S, 3], time [H*W*S], in [H, W, S] order) gives them;
+    ``seed`` keys the bounce RNG. Returns (image [H, W, 3], segments []
+    int64 on the device)."""
     from pathtrace_tpu_torch.ops.fastpath import trace_fast_diff
 
     R = height * width * samples
     if rays is None:
-        ro, rd, t = generate_primary_rays(camera, width, height, samples,
-                                          generator)
+        ro, rd, t = generate_primary_rays(
+            camera, width, height, samples, key,
+            device=scene.spheres.center.device)
         rays = (ro.reshape(R, 3), rd.reshape(R, 3), t.reshape(R))
     radiance, segs = trace_fast_diff(scene, *rays, seed, max_depth, features)
     return radiance.reshape(height, width, samples, 3).mean(dim=2), segs

@@ -2,11 +2,15 @@
 ``pathtrace_tpu/render/progressive.py``).
 
 Each frame renders ``params.samples`` spp through the fast path and blends
-into the running average with ``mix_prev = n/(n+1)``. On CUDA each frame is
-timed with CUDA events around its work; the ray count is read back once
-per frame, after the frame's last kernel. ``nee`` builds the scene's light
-table once and renders with next-event estimation; a scene without lights
-renders with the plain estimator, as the reference's does.
+into the running average with ``mix_prev = n/(n+1)``. Frame ``n`` draws
+its primary rays from ``fold_in(PRNGKey(seed), n)`` and keys its bounces
+with ``seed * 1000003 + n``, as the reference's fast mode does, so a
+frame's image is the reference's up to the closest hit's rounding. On
+CUDA each frame is timed with CUDA events around its work; the ray count
+is read back once per frame, after the frame's last kernel. ``nee`` builds
+the scene's light table once and renders with next-event estimation; a
+scene without lights renders with the plain estimator, as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops.fastpath import fastpath_supported, render_frame_fast
 from pathtrace_tpu_torch.ops.lights import build_light_table
 from pathtrace_tpu_torch.render.frame import accumulate
+from pathtrace_tpu_torch.utils import threefry
 
 
 @dataclasses.dataclass
@@ -39,10 +44,11 @@ class ProgressiveResult:
 def render_progressive(scene: Scene, camera: Camera, params: Params,
                        max_frames: int, device, features: Optional[SceneFeatures] = None,
                        log: Callable[[str], None] = print, nee: bool = False,
-                       rr_start: int = 0) -> ProgressiveResult:
+                       rr_start: int = 0,
+                       stratify: bool = False) -> ProgressiveResult:
     """Render ``max_frames`` accumulated frames on ``device``; ``nee``:
     next-event estimation; ``rr_start`` > 0: Russian roulette from that
-    depth."""
+    depth; ``stratify``: Latin-hypercube samples in each pixel."""
     device = torch.device(device)
     seed = params.resolve_seed()
     features = features or SceneFeatures.from_scene(scene)
@@ -50,8 +56,7 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     nee_lights = build_light_table(scene) if nee else None
     scene = scene.to(device)
     camera = camera.to(device)
-    generator = torch.Generator(device=device)
-    generator.manual_seed(seed)
+    base_key = threefry.PRNGKey(seed)
     on_cuda = device.type == "cuda"
 
     acc = None
@@ -66,8 +71,9 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
             t0 = time.perf_counter()
         res = render_frame_fast(
             scene, camera, params.width, params.height, params.samples,
-            params.max_depth, generator, seed * 1000003 + frame, features,
-            nee_lights=nee_lights, rr_start=rr_start,
+            params.max_depth, threefry.fold_in(base_key, frame),
+            seed * 1000003 + frame, features, nee_lights=nee_lights,
+            rr_start=rr_start, stratify=stratify,
         )
         acc = res.image if acc is None else accumulate(acc, res.image, frame)
         if on_cuda:

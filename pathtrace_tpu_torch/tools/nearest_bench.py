@@ -194,6 +194,26 @@ SHADE_REPS = 20
 P1_SHAPES = ((1 << 20, 640), ((1 << 20) + 3, 1031))
 
 
+# integer operations a Threefry-2x32 draw needs (csrc/threefry.cu): the
+# counter's two words under the key 2, 20 rounds of an add, a rotate (one
+# funnel shift) and a xor 60, five key injections of two adds 10, the
+# final xor 1; a uniform adds a shift, an or and the float subtraction
+OPS_THREEFRY_BITS, OPS_THREEFRY_UNIFORM = 73, 76
+
+
+def threefry_yardsticks(n_draws: int, as_float: bool = True) -> dict:
+    """Stated bound of ``n_draws`` Threefry draws: 4 B written a draw,
+    nothing read, against their integer operations at the issue rate (one
+    warp instruction a clock per SM sub-partition, ``ISSUE_PER_S``): the
+    card issues no faster, whatever pipe an instruction takes."""
+    ops = n_draws * (OPS_THREEFRY_UNIFORM if as_float else OPS_THREEFRY_BITS)
+    by_bytes = 4 * n_draws / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / ISSUE_PER_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bytes_ms": by_bytes,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "issue_ceiling_ms": max(by_bytes, by_ops)}
+
+
 def pair_ops(soa) -> int:
     """fp32 operations one ray needs over the operand's spheres: 16 a live
     slot, 38 a live slot of K3's [12, N] operand that moves (a motion row,
@@ -400,14 +420,14 @@ def _rays(name: str, dev):
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
 
     scene, camera = presets.from_name(name, WIDTH / HEIGHT)
     scene = scene.to(dev)
     feats = SceneFeatures.from_scene(scene)
     tables = fp.prep_tables(scene, feats)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
     R = WIDTH * HEIGHT * SAMPLES
     st = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
     return scene, feats, tables, st
@@ -598,17 +618,19 @@ def _bwd_many(dev) -> list:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
     from pathtrace_tpu_torch.tools._probe import event_ms
 
     scene = _many_spheres().to(dev)
     cam = presets.random_spheres(WIDTH / HEIGHT)[1]
     soa = fp.build_sphere_soa(scene)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    ro, rd, _ = generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES, gen)
+    ro, rd, _ = generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES,
+                                      PRNGKey(0), device=dev)
     R = WIDTH * HEIGHT * SAMPLES
     ro, rd = ro.reshape(R, 3).contiguous(), rd.reshape(R, 3).contiguous()
     t, idx = k1.sphere_nearest(soa, torch.cat([ro, rd], 1).T.contiguous())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
     g_t = torch.rand(R, generator=gen, device=dev) + 0.5
     sp = scene.spheres
     args = (sp.center, sp.radius, ro, rd, t, idx, g_t)
@@ -656,6 +678,7 @@ def k7_lines() -> list:
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
     from pathtrace_tpu_torch.tools._probe import event_ms
 
     dev = torch.device("cuda")
@@ -666,10 +689,9 @@ def k7_lines() -> list:
         scene, cam = presets.from_name(name, WIDTH / HEIGHT)
         scene = scene.to(dev)
         feats = SceneFeatures.from_scene(scene)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
         rays = tuple(x.reshape(R, -1).squeeze(-1) for x in
-                     generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES, gen))
+                     generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev))
         tables = k7.prep_tables(scene)
         work = {}
         rad, segs = (k7.trace_megakernel(tables, *rays, 7, MEGA_DEPTH, feats,
@@ -743,6 +765,7 @@ def shades(sets: Optional[Sequence[str]] = None) -> list:
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import shade_kernel as k2
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
     from pathtrace_tpu_torch.tools._probe import event_ms
 
     dev = torch.device("cuda")
@@ -758,10 +781,9 @@ def shades(sets: Optional[Sequence[str]] = None) -> list:
             feats = SceneFeatures.from_scene(scene)
             tables = fp.prep_tables(scene, feats)
             flags = fp.feature_flags(feats)
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
             ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT,
-                                               SAMPLES, gen)
+                                               SAMPLES, PRNGKey(0),
+                                               device=dev)
             st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3),
                                 tm.reshape(R))
             t0, idx0 = fp.closest_hit(tables, st0, 0, feats, seed=7)
@@ -928,6 +950,7 @@ def culls() -> list:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import shade_kernel as k2
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
     from pathtrace_tpu_torch.tools._probe import event_ms
 
     dev = torch.device("cuda")
@@ -940,9 +963,8 @@ def culls() -> list:
         tables = fp.prep_tables(scene, feats, cull=True)
         soa, cull = tables.soa, tables.cull
         n_tiles = cull.tiles.shape[1]
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES, gen)
+        ro, rd, tm = generate_primary_rays(camera, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev)
         order, _ = fp._tile_perm(HEIGHT, WIDTH, dev)
         st = fp.make_state(*fp.permute_rays(ro.reshape(R, 3), rd.reshape(R, 3),
                                             tm.reshape(R), order, SAMPLES))
@@ -1006,19 +1028,19 @@ def _frame_line(name: str) -> dict:
 
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
 
     dev = torch.device("cuda")
     scene, cam = _cull_scene(name)
     scene, cam = scene.to(dev), cam.to(dev)
     feats = SceneFeatures.from_scene(scene)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    base_key = PRNGKey(0)
     box = {"frame": 0}
 
     def frame():
         box["frame"] += 1
-        render_frame_fast(scene, cam, WIDTH, HEIGHT, SAMPLES, 10, gen,
-                          box["frame"], feats)
+        render_frame_fast(scene, cam, WIDTH, HEIGHT, SAMPLES, 10,
+                          fold_in(base_key, box["frame"]), box["frame"], feats)
 
     for _ in range(2):
         frame()

@@ -24,8 +24,14 @@ device time of every kernel, summed by kind, the forward's share, the
 step's device launches (kernels, copies and fills), and the device's idle
 share two ways: of the profiled step's wall time (the
 profiler's own, inflated by its overhead on the host), and of the
-unprofiled median (1 - busy / median). The last line of the output is a
-JSON object with the same numbers; ``--out`` writes it to a file too.
+unprofiled median (1 - busy / median). ``frame`` and ``megakernel`` also
+report host spans (``perf_counter``, medians): the frame's key work
+(``fold_in``, ``split`` and the draws' key words), one Threefry draw's
+wrapper and ``torch.rand`` of the same shape (each its launch enqueued,
+not waited for), and for ``megakernel`` the whole of
+``generate_primary_rays`` with the key derivation before it, enqueued in
+each timed step. The last line of the output is a JSON object with the
+same numbers; ``--out`` writes it to a file too.
 """
 
 from __future__ import annotations
@@ -105,14 +111,14 @@ def _setup_train(dev, preset):
 
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
+    from pathtrace_tpu_torch.utils import threefry
 
     scene, cam = presets.from_name(preset, 1280 / 720)
     renderer, state, names = make_inverse_renderer(
         scene, cam, 1280, 720, samples=4, max_depth=4, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    key = threefry.PRNGKey(0)  # every render, as the example keys them
     with torch.no_grad():
-        target = renderer.render(state.params, gen)
+        target = renderer.render(state.params, key)
         for i, name in enumerate(names):
             if name == "textures.color":
                 state.params[i].copy_((state.params[i] + 0.2).clamp(0.0, 1.0))
@@ -124,7 +130,7 @@ def _setup_train(dev, preset):
         st = box["state"]
         st.optimizer.zero_grad(set_to_none=True)
         with record_function("forward"):
-            loss = renderer.loss(st.params, target, gen)
+            loss = renderer.loss(st.params, target, key)
         loss.backward()
         st.optimizer.step()
         box["state"] = st._replace(step=st.step + 1)
@@ -133,24 +139,23 @@ def _setup_train(dev, preset):
 
 
 def _setup_frame(dev, preset, nee, rr, info):
-    import torch
-
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops.fastpath import render_frame_fast
     from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.utils import threefry
 
     scene, cam = presets.from_name(preset, 1280 / 720)
     scene, cam = scene.to(dev), cam.to(dev)
     feats = SceneFeatures.from_scene(scene)
     lights = build_light_table(scene) if nee else None
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    base_key = threefry.PRNGKey(0)
     box = {"frame": 0}
 
     def step():
         box["frame"] += 1
-        res = render_frame_fast(scene, cam, 1280, 720, 4, 10, gen,
+        res = render_frame_fast(scene, cam, 1280, 720, 4, 10,
+                                threefry.fold_in(base_key, box["frame"]),
                                 box["frame"], feats, nee_lights=lights,
                                 rr_start=rr)
         info["readbacks"] = res.readbacks
@@ -159,26 +164,60 @@ def _setup_frame(dev, preset, nee, rr, info):
     return step
 
 
-def _setup_megakernel(dev, preset):
+def _host_spans(dev, reps: int = 200) -> dict:
+    """Host ms (medians of ``reps`` calls, the device idle before each) of
+    a frame's key work as ``generate_primary_rays`` does it, of one
+    Threefry draw of the jitter's shape and of ``torch.rand`` of it."""
     import torch
 
+    from pathtrace_tpu_torch.utils import threefry
+
+    base = threefry.PRNGKey(0)
+    shape = (720, 1280, 4, 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def keys(n):
+        for k in threefry.split(threefry.fold_in(base, n)):
+            threefry._words(k)
+
+    def span(fn):
+        times = []
+        for n in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(n + 1)
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    return {"key_host_ms": span(keys),
+            "draw_host_ms": span(lambda n: threefry.uniform(base, shape, dev)),
+            "rand_host_ms": span(lambda n: torch.rand(shape, generator=gen,
+                                                      device=dev))}
+
+
+def _setup_megakernel(dev, preset, info):
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.ops.megakernel import prep_tables, trace_megakernel
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils import threefry
 
     W, H, S, R = 1280, 720, 4, 1280 * 720 * 4
     scene, cam = presets.from_name(preset, W / H)
     scene, cam = scene.to(dev), cam.to(dev)
     feats = SceneFeatures.from_scene(scene)
     tables = prep_tables(scene)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
+    base_key = threefry.PRNGKey(0)
     box = {"frame": 0}
 
     def step():
         box["frame"] += 1
-        ro, rd, t = generate_primary_rays(cam, W, H, S, gen)
+        t0 = time.perf_counter()
+        ro, rd, t = generate_primary_rays(
+            cam, W, H, S, threefry.fold_in(base_key, box["frame"]))
+        info.setdefault("rays_host_ms", []).append(
+            (time.perf_counter() - t0) * 1e3)
         rad, _ = trace_megakernel(tables, ro.reshape(R, 3), rd.reshape(R, 3),
                                   t.reshape(R), box["frame"], 10, feats)
         rad.reshape(H, W, S, 3).mean(dim=2)
@@ -214,9 +253,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     info = {}
     if args.what == "frame":
         step = _setup_frame(dev, args.preset, args.nee, args.rr, info)
+    elif args.what == "megakernel":
+        step = _setup_megakernel(dev, args.preset, info)
     else:
-        step = {"train": _setup_train, "megakernel": _setup_megakernel}[
-            args.what](dev, args.preset)
+        step = _setup_train(dev, args.preset)
     for _ in range(args.warmup):
         step()
     torch.cuda.synchronize()
@@ -229,6 +269,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    spans = None
+    if args.what != "train":
+        spans = _host_spans(dev)
+        if "rays_host_ms" in info:
+            spans["rays_host_ms"] = statistics.median(
+                info["rays_host_ms"][-args.reps:])
     torch.cuda.reset_peak_memory_stats(dev)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -266,6 +312,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "nee": args.nee, "rr_start": args.rr,
         "readbacks": info.get("readbacks"),
         "segments": (int(info["segments"]) if "segments" in info else None),
+        "host_spans_ms": spans,
         "regions_device_ms": regions,
         "kinds_ms": dict(sorted(kinds.items(), key=lambda kv: -kv[1])),
         "top_kernels": [{"name": n[:160], "launches": c, "ms": us / 1e3}
@@ -278,6 +325,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"segments {result['segments']}, readbacks {result['readbacks']}")
     print("step ms (CUDA events, unprofiled): "
           + ", ".join(f"{t:.3f}" for t in times))
+    if spans is not None:
+        print("host ms (medians): " + ", ".join(
+            f"{k[:-3]} {v:.4f}" for k, v in spans.items()))
     print(f"profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} "
           f"ms, idle {result['idle_share']:.1%} (of the unprofiled median: "
           f"{result['idle_share_unprofiled']:.1%}), peak memory "

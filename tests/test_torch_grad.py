@@ -329,6 +329,53 @@ def test_train_steps_track_jax(which):
     assert (losses[-1] > losses[0]) == rises, losses
 
 
+def test_keyed_render_and_first_loss_match_jax():
+    """The trainer keyed as the reference's: ``render(params, key)`` draws
+    the bounce seed ``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` and the
+    rays of ``split(key)[0]``, so at ``PRNGKey(0)`` the port's image, its
+    first loss (texture colours +0.2 against the unperturbed render) and
+    that loss's gradients follow JAX's ``InverseRenderer`` on a one-device
+    mesh with the fast path (its padding lanes are born dead): pixels to
+    1e-3 except at most 2% of them (a pixel's 2 rays, 0.5% a ray at depth
+    4), the loss to 1e-3 relative, every default-trainable leaf within
+    ``GRAD_TOL``."""
+    from pathtrace_tpu.parallel import mesh as pmesh
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
+
+    W, H, S = 16, 12, 2
+    jscene, jcam, scene = scene_pair("small", W / H)
+    jr, jstate, names = jinv.make_inverse_renderer(
+        jscene, jcam, W, H, samples=S, max_depth=DEPTH,
+        mesh=pmesh.make_render_mesh(jax.devices()[:1]), use_fast_path=True)
+    renderer, state, tnames = tinv.make_inverse_renderer(
+        scene, presets.small(W / H)[1], W, H, samples=S, max_depth=DEPTH,
+        device="cpu")
+    assert tnames == names
+    jkey, key = jax.random.PRNGKey(0), PRNGKey(0)
+    target = np.asarray(jax.jit(jr.render)(jstate.params, jkey))
+    with torch.no_grad():
+        img = renderer.render(state.params, key).numpy()
+    assert img.shape == (H, W, 3) and np.isfinite(img).all()
+    outside = ~lane_close(img, target).all(axis=-1)
+    assert outside.mean() <= 0.02, outside.mean()
+
+    def perturb(p, name):
+        return p if name != "textures.color" else (p + 0.2).clip(0.0, 1.0)
+
+    jparams = [perturb(p, n) for p, n in zip(jstate.params, names)]
+    jloss, jgrads = jax.jit(jax.value_and_grad(jr.loss))(jparams, target,
+                                                         jkey)
+    with torch.no_grad():
+        for p, n in zip(state.params, names):
+            p.copy_(perturb(p, n))
+    loss = renderer.loss(state.params, torch.from_numpy(target.copy()), key)
+    grads = torch.autograd.grad(loss, state.params)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-3)
+    assert_grads_close([g.numpy() for g in grads],
+                       [np.asarray(g) for g in jgrads], names, GRAD_TOL,
+                       "first step")
+
+
 def test_inverse_renderer_refuses_what_is_not_ported():
     scene, cam = presets.small(1.0)
     with pytest.raises(ValueError, match="not ported yet"):

@@ -25,6 +25,7 @@ from pathtrace_tpu_torch.models import presets  # noqa: E402
 from pathtrace_tpu_torch.models.types import SceneFeatures  # noqa: E402
 from pathtrace_tpu_torch.ops import megakernel as mk  # noqa: E402
 from pathtrace_tpu_torch.render.frame import generate_primary_rays  # noqa: E402
+from pathtrace_tpu_torch.utils.threefry import PRNGKey  # noqa: E402
 from pathtrace_tpu_torch.tools import nearest_bench as nb  # noqa: E402
 
 MISS_ROW = 2 ** 31 - 1
@@ -41,11 +42,9 @@ def _scene(name):
 
 
 def _rays(cam, n_side=48, seed=0):
-    gen = torch.Generator()
-    gen.manual_seed(seed)
     n = n_side * n_side
     return tuple(x.reshape(n, -1).squeeze(-1) for x in
-                 generate_primary_rays(cam, n_side, n_side, 1, gen))
+                 generate_primary_rays(cam, n_side, n_side, 1, PRNGKey(seed)))
 
 
 @pytest.mark.parametrize("name", ["random_spheres", "random", "simple_light",

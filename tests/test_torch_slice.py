@@ -113,6 +113,59 @@ def test_progressive_frames_on_cpu():
     assert len(res.frame_ms) == 2 and res.timer == "host-clock"
 
 
+def test_progressive_frames_are_keyed_as_the_reference():
+    """Frame n of the progressive driver draws its rays from
+    ``fold_in(PRNGKey(seed), n)`` and keys its bounces with ``seed *
+    1000003 + n``, as the reference's fast mode does: its first frame is
+    ``render_frame_fast`` at those keys, bit for bit, and a second frame
+    blends in the next key's image."""
+    from pathtrace_tpu_torch.render.progressive import render_progressive
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
+
+    scene, cam = presets.aras(16 / 12)
+    params = Params(width=16, height=12, samples=2, max_depth=4, seed=5)
+    feats = SceneFeatures.from_scene(scene)
+    frames = [tfp.render_frame_fast(scene, cam, 16, 12, 2, 4,
+                                    fold_in(PRNGKey(5), n), 5 * 1000003 + n,
+                                    feats).image.numpy() for n in range(2)]
+    for n in (1, 2):
+        res = render_progressive(scene, cam, params, max_frames=n,
+                                 device="cpu", log=lambda _: None)
+        want = frames[0] if n == 1 else 0.5 * frames[0] + 0.5 * frames[1]
+        np.testing.assert_allclose(res.image, want, rtol=0, atol=1e-6)
+    assert not np.array_equal(frames[0], frames[1])
+
+
+@pytest.mark.parametrize("preset", ["smallpt", "aras", "final"])
+def test_cli_renders_the_sphere_presets_on_cpu(preset, tmp_path):
+    from pathtrace_tpu_torch.cli import main
+
+    out = tmp_path / f"{preset}.npy"
+    argv = ["--device", "cpu", "-P", preset, "-W", "16", "-H", "12", "-S",
+            "2", "-D", "4", "-O", "--out", str(out)]
+    assert main(argv) == 0
+    img = np.load(out)
+    assert img.shape == (12, 16, 3) and np.isfinite(img).all()
+    if preset == "final":  # the empty world: the gradient sky everywhere
+        assert 0.5 < img.min() and img.max() < 1.0
+
+
+def test_cli_stratify_is_latin_hypercube(tmp_path):
+    """``--stratify`` renders through the stratified jitter: another image
+    than the iid one from the same seed, with a mean within 5% of it."""
+    from pathtrace_tpu_torch.cli import main
+
+    imgs = {}
+    for flag in ([], ["--stratify"]):
+        out = tmp_path / f"small{len(flag)}.npy"
+        assert main(["--device", "cpu", "-P", "small", "-W", "24", "-H", "16",
+                     "-S", "4", "-D", "4", "-O", "--out", str(out),
+                     *flag]) == 0
+        imgs[bool(flag)] = np.load(out)
+    assert not np.array_equal(imgs[True], imgs[False])
+    assert abs(imgs[True].mean() / imgs[False].mean() - 1.0) < 0.05
+
+
 def _run_port(code: str):
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

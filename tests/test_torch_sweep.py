@@ -42,6 +42,7 @@ from pathtrace_tpu_torch.ops import fastpath as tfp  # noqa: E402
 from pathtrace_tpu_torch.ops import intersect_kernel as ik  # noqa: E402
 from pathtrace_tpu_torch.ops import shade_kernel  # noqa: E402
 from pathtrace_tpu_torch.render.frame import generate_primary_rays  # noqa: E402
+from pathtrace_tpu_torch.utils.threefry import PRNGKey  # noqa: E402
 from pathtrace_tpu_torch.tools import nearest_bench, profile_step  # noqa: E402
 
 F32_MAX = float(np.finfo(np.float32).max)
@@ -305,9 +306,7 @@ def _many(n=700, moving=False, seed=3):
 def _rays(scene, camera, n, scatter):
     feats = SceneFeatures.from_scene(scene)
     tables = tfp.prep_tables(scene, feats)
-    gen = torch.Generator()
-    gen.manual_seed(0)
-    ro, rd, tm = generate_primary_rays(camera, 64, 32, 4, gen)
+    ro, rd, tm = generate_primary_rays(camera, 64, 32, 4, PRNGKey(0))
     R = 64 * 32 * 4
     state = tfp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
     moving = tables.soa.shape[0] == 12

@@ -322,6 +322,61 @@ DEPTH10_BUDGET = 0.01
 # 0.55% after 2, 0.72% after 3, 0.94% after 5 and 1.14% after 10.
 XL_DEPTH10_BUDGET = 0.02
 
+# The same contract on ``smallpt``, held on the path state (ray origin and
+# direction, radiance, throughput and liveness after ten bounces of each
+# package's own closest hit and shade; tests/test_torch_sphere_presets.py),
+# because its radiance is black on all but a few rays (a radius-1.5 light,
+# a black sky): per-ray radiance puts 0 of the fixture's 4096 rays outside
+# 1e-3 on the CPU. Its five walls are radius-1e3 spheres about 1e3 away,
+# where the expanded quadratic cancels hardest: against JAX 0.29% of the
+# path states leave 1e-3 after one bounce and 1.37% after ten; JAX against
+# itself with the camera directions one ULP longer, 0.32% and 1.07%. Twice
+# the port's reading.
+SMALLPT_DEPTH10_BUDGET = 0.03
+
+
+def port_bounce_chain(scene, ro, rd, tm, seed: int, max_depth: int):
+    """The port's wavefront bounces without compaction: ``max_depth + 1``
+    rounds of ``fastpath.closest_hit`` and ``shade_from_winners`` on every
+    lane, dead ones included (a dead lane's planes stay as they were).
+    Returns (planes [12, R], alive [R]) on the rays' device: K1 and K2 on
+    the card, their plain versions on the CPU."""
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as tfp
+    from pathtrace_tpu_torch.ops.shade_kernel import shade_from_winners
+
+    feats = SceneFeatures.from_scene(scene)
+    tables = tfp.prep_tables(scene, feats)
+    flags = tfp.feature_flags(feats)
+    st = tfp.make_state(ro, rd, tm)
+    for depth in range(max_depth + 1):
+        t, idx = tfp.closest_hit(tables, st, depth, feats, seed=seed)
+        planes, alive = shade_from_winners(
+            tables.table, idx, t, st.planes, st.time, st.alive, st.lane,
+            seed, depth, max_depth, tables.sky4, flags, atlas=tables.atlas)
+        st = tfp.FastStateP(planes[:12], st.time, alive, st.lane)
+    return st.planes, st.alive
+
+
+def white_sky(scene):
+    """The port's ``scene`` under a constant white sky: a path that leaves
+    the scene then returns its throughput, so per-ray radiance shows every
+    bounce of a scene whose own sky is black (``smallpt``)."""
+    import torch
+
+    return dataclasses.replace(
+        scene, sky=torch.ones_like(scene.sky),
+        use_gradient_sky=torch.zeros_like(scene.use_gradient_sky))
+
+
+def states_outside(planes, alive, ref_planes, ref_alive):
+    """Lanes whose path state (the 12 planes, numpy [12, R]) leaves the
+    reference's by more than 1e-3 in a plane, or whose liveness differs."""
+    close = np.ones(ref_alive.shape[0], bool)
+    for k in range(ref_planes.shape[0]):
+        close &= lane_close(planes[k], ref_planes[k])
+    return ~(close & (np.asarray(alive) == np.asarray(ref_alive)))
+
 
 def check_slice_contract(radiance, ray_count, ref_radiance, ref_count,
                          max_depth, budget=0.005):
@@ -335,6 +390,23 @@ def check_slice_contract(radiance, ray_count, ref_radiance, ref_count,
     assert frac <= budget, f"{frac:.4%} of rays beyond 1e-3"
     assert abs(int(ray_count) - int(ref_count)) <= n_out * max_depth, (
         ray_count, ref_count, n_out)
+    return frac
+
+
+def check_smallpt_contract(radiance, ray_count, ref_radiance, ref_count,
+                           max_depth):
+    """``smallpt``'s slice contract: per-ray radiance as
+    ``check_slice_contract`` holds it (``DEPTH10_BUDGET``), and the
+    segment counts within ``max_depth`` segments per path that its own
+    budget lets diverge (``SMALLPT_DEPTH10_BUDGET`` of the rays): its paths
+    diverge unseen in the radiance, black on all but a few rays. Returns
+    the fraction of rays outside."""
+    close = lane_close(radiance, ref_radiance).all(axis=1)
+    frac = float((~close).mean())
+    assert frac <= DEPTH10_BUDGET, f"{frac:.4%} of rays beyond 1e-3"
+    paths = SMALLPT_DEPTH10_BUDGET * close.size
+    assert abs(int(ray_count) - int(ref_count)) <= paths * max_depth, (
+        ray_count, ref_count)
     return frac
 
 
