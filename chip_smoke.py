@@ -231,7 +231,30 @@ Phases (each prints a line before the next starts):
     10, 3 frames each, then ``aras`` with ``--stratify``: K1, K2 and the
     Threefry kernel launched (2 draws a frame, 4 stratified), no other
     kernel and no plain version; frame times, segments, finite images, the
-    stratified image's mean within 5% of the iid one's.
+    stratified image's mean within 5% of the iid one's;
+41. the general integrator (``render/frame.render_frame``) on the card at
+    the goldens' film for all 13 presets, ``final_full`` included,
+    against ``tests/goldens/pixels_<preset>_general.npz`` to the same
+    pixel budget: K1 (K3 in a moving scene) launched, no plain version,
+    no K2 or K7;
+42. ``render_progressive`` renders ``random_spheres`` with ``mode=
+    "general"`` (3 frames) and ``final_full`` with ``mode="auto"`` (1
+    frame; routed to the general path), 1280x720, 4 spp, depth 10: frame
+    times (CUDA events), segments, Mrays/s, bounces, readbacks, the
+    launches of K1, K3 and the Threefry draw; then one more frame of
+    ``random_spheres`` under ``torch.profiler`` (device activity only):
+    device busy time, idle share, device launches a bounce and the top
+    kernels (``final_full``'s are ``tools/profile_step.py``'s: its
+    ~430,000 launches a frame keep the profiler busy for ~110 s); the path must be general and
+    K1 (K3 for ``final_full``) must have launched, no plain version;
+43. ``trace_diff`` on the card: the ``vfov`` gradient of the full-view
+    sphere (24x24, 4 spp, depth 3, ``PRNGKey(6)``, tests/test_grad.py's
+    ``test_vfov``) finite and within 1e-3 relative of the CPU port's and
+    of ``jax.grad``'s (``tests/goldens/torch_port_camera_grads.npz``), K1
+    forward and K6 backward launched.
+
+Before the kernels line, ``[t]`` gives the seconds of each phase (each
+line's time since the line before it, summed by phase).
 
 The line before the last two is a JSON object with, per kernel, its
 launches on its path (phase 6 for the render kernels, phase 9 for the
@@ -287,7 +310,10 @@ same rays. K1, K2 and K7 carry ``sphere_presets`` (phase 39's numbers and
 phase 40's launches on ``smallpt`` and ``aras``); the ``threefry`` entry
 (``"replaces": "jax.random.uniform (XLA)"``, no TPU kernel) carries its
 bound by bytes alone, ``torch_rand_ms`` and phase 38's share of pixels
-outside per preset. Then
+outside per preset. K1, K3, K6 and the ``threefry`` entry carry
+``general_launches`` (phase 42's ``random_spheres`` frames for K1 and the
+draw, its ``final_full`` frame for K3, phase 43 for K6); the ``threefry``
+entry also phases 41-42's shares and frames. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -315,6 +341,8 @@ RANDOM_GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                    "torch_port_grad_random.npz")
 MEGA_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                             "torch_port_megakernel.npz")
+CAMERA_GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                                   "torch_port_camera_grads.npz")
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
 TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
@@ -350,7 +378,18 @@ P1_RAGGED = ((1 << 20) + 3, 1031)
 P24_RAYS = 1 << 20
 
 
+_T0 = time.monotonic()
+_LAST = [_T0]
+PHASE_SECONDS: dict = {}  # tag -> seconds up to the tag's lines
+
+
 def phase(msg: str) -> None:
+    """Print a phase line; the time since the last line goes to its tag."""
+    now = time.monotonic()
+    m = re.match(r"\[([^\]]+)\]", msg)
+    tag = m.group(1) if m else "?"
+    PHASE_SECONDS[tag] = PHASE_SECONDS.get(tag, 0.0) + now - _LAST[0]
+    _LAST[0] = now
     print(msg, flush=True)
 
 
@@ -514,7 +553,15 @@ def main() -> int:
     from pathtrace_tpu_torch.tools import split_probe as p24
     from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.parallel.inverse import split_scene
-    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.camera import make_camera
+    from pathtrace_tpu_torch.config import Params
+    from pathtrace_tpu_torch.models.build import SceneBuilder
+    from pathtrace_tpu_torch.render import integrator as gint
+    from pathtrace_tpu_torch.render.frame import (
+        generate_primary_rays,
+        render_frame,
+    )
+    from pathtrace_tpu_torch.render.progressive import render_progressive
     from pathtrace_tpu_torch.utils import threefry as tf
     from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
 
@@ -2076,7 +2123,9 @@ def main() -> int:
     # ---- 38: the port's frames on the card against the pixel goldens ----
     gw, gh, gs, gd = 64, 48, 8, 8
     golden_share = {}
-    for preset in presets.names():
+    # final_full: the fast path refuses it (an image texture in a scene
+    # with boxes and media); phase 41 holds its general golden
+    for preset in [n for n in presets.names() if n != "final_full"]:
         golden = np.load(os.path.join(ROOT, "tests", "goldens",
                                       f"pixels_{preset}_fast.npz"))["img"]
         scene_, cam_ = presets.from_name(preset, gw / gh, seed=0)
@@ -2261,6 +2310,150 @@ def main() -> int:
     if abs(ratio - 1.0) > 0.05:
         raise AssertionError("the stratified aras image's mean moved")
 
+    # ---- 41: the general integrator's frames against the general goldens ----
+    general_share, general_golden_counts = {}, {}
+    for preset in presets.names():
+        golden = np.load(os.path.join(ROOT, "tests", "goldens",
+                                      f"pixels_{preset}_general.npz"))["img"]
+        scene_, cam_ = presets.from_name(preset, gw / gh, seed=0)
+        scene_ = scene_.to(dev)
+        feats_ = SceneFeatures.from_scene(scene_)
+        reset_counts(k1, k2, k7)
+        img, count_ = render_frame(scene_, cam_, gw, gh, gs, gd, PRNGKey(0),
+                                   features=feats_)
+        c41 = read_counts(k1, k2, k7)
+        img = img.cpu().double()
+        ref_ = torch.from_numpy(golden).double()
+        outside = ~((img - ref_).abs() <= ATOL + RTOL * ref_.abs()).all(dim=-1)
+        b = XL_DEPTH10_BUDGET if preset == "random_spheres_xl" else DEPTH10_BUDGET
+        budget = 1.0 - (1.0 - b) ** gs
+        share = float(outside.double().mean())
+        general_share[preset] = share
+        general_golden_counts[preset] = c41
+        phase(f"[41] {preset} (general): {int(outside.sum())} of {gw * gh} "
+              f"pixels ({share:.4%}) outside 1e-3 of the JAX golden (budget "
+              f"{budget:.2%}), largest difference "
+              f"{float((img - ref_).abs().max()):.6f}; {int(count_)} segments; "
+              f"launches K1 {c41['K1']}, K3 {c41['K3']}, threefry "
+              f"{c41['threefry']}, plain {c41['plain']}")
+        sweep = c41["K3"] if feats_.has_motion else c41["K1"]
+        if (share > budget or not bool(torch.isfinite(img).all())
+                or c41["plain"] or c41["K2"] or c41["K7"]
+                or (feats_.has_spheres and sweep <= 0)):
+            raise AssertionError(f"{preset}: the card's general frame leaves "
+                                 "its golden or its kernels")
+
+    # ---- 42: the general path at full width through render_progressive ----
+    def profiled(fn):
+        """(wall ms, device busy ms, device launches, top kernels) of one
+        call of ``fn`` under torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ = (time.perf_counter() - t0) * 1e3
+        evts = [e for e in prof.key_averages()
+                if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        dev_us = [(float(getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))),
+                   e.count, e.key) for e in evts]
+        dev_us.sort(reverse=True)
+        return (wall_, sum(u for u, _, _ in dev_us) / 1e3,
+                sum(c for _, c, _ in dev_us),
+                [{"name": n[:80], "launches": c, "ms": u / 1e3}
+                 for u, c, n in dev_us[:6]])
+
+    general_runs = {}
+    for gname, gmode, gframes in (("random_spheres", "general", FRAMES),
+                                  ("final_full", "auto", 1)):
+        scene_, cam_ = presets.from_name(gname, WIDTH / HEIGHT)
+        params_ = Params(width=WIDTH, height=HEIGHT, samples=SAMPLES,
+                         max_depth=DEPTH)
+        reset_counts(k1, k2, k7)
+        b0, r0 = gint.BOUNCES, gint.READBACKS
+        t_start = time.monotonic()
+        res = render_progressive(scene_, cam_, params_, max_frames=gframes,
+                                 device=dev, mode=gmode,
+                                 log=lambda ln: phase(f"[42] {gname}: {ln}"))
+        wall = time.monotonic() - t_start
+        c42 = read_counts(k1, k2, k7)
+        bounces = gint.BOUNCES - b0
+        finite = bool(np.isfinite(res.image).all())
+        mean = float(res.image.mean())
+        sweep = "K3" if gname == "final_full" else "K1"
+        mrays = [res.total_rays / gframes / ms / 1e3 for ms in res.frame_ms]
+        phase(f"[42] {gname} (--mode {gmode} -> {res.path}): {gframes} frames "
+              f"of {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH} in {wall:.2f} s; "
+              f"frame ms {[round(x, 3) for x in res.frame_ms]} (CUDA events), "
+              f"{res.total_rays} segments, Mrays/s {[round(x, 2) for x in mrays]}; "
+              f"{bounces} bounces, readbacks {res.readbacks}; launches {c42}; "
+              f"image mean {mean:.6f}, finite {finite} ({smi})")
+        if (res.path != "general" or not finite or c42["plain"]
+                or c42[sweep] <= 0 or c42["K2"] or c42["K7"]):
+            raise AssertionError(f"{gname}: the general frame failed its checks")
+        general_runs[gname] = {
+            "mode": gmode, "path": res.path, "frame_ms": res.frame_ms,
+            "segments": res.total_rays, "mrays_per_s": mrays,
+            "bounces": bounces, "readbacks": res.readbacks,
+            "launches": c42, "image_mean": mean}
+        if gname == "final_full":
+            # its ~430,000 launches a frame keep the profiler busy for
+            # ~110 s: `profile_step --what general --preset final_full`
+            # measures its busy time and idle share instead
+            phase(f"[42] {gname}: device busy time and idle share not "
+                  "measured here (tools/profile_step.py --what general)")
+            continue
+        # one more frame of the same scene under the profiler: the device's
+        # busy time, its idle share and its launches a bounce
+        sdev, feats_ = scene_.to(dev), SceneFeatures.from_scene(scene_)
+        b0, t_prof = gint.BOUNCES, time.monotonic()
+        wall_ms, busy_ms, n_launch, top = profiled(lambda: render_frame(
+            sdev, cam_, WIDTH, HEIGHT, SAMPLES, DEPTH,
+            fold_in(PRNGKey(0), 7), features=feats_))
+        nb_ = gint.BOUNCES - b0
+        phase(f"[42] {gname} profiled frame: wall {wall_ms:.2f} ms, device "
+              f"busy {busy_ms:.2f} ms (idle {1.0 - busy_ms / wall_ms:.1%}; of "
+              f"the unprofiled median {1.0 - busy_ms / float(np.median(res.frame_ms)):.1%}), "
+              f"{n_launch} device launches over {nb_} bounces "
+              f"({n_launch / max(nb_, 1):.0f} a bounce), "
+              f"{time.monotonic() - t_prof:.1f} s with the profiler's own "
+              f"work; top {top}")
+        general_runs[gname].update(
+            profiled_wall_ms=wall_ms, busy_ms=busy_ms,
+            device_launches=n_launch, bounces_profiled=nb_, top_kernels=top)
+        del sdev
+
+    # ---- 43: trace_diff on the card: the camera's vfov gradient ----
+    def vfov_grad(device):
+        bld = SceneBuilder()
+        bld.sphere((0.0, 0.0, -4.0), 4.0, bld.lambertian_color((0.4, 0.5, 0.6)))
+        sc = bld.finish().to(device)
+        fov = torch.tensor(40.0, requires_grad=True)
+        cam_ = make_camera((0.0, 0.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0),
+                           fov, 1.0, 0.0, 3.0)
+        img, _ = render_frame(sc, cam_, 24, 24, 4, 3, PRNGKey(6),
+                              differentiable=True,
+                              features=SceneFeatures.from_scene(sc))
+        (g,) = torch.autograd.grad(img.mean(), fov)
+        return float(g)
+
+    g_cpu = vfov_grad("cpu")
+    reset_counts(k1, k2, k7)
+    g_card = vfov_grad(dev)
+    c43 = read_counts(k1, k2, k7)
+    rel_g = abs(g_card - g_cpu) / max(abs(g_cpu), 1e-30)
+    # jax.grad of the reference's loss at the same key and point
+    g_jax = float(np.load(CAMERA_GRAD_FIXTURE)["vfov"])
+    rel_j = abs(g_card - g_jax) / abs(g_jax)
+    phase(f"[43] trace_diff vfov gradient: card {g_card!r}, CPU port "
+          f"{g_cpu!r} (rel {rel_g:.3e}), JAX {g_jax!r} (rel {rel_j:.3e}); "
+          f"launches {c43}")
+    if (not np.isfinite(g_card) or rel_g > 1e-3 or rel_j > 1e-3
+            or c43["K6"] <= 0 or c43["K1"] <= 0 or c43["plain"]):
+        raise AssertionError("the card's trace_diff gradient failed its checks")
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -2277,6 +2470,9 @@ def main() -> int:
          "plain_ms": k1_plain_ms, "bound_ms": k1_bound[0],
          "bound_by": k1_bound[1], "issue_ceiling_ms": k1_ceiling,
          "registers": k1_regs, "library_ms": None,
+         "general_launches": general_runs["random_spheres"]["launches"]["K1"],
+         "general_golden_launches": {n_: c_["K1"] for n_, c_ in
+                                     general_golden_counts.items()},
          "sphere_presets": {n_: {**r_["k1"],
                                  "cli_launches": cli_runs[n_]["launches"]["K1"]}
                             for n_, r_ in sphere_runs.items()}},
@@ -2289,6 +2485,7 @@ def main() -> int:
          "plain_ms": k3_plain_ms, "k1_ms": k3_k1_ms,
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "issue_ceiling_ms": k3_ceiling, "registers": k3_regs,
+         "general_launches": general_runs["final_full"]["launches"]["K3"],
          "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
@@ -2332,6 +2529,7 @@ def main() -> int:
          "motion_plain_ms": k6m_plain_ms, "motion_bound_ms": k6m_bound[0],
          "motion_bound_by": k6m_bound[1],
          "motion_issue_ceiling_ms": k6m_ys["issue_ceiling_ms"],
+         "general_launches": c43["K6"], "general_vfov_grad_rel": rel_g,
          "library_ms": None},
         {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
@@ -2382,7 +2580,13 @@ def main() -> int:
          "bound_ms": tf_ys["bound_ms"], "bound_by": tf_ys["bound_by"],
          "bytes_ms": tf_ys["bytes_ms"], "torch_rand_ms": rand_ms,
          "registers": tf_regs, "library_ms": None,
-         "golden_pixel_share_outside": golden_share},
+         "golden_pixel_share_outside": golden_share,
+         "general_launches": general_runs["random_spheres"]["launches"][
+             "threefry"],
+         "general_final_full_launches": general_runs["final_full"][
+             "launches"]["threefry"],
+         "general_golden_pixel_share_outside": general_share,
+         "general_frames": general_runs},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",
            "replaces": f"tools/split_probe.py:{line}", "launches": c36[pid],
@@ -2390,6 +2594,9 @@ def main() -> int:
           for pid, name, line in (("P2", "split", 70), ("P3", "minor_t", 95),
                                   ("P4", "major_t", 122))],
     ]
+    phase(f"[t] seconds by phase (each line's time since the last line, "
+          f"summed by tag): {json.dumps({k: round(v, 1) for k, v in PHASE_SECONDS.items()})}; "
+          f"total {time.monotonic() - _T0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

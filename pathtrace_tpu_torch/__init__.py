@@ -16,6 +16,12 @@ through the closest hit, the shade kernel and the backward kernel. Frames
 and the trainer draw their primary rays from the Threefry twin of
 ``jax.random`` (``utils/threefry.py``; on the card ``csrc/threefry.cu``),
 keyed as the reference's, so a frame reproduces the reference's image.
+The general wavefront integrator (``render/integrator.py``: records of
+every primitive kind, instanced spheres and rects included, table Perlin
+noise and the recursive checker, the material scatter, NEE and roulette;
+``render/frame.render_frame``, differentiable through K6) renders every
+scene the fast path refuses, ``final_full`` among them: ``--mode
+general``, or ``auto``'s fallback.
 
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA

@@ -40,22 +40,53 @@ def _f32(x) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32)
 
 
-def _tanf(x: float) -> torch.Tensor:
-    """The C library's float32 ``tanf`` of ``x`` rounded to float32: the
-    function XLA's CPU backend calls for a float32 ``tan``, which is not
-    always correctly rounded (at 30 degrees it is one ULP above, where
-    ``torch.tan`` is not), so the camera basis equals the reference's."""
+def _libm_tanf(x: float) -> float:
+    """The C library's float32 ``tanf`` of ``x`` rounded to float32."""
     libm = ctypes.CDLL(ctypes.util.find_library("m") or "libm.so.6")
     libm.tanf.restype, libm.tanf.argtypes = ctypes.c_float, [ctypes.c_float]
-    return _f32(libm.tanf(float(_f32(x))))
+    return libm.tanf(float(_f32(x)))
 
 
-def make_camera(lookfrom, lookat, vup, vfov_degrees: float, aspect: float,
-                aperture: float, focus_dist: float, time0: float = 0.0,
+class _Tanf(torch.autograd.Function):
+    """``tan`` of a float32 scalar whose forward is the C library's
+    ``tanf``: the function XLA's CPU backend calls for a float32 ``tan``,
+    which is not always correctly rounded (at 30 degrees it is one ULP
+    above, where ``torch.tan`` is not), so the camera basis equals the
+    reference's bit for bit. The backward is ``jnp.tan``'s,
+    ``g * (1 + tan^2)``, so a ``vfov`` that requires a gradient gets
+    one."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        y = _f32(_libm_tanf(float(x))).to(x.device)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (y,) = ctx.saved_tensors
+        return g * (1.0 + y * y)
+
+
+def _tanf(x) -> torch.Tensor:
+    """``tanf`` of a float or a float32 scalar tensor (the graph kept)."""
+    return _Tanf.apply(_f32(x).reshape(()))
+
+
+def make_camera(lookfrom, lookat, vup, vfov_degrees, aspect: float,
+                aperture, focus_dist: float, time0: float = 0.0,
                 time1: float = 0.0) -> Camera:
-    """Build the precomputed camera basis on the CPU."""
+    """Build the precomputed camera basis on the CPU. ``lookfrom``,
+    ``vfov_degrees`` and ``aperture`` may be tensors that require a
+    gradient: the basis keeps their graph, as the reference's camera is
+    differentiable in them. A float ``vfov_degrees`` gives ``theta`` in
+    float64 (rounded once at the ``tanf``), a tensor gives it in float32,
+    as the reference computes each."""
     lookfrom, lookat, vup = _f32(lookfrom), _f32(lookat), _f32(vup)
-    theta = vfov_degrees * math.pi / 180.0
+    if isinstance(vfov_degrees, torch.Tensor):
+        theta = _f32(vfov_degrees) * math.pi / 180.0
+    else:
+        theta = vfov_degrees * math.pi / 180.0
     half_height = _tanf(theta * 0.5)
     half_width = _f32(aspect) * half_height
     w = pmath.normalize(lookfrom - lookat)

@@ -1,11 +1,13 @@
 """Command-line interface of the port: ``python -m pathtrace_tpu_torch``.
 
 The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
-Latin-hypercube pixel samples (``--stratify``), next-event estimation
-(``--nee``), Russian roulette (``--rr DEPTH``) and a user's own texture
-map for ``earth`` (``--image PNG``), plus
-``--device`` (default ``cuda``). Every other flag of the JAX package's
-CLI is refused as not ported yet. With ``-O`` (offline) the render runs
+the render path (``--mode auto|fast|general``: ``auto`` takes the fast
+path where it can and the general integrator otherwise; ``compacted`` and
+``sharded`` are refused as not ported yet), Latin-hypercube pixel samples
+(``--stratify``), next-event estimation (``--nee``), Russian roulette
+(``--rr DEPTH``) and a user's own texture map for ``earth`` (``--image
+PNG``), plus ``--device`` (default ``cuda``). Every other flag of the JAX
+package's CLI is refused as not ported yet. With ``-O`` (offline) the render runs
 ``-F`` accumulated frames (default 1); without ``-O`` the reference opens
 its live preview, which is not ported, so ``-F`` is required.
 
@@ -25,15 +27,16 @@ import numpy as np
 from pathtrace_tpu_torch.config import Params
 from pathtrace_tpu_torch.models import presets
 from pathtrace_tpu_torch.models.types import SceneFeatures
-from pathtrace_tpu_torch.ops.fastpath import fastpath_supported
 from pathtrace_tpu_torch.render import film
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="pathtrace_tpu_torch",
-        description="Path tracer, PyTorch/CUDA port (fast path: spheres, "
-                    "rects, boxes, media and image textures)",
+        description="Path tracer, PyTorch/CUDA port: the fast path (spheres, "
+                    "rects, boxes, media and image textures) and the general "
+                    "wavefront integrator (every scene, instances and nested "
+                    "checkers included)",
     )
     p.add_argument("-W", "--width", type=int, default=1280, help="Image width")
     p.add_argument("-H", "--height", type=int, default=720, help="Image height")
@@ -48,6 +51,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-O", "--offline", action="store_true",
                    help="Offline render (no live preview)")
     p.add_argument("--seed", type=int, default=0, help="Base RNG seed")
+    p.add_argument("--mode", default="auto",
+                   choices=("auto", "fast", "general", "compacted", "sharded"),
+                   help="Render path: auto (the fast path where it takes the "
+                        "scene, else the general integrator), fast, general; "
+                        "compacted and sharded are not ported yet")
     p.add_argument("--stratify", action="store_true",
                    help="Latin-hypercube pixel sampling: each pixel's S "
                         "samples in distinct 1/S strata on both film axes "
@@ -96,20 +104,26 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                           seed=params.seed,
                                           image_path=args.image)
         features = SceneFeatures.from_scene(scene)
-        fastpath_supported(features, scene)
+        from pathtrace_tpu_torch.ops.lights import build_light_table
+        from pathtrace_tpu_torch.render.progressive import (
+            render_progressive,
+            route,
+        )
+
+        path = route(scene, features, args.mode,
+                     build_light_table(scene) if args.nee else None)
     except (ValueError, OSError) as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
     print(f"scene features: {features}")
-
-    from pathtrace_tpu_torch.render.progressive import render_progressive
+    print(f"render path: {path} (--mode {args.mode})")
 
     start = time.monotonic()
     result = render_progressive(scene, camera, params,
                                 max_frames=args.frames or 1,
                                 device=args.device, features=features,
                                 nee=args.nee, rr_start=args.rr,
-                                stratify=args.stratify)
+                                stratify=args.stratify, mode=path)
     elapsed = time.monotonic() - start
     # same report shape as the JAX CLI's offline line
     print(f"{elapsed:.2f}secs {result.total_rays}rays "

@@ -3,13 +3,15 @@
 Counterpart of ``pathtrace_tpu/models/build.py`` for spheres (static and
 moving), axis-aligned rects, transformed boxes, constant-density media
 (box or sphere boundary, isotropic phase function), materials,
-constant/checker/noise/image textures and the affine helpers. ``finish``
-pads the sphere array with far-away, masked-off spheres and can
+constant/checker/noise/image textures, the Perlin tables and the affine
+helpers. Spheres and rects take an optional ``transform`` (a 3x4
+world-from-object affine, the reference's generic ``Instance``).
+``finish`` pads the sphere array with far-away, masked-off spheres and can
 Morton-sort it by the mid-shutter centres, pads the rects with masked-off
 ones on a far plane and the boxes and media with masked-off ones at 1e18,
-exactly as the JAX builder does, and packs the images into one atlas, so
-a preset built here equals the reference leaf for leaf. Instanced spheres
-and rects (the JAX builder's ``transform``) are not ported.
+exactly as the JAX builder does, packs the images into one atlas and
+draws the Perlin tables from the builder's generator, so a preset built
+here equals the reference leaf for leaf.
 """
 
 from __future__ import annotations
@@ -50,6 +52,13 @@ def _morton3(q: np.ndarray) -> np.ndarray:
         | (spread(q[:, 1]) << np.uint64(1))
         | (spread(q[:, 2]) << np.uint64(2))
     )
+
+
+def make_perlin_tables(rng: np.random.Generator) -> T.PerlinTables:
+    """The Perlin tables drawn from ``rng`` as the reference draws them:
+    256 normalized gradients uniform in the cube, then three Fisher-Yates
+    permutations with a float-derived index."""
+    return T.PerlinTables.from_rng(rng)
 
 
 def identity_affine() -> np.ndarray:
@@ -116,19 +125,32 @@ def invert_affine(m: np.ndarray) -> np.ndarray:
     return out
 
 
+def _opt_affine(m) -> Optional[np.ndarray]:
+    if m is None:
+        return None
+    m = np.asarray(m, np.float32)
+    if m.shape != (3, 4):
+        raise ValueError(f"transform must be a 3x4 affine, got {m.shape}")
+    return m
+
+
 class SceneBuilder:
     """Accumulates spheres, rects, boxes, media, materials and textures,
-    then emits a Scene."""
+    then emits a Scene. ``perlin_rng`` draws the Perlin tables at
+    ``finish`` (default: a generator of seed 0, as the reference's)."""
 
-    def __init__(self):
-        self._sph = []   # (center, delta, time0, inv_dt, radius, mat)
-        self._rects = []  # (axis, a0, a1, b0, b1, k, flip, mat)
+    def __init__(self, perlin_rng: Optional[np.random.Generator] = None):
+        # (center, delta, time0, inv_dt, radius, mat, transform)
+        self._sph = []
+        # (axis, a0, a1, b0, b1, k, flip, mat, transform)
+        self._rects = []
         self._boxes = []  # (p0, p1, world_from_obj, mat)
         self._media = []  # (kind, p0, p1, radius, world_from_obj, density, mat)
         self._mats = []  # (kind, tex, fuzz, ref_idx)
         self._texs = []  # (kind, color, odd, even, scale, image)
         self._images = []  # [h, w, 3] f32 arrays
         self.sky: Optional[Vec3] = None  # None => gradient sky
+        self._perlin_rng = perlin_rng or np.random.default_rng(0)
 
     # ---- textures ----
     def constant_texture(self, color: Vec3) -> int:
@@ -190,25 +212,28 @@ class SceneBuilder:
         return self._mat(T.MAT_ISOTROPIC, tex_id)
 
     # ---- primitives ----
-    def sphere(self, center: Vec3, radius: float, mat_id: int) -> None:
+    def sphere(self, center: Vec3, radius: float, mat_id: int,
+               transform: Optional[np.ndarray] = None) -> None:
+        """``transform``: an optional 3x4 world-from-object affine; the
+        centre and radius are then in object space (any affine: a
+        non-uniform scale makes an ellipsoid)."""
         self._sph.append((_v3(center), np.zeros(3, np.float32), 0.0, 0.0,
-                          float(radius), mat_id))
+                          float(radius), mat_id, _opt_affine(transform)))
 
     def moving_sphere(self, center0: Vec3, center1: Vec3, time0: float,
-                      time1: float, radius: float, mat_id: int) -> None:
+                      time1: float, radius: float, mat_id: int,
+                      transform: Optional[np.ndarray] = None) -> None:
         """A sphere whose centre moves linearly from ``center0`` at
         ``time0`` to ``center1`` at ``time1``: stored as (c0, c1 - c0,
         time0, 1 / (time1 - time0)), as the reference stores it."""
         c0, c1 = _v3(center0), _v3(center1)
         self._sph.append((c0, c1 - c0, float(time0), 1.0 / (time1 - time0),
-                          float(radius), mat_id))
+                          float(radius), mat_id, _opt_affine(transform)))
 
     def _rect(self, axis: int, a0, a1, b0, b1, k, flip: bool, mat_id: int,
               transform) -> None:
-        if transform is not None:
-            raise ValueError("instanced rects are not ported yet")
         self._rects.append((axis, a0, a1, b0, b1, k, -1.0 if flip else 1.0,
-                            mat_id))
+                            mat_id, _opt_affine(transform)))
 
     def rect_xy(self, x0, x1, y0, y1, k, flip: bool, mat_id: int,
                 transform=None) -> None:
@@ -273,7 +298,12 @@ class SceneBuilder:
         sp_radius = np.zeros(ns, f32)
         sp_mat = np.zeros(ns, i32)
         sp_mask = np.zeros(ns, bool)
-        for i, (c, d, t0, invdt, r, m) in enumerate(self._sph):
+        # the affine pairs only where some sphere is instanced (identity
+        # on the others and on the padding)
+        sp_xf = any(x is not None for (*_, x) in self._sph)
+        sp_wfo = np.tile(identity_affine()[None], (ns, 1, 1)) if sp_xf else None
+        sp_ofw = np.tile(identity_affine()[None], (ns, 1, 1)) if sp_xf else None
+        for i, (c, d, t0, invdt, r, m, xf) in enumerate(self._sph):
             sp_center[i] = c
             sp_delta[i] = d
             sp_t0[i] = t0
@@ -281,6 +311,9 @@ class SceneBuilder:
             sp_radius[i] = r
             sp_mat[i] = m
             sp_mask[i] = True
+            if xf is not None:
+                sp_wfo[i] = xf
+                sp_ofw[i] = invert_affine(xf)
 
         # padding rects lie on the plane k = 1e18 and are masked off
         nr = _pad_to(len(self._rects), 1)
@@ -290,11 +323,17 @@ class SceneBuilder:
         re_flip = np.ones(nr, f32)
         re_mat = np.zeros(nr, i32)
         re_mask = np.zeros(nr, bool)
-        for i, (ax, a0, a1, b0, b1, k, fl, m) in enumerate(self._rects):
+        re_xf = any(x is not None for (*_, x) in self._rects)
+        re_wfo = np.tile(identity_affine()[None], (nr, 1, 1)) if re_xf else None
+        re_ofw = np.tile(identity_affine()[None], (nr, 1, 1)) if re_xf else None
+        for i, (ax, a0, a1, b0, b1, k, fl, m, xf) in enumerate(self._rects):
             re_axis[i] = ax
             re_span[:, i] = (a0, a1, b0, b1)
             re_k[i], re_flip[i], re_mat[i] = k, fl, m
             re_mask[i] = True
+            if xf is not None:
+                re_wfo[i] = xf
+                re_ofw[i] = invert_affine(xf)
 
         # padding boxes and media sit at 1e18 and are masked off
         nb = _pad_to(len(self._boxes), 1)
@@ -330,7 +369,9 @@ class SceneBuilder:
             md_mat[i] = mat
             md_mask[i] = True
 
-        t = torch.from_numpy
+        def t(a):
+            return None if a is None else torch.from_numpy(a)
+
         nmat = max(len(self._mats), 1)
         ma_kind = np.zeros(nmat, i32)
         ma_tex = np.zeros(nmat, i32)
@@ -377,12 +418,14 @@ class SceneBuilder:
                 center=t(sp_center), center_delta=t(sp_delta),
                 time0=t(sp_t0), inv_time_delta=t(sp_invdt),
                 radius=t(sp_radius), mat_id=t(sp_mat), mask=t(sp_mask),
+                world_from_obj=t(sp_wfo), obj_from_world=t(sp_ofw),
             ),
             rects=T.Rects(
                 axis=t(re_axis), a0=t(re_span[0].copy()),
                 a1=t(re_span[1].copy()), b0=t(re_span[2].copy()),
                 b1=t(re_span[3].copy()), k=t(re_k), flip=t(re_flip),
                 mat_id=t(re_mat), mask=t(re_mask),
+                world_from_obj=t(re_wfo), obj_from_world=t(re_ofw),
             ),
             materials=T.Materials(t(ma_kind), t(ma_tex), t(ma_fuzz), t(ma_ref)),
             textures=T.Textures(t(tx_kind), t(tx_color), t(tx_odd), t(tx_even),
@@ -395,4 +438,5 @@ class SceneBuilder:
             media=T.Media(t(md_kind), t(md_p0), t(md_p1), t(md_rad), t(md_wfo),
                           t(md_ofw), t(md_den), t(md_mat), t(md_mask)),
             atlas=at,
+            perlin=make_perlin_tables(self._perlin_rng),
         )

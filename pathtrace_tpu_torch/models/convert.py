@@ -2,7 +2,8 @@
 
 The reference's ``Scene`` and ``Camera`` are trees of arrays. Flattened to
 numpy under dotted keys (``"spheres.center"``, ``"materials.kind"``,
-``"atlas.data"``, ``"sky"``, ``"camera.origin"``, ...), they load here as the port's
+``"perlin.randvec"``, ``"atlas.data"``, ``"sky"``, ``"camera.origin"``,
+...), they load here as the port's
 dataclasses, on the card unless the caller names another device. Nothing here imports jax: the caller does the
 flattening (``np.asarray`` per leaf), so a saved ``.npz`` works as well.
 """
@@ -20,7 +21,7 @@ from pathtrace_tpu_torch.models import types as T
 
 _GROUPS = {"spheres": T.Spheres, "rects": T.Rects, "boxes": T.Boxes,
            "media": T.Media, "materials": T.Materials, "textures": T.Textures,
-           "atlas": T.ImageAtlas}
+           "perlin": T.PerlinTables, "atlas": T.ImageAtlas}
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,13 +30,17 @@ def _tensor(a, device) -> torch.Tensor:
 
 def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene:
     """Build the port's Scene from the reference's flattened leaves.
-    Instanced spheres or rects are refused. The atlas leaves may be left
-    out of a scene without image textures (it then gets the placeholder);
-    the reference's ``atlas.data_planes``, a transposed copy of
-    ``atlas.data``, is not read."""
+    Instanced spheres and rects carry their ``world_from_obj`` /
+    ``obj_from_world`` leaves (both or neither). The atlas leaves may be
+    left out of a scene without image textures (it then gets the
+    placeholder), and the ``perlin.*`` leaves of a scene without noise
+    textures (it then gets the builder's default tables); the reference's
+    ``atlas.data_planes``, a transposed copy of ``atlas.data``, is not
+    read."""
     for kind in ("spheres", "rects"):
-        if f"{kind}.world_from_obj" in leaves:
-            raise ValueError(f"scene has instanced {kind}: not in this port yet")
+        if ((f"{kind}.world_from_obj" in leaves)
+                != (f"{kind}.obj_from_world" in leaves)):
+            raise ValueError(f"{kind}: an instance needs both affines")
     groups = dict(_GROUPS)
     parts = {}
     if "atlas.data" not in leaves:
@@ -43,9 +48,16 @@ def scene_from_numpy(leaves: Mapping[str, np.ndarray], device="cuda") -> T.Scene
             raise ValueError("scene has image textures but no atlas leaves")
         del groups["atlas"]
         parts["atlas"] = T.ImageAtlas.placeholder().to(device)
+    if "perlin.randvec" not in leaves:
+        if np.any(np.asarray(leaves["textures.kind"]) == T.TEX_NOISE):
+            raise ValueError("scene has noise textures but no perlin leaves")
+        del groups["perlin"]
+        parts["perlin"] = T.PerlinTables.default().to(device)
     parts.update({
         name: cls(**{f.name: _tensor(leaves[f"{name}.{f.name}"], device)
-                     for f in dataclasses.fields(cls)})
+                     for f in dataclasses.fields(cls)
+                     if f"{name}.{f.name}" in leaves
+                     or f.default is dataclasses.MISSING})
         for name, cls in groups.items()
     })
     return T.Scene(

@@ -7,8 +7,10 @@ default), ``simple_light`` (an emissive sphere and rect over marble),
 ``cornell`` (six rects, a rect light and two rotated boxes),
 ``cornell_smoke`` (the same walls and two rotated media boxes), ``earth``
 (an image-textured globe), ``smallpt`` (smallpt's sphere-walled Cornell
-box), ``aras`` (Aras Pranckevicius's 46-sphere ToyPathTracer scene) and
-``final`` (the reference's empty-world stub). Each builds its scene with the same numpy
+box), ``aras`` (Aras Pranckevicius's 46-sphere ToyPathTracer scene),
+``final`` (the reference's empty-world stub) and ``final_full`` (the
+completed "Next Week" final scene, which the general integrator renders).
+Each builds its scene, its Perlin tables included, with the same numpy
 generator calls as the JAX preset, so both packages produce identical
 leaves. :func:`image_light_scene` is no preset but a test and bench scene:
 ``simple_light`` with image textures."""
@@ -27,7 +29,7 @@ from pathtrace_tpu_torch.models.build import (
 from pathtrace_tpu_torch.models.types import Scene
 
 # presets of the JAX package whose scene classes this port cannot render
-NOT_PORTED = ("final_full",)
+NOT_PORTED = ()
 
 
 def _standard_camera(aspect: float, time1: float = 1.0,
@@ -47,7 +49,7 @@ def _random_impl(aspect: float, only_spheres: bool, seed: int,
     motion-blurred ``random`` preset: each diffuse sphere moves up by
     ``0.5 * u`` over the shutter [0, 1]."""
     rng = np.random.default_rng(seed)
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     checker = b.checker_texture(
         b.constant_texture((0.2, 0.3, 0.1)), b.constant_texture((0.9, 0.9, 0.9))
     )
@@ -107,7 +109,7 @@ def random_spheres_xl(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 
 def small(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """5-sphere scene with a hollow glass shell."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian_color((0.1, 0.2, 0.5)))
     b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian_color((0.8, 0.8, 0.0)))
     b.sphere((1.0, 0.0, -1.0), 0.5, b.metal((0.8, 0.6, 0.2), 0.0))
@@ -125,7 +127,7 @@ def small(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 
 def two_perlin_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """Default preset: marble ground and marble sphere."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     noise = b.noise_texture(4.0)
     b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
     b.sphere((0.0, 2.0, 0.0), 2.0, b.lambertian(noise))
@@ -134,7 +136,7 @@ def two_perlin_spheres(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 
 def simple_light(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """Emissive sphere and rect over marble, black sky."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     noise = b.noise_texture(4.0)
     light_tex = b.constant_texture((4.0, 4.0, 4.0))
     b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
@@ -180,7 +182,7 @@ def _box2_xform():
 def cornell(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """Cornell box: six walls (one a rect light) and two rotated white
     boxes, black sky."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     _cornell_walls(b, (15.0, 15.0, 15.0), (213.0, 343.0, 227.0, 332.0, 554.0))
     white = b.lambertian_color((0.73, 0.73, 0.73))
     b.box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), white, _box1_xform())
@@ -192,7 +194,7 @@ def cornell(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 def cornell_smoke(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """Cornell box with two rotated media boxes of density 0.01 (white
     smoke and black fog) under a larger, dimmer light."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     _cornell_walls(b, (7.0, 7.0, 7.0), (113.0, 443.0, 127.0, 432.0, 554.0))
     b.medium_box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0), 0.01,
                  b.constant_texture((1.0, 1.0, 1.0)), _box1_xform())
@@ -240,7 +242,7 @@ def earth(aspect: float, seed: int = 0,
           image_path: Optional[str] = None) -> Tuple[Scene, Camera]:
     """An image-textured globe of radius 2 at the origin. ``image_path``:
     a PNG or JPEG map; by default the procedural stand-in."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     tex = b.image_texture(image_path if image_path
                           else _procedural_earth_image())
     b.sphere((0.0, 0.0, 0.0), 2.0, b.lambertian(tex))
@@ -251,7 +253,7 @@ def smallpt(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """smallpt's Cornell box of spheres: five radius-1e3 walls, a mirror
     ball, a glass ball and a small bright light (400 W/sr, radius 1.5),
     black sky."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     b.sphere((1e3 + 1.0, 40.8, 81.6), 1e3, b.lambertian_color((0.75, 0.25, 0.25)))
     b.sphere((-1e3 + 99.0, 40.8, 81.6), 1e3, b.lambertian_color((0.25, 0.25, 0.75)))
     b.sphere((50.0, 40.8, 1e3), 1e3, b.lambertian_color((0.75, 0.75, 0.75)))
@@ -272,7 +274,60 @@ def smallpt(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
 def final(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     """The reference's 'final' stub: an empty world (the builder pads it to
     one dead sphere) under the gradient sky, seen by the standard camera."""
-    return SceneBuilder().finish(), _standard_camera(aspect)
+    return (SceneBuilder(perlin_rng=np.random.default_rng(seed)).finish(),
+            _standard_camera(aspect))
+
+
+def final_full(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
+    """The completed "Next Week" final scene: a 20x20 field of ground
+    boxes of random height, a rect light, a moving sphere, glass and fuzzy
+    metal spheres, a glass ball around a dense blue medium, a whole-scene
+    haze (a radius-5000 medium), the image-textured earth, a marble ball
+    and 1000 small white spheres rotated 15 degrees about y (baked into
+    their centres), black sky. The fast path refuses it (an image texture
+    in a scene with boxes and media); ``auto`` routes it to the general
+    integrator."""
+    rng = np.random.default_rng(seed)
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
+    ground = b.lambertian_color((0.48, 0.83, 0.53))
+    for i in range(20):
+        for j in range(20):
+            w = 100.0
+            x0, z0 = -1000.0 + i * w, -1000.0 + j * w
+            y1 = 1.0 + 100.0 * rng.random()
+            b.box((x0, 0.0, z0), (x0 + w, y1, z0 + w), ground)
+    b.rect_xz(123.0, 423.0, 147.0, 412.0, 554.0, False,
+              b.diffuse_light_color((7.0, 7.0, 7.0)))
+    c0 = np.array([400.0, 400.0, 200.0], np.float32)
+    b.moving_sphere(c0, c0 + np.array([30.0, 0.0, 0.0], np.float32),
+                    0.0, 1.0, 50.0, b.lambertian_color((0.7, 0.3, 0.1)))
+    b.sphere((260.0, 150.0, 45.0), 50.0, b.dielectric(1.5))
+    b.sphere((0.0, 150.0, 145.0), 50.0, b.metal((0.8, 0.8, 0.9), 1.0))
+    # the subsurface ball: a glass boundary around a dense blue medium
+    b.sphere((360.0, 150.0, 145.0), 70.0, b.dielectric(1.5))
+    b.medium_sphere((360.0, 150.0, 145.0), 70.0, 0.2,
+                    b.constant_texture((0.2, 0.4, 0.9)))
+    b.medium_sphere((0.0, 0.0, 0.0), 5000.0, 1e-4,
+                    b.constant_texture((1.0, 1.0, 1.0)))
+    b.sphere((400.0, 200.0, 400.0), 100.0,
+             b.lambertian(b.image_texture(_procedural_earth_image())))
+    b.sphere((220.0, 280.0, 300.0), 80.0,
+             b.lambertian(b.noise_texture(0.1)))
+    white = b.lambertian_color((0.73, 0.73, 0.73))
+    pts = rng.random((1000, 3)).astype(np.float32) * 165.0
+    th = np.deg2rad(15.0)
+    rot = np.array([[np.cos(th), 0.0, np.sin(th)],
+                    [0.0, 1.0, 0.0],
+                    [-np.sin(th), 0.0, np.cos(th)]], np.float32)
+    pts = pts @ rot.T + np.array([-100.0, 270.0, 395.0], np.float32)
+    for p in pts:
+        b.sphere(p, 10.0, white)
+    b.sky = (0.0, 0.0, 0.0)
+    cam = make_camera(
+        (478.0, 278.0, -600.0), (278.0, 278.0, 0.0), (0.0, 1.0, 0.0), 40.0,
+        aspect, aperture=0.0, focus_dist=10.0, time0=0.0, time1=1.0,
+    )
+    return b.finish(pad_multiple=128, spatial_sort=True), cam
 
 
 def aras(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
@@ -280,7 +335,7 @@ def aras(aspect: float, seed: int = 0) -> Tuple[Scene, Camera]:
     ground ball, a mixed foreground group, a glass ball, two emissives and
     four 9-sphere rows of gray and coloured Lambertian and mirror metal),
     gradient sky."""
-    b = SceneBuilder()
+    b = SceneBuilder(perlin_rng=np.random.default_rng(seed))
     b.sphere((0.0, -100.5, -1.0), 100.0, b.lambertian_color((0.8, 0.8, 0.8)))
     b.sphere((2.0, 0.0, -1.0), 0.5, b.lambertian_color((0.8, 0.4, 0.4)))
     b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian_color((0.4, 0.8, 0.4)))
@@ -353,6 +408,7 @@ _REGISTRY: Dict[str, Callable[..., Tuple[Scene, Camera]]] = {
     "cornell_smoke": cornell_smoke,
     "earth": earth,
     "final": final,
+    "final_full": final_full,
     "random": random,
     "random_spheres": random_spheres,
     "random_spheres_xl": random_spheres_xl,

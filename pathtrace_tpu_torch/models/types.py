@@ -2,13 +2,16 @@
 
 Counterpart of ``pathtrace_tpu/models/types.py`` for spheres, axis-aligned
 rects, transformed boxes, constant-density media, materials, textures, the
-image atlas and the sky. Instanced spheres and rects are not ported yet.
-Every leaf is a tensor; ``.to(device)`` moves a whole dataclass.
+Perlin tables, the image atlas and the sky. Spheres and rects may carry
+per-primitive ``[N, 3, 4]`` affine pairs (the reference's generic
+``Instance``): ``None`` for a scene without instances. Every other leaf is
+a tensor; ``.to(device)`` moves a whole dataclass.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,17 +35,20 @@ MEDIUM_SPHERE = 1
 
 
 class _TensorData:
-    """``.to(device)`` and ``numpy()`` over every dataclass field."""
+    """``.to(device)`` and ``numpy()`` over every dataclass field that is
+    not None."""
 
     def to(self, device):
         return dataclasses.replace(self, **{
             f.name: getattr(self, f.name).to(device)
             for f in dataclasses.fields(self)
+            if getattr(self, f.name) is not None
         })
 
     def numpy(self) -> dict:
-        return {f.name: getattr(self, f.name).cpu().numpy()
-                for f in dataclasses.fields(self)}
+        return {f.name: getattr(self, f.name).detach().cpu().numpy()
+                for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None}
 
 
 @dataclasses.dataclass
@@ -58,10 +64,18 @@ class Spheres(_TensorData):
     radius: torch.Tensor          # [N] f32
     mat_id: torch.Tensor          # [N] i32
     mask: torch.Tensor            # [N] bool
+    # instances: None, or [N, 3, 4] affine pairs; ``center`` and
+    # ``radius`` are then in each sphere's object space
+    world_from_obj: Optional[torch.Tensor] = None
+    obj_from_world: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
         return self.center.shape[0]
+
+    @property
+    def instanced(self) -> bool:
+        return self.world_from_obj is not None
 
 
 @dataclasses.dataclass
@@ -81,10 +95,18 @@ class Rects(_TensorData):
     flip: torch.Tensor    # [N] f32, +1.0 or -1.0
     mat_id: torch.Tensor  # [N] i32
     mask: torch.Tensor    # [N] bool
+    # instances: None, or [N, 3, 4] affine pairs (the rect's plane and
+    # bounds are then in its object space)
+    world_from_obj: Optional[torch.Tensor] = None
+    obj_from_world: Optional[torch.Tensor] = None
 
     @property
     def count(self) -> int:
         return self.axis.shape[0]
+
+    @property
+    def instanced(self) -> bool:
+        return self.world_from_obj is not None
 
 
 def _identity_affines(n: int) -> torch.Tensor:
@@ -167,7 +189,8 @@ class Materials(_TensorData):
 
 @dataclasses.dataclass
 class Textures(_TensorData):
-    """Texture table; checker children are one level deep."""
+    """Texture table. A checker's children (``odd_id``, ``even_id``) are
+    textures of any kind, checkers included."""
 
     kind: torch.Tensor      # [T] i32
     color: torch.Tensor     # [T, 3] f32
@@ -175,6 +198,40 @@ class Textures(_TensorData):
     even_id: torch.Tensor   # [T] i32
     scale: torch.Tensor     # [T] f32 noise scale
     image_id: torch.Tensor  # [T] i32 atlas entry of an image texture (else 0)
+
+
+@dataclasses.dataclass
+class PerlinTables(_TensorData):
+    """Perlin gradient and permutation tables: 256 random unit gradients
+    and three independent permutations of 0..255, hashed by xor. Noise is
+    gathers from them, differentiable in ``randvec``."""
+
+    randvec: torch.Tensor  # [256, 3] f32 unit vectors
+    perm_x: torch.Tensor   # [256] i32
+    perm_y: torch.Tensor   # [256] i32
+    perm_z: torch.Tensor   # [256] i32
+
+    @staticmethod
+    def from_rng(rng: np.random.Generator) -> "PerlinTables":
+        """The tables drawn as the reference draws them: 256 gradients
+        uniform in the cube [-1, 1)^3, normalized in float32, then three
+        Fisher-Yates shuffles whose index is ``int(rng.random() * (i +
+        1))``, from i = 255 down to 0."""
+        v = rng.random((256, 3), dtype=np.float32) * 2.0 - 1.0
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        perms = []
+        for _ in range(3):
+            p = np.arange(256, dtype=np.int32)
+            for i in range(255, -1, -1):
+                tgt = int(rng.random() * (i + 1))
+                p[i], p[tgt] = p[tgt], p[i]
+            perms.append(torch.from_numpy(p))
+        return PerlinTables(torch.from_numpy(v.astype(np.float32)), *perms)
+
+    @staticmethod
+    def default() -> "PerlinTables":
+        """The builder's tables when no generator is given (seed 0)."""
+        return PerlinTables.from_rng(np.random.default_rng(0))
 
 
 @dataclasses.dataclass
@@ -203,8 +260,9 @@ class ImageAtlas(_TensorData):
 class Scene:
     """``sky`` is the constant sky colour, used when ``use_gradient_sky``
     is 0; otherwise the gradient sky. A scene built without boxes or media
-    holds one dead entry of each, as the builder pads them, and one
-    without images the placeholder atlas."""
+    holds one dead entry of each, as the builder pads them, one without
+    images the placeholder atlas, and one without Perlin tables the
+    builder's default ones."""
 
     spheres: Spheres
     rects: Rects
@@ -216,6 +274,8 @@ class Scene:
     media: Media = dataclasses.field(default_factory=Media.empty)
     atlas: ImageAtlas = dataclasses.field(
         default_factory=ImageAtlas.placeholder)
+    perlin: PerlinTables = dataclasses.field(
+        default_factory=PerlinTables.default)
 
     def to(self, device) -> "Scene":
         return Scene(
@@ -228,13 +288,18 @@ class Scene:
             boxes=self.boxes.to(device),
             media=self.media.to(device),
             atlas=self.atlas.to(device),
+            perlin=self.perlin.to(device),
         )
 
 
 class SceneFeatures:
     """Static scene capabilities, derived host-side (same slots as the JAX
     package's ``SceneFeatures``); ``fastpath_supported`` and
-    ``megakernel_supported`` refuse what their paths cannot render."""
+    ``megakernel_supported`` refuse what their paths cannot render.
+    ``checker_depth`` is the deepest nesting of checkers (a checker of a
+    checker is 2), the levels the texture evaluation unrolls;
+    ``checker_children_const`` holds when every checker's children are
+    constants."""
 
     __slots__ = (
         "has_spheres", "has_motion", "has_rects", "has_boxes", "has_media",

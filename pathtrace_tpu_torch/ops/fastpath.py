@@ -268,26 +268,44 @@ def attr_width(features: SceneFeatures) -> int:
     return K_ATTR_IMG if features.has_image else K_ATTR
 
 
-def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
-    """True for the scene classes this port renders: static or moving
-    spheres, world-space rects (at most ``RECT_ROWS``), transformed boxes
-    and constant-density media with Lambertian, metal, dielectric,
-    emissive or isotropic materials and constant, checker (constant
-    children), noise or, in scenes without boxes or media, image
-    textures. Raises ``ValueError`` naming what is missing for anything
-    else."""
+def fastpath_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
+    """Why the fast path cannot render ``scene`` (None when it can): more
+    than ``RECT_ROWS`` rects, instanced spheres or rects, checker textures
+    with non-constant children, or image textures in a scene with boxes or
+    media. The first three are the reference's own fallbacks to the
+    general integrator (``fastpath_supported``); the last is a scene the
+    reference's fast path shades outside its fused kernel."""
     if scene.rects.count > RECT_ROWS:
-        raise ValueError(f"scene has {scene.rects.count} rects; the fast "
-                         f"path takes at most {RECT_ROWS}")
+        return (f"scene has {scene.rects.count} rects; the fast path takes "
+                f"at most {RECT_ROWS}")
+    for kind in ("spheres", "rects"):
+        if getattr(scene, kind).instanced:
+            return (f"scene has instanced {kind}: the fast path takes "
+                    "world-space primitives (the general integrator renders "
+                    "instances)")
     if features.has_checker and not features.checker_children_const:
-        raise ValueError("scene needs checker textures with non-constant "
-                         "children: not ported yet")
+        return ("scene needs checker textures with non-constant children: "
+                "not ported yet")
     if features.has_image and (features.has_boxes or features.has_media):
-        raise ValueError(
-            "scene needs image textures in a scene with boxes or media: the "
-            "reference shades such scenes outside the fused kernel "
-            "(fused_shade_supported: the non-fused bounce with box normals "
-            "and box UV), which is not ported yet")
+        return ("scene needs image textures in a scene with boxes or media: "
+                "the reference shades such scenes outside the fused kernel "
+                "(fused_shade_supported: the non-fused bounce with box "
+                "normals and box UV), which is not ported yet")
+    return None
+
+
+def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
+    """True for the scene classes the fast path renders: static or moving
+    world-space spheres, world-space rects (at most ``RECT_ROWS``),
+    transformed boxes and constant-density media with Lambertian, metal,
+    dielectric, emissive or isotropic materials and constant, checker
+    (constant children), noise or, in scenes without boxes or media, image
+    textures. Raises ``ValueError`` naming what is missing for anything
+    else (:func:`fastpath_refusal`); ``mode="auto"`` renders such scenes
+    through the general integrator."""
+    why = fastpath_refusal(features, scene)
+    if why is not None:
+        raise ValueError(why)
     return True
 
 

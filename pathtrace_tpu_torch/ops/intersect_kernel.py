@@ -99,9 +99,11 @@ H100_SMS = 132     # SMs the plain culls assume off the card
 BWD_RAYS, BWD_THREADS = 4, 256
 BWD_SHARED_BYTES = 232_448
 
-# rays per plain-version chunk: each [chunk, N] temporary takes
-# chunk * N * 4 bytes whatever the wavefront size
+# rays per plain-version chunk, at most PLAIN_CHUNK and at most
+# PLAIN_PAIRS / N: each [chunk, N] temporary takes at most 4 PLAIN_PAIRS
+# bytes whatever the wavefront and scene sizes
 PLAIN_CHUNK = 1 << 15
+PLAIN_PAIRS = 1 << 23
 
 
 def _nearest_plain(cx, cy, cz, cc_m_r2, smask, rays, t_min, t_max,
@@ -149,8 +151,9 @@ def sphere_nearest_plain(soa: torch.Tensor, rays: torch.Tensor,
     R = rays.shape[1]
     t_out = torch.empty(R, dtype=torch.float32, device=rays.device)
     i_out = torch.empty(R, dtype=torch.int32, device=rays.device)
-    for lo in range(0, R, PLAIN_CHUNK):
-        hi = min(lo + PLAIN_CHUNK, R)
+    step = max(1, min(PLAIN_CHUNK, PLAIN_PAIRS // max(soa.shape[1], 1)))
+    for lo in range(0, R, step):
+        hi = min(lo + step, R)
         motion = None if time is None else rows[5:] + [time[lo:hi]]
         tmin, imin = _nearest_plain(*spheres, rays[:, lo:hi], t_min, t_max,
                                     motion)
@@ -436,6 +439,13 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     return tuple(grads)
 
 
+def pack_rays(ro: torch.Tensor, rd: torch.Tensor) -> torch.Tensor:
+    """[R, 3] origins and directions as the kernels' [6, R] planes, rows
+    unit-stride for every R (one ray included)."""
+    return torch.stack([ro[:, 0], ro[:, 1], ro[:, 2],
+                        rd[:, 0], rd[:, 1], rd[:, 2]])
+
+
 class SphereNearest(torch.autograd.Function):
     """Differentiable closest hit: ``apply(soa, center, radius, ro, rd)``
     gives (t [R], idx [R] int32); for moving spheres
@@ -453,7 +463,7 @@ class SphereNearest(torch.autograd.Function):
     @staticmethod
     def forward(ctx, soa, center, radius, ro, rd, delta=None, time0=None,
                 inv_dt=None, time=None):
-        rays = torch.cat([ro, rd], dim=1).T.contiguous()
+        rays = pack_rays(ro, rd)
         ctx.moving = time is not None
         if ctx.moving:
             t, idx = sphere_nearest_moving(soa, rays, time.contiguous(),

@@ -4,7 +4,10 @@ Counterpart of ``pathtrace_tpu/ops/lights.py``: :func:`build_light_table`
 collects the emissive spheres and rects on the host, and the plane forms
 :func:`sample_light_dirs_planes` and :func:`light_dir_pdf_planes` sample
 one light per lane and give the density of a direction, on [R] planes,
-with a Python loop over the (one or two) lights. Each lane picks light
+with a Python loop over the (one or two) lights. :func:`sample_light_dirs`
+and :func:`light_dir_pdf`, the general integrator's [R, 3] forms, run
+the plane forms on the columns (the reference's array forms select the
+same values). Each lane picks light
 ``min(int(u0 * L), L - 1)``; a sphere light samples the cone of its
 visible cap, a rect light a uniform point of its area (double-sided).
 The densities are solid-angle densities including the 1/L light choice.
@@ -241,3 +244,21 @@ def light_dir_pdf_planes(lights: LightTable, px, py, pz, wx, wy, wz):
         pdf_best = torch.where(better, pdf, pdf_best)
         any_hit = any_hit | hit
     return torch.where(any_hit, pdf_best / lights.count, 0.0)
+
+
+def sample_light_dirs(lights: LightTable, point: torch.Tensor,
+                      u: torch.Tensor):
+    """[R, 3] form of :func:`sample_light_dirs_planes`: ``point`` [R, 3],
+    ``u`` [R, 3] uniforms; (wi [R, 3], distance, pdf, light index,
+    valid)."""
+    wix, wiy, wiz, dist, pdf, idx, valid = sample_light_dirs_planes(
+        lights, point[:, 0], point[:, 1], point[:, 2], u[:, 0], u[:, 1],
+        u[:, 2])
+    return torch.stack([wix, wiy, wiz], dim=-1), dist, pdf, idx, valid
+
+
+def light_dir_pdf(lights: LightTable, point: torch.Tensor,
+                  wd: torch.Tensor) -> torch.Tensor:
+    """[R, 3] form of :func:`light_dir_pdf_planes`: [R]."""
+    return light_dir_pdf_planes(lights, point[:, 0], point[:, 1],
+                                point[:, 2], wd[:, 0], wd[:, 1], wd[:, 2])

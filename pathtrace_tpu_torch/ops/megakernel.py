@@ -179,7 +179,10 @@ def scene_shared_bytes(n_static: int, n_moving: int, n_rects: int,
 
 def prep_tables(scene: Scene) -> MegaTables:
     """The megakernel's tables, on the scene's device, with K7's resident
-    rows (one host sync, once per scene)."""
+    rows (one host sync, once per scene). Instanced spheres or rects are
+    refused (the tables hold world-space geometry)."""
+    if scene.spheres.instanced or scene.rects.instanced:
+        raise ValueError("the megakernel takes no instanced spheres or rects")
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     spheres, rects = build_sphere_table(scene), build_rect_table(scene)

@@ -50,9 +50,12 @@ def default_trainable(path: str) -> bool:
 
 
 def _leaf_paths(scene: Scene) -> List[str]:
-    """Dotted leaf names in the reference's flattening order."""
+    """Dotted leaf names in the reference's flattening order (a leaf that
+    is None, as an instance affine of a scene without instances, is none,
+    as in the reference's pytree)."""
     paths = [f"{g}.{f.name}" for g in _GROUPS
-             for f in dataclasses.fields(getattr(scene, g))]
+             for f in dataclasses.fields(getattr(scene, g))
+             if getattr(getattr(scene, g), f.name) is not None]
     return paths + ["sky", "use_gradient_sky"]
 
 

@@ -1,5 +1,5 @@
-"""Primary rays and progressive accumulation (counterpart of
-``pathtrace_tpu/render/frame.py``).
+"""Primary rays, whole-frame renders and progressive accumulation
+(counterpart of ``pathtrace_tpu/render/frame.py``).
 
 The in-pixel jitter and the lens/time uniforms come from the Threefry
 twin of ``jax.random`` (:mod:`pathtrace_tpu_torch.utils.threefry`): the
@@ -61,6 +61,64 @@ def accumulate(acc_image: torch.Tensor, new_image: torch.Tensor,
     n = torch.tensor(float(frame_num), dtype=new_image.dtype)
     mix_prev = n / (n + 1.0)
     return acc_image * mix_prev.item() + new_image * (1.0 - mix_prev).item()
+
+
+def render_frame(scene, camera: Camera, width: int, height: int,
+                 samples: int, max_depth: int, key: torch.Tensor,
+                 differentiable: bool = False, features=None,
+                 ray_chunk: int = 0, stratify: bool = False,
+                 nee_lights=None, rr_start: int = 0):
+    """One frame through the general integrator: (image [H, W, 3] linear
+    RGB, ray_count [] int64), on the scene's device.
+
+    ``kray, ktrace = split(key)``: the primary rays from ``kray``, the
+    bounces keyed by ``ktrace``, as the reference keys them.
+    ``differentiable`` takes :func:`~pathtrace_tpu_torch.render.integrator.trace_diff`
+    (under autograd, to the scene's and the camera's leaves), else the
+    early-exit :func:`~pathtrace_tpu_torch.render.integrator.trace`.
+    ``ray_chunk`` > 0 traces the wavefront in chunks of that many rays,
+    chunk ``c`` keyed ``fold_in(ktrace, c)``; the last chunk is padded
+    with lanes born dead (a NaN time), or, when differentiable, with
+    copies of ray 0 (its image pixels are cut off). The image is each
+    pixel's sample mean."""
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.render import integrator
+
+    features = features or SceneFeatures.from_scene(scene)
+    kray, ktrace = threefry.split(key)
+    dev = scene.sky.device
+    ro, rd, time = generate_primary_rays(camera, width, height, samples,
+                                         kray, stratify=stratify, device=dev)
+    R = height * width * samples
+    ro, rd, time = ro.reshape(R, 3), rd.reshape(R, 3), time.reshape(R)
+    trace_fn = integrator.trace_diff if differentiable else integrator.trace
+    tables = integrator.prep_tables(scene, features, nee_lights)
+    kw = dict(features=features, nee_lights=nee_lights, rr_start=rr_start,
+              tables=tables)
+    if ray_chunk and ray_chunk < R:
+        n_chunks = -(-R // ray_chunk)
+        pad = n_chunks * ray_chunk - R
+        if pad:
+            pad_time = (time[:1].expand(pad) if differentiable
+                        else torch.full((pad,), float("nan"),
+                                        dtype=time.dtype, device=dev))
+            ro = torch.cat([ro, ro[:1].expand(pad, 3)])
+            rd = torch.cat([rd, rd[:1].expand(pad, 3)])
+            time = torch.cat([time, pad_time])
+        parts, count = [], torch.zeros((), dtype=torch.int64, device=dev)
+        for c in range(n_chunks):
+            sl = slice(c * ray_chunk, (c + 1) * ray_chunk)
+            rad_c, cnt_c = trace_fn(scene, ro[sl], rd[sl], time[sl],
+                                    threefry.fold_in(ktrace, c), max_depth,
+                                    **kw)
+            parts.append(rad_c)
+            count = count + cnt_c
+        radiance = torch.cat(parts)[:R]
+    else:
+        radiance, count = trace_fn(scene, ro, rd, time, ktrace, max_depth,
+                                   **kw)
+    img = radiance.reshape(height, width, samples, 3).mean(dim=2)
+    return img, count
 
 
 def render_frame_diff(scene, camera: Camera, width: int, height: int,

@@ -8,6 +8,8 @@
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset cornell_smoke --nee --rr 3
     python -m pathtrace_tpu_torch.tools.profile_step --what frame --preset earth
     python -m pathtrace_tpu_torch.tools.profile_step --what megakernel --preset simple_light
+    python -m pathtrace_tpu_torch.tools.profile_step --what general --preset random_spheres
+    python -m pathtrace_tpu_torch.tools.profile_step --what general --preset final_full --warmup 1 --reps 2
 
 ``train``: the inverse-rendering trainer on ``--preset`` (default
 random_spheres; every default-trainable leaf, perturbed albedos, as
@@ -16,7 +18,10 @@ depth 4. ``frame``: one frame of the render path (1280x720, 4 spp,
 depth 10) of ``--preset``, with next-event estimation (``--nee``) and
 Russian roulette from depth ``--rr``, as the CLI's flags; the frame's
 alive-count readbacks and segments (shadow rays included) are reported
-too. ``megakernel``: one frame of the megakernel
+too. ``general``: one frame of the general integrator
+(``render/frame.render_frame``, as ``--mode general`` renders it) at the
+same film, with its readbacks (one a bounce), bounces and segments.
+``megakernel``: one frame of the megakernel
 path at the same film (primary rays, K7 over tables built once per scene,
 the sample mean). After warm-up steps, ``--reps`` unprofiled steps are
 timed with CUDA events, then one step runs under ``torch.profiler``: the
@@ -164,6 +169,35 @@ def _setup_frame(dev, preset, nee, rr, info):
     return step
 
 
+def _setup_general(dev, preset, nee, rr, info):
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.render import integrator
+    from pathtrace_tpu_torch.render.frame import render_frame
+    from pathtrace_tpu_torch.utils import threefry
+
+    scene, cam = presets.from_name(preset, 1280 / 720)
+    scene, cam = scene.to(dev), cam.to(dev)
+    feats = SceneFeatures.from_scene(scene)
+    lights = build_light_table(scene) if nee else None
+    base_key = threefry.PRNGKey(0)
+    box = {"frame": 0}
+
+    def step():
+        box["frame"] += 1
+        r0, b0 = integrator.READBACKS, integrator.BOUNCES
+        _, count = render_frame(scene, cam, 1280, 720, 4, 10,
+                                threefry.fold_in(base_key, box["frame"]),
+                                features=feats, nee_lights=lights,
+                                rr_start=rr)
+        info["readbacks"] = integrator.READBACKS - r0
+        info["bounces"] = integrator.BOUNCES - b0
+        info["segments"] = count
+
+    return step
+
+
 def _host_spans(dev, reps: int = 200) -> dict:
     """Host ms (medians of ``reps`` calls, the device idle before each) of
     a frame's key work as ``generate_primary_rays`` does it, of one
@@ -227,7 +261,8 @@ def _setup_megakernel(dev, preset, info):
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="profile_step")
-    ap.add_argument("--what", choices=("train", "frame", "megakernel"),
+    ap.add_argument("--what", choices=("train", "frame", "general",
+                                       "megakernel"),
                     default="train")
     ap.add_argument("--preset", default="random_spheres",
                     help="scene of the frame or of the trainer")
@@ -253,6 +288,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     info = {}
     if args.what == "frame":
         step = _setup_frame(dev, args.preset, args.nee, args.rr, info)
+    elif args.what == "general":
+        step = _setup_general(dev, args.preset, args.nee, args.rr, info)
     elif args.what == "megakernel":
         step = _setup_megakernel(dev, args.preset, info)
     else:
@@ -311,6 +348,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         "peak_gib": peak_gib, "device_launches": launches,
         "nee": args.nee, "rr_start": args.rr,
         "readbacks": info.get("readbacks"),
+        "bounces": info.get("bounces"),
         "segments": (int(info["segments"]) if "segments" in info else None),
         "host_spans_ms": spans,
         "regions_device_ms": regions,
@@ -319,7 +357,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                         for us, c, n in kernels[:15]],
     }
     print(f"{args.what} of {result['preset']}"
-          + (f" (nee {args.nee}, rr {args.rr})" if args.what == "frame" else "")
+          + (f" (nee {args.nee}, rr {args.rr})"
+             if args.what in ("frame", "general") else "")
           + f" on {smi} (torch {torch.__version__})")
     if result["segments"] is not None:
         print(f"segments {result['segments']}, readbacks {result['readbacks']}")

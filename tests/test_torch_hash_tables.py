@@ -229,18 +229,27 @@ class TestSceneState:
             assert _bits_equal(cam_leaves[key], val), key
 
     def test_scene_from_numpy_refuses_unported_kinds(self):
-        # instanced spheres are not ported (earth's image texture and
-        # cornell's boxes are: earth converts, its atlas included)
+        # instanced spheres convert now, affines included (the general
+        # integrator renders them), as do earth's image texture and
+        # cornell's boxes; an instance without both affines and image
+        # textures without atlas leaves are refused
         b = jbuild.SceneBuilder()
         b.sphere((0.0, 0.0, 0.0), 1.0, b.lambertian_color((0.5, 0.5, 0.5)),
                  transform=np.eye(3, 4, dtype=np.float32))
-        with pytest.raises(ValueError, match="instanced spheres"):
-            convert.scene_from_numpy(jax_scene_leaves(b.finish()),
-                                     device="cpu")
+        leaves = jax_scene_leaves(b.finish())
+        inst = convert.scene_from_numpy(leaves, device="cpu")
+        assert inst.spheres.instanced and not inst.rects.instanced
+        del leaves["spheres.obj_from_world"]
+        with pytest.raises(ValueError, match="both affines"):
+            convert.scene_from_numpy(leaves, device="cpu")
         jscene, _ = jpresets.earth(1.0)
-        scene = convert.scene_from_numpy(jax_scene_leaves(jscene),
-                                         device="cpu")
+        leaves = jax_scene_leaves(jscene)
+        scene = convert.scene_from_numpy(leaves, device="cpu")
         assert tuple(scene.atlas.data.shape) == (256, 512, 3)
+        with pytest.raises(ValueError, match="no atlas leaves"):
+            convert.scene_from_numpy(
+                {k: v for k, v in leaves.items()
+                 if not k.startswith("atlas.")}, device="cpu")
 
     def test_fastpath_refuses_moving_spheres(self):
         """Moving spheres are ported (K3): the converted JAX ``random``
@@ -262,8 +271,11 @@ class TestSceneState:
             tfp.fastpath_supported(feats, scene)
 
     def test_unported_preset_raises(self):
-        with pytest.raises(ValueError, match="not ported yet"):
-            presets.from_name("final_full", 1.0)
+        # every preset is ported (final_full renders through the general
+        # integrator); an unknown name is refused
+        assert presets.NOT_PORTED == () and "final_full" in PORTED
+        with pytest.raises(ValueError, match="unrecognised preset"):
+            presets.from_name("final_fuller", 1.0)
 
 
 class TestCamera:

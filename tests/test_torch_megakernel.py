@@ -3,7 +3,8 @@
 * The rect host layer: ``simple_light`` (3 spheres, one rect, two diffuse
   lights, the noise texture, a black sky) equal to JAX's leaf for leaf,
   rect padding included; ``SceneFeatures`` equal slot by slot; rects
-  across ``scene_from_numpy`` and back; instanced rects refused.
+  across ``scene_from_numpy`` and back; instanced rects cross too, and the
+  fast path and the megakernel refuse them.
 * The megakernel's tables (``build_sphere_table``, ``build_rect_table``)
   bit for bit JAX's, dead and padding rows included.
 * The plain K7 (``trace_megakernel`` on CPU tensors) against JAX's
@@ -141,6 +142,9 @@ def test_rect_padding_and_flip_equal_jax():
 
 
 def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
+    """Rects cross ``scene_from_numpy`` bit for bit. Instanced rects cross
+    too now (the general integrator renders them), but the fast path and
+    the megakernel refuse them."""
     jscene, _ = jpresets.simple_light(ASPECT)
     leaves = jax_scene_leaves(jscene)
     scene = convert.scene_from_numpy(leaves, device="cpu")
@@ -151,17 +155,26 @@ def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
     inst.rect_xy(0.0, 1.0, 0.0, 1.0, 0.0, False,
                  inst.lambertian_color((0.5, 0.5, 0.5)),
                  transform=np.eye(3, 4, dtype=np.float32))
+    conv = convert.scene_from_numpy(jax_scene_leaves(inst.finish()),
+                                    device="cpu")
+    assert conv.rects.instanced
     with pytest.raises(ValueError, match="instanced rects"):
-        convert.scene_from_numpy(jax_scene_leaves(inst.finish()), device="cpu")
+        tfp.fastpath_supported(SceneFeatures.from_scene(conv), conv)
+    with pytest.raises(ValueError, match="instanced spheres or rects"):
+        tmk.prep_tables(conv)
+    b = SceneBuilder()
+    b.rect_xy(0.0, 1.0, 0.0, 1.0, 0.0, False, b.lambertian_color((1, 1, 1)),
+              transform=np.eye(3, 4, dtype=np.float32))
+    built = b.finish()
     with pytest.raises(ValueError, match="instanced rects"):
-        SceneBuilder().rect_xy(0.0, 1.0, 0.0, 1.0, 0.0, False, 0,
-                               transform=np.eye(3, 4, dtype=np.float32))
+        tfp.fastpath_supported(SceneFeatures.from_scene(built), built)
 
 
 def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
     """The megakernel refuses image textures (``earth``), which the fast
-    path takes now; the CLI refuses a preset not ported (``final_full``)
-    and renders ``simple_light``, whose rect both paths take now."""
+    path takes now; the CLI refuses a mode not ported (``--mode
+    compacted``) and renders ``simple_light``, whose rect both paths take
+    now."""
     scene, _ = presets.simple_light(ASPECT)
     feats = SceneFeatures.from_scene(scene)
     assert tmk.megakernel_supported(feats)
@@ -178,7 +191,8 @@ def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
                              torch.tensor([[0.0, 0.0, 1.0]] * 8),
                              torch.zeros(8), 0, 2, feats)
     capsys.readouterr()
-    assert cli.main(["-P", "final_full", "-O", "--device", "cpu"]) == 2
+    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu",
+                     "--mode", "compacted"]) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 

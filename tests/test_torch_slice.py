@@ -194,7 +194,8 @@ def test_cli_refuses_what_is_not_ported(capsys):
 
     assert main(["--aovs", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
-    assert main(["-P", "final_full", "-O", "--device", "cpu"]) == 2
+    assert main(["-P", "small", "-O", "--device", "cpu", "--mode",
+                 "sharded"]) == 2
     assert "not ported yet" in capsys.readouterr().err
     if not torch.cuda.is_available():
         # no silent fallback to the CPU

@@ -20,18 +20,18 @@ PLANE_NAMES = ("rox", "roy", "roz", "rdx", "rdy", "rdz",
                "rad_r", "rad_g", "rad_b", "thr_r", "thr_g", "thr_b")
 
 _SCENE_GROUPS = ("spheres", "rects", "boxes", "media", "materials",
-                 "textures", "atlas")
+                 "textures", "perlin", "atlas")
 
 
 def jax_scene_leaves(scene, atlas: bool = True) -> dict:
     """The JAX Scene flattened to dotted-key numpy leaves (the format of
     ``pathtrace_tpu_torch.models.convert.scene_from_numpy``). The atlas's
     ``data_planes``, a transposed copy of ``data`` the port does not
-    keep, is left out; ``atlas=False`` leaves out the whole atlas (the
-    leaves of fixtures written before it, which convert with the
-    placeholder atlas)."""
+    keep, is left out; ``atlas=False`` leaves out the whole atlas and the
+    Perlin tables (the leaves of fixtures written before them, which
+    convert with the placeholder atlas and the default tables)."""
     out = {}
-    for group in _SCENE_GROUPS if atlas else _SCENE_GROUPS[:-1]:
+    for group in _SCENE_GROUPS if atlas else _SCENE_GROUPS[:-2]:
         obj = getattr(scene, group)
         for f in dataclasses.fields(obj):
             val = getattr(obj, f.name)
