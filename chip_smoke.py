@@ -251,7 +251,31 @@ Phases (each prints a line before the next starts):
     sphere (24x24, 4 spp, depth 3, ``PRNGKey(6)``, tests/test_grad.py's
     ``test_vfov``) finite and within 1e-3 relative of the CPU port's and
     of ``jax.grad``'s (``tests/goldens/torch_port_camera_grads.npz``), K1
-    forward and K6 backward launched.
+    forward and K6 backward launched;
+44. the silhouette boundary term (``ops/silhouette.silhouette_grads_all``)
+    of the six cases of ``tests/goldens/torch_port_silhouette.npz`` (a
+    flat sphere, a moving sphere, an aperture camera, a rect, a box, a
+    mixed scene) on the card against the CPU port and the JAX fixture,
+    per leaf by relative L2 within ``SIL_WHOLE_TOL``; its pair traces run
+    K1 (K3 in the moving scenes), no plain version;
+45. the ``--geometry`` trainer at full width: ``random_spheres`` at
+    1280x720, 4 spp, depth 4, every default leaf, the silhouette term at
+    128 samples, 3 Adam steps: ms a step (CUDA events), the silhouette
+    term's ms and share of the step, peak memory, K1 and K6 launched and
+    no plain version; then the example's ``--geometry`` run on ``small``
+    (10 steps at its defaults), whose loss must fall;
+46. one full-width differentiable step (1280x720x4, depth 4, the default
+    leaves) on ``cornell`` (boxes), ``cornell_smoke`` (media) and
+    ``earth`` (an image): loss, ms, peak memory (a step that does not fit
+    runs at half the film, said so); K1 and K6 on ``earth``;
+47. bit-exact resume on the card: ``cli.main`` with ``-F 4`` against
+    ``-F 2 --checkpoint`` twice (``random_spheres`` 640x360x4, depth 10),
+    and the example's 5 steps against 2 steps, a checkpoint, then 3 more
+    (the colours, under torch's deterministic algorithms, which the
+    example turns on with ``--checkpoint``): images and checkpoint leaves
+    equal bit for bit; two identical 3-step ``--geometry`` runs under the
+    same deterministic algorithms compared (K6 sums with atomics; printed,
+    not required).
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -313,7 +337,10 @@ bound by bytes alone, ``torch_rand_ms`` and phase 38's share of pixels
 outside per preset. K1, K3, K6 and the ``threefry`` entry carry
 ``general_launches`` (phase 42's ``random_spheres`` frames for K1 and the
 draw, its ``final_full`` frame for K3, phase 43 for K6); the ``threefry``
-entry also phases 41-42's shares and frames. Then
+entry also phases 41-42's shares and frames. K1 and K3 carry
+``silhouette_launches`` (phase 44) and K1 and K6
+``geometry_train_launches`` (phase 45) and ``diff_scene_launches``
+(phase 46); K6 carries phases 44-46's runs. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -343,6 +370,10 @@ MEGA_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                             "torch_port_megakernel.npz")
 CAMERA_GRAD_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                    "torch_port_camera_grads.npz")
+SIL_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                           "torch_port_silhouette.npz")
+# the --geometry trainer at full width: Adam steps, the silhouette samples
+GEO_STEPS, SIL_SAMPLES = 3, 128
 WIDTH, HEIGHT, SAMPLES, DEPTH, FRAMES = 1280, 720, 4, 10, 3
 TRAIN_DEPTH, TRAIN_STEPS = 4, 5
 # the slice contract: per-ray radiance to 1e-3 (rtol and atol); the share
@@ -524,6 +555,278 @@ def probe_main(tag: str, probe, argv, k1, k2, k7):
     if any(counts[k] for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K7")):
         raise AssertionError(f"{probe.__name__} launched a render kernel")
     return counts, lines
+
+
+def inverse_phases(dev, smi: str) -> dict:
+    """Phases 44-47, the inverse-rendering slice: the silhouette term, the
+    ``--geometry`` trainer at full width, the differentiable step on boxes,
+    media and an image, and bit-exact resume. Returns the numbers the
+    kernels line carries."""
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch import cli
+    from pathtrace_tpu_torch.camera import make_camera
+    from pathtrace_tpu_torch.examples import inverse_render
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import intersect_kernel as k1
+    from pathtrace_tpu_torch.ops import megakernel as k7
+    from pathtrace_tpu_torch.ops import shade_kernel as k2
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import (
+        SIL_KEY_SEED, SIL_WHOLE_TOL, sil_grad_img, silhouette_cases,
+    )
+
+    # ---- 44: the silhouette boundary term on the card ----
+    from pathtrace_tpu_torch.models import build as tbuild
+    from pathtrace_tpu_torch.ops import silhouette as sil
+
+    sil_ref = np.load(SIL_FIXTURE)
+    sil_runs, sil_k1, sil_k3 = {}, 0, 0
+    for sname, (sc_, scam, sw, sh, sd, sm) in silhouette_cases(
+            tbuild, make_camera).items():
+        g_img = torch.from_numpy(sil_grad_img(sname, sh, sw))
+        on_cpu = sil.silhouette_grads_all(sc_, scam, sw, sh, g_img,
+                                          PRNGKey(SIL_KEY_SEED),
+                                          max_depth=sd, n_samples=sm)
+        sc_d, cam_d = sc_.to(dev), scam.to(dev)
+        reset_counts(k1, k2, k7)
+        t_start = time.monotonic()
+        on_card = sil.silhouette_grads_all(sc_d, cam_d, sw, sh, g_img.to(dev),
+                                           PRNGKey(SIL_KEY_SEED),
+                                           max_depth=sd, n_samples=sm)
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t_start) * 1e3
+        c44 = read_counts(k1, k2, k7)
+        names_ = sorted(str(n) for n in sil_ref[f"{sname}.names"])
+        err_cpu = {n: rel_l2(on_card[n].cpu(), on_cpu[n]) for n in names_}
+        err_jax = {n: rel_l2(on_card[n].cpu(), torch.from_numpy(
+            sil_ref[f"{sname}.grad.{n}"])) for n in names_}
+        feats_ = SceneFeatures.from_scene(sc_)
+        sweep = ("K3" if feats_.has_motion else "K1") if feats_.has_spheres \
+            else None
+        phase(f"[44] silhouette {sname} ({sw}x{sh}, depth {sd}, {sm} "
+              f"samples): card vs CPU port rel L2 "
+              + ", ".join(f"{n} {e:.2e}" for n, e in err_cpu.items())
+              + "; vs JAX " + ", ".join(f"{n} {e:.2e}" for n, e in
+                                       err_jax.items())
+              + f" (<= {SIL_WHOLE_TOL}); wall {wall_ms:.1f} ms; launches "
+              f"{c44}")
+        if (sorted(on_card) != names_ or c44["plain"]
+                or any(not np.isfinite(on_card[n].cpu().numpy()).all()
+                       for n in names_)
+                or max(err_cpu.values()) > SIL_WHOLE_TOL
+                or max(err_jax.values()) > SIL_WHOLE_TOL
+                or (sweep is not None and c44[sweep] <= 0)):
+            raise AssertionError(f"silhouette {sname}: failed its checks")
+        sil_k1 += c44["K1"]
+        sil_k3 += c44["K3"]
+        sil_runs[sname] = {"rel_l2_cpu": err_cpu, "rel_l2_jax": err_jax,
+                           "wall_ms": wall_ms, "launches": c44}
+        del sc_d, cam_d
+
+    # ---- 45: the --geometry trainer at full width: random_spheres,
+    # every default leaf, the silhouette term (128 samples), 3 Adam steps
+    from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def perturb(state_, names_):
+        with torch.no_grad():
+            for i, n in enumerate(names_):
+                if n == "spheres.center":
+                    state_.params[i][:, 0] += 0.05
+                if n == "textures.color":
+                    state_.params[i].copy_(
+                        (state_.params[i] + 0.2).clamp(0.0, 1.0))
+
+    g_scene, g_cam = presets.random_spheres(WIDTH / HEIGHT)
+    grend, gst, gnames = make_inverse_renderer(
+        g_scene, g_cam, WIDTH, HEIGHT, samples=SAMPLES, max_depth=TRAIN_DEPTH,
+        device=dev, silhouette=True, silhouette_samples=SIL_SAMPLES)
+    gkey = PRNGKey(0)
+    with torch.no_grad():
+        gtarget = grend.render(gst.params, gkey)
+    perturb(gst, gnames)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(k1, k2, k7)
+    geo_ms, geo_losses = [], []
+    for _ in range(GEO_STEPS):
+        e0, e1 = events()
+        e0.record()
+        gst, gloss = grend.train_step(gst, gtarget, gkey)
+        e1.record()
+        e1.synchronize()
+        geo_ms.append(e0.elapsed_time(e1))
+        geo_losses.append(float(gloss))
+    c45 = read_counts(k1, k2, k7)
+    geo_peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # the silhouette term alone, at the last step's parameters
+    with torch.no_grad():
+        gimg = grend.render(gst.params, gkey)
+    torch.cuda.synchronize()
+    reset_counts(k1, k2, k7)
+    e0, e1 = events()
+    e0.record()
+    gterms = grend.silhouette_terms(gst.params, gtarget, gkey, gimg)
+    e1.record()
+    e1.synchronize()
+    sil_ms = e0.elapsed_time(e1)
+    c45s = read_counts(k1, k2, k7)
+    step_med = float(np.median(geo_ms))
+    phase(f"[45] --geometry trainer, random_spheres {WIDTH}x{HEIGHT}x"
+          f"{SAMPLES} depth {TRAIN_DEPTH}, leaves {gnames}, silhouette "
+          f"{SIL_SAMPLES} samples: ms per step "
+          + ", ".join(f"{ms:.2f}" for ms in geo_ms)
+          + f" (CUDA events), losses {[round(x, 8) for x in geo_losses]}; "
+          f"the silhouette term {sil_ms:.2f} ms ({sil_ms / step_med:.1%} of "
+          f"the median step; launches {c45s}); peak memory {geo_peak:.3f} "
+          f"GiB; launches {c45} ({smi})")
+    if (not np.isfinite(geo_losses).all() or c45["K1"] <= 0
+            or c45["K6"] <= 0 or c45["plain"] or c45s["K1"] <= 0
+            or c45s["plain"] or set(gterms) != {"spheres.center",
+                                                 "spheres.radius"}
+            or not all(torch.isfinite(v).all() for v in gterms.values())):
+        raise AssertionError("the --geometry trainer failed its checks")
+    geo_run = {"step_ms": geo_ms, "losses": geo_losses,
+               "silhouette_ms": sil_ms, "silhouette_share": sil_ms / step_med,
+               "peak_gib": geo_peak, "launches": c45,
+               "silhouette_launches": c45s}
+    del grend, gst, gtarget, gimg, gterms
+
+    # the example's --geometry run on `small` (its defaults: 32x32, 4 spp,
+    # depth 3), whose loss must fall
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(k1, k2, k7)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = inverse_render.main(["--geometry", "--steps", "10",
+                                      "--device", "cuda", "--out",
+                                      os.path.join(tmp, "geo.npy")])
+        c45e = read_counts(k1, k2, k7)
+    ex_losses = [float(x) for x in re.findall(r"loss ([\d.e+-]+), ",
+                                              buf.getvalue())]
+    phase(f"[45] inverse_render --geometry (small): rc {rc}, losses "
+          f"{ex_losses}; launches {c45e}")
+    if (rc != 0 or len(ex_losses) != 10 or not ex_losses[-1] < ex_losses[0]
+            or c45e["K1"] <= 0 or c45e["K6"] <= 0 or c45e["plain"]):
+        raise AssertionError("the example's --geometry run failed its checks")
+
+    # ---- 46: one full-width differentiable step each on boxes, media and
+    # an image (the default leaves; the colours +0.2 against the scene's
+    # own render); a step that does not fit runs at half the width
+    diff_runs = {}
+    for dname in ("cornell", "cornell_smoke", "earth"):
+        d_scene, d_cam = presets.from_name(dname, WIDTH / HEIGHT)
+        dw, dh = WIDTH, HEIGHT
+        while True:
+            try:
+                drend, dst, dnames = make_inverse_renderer(
+                    d_scene, d_cam, dw, dh, samples=SAMPLES,
+                    max_depth=TRAIN_DEPTH, device=dev)
+                with torch.no_grad():
+                    dtarget = drend.render(dst.params, PRNGKey(0))
+                perturb(dst, dnames)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                reset_counts(k1, k2, k7)
+                e0, e1 = events()
+                e0.record()
+                dst, dloss = drend.train_step(dst, dtarget, PRNGKey(0))
+                e1.record()
+                e1.synchronize()
+                break
+            except torch.cuda.OutOfMemoryError:
+                drend = dst = dtarget = None
+                torch.cuda.empty_cache()
+                phase(f"[46] {dname}: a {dw}x{dh}x{SAMPLES} step does not "
+                      f"fit in the card's memory; halving the film")
+                dw, dh = dw // 2, dh // 2
+        c46 = read_counts(k1, k2, k7)
+        dpeak = torch.cuda.max_memory_allocated(dev) / 2**30
+        dms = e0.elapsed_time(e1)
+        finite = (np.isfinite(float(dloss))
+                  and all(torch.isfinite(p.grad).all() for p in dst.params))
+        phase(f"[46] {dname} differentiable step at {dw}x{dh}x{SAMPLES} "
+              f"depth {TRAIN_DEPTH} (fast path {drend.use_fast_path}): loss "
+              f"{float(dloss):.8f}, {dms:.2f} ms (CUDA events), peak memory "
+              f"{dpeak:.3f} GiB; launches {c46} ({smi})")
+        has_sph = SceneFeatures.from_scene(d_scene).has_spheres
+        if (not finite or not drend.use_fast_path or c46["plain"]
+                or (has_sph and (c46["K1"] <= 0 or c46["K6"] <= 0))):
+            raise AssertionError(f"{dname}: the differentiable step failed")
+        diff_runs[dname] = {"width": dw, "height": dh, "ms": dms,
+                            "peak_gib": dpeak, "launches": c46}
+        del drend, dst, dtarget
+        torch.cuda.empty_cache()
+
+    # ---- 47: bit-exact resume on the card: the CLI's -F 4 against -F 2
+    # --checkpoint twice, and the example's 5 steps against 2 steps, a
+    # checkpoint, then 3 more (the colours, as the reference's resume test)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_args = ["-P", "random_spheres", "-W", "640", "-H", "360", "-S",
+                    "4", "-D", "10", "--device", "cuda"]
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rcs = [cli.main(cli_args + ["-F", "4", "--out",
+                                        os.path.join(tmp, "full.npy")])]
+            for _ in range(2):
+                rcs.append(cli.main(cli_args + [
+                    "-F", "2", "--checkpoint", os.path.join(tmp, "c.npz"),
+                    "--out", os.path.join(tmp, "part.npy")]))
+        full = np.load(os.path.join(tmp, "full.npy"))
+        part = np.load(os.path.join(tmp, "part.npy"))
+        cli_equal = bool(np.array_equal(full, part))
+        resumed = "resumed from" in buf.getvalue()
+        ex = ["--steps", "5", "--device", "cuda"]
+        reset_counts(k1, k2, k7)
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rcs.append(inverse_render.main(ex + [
+                "--checkpoint", os.path.join(tmp, "a.npz"), "--out",
+                os.path.join(tmp, "a.npy")]))
+            rcs.append(inverse_render.main(
+                ["--steps", "2", "--device", "cuda", "--checkpoint",
+                 os.path.join(tmp, "b.npz"), "--out",
+                 os.path.join(tmp, "b.npy")]))
+            rcs.append(inverse_render.main(ex + [
+                "--checkpoint", os.path.join(tmp, "b.npz"), "--out",
+                os.path.join(tmp, "b.npy")]))
+        c47 = read_counts(k1, k2, k7)
+        train_resumed = "resumed from" in buf.getvalue()
+        with np.load(os.path.join(tmp, "a.npz")) as za, \
+                np.load(os.path.join(tmp, "b.npz")) as zb:
+            ck_equal = (za.files == zb.files and all(
+                np.array_equal(za[k], zb[k]) for k in za.files))
+        img_equal = bool(np.array_equal(np.load(os.path.join(tmp, "a.npy")),
+                                        np.load(os.path.join(tmp, "b.npy"))))
+        # K6's per-sphere atomics: two identical --geometry runs under
+        # the deterministic algorithms (a new checkpoint each), compared
+        with contextlib.redirect_stdout(io.StringIO()):
+            for tag_ in ("g1", "g2"):
+                rcs.append(inverse_render.main(
+                    ["--geometry", "--steps", "3", "--device", "cuda",
+                     "--checkpoint", os.path.join(tmp, f"{tag_}.npz"),
+                     "--out", os.path.join(tmp, f"{tag_}.npy")]))
+        geo_repeat = bool(np.array_equal(np.load(os.path.join(tmp, "g1.npy")),
+                                         np.load(os.path.join(tmp, "g2.npy"))))
+    phase(f"[47] resume on the card: CLI -F 4 == -F 2 --checkpoint x2 "
+          f"(random_spheres 640x360x4 depth 10): {cli_equal} (resumed "
+          f"{resumed}); example 5 steps == 2 + checkpoint + 3: checkpoint "
+          f"leaves {ck_equal}, images {img_equal} (resumed {train_resumed}); "
+          f"launches {c47}; two --geometry runs of 3 steps bit-equal: "
+          f"{geo_repeat} (K6 sums per sphere with atomics; not required); "
+          f"return codes {rcs}")
+    if (any(rcs) or not (cli_equal and resumed and ck_equal and img_equal
+                         and train_resumed) or c47["plain"]):
+        raise AssertionError("resume on the card is not bit-exact")
+
+    return {"sil_k1": sil_k1, "sil_k3": sil_k3, "c45": c45, "c45s": c45s,
+            "geo_run": geo_run, "diff_runs": diff_runs, "sil_runs": sil_runs}
 
 
 def main() -> int:
@@ -2454,6 +2757,12 @@ def main() -> int:
             or c43["K6"] <= 0 or c43["K1"] <= 0 or c43["plain"]):
         raise AssertionError("the card's trace_diff gradient failed its checks")
 
+    inv = inverse_phases(dev, smi)
+    sil_k1, sil_k3, c45, c45s = (inv[k] for k in ("sil_k1", "sil_k3", "c45",
+                                                  "c45s"))
+    geo_run, diff_runs, sil_runs = (inv[k] for k in ("geo_run", "diff_runs",
+                                                     "sil_runs"))
+
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
@@ -2473,6 +2782,11 @@ def main() -> int:
          "general_launches": general_runs["random_spheres"]["launches"]["K1"],
          "general_golden_launches": {n_: c_["K1"] for n_, c_ in
                                      general_golden_counts.items()},
+         "silhouette_launches": sil_k1,
+         "geometry_train_launches": c45["K1"],
+         "geometry_silhouette_launches": c45s["K1"],
+         "diff_scene_launches": {n_: r_["launches"]["K1"]
+                                 for n_, r_ in diff_runs.items()},
          "sphere_presets": {n_: {**r_["k1"],
                                  "cli_launches": cli_runs[n_]["launches"]["K1"]}
                             for n_, r_ in sphere_runs.items()}},
@@ -2486,6 +2800,7 @@ def main() -> int:
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "issue_ceiling_ms": k3_ceiling, "registers": k3_regs,
          "general_launches": general_runs["final_full"]["launches"]["K3"],
+         "silhouette_launches": sil_k3,
          "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
@@ -2530,6 +2845,10 @@ def main() -> int:
          "motion_bound_by": k6m_bound[1],
          "motion_issue_ceiling_ms": k6m_ys["issue_ceiling_ms"],
          "general_launches": c43["K6"], "general_vfov_grad_rel": rel_g,
+         "geometry_train_launches": c45["K6"], "geometry_train": geo_run,
+         "diff_scene_launches": {n_: r_["launches"]["K6"]
+                                 for n_, r_ in diff_runs.items()},
+         "diff_scenes": diff_runs, "silhouette": sil_runs,
          "library_ms": None},
         {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",

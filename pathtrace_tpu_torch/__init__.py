@@ -21,7 +21,10 @@ every primitive kind, instanced spheres and rects included, table Perlin
 noise and the recursive checker, the material scatter, NEE and roulette;
 ``render/frame.render_frame``, differentiable through K6) renders every
 scene the fast path refuses, ``final_full`` among them: ``--mode
-general``, or ``auto``'s fallback.
+general``, or ``auto``'s fallback. The trainer is whole: the silhouette
+boundary term (``ops/silhouette.py``), a differentiable bounce for every
+scene class the reference trains, the general path for the rest, and
+render and TrainState checkpoints (``utils/checkpoint.py``).
 
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA

@@ -5,8 +5,11 @@ the render path (``--mode auto|fast|general``: ``auto`` takes the fast
 path where it can and the general integrator otherwise; ``compacted`` and
 ``sharded`` are refused as not ported yet), Latin-hypercube pixel samples
 (``--stratify``), next-event estimation (``--nee``), Russian roulette
-(``--rr DEPTH``) and a user's own texture map for ``earth`` (``--image
-PNG``), plus ``--device`` (default ``cuda``). Every other flag of the JAX
+(``--rr DEPTH``), a user's own texture map for ``earth`` (``--image
+PNG``), resumable renders (``--checkpoint PATH``: resume if it exists,
+save every 50 frames and at the end) and snapshots of the accumulation
+(``--snapshot-every N``, to ``--out``), plus ``--device`` (default
+``cuda``). Every other flag of the JAX
 package's CLI is refused as not ported yet. With ``-O`` (offline) the render runs
 ``-F`` accumulated frames (default 1); without ``-O`` the reference opens
 its live preview, which is not ported, so ``-F`` is required.
@@ -22,12 +25,9 @@ import sys
 import time
 from typing import Optional, Sequence
 
-import numpy as np
-
 from pathtrace_tpu_torch.config import Params
 from pathtrace_tpu_torch.models import presets
 from pathtrace_tpu_torch.models.types import SceneFeatures
-from pathtrace_tpu_torch.render import film
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,6 +72,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(earth): a PNG or JPEG; default: a procedural map")
     p.add_argument("--out", default="output.png",
                    help="Output path: .png (sRGB) or .npy (linear float)")
+    p.add_argument("--checkpoint", default=None,
+                   help="Checkpoint .npz path: resume from it if it exists, "
+                        "save to it every 50 frames and at the end")
+    p.add_argument("--snapshot-every", type=int, default=0,
+                   help="Write the accumulated image to --out every N frames")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
     return p
@@ -108,6 +113,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         from pathtrace_tpu_torch.render.progressive import (
             render_progressive,
             route,
+            save_image,
         )
 
         path = route(scene, features, args.mode,
@@ -123,7 +129,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                 max_frames=args.frames or 1,
                                 device=args.device, features=features,
                                 nee=args.nee, rr_start=args.rr,
-                                stratify=args.stratify, mode=path)
+                                stratify=args.stratify, mode=path,
+                                checkpoint_path=args.checkpoint,
+                                snapshot_path=args.out,
+                                snapshot_every=args.snapshot_every)
     elapsed = time.monotonic() - start
     # same report shape as the JAX CLI's offline line
     print(f"{elapsed:.2f}secs {result.total_rays}rays "
@@ -132,10 +141,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           + " ".join(f"{ms:.2f}ms" for ms in result.frame_ms)
           + "; readbacks per frame: "
           + " ".join(str(r) for r in result.readbacks))
-    if args.out.endswith(".npy"):
-        np.save(args.out, result.image)
-    else:
-        film.save_frame_png(args.out, result.image)
+    save_image(args.out, result.image)
     print(f"wrote {args.out} after {result.frames} frames")
     return 0
 

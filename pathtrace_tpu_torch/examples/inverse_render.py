@@ -18,7 +18,18 @@ motion leaf ``spheres.center_delta``). Every render is keyed by
 ``PRNGKey(0)``, as the reference example's, so the target and every step
 trace the same rays with the same bounce seed. Each step prints its loss
 (before the update) and its time: CUDA events around the step on the card, the host clock on
-the CPU. ``--checkpoint`` and ``--geometry`` are not ported yet.
+the CPU.
+
+``--geometry`` trains the texture colours and ``spheres.center`` (by exact
+name, so no ``center_delta``) with the silhouette boundary term on, from
+centres moved +0.05 in x, as the reference's example does.
+``--checkpoint PATH`` resumes from a TrainState checkpoint when one is
+there (the step, the parameters, Adam's moments and count, the key: bit
+for bit), saves every ``--checkpoint-every`` steps and at the end, in the
+reference's layout (:mod:`~pathtrace_tpu_torch.utils.checkpoint`):
+
+    python -m pathtrace_tpu_torch.examples.inverse_render --device cpu --geometry --steps 5 --size 16
+    python -m pathtrace_tpu_torch.examples.inverse_render --device cpu --steps 4 --checkpoint train.npz
 """
 
 from __future__ import annotations
@@ -46,19 +57,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default="inverse_result.png",
                     help="target | optimized, .png (sRGB) or .npy (linear)")
-    ap.add_argument("--checkpoint", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--geometry", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--checkpoint", default=None,
+                    help="TrainState checkpoint (.npz): resume from it if "
+                         "present, save every --checkpoint-every steps and "
+                         "at the end")
+    ap.add_argument("--checkpoint-every", type=int, default=10)
+    ap.add_argument("--geometry", action="store_true",
+                    help="also train spheres.center, with the silhouette "
+                         "boundary term")
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    import torch
+
+    # A resumed run equals an uninterrupted one bit for bit only when each
+    # step is deterministic. With a checkpoint the run takes torch's
+    # deterministic algorithms (on CUDA, the scatter-add behind the
+    # backward of the attribute rows' gather), and restores the setting on
+    # return. The closest hit's backward (K6) sums per-sphere gradients
+    # with atomics, so a run that trains sphere geometry resumes equal to
+    # the last bits of those sums only.
+    before = torch.are_deterministic_algorithms_enabled()
+    if args.checkpoint:
+        torch.use_deterministic_algorithms(True)
+    try:
+        return _run(args)
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def _run(args) -> int:
     prog = "inverse_render"
-    for flag, on in (("--checkpoint", args.checkpoint is not None),
-                     ("--geometry", args.geometry)):
-        if on:
-            print(f"{prog}: {flag}: not ported yet", file=sys.stderr)
-            return 2
 
     import numpy as np
     import torch
@@ -69,6 +100,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         make_inverse_renderer,
     )
     from pathtrace_tpu_torch.render import film
+    from pathtrace_tpu_torch.utils import checkpoint as ckpt
     from pathtrace_tpu_torch.utils.threefry import PRNGKey
 
     dev = torch.device(args.device)
@@ -81,12 +113,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     height = args.height or args.size
     try:
         scene, cam = presets.from_name(args.preset, width / height)
-        trainable = (default_trainable if args.trainable == "default"
-                     else (lambda p: "textures.color" in p))
+        if args.geometry:
+            def trainable(p):
+                return "textures.color" in p or p == "spheres.center"
+        elif args.trainable == "default":
+            trainable = default_trainable
+        else:
+            def trainable(p):
+                return "textures.color" in p
         renderer, state, names = make_inverse_renderer(
             scene, cam, width, height, samples=args.samples,
             max_depth=args.depth, device=dev, trainable=trainable,
-            learning_rate=args.lr)
+            learning_rate=args.lr, silhouette=args.geometry)
     except ValueError as e:
         print(f"{prog}: {e}", file=sys.stderr)
         return 2
@@ -97,14 +135,30 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     with torch.no_grad():
         target = renderer.render(state.params, key)
         for i, name in enumerate(names):
+            if name == "spheres.center":
+                state.params[i][:, 0] += 0.05
             if name == "textures.color":
                 state.params[i].copy_((state.params[i] + 0.2).clamp(0.0, 1.0))
     initial = [p.detach().clone() for p in state.params]
 
+    start_step = 0
+    if args.checkpoint:
+        try:
+            resumed = ckpt.try_load_train(args.checkpoint, state)
+        except ValueError as e:
+            print(f"{prog}: {args.checkpoint}: {e}", file=sys.stderr)
+            return 2
+        if resumed is not None:
+            state, saved_key = resumed
+            start_step = state.step
+            if saved_key is not None:
+                key = saved_key
+            print(f"resumed from {args.checkpoint} at step {start_step}")
+
     if on_cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms = [], []
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         if on_cuda:
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
@@ -122,6 +176,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         step_ms.append(ms)
         print(f"step {step + 1}/{args.steps}: loss {losses[-1]:.8f}, "
               f"{ms:.2f} ms")
+        if args.checkpoint and (step + 1) % args.checkpoint_every == 0:
+            ckpt.save_train(args.checkpoint, state, key)
+    if args.checkpoint:
+        ckpt.save_train(args.checkpoint, state, key)
     moved = [float((p.detach() - p0).abs().max())
              for p, p0 in zip(state.params, initial)]
     print("largest parameter change: " + ", ".join(

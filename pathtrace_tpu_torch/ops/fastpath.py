@@ -45,9 +45,9 @@ them. Frames of culled scenes trace in 64x64 pixel-tile order, so that a
 warp's rays form a narrow frustum the culls can prune.
 
 The differentiable trace (:func:`trace_fast_diff`, the training path) runs
-every bounce at full width with no compaction (sphere and rect scenes:
-boxes and media are refused until their silhouette gradients are ported):
-the closest hit goes
+every bounce at full width with no compaction, on every scene class the
+reference's differentiable path takes (:func:`diff_refusal`): the closest
+hit goes
 through :class:`~pathtrace_tpu_torch.ops.intersect_kernel.SphereNearest`
 (K1 or, for moving spheres, K3 forward; K6 backward) and one row gather, and the shading is
 plain PyTorch under autograd, as the reference shades its diff path in
@@ -97,6 +97,7 @@ from pathtrace_tpu_torch.models.types import (
     MAT_LAMBERTIAN,
     MAT_METAL,
     TEX_CHECKER,
+    TEX_IMAGE,
     TEX_NOISE,
 )
 from pathtrace_tpu_torch.ops.intersect_kernel import (
@@ -142,6 +143,8 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
     KIND_RECT,
     NORMAL,
     TWO_PI,
+    _trunc_clamp,
+    box_frame,
     shade_from_winners,
 )
 from pathtrace_tpu_torch.render import compact_util
@@ -268,13 +271,12 @@ def attr_width(features: SceneFeatures) -> int:
     return K_ATTR_IMG if features.has_image else K_ATTR
 
 
-def fastpath_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
-    """Why the fast path cannot render ``scene`` (None when it can): more
-    than ``RECT_ROWS`` rects, instanced spheres or rects, checker textures
-    with non-constant children, or image textures in a scene with boxes or
-    media. The first three are the reference's own fallbacks to the
-    general integrator (``fastpath_supported``); the last is a scene the
-    reference's fast path shades outside its fused kernel."""
+def diff_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
+    """Why the differentiable fast path cannot take ``scene`` (None when
+    it can): the reference's ``fastpath_supported`` (``fastpath.py:98``),
+    the only gate of its ``trace_fast_diff``: more than ``RECT_ROWS``
+    rects, instanced spheres or rects, or checker textures with
+    non-constant children."""
     if scene.rects.count > RECT_ROWS:
         return (f"scene has {scene.rects.count} rects; the fast path takes "
                 f"at most {RECT_ROWS}")
@@ -286,12 +288,23 @@ def fastpath_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
     if features.has_checker and not features.checker_children_const:
         return ("scene needs checker textures with non-constant children: "
                 "not ported yet")
-    if features.has_image and (features.has_boxes or features.has_media):
-        return ("scene needs image textures in a scene with boxes or media: "
-                "the reference shades such scenes outside the fused kernel "
-                "(fused_shade_supported: the non-fused bounce with box "
-                "normals and box UV), which is not ported yet")
     return None
+
+
+def fastpath_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
+    """Why the fast path cannot render ``scene`` (None when it can): the
+    reference's own fallbacks to the general integrator
+    (:func:`diff_refusal`), or image textures in a scene with boxes or
+    media, which the reference shades outside its fused kernel (the
+    differentiable bounce, which has the box UV, takes them)."""
+    why = diff_refusal(features, scene)
+    if why is None and features.has_image and (features.has_boxes
+                                                or features.has_media):
+        why = ("scene needs image textures in a scene with boxes or media: "
+               "the reference shades such scenes outside the fused kernel "
+               "(fused_shade_supported: the non-fused bounce with box "
+               "normals and box UV), which is not ported yet")
+    return why
 
 
 def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
@@ -575,12 +588,8 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     table = winner_table(scene, features)
     atlas = None
     if features.has_image:
-        at = scene.atlas
-        h, w = at.data.shape[:2]
-        if bool(((at.y_offset < 0) | (at.height < 0) | (at.width < 0)
-                 | (at.y_offset + at.height > h) | (at.width > w)).any()):
-            raise ValueError("atlas entries reach outside the atlas data")
-        atlas = at.data.contiguous()
+        _check_atlas(scene)
+        atlas = scene.atlas.data.contiguous()
     light_rgb = None
     if lights is not None:
         if lights.color is None:
@@ -1117,39 +1126,122 @@ class FastState(NamedTuple):
 
 def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                       ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
-                      features: SceneFeatures):
-    """Closest hit over the spheres and the rects, differentiable in t,
-    and the winner's attribute row by one row gather from ``table``
-    (spheres, then the rect block in rect scenes): (t [R], attrs [R, K]).
-    Twin of the reference's ``nearest_hit_attrs`` (``fastpath.py:242``)
-    for sphere and rect scenes; moving spheres pass their motion leaves
-    and the rays' time. A rect wins only when strictly nearer."""
-    sp = scene.spheres
-    motion = ((sp.center_delta, sp.time0, sp.inv_time_delta, time)
-              if features.has_motion else ())
-    t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd, *motion)
-    if features.has_rects:
-        t, idx = merge_rects(scene.rects, (*ro.unbind(1), *rd.unbind(1)), t,
-                             idx, table_rows(scene, features).rect)
+                      features: SceneFeatures, med_u=None):
+    """Closest hit over every kind of the scene, differentiable in t, and
+    the winner's attribute row by one row gather from ``table`` (the
+    blocks of :func:`winner_table`): (t [R], attrs [R, K]). Twin of the
+    reference's ``nearest_hit_attrs`` (``fastpath.py:242``): the spheres
+    through ``SphereNearest`` (moving spheres pass their motion leaves and
+    the rays' time; a scene without spheres has no sweep), then the rects,
+    boxes and media in plain PyTorch (the media at the free-flight
+    uniforms ``med_u``), each kind winning only when strictly nearer.
+    Nothing here writes in place, so autograd reaches every kind's
+    leaves."""
+    f = features
+    if f.has_spheres:
+        sp = scene.spheres
+        motion = ((sp.center_delta, sp.time0, sp.inv_time_delta, time)
+                  if f.has_motion else ())
+        t, idx = SphereNearest.apply(soa, sp.center, sp.radius, ro, rd,
+                                     *motion)
+    else:
+        t = torch.full(ro.shape[:1], _INF, dtype=ro.dtype, device=ro.device)
+        idx = torch.zeros(ro.shape[:1], dtype=torch.int32, device=ro.device)
+    rows = table_rows(scene, f)
+    rays = (*ro.unbind(1), *rd.unbind(1))
+    if f.has_rects:
+        t, idx = merge_rects(scene.rects, rays, t, idx, rows.rect)
+    if f.has_boxes:
+        t, idx = merge_winner(t, idx, *box_nearest(scene.boxes, *rays),
+                              rows.box)
+    if f.has_media:
+        t, idx = merge_winner(t, idx, *media_nearest(scene.media, *rays,
+                                                     med_u), rows.media)
     return t, table.index_select(0, idx.long())
+
+
+def _diff_image_rgb(scene: Scene, attrs: torch.Tensor, point: torch.Tensor,
+                    normal: torch.Tensor, t_safe: torch.Tensor, box,
+                    features: SceneFeatures) -> torch.Tensor:
+    """The image branch of the differentiable bounce (the reference's
+    ``fast_bounce``, ``fastpath.py:655-701``): the sphere UV from the
+    bounce's normal, a rect's in-plane fractions, a box's face
+    parameterization in object space (``box``: the face axis and the
+    object-space ray of :func:`~pathtrace_tpu_torch.ops.shade_kernel.box_frame`),
+    the ``ii``/``jj`` clamps into the row's image, then one row gather
+    from ``scene.atlas.data``: [R, 3]. The texel's index is an integer,
+    so only the atlas leaf gets a gradient, as in the reference."""
+    f = features
+    kind = attrs[:, GEO - 1]
+    with torch.no_grad():
+        nx, ny = normal[:, 0], normal[:, 1]
+        phi = torch.atan2(nx, ny)
+        theta = torch.asin(torch.clamp(ny, -1.0, 1.0))
+        uu = 1.0 - (phi + 3.14159265) * (0.5 / 3.14159265)
+        vv = (theta + 1.5707963) * (1.0 / 3.14159265)
+        p = point
+        geo = attrs[:, GEO:GEO + 6]
+        if f.has_rects:
+            axis = geo[:, 0].to(torch.int32)
+            pa = torch.where(axis == 0, p[:, 1], p[:, 0])
+            pb = torch.where(axis == 2, p[:, 1], p[:, 2])
+            da = geo[:, 2] - geo[:, 1]
+            db = geo[:, 4] - geo[:, 3]
+            da = torch.where(torch.abs(da) < 1e-12, 1.0, da)
+            db = torch.where(torch.abs(db) < 1e-12, 1.0, db)
+            is_rect = kind == KIND_RECT
+            uu = torch.where(is_rect, (pa - geo[:, 1]) / da, uu)
+            vv = torch.where(is_rect, (pb - geo[:, 3]) / db, vv)
+        if f.has_boxes:
+            face_axis, ro_o, rd_o = box
+            p_obj = [ro_o[k] + t_safe * rd_o[k] for k in range(3)]
+
+            def gp(planes, ax):
+                return torch.where(ax == 0, planes[0],
+                                   torch.where(ax == 1, planes[1], planes[2]))
+
+            a_ax = torch.where(face_axis == 0, 1, 0)
+            b_ax = torch.where(face_axis == 2, 1, 2)
+            bp0 = [geo[:, k] for k in range(3)]
+            bp1 = [geo[:, 3 + k] for k in range(3)]
+            da = gp(bp1, a_ax) - gp(bp0, a_ax)
+            db = gp(bp1, b_ax) - gp(bp0, b_ax)
+            da = torch.where(torch.abs(da) < 1e-12, 1.0, da)
+            db = torch.where(torch.abs(db) < 1e-12, 1.0, db)
+            is_box = kind == KIND_BOX
+            uu = torch.where(is_box, (gp(p_obj, a_ax) - gp(bp0, a_ax)) / da,
+                             uu)
+            vv = torch.where(is_box, (gp(p_obj, b_ax) - gp(bp0, b_ax)) / db,
+                             vv)
+        img = attrs[:, -3:]
+        ii = _trunc_clamp(uu * img[:, 2], img[:, 2])
+        jj = _trunc_clamp((1.0 - vv) * img[:, 1] - 0.001, img[:, 1])
+        atlas = scene.atlas.data
+        flat = (img[:, 0].to(torch.int32) + jj) * atlas.shape[1] + ii
+    return atlas.reshape(-1, 3).index_select(0, flat.long())
 
 
 def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                 state: FastState, seed: int, depth: int, max_depth: int,
                 features: SceneFeatures) -> FastState:
     """One differentiable bounce: the twin of the reference's
-    ``fast_bounce`` (``fastpath.py:549-895``) on the branches this port's
-    scenes reach (sphere and rect normals, constant/checker/noise albedo,
-    emission and sky, Lambertian/metal/dielectric scatter). The masked square roots
-    keep the reference's double-where guards, so masked lanes leak no NaN
-    into the gradients."""
+    ``fast_bounce`` (``fastpath.py:549-895``) without NEE and roulette:
+    the media's free-flight uniforms (draws ``8 + j``), the sphere, rect,
+    box (the slab test redone from the winner's row) and medium normals,
+    constant/checker/noise/image albedo, emission and sky, and the
+    Lambertian/metal/dielectric/isotropic scatter. The masked square
+    roots keep the reference's double-where guards, so masked lanes leak
+    no NaN into the gradients."""
     f = features
+    med_u = (media_uniforms(state.lane, seed, depth, scene.media.count, 8)
+             if f.has_media else None)
     t, attrs = nearest_hit_attrs(table, soa, scene, state.ro, state.rd,
-                                 state.time, f)
+                                 state.time, f, med_u)
     hit = t < _INF
     t_safe = torch.where(hit, t, 0.0)
     point = state.ro + t_safe[:, None] * state.rd
 
+    kind = attrs[:, GEO - 1]
     center = attrs[:, GEO:GEO + 3]
     if f.has_motion:
         s = (state.time - attrs[:, GEO + 6]) * attrs[:, GEO + 7]
@@ -1160,8 +1252,19 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     if f.has_rects:
         one_hot = (torch.arange(3, dtype=point.dtype, device=point.device)
                    == attrs[:, GEO, None]).to(point.dtype)
-        normal = torch.where((attrs[:, GEO - 1] == KIND_RECT)[:, None],
+        normal = torch.where((kind == KIND_RECT)[:, None],
                              one_hot * attrs[:, GEO + 6, None], normal)
+    box = None
+    if f.has_boxes:
+        box_n, face_axis, ro_o, rd_o = box_frame(
+            attrs.T, state.ro.unbind(1), state.rd.unbind(1), t_safe)
+        box = (face_axis, ro_o, rd_o)
+        normal = torch.where((kind == KIND_BOX)[:, None],
+                             torch.stack(box_n, dim=1), normal)
+    if f.has_media:
+        # arbitrary: the isotropic phase function ignores it
+        normal = torch.where((kind == KIND_MEDIUM)[:, None],
+                             normal.new_tensor([1.0, 0.0, 0.0]), normal)
 
     tex_kind = attrs[:, 3]
     rgb = attrs[:, 4:7]
@@ -1180,6 +1283,10 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
             + 10.0 * fast_turb_c(point[:, 0], point[:, 1], point[:, 2])))
         rgb = torch.where((tex_kind == float(TEX_NOISE))[:, None],
                           marble[:, None], rgb)
+    if f.has_image:
+        img_rgb = _diff_image_rgb(scene, attrs, point, normal, t_safe, box, f)
+        rgb = torch.where((tex_kind == float(TEX_IMAGE))[:, None], img_rgb,
+                          rgb)
 
     mat_kind = attrs[:, 0]
     sky_t = 0.5 * (state.rd[:, 1] + 1.0)
@@ -1273,21 +1380,24 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
 
 
 def diff_supported(features: SceneFeatures, scene: Scene) -> bool:
-    """The differentiable path's scenes: those of :func:`fastpath_supported`
-    without boxes or media, whose normals and silhouette gradients it does
-    not have yet, and without image textures, whose branch its bounce
-    does not have yet. Raises ``ValueError`` naming them."""
-    fastpath_supported(features, scene)
-    missing = [name for name, on in (("boxes", features.has_boxes),
-                                     ("media", features.has_media)) if on]
-    if missing:
-        raise ValueError(f"the differentiable path takes no "
-                         f"{' or '.join(missing)} yet (their silhouette "
-                         f"gradients are not ported)")
-    if features.has_image:
-        raise ValueError("the differentiable path takes no image textures "
-                         "yet (its bounce has no image branch)")
+    """True for the scenes :func:`trace_fast_diff` takes; raises
+    ``ValueError`` naming what is missing otherwise (:func:`diff_refusal`).
+    The trainer renders the others through the general integrator."""
+    why = diff_refusal(features, scene)
+    if why is not None:
+        raise ValueError(why)
     return True
+
+
+def _check_atlas(scene: Scene) -> None:
+    """Refuse atlas entries that reach outside the atlas data (the clamps
+    keep each texel read inside its entry, so the entries bound every
+    read)."""
+    at = scene.atlas
+    h, w = at.data.shape[:2]
+    if bool(((at.y_offset < 0) | (at.height < 0) | (at.width < 0)
+             | (at.y_offset + at.height > h) | (at.width > w)).any()):
+        raise ValueError("atlas entries reach outside the atlas data")
 
 
 def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -1296,10 +1406,12 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """Differentiable fast trace: all ``max_depth + 1`` bounces at full
     width, no compaction (twin of the reference's ``trace_fast_diff``,
     ``fastpath.py:1568``). Gradients flow to the scene's leaves through
-    the attribute table and the closest hit's backward. Returns
-    (radiance [R, 3], segments [] int64 on the device). Boxes and media
-    are refused (:func:`diff_supported`)."""
+    the attribute table, the closest hit's backward, the rect, box and
+    media sweeps and the atlas gather. Returns (radiance [R, 3], segments
+    [] int64 on the device). Scenes of :func:`diff_refusal` raise."""
     diff_supported(features, scene)
+    if features.has_image:
+        _check_atlas(scene)
     table = winner_table(scene, features)
     soa = build_sphere_soa(scene, motion=features.has_motion)
     R = ro.shape[0]

@@ -81,14 +81,16 @@ _SKY_GRADIENT = (0.15, 0.21, 0.30)
 ESC, NORMAL, ALBEDO = 12, slice(13, 16), slice(16, 19)
 
 
-def _box_normal(col, ro, rd, t_safe):
+def box_frame(col, ro, rd, t_safe):
     """A box winner's normal: the slab test redone in object space from
     the row's ``obj_from_world`` columns (a direction component under
     1e-12 in magnitude becomes +1e-12), the entry face (first-max axis)
     when ``|t - t_enter| < 1e-4 * max(|t|, 1)``, else the exit face
     (first-min axis), signed against the ray (``torch.sign``: a zero
     component gives 0, as ``jnp.sign``), then mapped through
-    ``world_from_obj``'s linear part."""
+    ``world_from_obj``'s linear part. Returns (normal, face_axis [R]
+    int64, ro_o, rd_o): three planes each for the normal and the
+    object-space ray, which the box UV reads."""
     def ofw(r, c):
         return col[_GEO + 6 + r * 4 + c]
 
@@ -123,8 +125,9 @@ def _box_normal(col, ro, rd, t_safe):
     def wfo(r, c):
         return col[_GEO + 18 + r * 3 + c]
 
-    return [wfo(r, 0) * n_obj[0] + wfo(r, 1) * n_obj[1]
-            + wfo(r, 2) * n_obj[2] for r in range(3)]
+    normal = [wfo(r, 0) * n_obj[0] + wfo(r, 1) * n_obj[1]
+              + wfo(r, 2) * n_obj[2] for r in range(3)]
+    return normal, face_axis, ro_o, rd_o
 
 
 def normal_planes(col, ro, rd, t_safe, px, py, pz, time, flags):
@@ -133,7 +136,7 @@ def normal_planes(col, ro, rd, t_safe, px, py, pz, time, flags):
     hit distance ``t_safe`` (0 on a miss) and the hit point: the sphere
     normal (the centre lerped to ``time`` under ``FLAG_MOTION``); for a
     rect under ``FLAG_RECT``, onehot(axis) * flip; for a box under
-    ``FLAG_BOX``, its face normal (:func:`_box_normal`); for a medium
+    ``FLAG_BOX``, its face normal (:func:`box_frame`); for a medium
     under ``FLAG_MEDIUM``, (1, 0, 0). The twin of the JAX package's
     ``_normal_planes`` (``fastpath.py:1189``) on the branches this port
     has, in its order."""
@@ -155,7 +158,7 @@ def normal_planes(col, ro, rd, t_safe, px, py, pz, time, flags):
         nz = torch.where(is_rect, (axis == 2.0).to(px.dtype) * flip, nz)
     if flags & FLAG_BOX:
         is_box = col[_GEO - 1] == KIND_BOX
-        bn = _box_normal(col, ro, rd, t_safe)
+        bn = box_frame(col, ro, rd, t_safe)[0]
         nx = torch.where(is_box, bn[0], nx)
         ny = torch.where(is_box, bn[1], ny)
         nz = torch.where(is_box, bn[2], nz)

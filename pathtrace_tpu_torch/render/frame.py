@@ -9,6 +9,8 @@ device (the kernel of ``csrc/threefry.cu`` on a CUDA device).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from pathtrace_tpu_torch.camera import Camera, get_rays
@@ -67,7 +69,8 @@ def render_frame(scene, camera: Camera, width: int, height: int,
                  samples: int, max_depth: int, key: torch.Tensor,
                  differentiable: bool = False, features=None,
                  ray_chunk: int = 0, stratify: bool = False,
-                 nee_lights=None, rr_start: int = 0):
+                 nee_lights=None, rr_start: int = 0,
+                 shard: Optional[int] = None):
     """One frame through the general integrator: (image [H, W, 3] linear
     RGB, ray_count [] int64), on the scene's device.
 
@@ -80,12 +83,17 @@ def render_frame(scene, camera: Camera, width: int, height: int,
     chunk ``c`` keyed ``fold_in(ktrace, c)``; the last chunk is padded
     with lanes born dead (a NaN time), or, when differentiable, with
     copies of ray 0 (its image pixels are cut off). The image is each
-    pixel's sample mean."""
+    pixel's sample mean. ``shard``: the bounces keyed ``fold_in(ktrace,
+    shard)``, as the reference's ``render_frame_sharded`` keys the shard
+    at that mesh position (``parallel/mesh.py:133-135``); ``shard=0`` is
+    its one-device frame, on which its trainer's general path renders."""
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.render import integrator
 
     features = features or SceneFeatures.from_scene(scene)
     kray, ktrace = threefry.split(key)
+    if shard is not None:
+        ktrace = threefry.fold_in(ktrace, shard)
     dev = scene.sky.device
     ro, rd, time = generate_primary_rays(camera, width, height, samples,
                                          kray, stratify=stratify, device=dev)

@@ -22,7 +22,8 @@ On CUDA each frame is timed with CUDA events around its work; the ray
 count is read back once per frame, after the frame's last kernel.
 ``nee`` builds the scene's light table once and renders with next-event
 estimation; a scene without lights renders with the plain estimator, as
-the reference's does.
+the reference's does. A checkpoint resumes and saves the accumulation as
+the reference's loop does (``progressive.py:247-252, 307-320``).
 """
 
 from __future__ import annotations
@@ -43,8 +44,9 @@ from pathtrace_tpu_torch.ops.fastpath import (
     render_frame_fast,
 )
 from pathtrace_tpu_torch.ops.lights import build_light_table
-from pathtrace_tpu_torch.render import integrator
+from pathtrace_tpu_torch.render import film, integrator
 from pathtrace_tpu_torch.render.frame import accumulate, render_frame
+from pathtrace_tpu_torch.utils import checkpoint as ckpt
 from pathtrace_tpu_torch.utils import threefry
 
 MODES = ("auto", "fast", "general", "compacted", "sharded")
@@ -81,15 +83,38 @@ def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
     return "general" if refused is not None else "fast"
 
 
+def save_image(path: str, image) -> None:
+    """Write ``image`` [H, W, 3] linear to ``path``: a ``.npy`` as is, any
+    other name as an sRGB PNG (flipped like the reference's)."""
+    if isinstance(image, torch.Tensor):
+        image = image.detach().cpu().numpy()
+    if path.endswith(".npy"):
+        np.save(path, image)
+    else:
+        film.save_frame_png(path, image)
+
+
 def render_progressive(scene: Scene, camera: Camera, params: Params,
                        max_frames: int, device, features: Optional[SceneFeatures] = None,
                        log: Callable[[str], None] = print, nee: bool = False,
                        rr_start: int = 0, stratify: bool = False,
-                       mode: str = "auto") -> ProgressiveResult:
+                       mode: str = "auto",
+                       checkpoint_path: Optional[str] = None,
+                       checkpoint_every: int = 50,
+                       snapshot_path: Optional[str] = None,
+                       snapshot_every: int = 0) -> ProgressiveResult:
     """Render ``max_frames`` accumulated frames on ``device`` by the path
     ``mode`` routes to (:func:`route`); ``nee``: next-event estimation;
     ``rr_start`` > 0: Russian roulette from that depth; ``stratify``:
-    Latin-hypercube samples in each pixel."""
+    Latin-hypercube samples in each pixel.
+
+    ``checkpoint_path``: resume from it when it holds this seed's render
+    at this film size (frames ``n..n + max_frames - 1`` follow its ``n``
+    frames), save to it every ``checkpoint_every`` frames and at the end
+    (:mod:`~pathtrace_tpu_torch.utils.checkpoint`), as the reference's
+    loop does, so ``-F 2`` twice equals ``-F 4`` bit for bit.
+    ``snapshot_path``: write the accumulated image there every
+    ``snapshot_every`` frames (:func:`save_image`)."""
     device = torch.device(device)
     seed = params.resolve_seed()
     features = features or SceneFeatures.from_scene(scene)
@@ -101,9 +126,18 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     on_cuda = device.type == "cuda"
 
     acc = None
+    start_frame = 0
+    resumed = ckpt.try_load(checkpoint_path)
+    if resumed is not None:
+        acc_np, saved_frame, saved_seed = resumed
+        if (saved_seed == seed
+                and acc_np.shape == (params.height, params.width, 3)):
+            acc = torch.from_numpy(acc_np).to(device)
+            start_frame = saved_frame
+            log(f"resumed from {checkpoint_path} at frame {start_frame}")
     total_rays = 0
     frame_ms, readbacks = [], []
-    for frame in range(max_frames):
+    for frame in range(start_frame, start_frame + max_frames):
         if on_cuda:
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
@@ -137,11 +171,18 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
         total_rays += rays
         frame_ms.append(ms)
         readbacks.append(n_read)
-        log(f"frame {frame + 1}/{max_frames}: {ms:.2f} ms, {rays} rays, "
-            f"{rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
+        log(f"frame {frame + 1}/{start_frame + max_frames}: {ms:.2f} ms, "
+            f"{rays} rays, {rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
             f"{n_read} readbacks ({path} path)")
+        done = frame + 1
+        if checkpoint_path and done % checkpoint_every == 0:
+            ckpt.save(checkpoint_path, acc, done, seed)
+        if snapshot_path and snapshot_every and done % snapshot_every == 0:
+            save_image(snapshot_path, acc)
     image = (acc.cpu().numpy() if acc is not None else
              np.zeros((params.height, params.width, 3), np.float32))
+    if checkpoint_path:
+        ckpt.save(checkpoint_path, image, start_frame + max_frames, seed)
     return ProgressiveResult(
         image=image, frames=max_frames, total_rays=total_rays,
         frame_ms=frame_ms, readbacks=readbacks,

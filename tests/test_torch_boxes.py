@@ -32,9 +32,9 @@
 * A one-ULP nudge of the fixture's directions: how far the estimator
   itself moves (none of the plain rays, 0.63% of the NEE ones), the room
   the card's trace needs against JAX's.
-* The gates: the fast path and the CLI take ``cornell``; the megakernel,
-  ``trace_fast_diff`` and the trainer refuse it with a ``ValueError``;
-  an image texture on a box is refused.
+* The gates: the fast path, the CLI, ``trace_fast_diff`` and the trainer
+  take ``cornell``; the megakernel refuses it with a ``ValueError``; the
+  fast path refuses an image texture on a box.
 """
 
 import os
@@ -436,9 +436,10 @@ def test_one_ulp_nudge_of_the_rays():
 
 def test_gates_on_box_scenes():
     """The fast path takes ``cornell`` and ``cornell_smoke``; the
-    megakernel, the differentiable trace and the trainer refuse them, as
-    the reference's megakernel does; an image texture on a box is refused
-    (the reference shades it outside the fused kernel)."""
+    megakernel refuses them, as the reference's megakernel does; the
+    differentiable trace and the trainer take them, as the reference's do;
+    an image texture on a box is refused by the fast path (the reference
+    shades it outside the fused kernel)."""
     from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
 
     for name, kind in (("cornell", "boxes"), ("cornell_smoke", "media")):
@@ -451,10 +452,12 @@ def test_gates_on_box_scenes():
         with pytest.raises(ValueError, match="boxes, media"):
             megakernel.trace_megakernel(megakernel.prep_tables(scene), ro, rd,
                                         torch.zeros(8), 0, 4, feats)
-        with pytest.raises(ValueError, match=kind):
-            tfp.trace_fast_diff(scene, ro, rd, torch.zeros(8), 0, 4, feats)
-        with pytest.raises(ValueError, match=kind):
-            make_inverse_renderer(scene, cam, 8, 8, device="cpu")
+        assert getattr(feats, f"has_{kind}")
+        rad, _ = tfp.trace_fast_diff(scene, ro, rd, torch.zeros(8), 0, 4,
+                                     feats)
+        assert rad.shape == (8, 3) and torch.isfinite(rad).all()
+        assert make_inverse_renderer(scene, cam, 8, 8,
+                                     device="cpu")[0].use_fast_path
     b = build.SceneBuilder()
     b.box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
           b.lambertian(b.image_texture(np.ones((2, 2, 3), np.float32))))

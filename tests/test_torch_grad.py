@@ -377,17 +377,25 @@ def test_keyed_render_and_first_loss_match_jax():
 
 
 def test_inverse_renderer_refuses_what_is_not_ported():
+    """The silhouette term and the general-path fallback are ported: a
+    renderer with ``silhouette=True`` builds, and a checker whose child is
+    a noise texture trains through the general integrator. What the
+    trainer still refuses is the fast path forced on such a scene."""
     scene, cam = presets.small(1.0)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tinv.make_inverse_renderer(scene, cam, 8, 8, device="cpu",
-                                   silhouette=True)
+    renderer, _, _ = tinv.make_inverse_renderer(
+        scene, cam, 8, 8, device="cpu", silhouette=True)
+    assert renderer.silhouette and renderer.use_fast_path
     from pathtrace_tpu_torch.models.build import SceneBuilder
 
     b = SceneBuilder()
     b.sphere((0.0, 0.0, -1.0), 0.5, b.lambertian(
         b.checker_texture(b.noise_texture(1.0), b.constant_texture((1, 1, 1)))))
+    renderer, _, _ = tinv.make_inverse_renderer(b.finish(), cam, 8, 8,
+                                                device="cpu")
+    assert not renderer.use_fast_path
     with pytest.raises(ValueError, match="not ported yet"):
-        tinv.make_inverse_renderer(b.finish(), cam, 8, 8, device="cpu")
+        tinv.make_inverse_renderer(b.finish(), cam, 8, 8, device="cpu",
+                                   use_fast_path=True)
 
 
 def test_example_trains_on_cpu(tmp_path, capsys):
@@ -403,8 +411,12 @@ def test_example_trains_on_cpu(tmp_path, capsys):
     assert len(losses) == 3 and all(np.isfinite(losses))
     img = np.load(out)
     assert img.shape == (12, 24, 3) and np.isfinite(img).all()
-    assert inverse_render.main(["--device", "cpu", "--geometry"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    geo = tmp_path / "geo.npy"
+    assert inverse_render.main(["--device", "cpu", "--geometry", "--steps",
+                                "1", "--size", "8", "--samples", "1",
+                                "--out", str(geo)]) == 0
+    assert "['spheres.center', 'textures.color']" in capsys.readouterr().out
+    assert np.isfinite(np.load(geo)).all()
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,8 @@
   ``PYTHONPATH=. python tests/test_torch_images.py``.
 * The gates: an image on a box or in a media scene raises ``ValueError``
   naming the missing path; so do an atlas entry outside the atlas data
-  and K2's image flag without the atlas; the differentiable path and the
-  megakernel refuse image scenes; the CLI renders ``-P earth`` and
+  and K2's image flag without the atlas; the megakernel refuses image
+  scenes, the differentiable path takes them; the CLI renders ``-P earth`` and
   ``--image`` (a missing file is an error, rc 2).
 """
 
@@ -536,18 +536,18 @@ def test_port_cpu_trace_holds_image_fixture(name, path):
 def test_gates_on_image_scenes():
     """Images on spheres and rects take the fast path; an image on a box,
     or in a scene with media, raises naming the path the reference takes
-    for them; the differentiable path and the megakernel refuse image
-    scenes."""
+    for them; the megakernel refuses image scenes; the differentiable
+    path takes them all, as the reference's does (its image branch has
+    the box UV)."""
     scene = _scenes("image_light")[2]
     feats = SceneFeatures.from_scene(scene)
     assert tfp.fastpath_supported(feats, scene)
     assert not megakernel.megakernel_supported(feats)
-    with pytest.raises(ValueError, match="image textures yet"):
-        tfp.diff_supported(feats, scene)
-    with pytest.raises(ValueError, match="image textures"):
-        tfp.trace_fast_diff(scene, torch.zeros(8, 3),
-                            torch.tensor([[0.0, 0.0, 1.0]] * 8),
-                            torch.zeros(8), 0, 2, feats)
+    assert tfp.diff_supported(feats, scene)
+    rad, _ = tfp.trace_fast_diff(scene, torch.zeros(8, 3),
+                                 torch.tensor([[0.0, 0.0, 1.0]] * 8),
+                                 torch.zeros(8), 0, 2, feats)
+    assert rad.shape == (8, 3) and torch.isfinite(rad).all()
     for kind in ("box", "medium"):
         b = build.SceneBuilder()
         img = b.image_texture(np.ones((4, 8, 3), np.float32))
@@ -561,6 +561,7 @@ def test_gates_on_image_scenes():
         f = SceneFeatures.from_scene(s)
         with pytest.raises(ValueError, match="fused_shade_supported"):
             tfp.fastpath_supported(f, s)
+        assert tfp.diff_supported(f, s)
         with pytest.raises(ValueError, match="box normals and box UV"):
             tfp.trace_fast(s, torch.zeros(8, 3),
                            torch.tensor([[0.0, -1.0, 0.0]] * 8),

@@ -118,6 +118,144 @@ def mixed_scene(build):
     return b.finish()
 
 
+def sky_boxes_scene(build):
+    """Boxes under the gradient sky, built by either package's build module
+    ``build``: a metal box rotated about y and a Lambertian box under an
+    axis-angle affine on a ground sphere, and a back wall rect. The sky
+    makes a path's radiance depend on its scattered directions, so the
+    box faces' normals (the differentiable bounce's slab test redone from
+    the winner's row) carry gradients to ``world_from_obj``."""
+    b = build.SceneBuilder()
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian_color((0.5, 0.5, 0.5)))
+    b.box((-0.5, 0.0, -0.5), (0.5, 1.0, 0.5), b.metal((0.8, 0.8, 0.8), 0.05),
+          build.affine_from_rotation_y_translation(25.0, (-0.6, 0.0, -1.0)))
+    b.box((0.2, 0.0, 0.2), (0.9, 0.7, 0.9), b.lambertian_color((0.7, 0.3, 0.2)),
+          build.affine_from_axis_angle((1.0, 2.0, 0.5), 20.0, (0.5, 0.0, -0.8)))
+    b.rect_xy(-3.0, 3.0, 0.0, 2.0, -3.0, False,
+              b.lambertian_color((0.3, 0.5, 0.7)))
+    return b.finish()
+
+
+def image_box_scene(build):
+    """Image textures on a rotated box, a rect and a sphere under the
+    gradient sky, built by either package's build module ``build``: the
+    fused fast path refuses it, the differentiable bounce takes it (the
+    box UV). The 8x16 image is drawn by numpy from seed 0."""
+    img = np.random.default_rng(0).random((8, 16, 3), dtype=np.float32)
+    b = build.SceneBuilder()
+    tex = b.image_texture(img)
+    b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian_color((0.5, 0.5, 0.5)))
+    b.sphere((1.0, 0.5, -1.0), 0.5, b.lambertian(tex))
+    b.box((-0.5, 0.0, -0.5), (0.5, 1.0, 0.5), b.lambertian(tex),
+          build.affine_from_rotation_y_translation(30.0, (-0.7, 0.0, -1.2)))
+    b.rect_xy(-3.0, 3.0, 0.0, 2.0, -3.0, False, b.lambertian(tex))
+    return b.finish()
+
+
+def scene_camera(make_camera, aspect: float = 16 / 9):
+    """The camera of :func:`sky_boxes_scene` and :func:`image_box_scene`,
+    from either package's ``make_camera``."""
+    return make_camera((0.0, 1.5, 3.0), (0.0, 0.5, -1.0), (0.0, 1.0, 0.0),
+                       50.0, aspect, 0.0, 4.0)
+
+
+# The scenes of the silhouette checks (tests/test_torch_silhouette.py),
+# twins of tests/test_silhouette.py's: a flat-shaded sphere, rect or box
+# under a constant sky, a moving sphere under a shutter-open camera, and a
+# mixed scene of the three families.
+SIL_EYE = ((0.0, 0.0, 3.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 45.0, 1.0)
+
+
+def sil_camera(make_camera, aperture: float = 0.0, shutter: bool = False):
+    """tests/test_silhouette.py's camera (``CAM``; ``MCAM`` with
+    ``shutter``) from either package's ``make_camera``."""
+    kw = {"time0": 0.0, "time1": 1.0} if shutter else {}
+    return make_camera(*SIL_EYE, aperture, 3.0, **kw)
+
+
+def flat_sphere_scene(build, cx=0.0):
+    b = build.SceneBuilder()
+    b.sphere((cx, 0.0, 0.0), 0.6, b.lambertian_color((0.15, 0.15, 0.15)))
+    b.sky = (0.75, 0.75, 0.75)
+    return b.finish()
+
+
+def moving_flat_scene(build, dx):
+    b = build.SceneBuilder()
+    b.moving_sphere((0.0, 0.0, 0.0), (dx, 0.0, 0.0), 0.0, 1.0, 0.6,
+                    b.lambertian_color((0.15, 0.15, 0.15)))
+    b.sky = (0.75, 0.75, 0.75)
+    return b.finish()
+
+
+def flat_rect_scene(build, dx):
+    b = build.SceneBuilder()
+    b.rect_xy(-0.483 + dx, 0.517 + dx, -0.483, 0.517, 0.0, False,
+              b.lambertian_color((0.15, 0.15, 0.15)))
+    b.sky = (0.75, 0.75, 0.75)
+    return b.finish()
+
+
+def flat_box_scene(build, dx):
+    b = build.SceneBuilder()
+    b.box((-0.395, -0.41, -0.4), (0.405, 0.39, 0.4),
+          b.lambertian_color((0.15, 0.15, 0.15)),
+          build.affine_from_rotation_y_translation(25.0, (dx, 0.013, 0.0)))
+    b.sky = (0.75, 0.75, 0.75)
+    return b.finish()
+
+
+def mixed_edges_scene(build):
+    """tests/test_silhouette.py's mixed scene (a sphere, a rect and a
+    rotated box) with a moving sphere added."""
+    b = build.SceneBuilder()
+    b.sphere((-0.8, 0.0, 0.0), 0.4, b.lambertian_color((0.2, 0.2, 0.2)))
+    b.moving_sphere((0.3, 0.4, 0.0), (0.3, 0.0, 0.0), 0.0, 1.0, 0.3,
+                    b.lambertian_color((0.6, 0.2, 0.2)))
+    b.rect_xy(-0.3, 0.3, -0.3, 0.3, -0.5, False,
+              b.lambertian_color((0.2, 0.2, 0.2)))
+    b.box((0.5, -0.3, -0.3), (1.1, 0.3, 0.3), b.lambertian_color((0.2, 0.2, 0.2)),
+          build.affine_from_rotation_y_translation(15.0, (0.0, 0.0, 0.0)))
+    b.sky = (0.75, 0.75, 0.75)
+    return b.finish()
+
+
+def silhouette_cases(build, make_camera):
+    """name -> (scene, camera, width, height, max_depth, n_samples) of the
+    silhouette fixture (tests/goldens/torch_port_silhouette.npz), from
+    either package's build module and ``make_camera``."""
+    return {
+        "sphere": (flat_sphere_scene(build, 0.25), sil_camera(make_camera),
+                   32, 32, 3, 128),
+        "moving": (moving_flat_scene(build, 0.55),
+                   sil_camera(make_camera, shutter=True), 32, 32, 3, 128),
+        "aperture": (flat_sphere_scene(build, 0.2137),
+                     sil_camera(make_camera, aperture=0.25), 40, 40, 3, 128),
+        "rect": (flat_rect_scene(build, 0.2137), sil_camera(make_camera),
+                 40, 40, 3, 128),
+        "box": (flat_box_scene(build, 0.2137), sil_camera(make_camera),
+                40, 40, 3, 128),
+        "mixed": (mixed_edges_scene(build),
+                  sil_camera(make_camera, aperture=0.1, shutter=True),
+                  32, 32, 2, 64),
+    }
+
+
+# The silhouette fixture's key (``PRNGKey(SIL_KEY_SEED)`` in both packages)
+# and the bound of a whole boundary term against it, per leaf by relative
+# L2 (tests/test_torch_silhouette.py gives the reasons).
+SIL_KEY_SEED = 2
+SIL_WHOLE_TOL = 5e-2
+
+
+def sil_grad_img(name: str, height: int, width: int) -> np.ndarray:
+    """The loss cotangent of a silhouette case: numpy normals from a seed
+    of the case's name, scaled to an MSE's."""
+    seed = sum(map(ord, name))
+    g = np.random.default_rng(seed).standard_normal((height, width, 3))
+    return (g * (2.0 / (height * width * 3))).astype(np.float32)
+
+
 def jax_rect_scene_winners(jscene, ro, rd):
     """JAX's closest hit over spheres (Pallas, interpret mode) and rects,
     merged as ``_fast_bounce_fused_prims`` merges them (numpy)."""
