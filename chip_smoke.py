@@ -277,6 +277,40 @@ Phases (each prints a line before the next starts):
     same deterministic algorithms compared (K6 sums with atomics; printed,
     not required).
 
+48. the whole-scene BVH's native trees (``utils/native.py``, SAH) of
+    ``random_spheres``, ``random_spheres_xl``, ``cornell_smoke`` and
+    ``final_full``: builder (it must be the native one), build seconds,
+    census; ``random_spheres``' and ``cornell_smoke``'s equal to the numpy
+    SAH tree;
+49. the traversal kernel (``csrc/bvh_traverse.cu``) against its plain
+    version on the 1280x720x4 camera rays and one bounce of scattered rays
+    (through K2 from the tree's winners; ``final_full``'s through the
+    general bounce) of ``random_spheres``, ``random``,
+    ``random_spheres_xl``, ``cornell``, ``cornell_smoke`` and
+    ``final_full``: t, gid and the nodes each ray visits equal bit for
+    bit; the kernel's median time, the plain version's, mean and max
+    visits, the leaf tests by kind, the bound
+    (``ops/bvh_kernel.yardsticks``: 24 operations a visit and 18-80 a leaf
+    test at the 33.5 T/s issue rate, against the rays' bytes, the
+    results' and the operand's) and ptxas's registers;
+50. ``cli.main`` with ``-B`` renders ``random_spheres`` and
+    ``random_spheres_xl`` at 1280x720, 4 spp, depth 10, 3 frames (the
+    traversal kernel and K2 launched, no K1, K4, K5 or plain version),
+    then the same without ``-B`` and in raster order (``CULL_MIN_TILES``
+    patched high: K1 over every sphere; xl's tile order would rename the
+    lanes, hence their samples): frame times, launches a frame,
+    readbacks, and the ``-B`` image against the brute one within the
+    per-pixel budget of its 12 samples;
+51. ``config4_1024spp_bvh``'s schedule (``random_spheres`` 200x100, 128
+    spp a frame x 8 frames, depth 10) through ``cli.main`` with and without
+    ``-B``: seconds to 1024 spp, Mrays/s;
+52. the general route: ``cli.main -P final_full -B`` at 1280x720x4, depth
+    10 (``auto`` -> compacted + BVH: the traversal kernel, no K2, no
+    plain version) and a profiled compacted frame (device busy, launches a
+    bounce); ``cornell_smoke -B --nee --rr 3`` (3 frames: the traversal
+    kernel for the bounces and the shadow rays, and K2) and a profiled
+    frame.
+
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
 
@@ -334,7 +368,12 @@ same rays. K1, K2 and K7 carry ``sphere_presets`` (phase 39's numbers and
 phase 40's launches on ``smallpt`` and ``aras``); the ``threefry`` entry
 (``"replaces": "jax.random.uniform (XLA)"``, no TPU kernel) carries its
 bound by bytes alone, ``torch_rand_ms`` and phase 38's share of pixels
-outside per preset. K1, K3, K6 and the ``threefry`` entry carry
+outside per preset. The ``bvh_traverse`` entry (``"replaces"``: the
+reference's XLA traversal, no TPU kernel) carries phase 50's
+``random_spheres -B`` launches, phase 49's ``random_spheres`` camera
+numbers at its top level and every scene's under ``scenes``, and phases
+48 and 50-52 (``trees``, ``cli_frames``, ``config4``, ``general``).
+K1, K3, K6 and the ``threefry`` entry carry
 ``general_launches`` (phase 42's ``random_spheres`` frames for K1 and the
 draw, its ``final_full`` frame for K3, phase 43 for K6); the ``threefry``
 entry also phases 41-42's shares and frames. K1 and K3 carry
@@ -502,6 +541,7 @@ def rel_l2(a, b) -> float:
 
 def reset_counts(k1, k2, k7) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
+    from pathtrace_tpu_torch.ops import bvh_kernel
     from pathtrace_tpu_torch.tools import bf16_probe, split_probe
     from pathtrace_tpu_torch.utils import threefry
 
@@ -512,6 +552,7 @@ def reset_counts(k1, k2, k7) -> None:
     k2.LAUNCHES = k2.PLAIN_CALLS = 0
     k7.LAUNCHES = k7.PLAIN_CALLS = 0
     threefry.LAUNCHES = threefry.PLAIN_CALLS = 0
+    bvh_kernel.LAUNCHES = bvh_kernel.PLAIN_CALLS = 0
     bf16_probe.LAUNCHES = bf16_probe.PLAIN_CALLS = 0
     for kind in ("SPLIT", "MINOR", "MAJOR"):
         setattr(split_probe, f"{kind}_LAUNCHES", 0)
@@ -520,6 +561,7 @@ def reset_counts(k1, k2, k7) -> None:
 
 def read_counts(k1, k2, k7) -> dict:
     """Launches per kernel, and the plain versions' calls summed."""
+    from pathtrace_tpu_torch.ops import bvh_kernel as bvh
     from pathtrace_tpu_torch.tools import bf16_probe as p1
     from pathtrace_tpu_torch.tools import split_probe as p24
     from pathtrace_tpu_torch.utils import threefry as tf
@@ -529,7 +571,8 @@ def read_counts(k1, k2, k7) -> dict:
             "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES, "P1": p1.LAUNCHES,
             "P2": p24.SPLIT_LAUNCHES, "P3": p24.MINOR_LAUNCHES,
             "P4": p24.MAJOR_LAUNCHES, "threefry": tf.LAUNCHES,
-            "plain": (k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
+            "bvh": bvh.LAUNCHES,
+            "plain": (bvh.PLAIN_CALLS + k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
                       + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS
                       + p1.PLAIN_CALLS + p24.SPLIT_PLAIN_CALLS
@@ -827,6 +870,363 @@ def inverse_phases(dev, smi: str) -> dict:
 
     return {"sil_k1": sil_k1, "sil_k3": sil_k3, "c45": c45, "c45s": c45s,
             "geo_run": geo_run, "diff_runs": diff_runs, "sil_runs": sil_runs}
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, each timed on
+    its own, after one warm-up."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(sorted(times)[len(times) // 2])
+
+
+def run_cli(tag: str, argv, k1, k2, k7):
+    """``cli.main(argv)`` with every count at 0: (rc, counts just after,
+    its output, per frame (ms, rays, readbacks))."""
+    from pathtrace_tpu_torch import cli
+
+    reset_counts(k1, k2, k7)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    counts = read_counts(k1, k2, k7)
+    log = buf.getvalue()
+    for ln in log.splitlines():
+        phase(f"[{tag}] cli: {ln}")
+    frames = [(float(ms), int(rays), int(rb)) for ms, rays, rb in re.findall(
+        r"frame \d+/\d+: ([\d.]+) ms, (\d+) rays, [\d.]+ Mrays/s, "
+        r"(\d+) readbacks", log)]
+    return rc, counts, log, frames
+
+
+def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
+    """Phases 48-52, the whole-scene BVH (``-B``): native trees, the
+    traversal kernel against its plain version on full-width camera and
+    scattered rays, the CLI's ``-B`` frames against the brute frames, the
+    ``config4_1024spp_bvh`` schedule, and the general route
+    (``final_full -B`` through ``--mode compacted``; ``cornell_smoke -B``
+    with NEE and roulette). Returns the numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.models import bvh as pbvh
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.render import compaction
+    from pathtrace_tpu_torch.render import integrator as gint
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools import nearest_bench as nb
+    from pathtrace_tpu_torch.utils import native
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import DEPTH10_BUDGET, XL_DEPTH10_BUDGET
+
+    out = {}
+    R = WIDTH * HEIGHT * SAMPLES
+
+    # ---- 48: native trees ----
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.library()
+    out["native_build_s"] = time.perf_counter() - t0
+    phase(f"[48] native builder: g++ {' '.join(native.CXX_FLAGS)} "
+          f"{native.SOURCE.name} -> {lib} in {out['native_build_s']:.2f} s")
+    trees = {}
+    for name in ("random_spheres", "random_spheres_xl", "cornell_smoke",
+                 "final_full"):
+        scene_, _ = presets.from_name(name, WIDTH / HEIGHT)
+        mn, mx, mask, offsets = pbvh.scene_aabbs(scene_)
+        t0 = time.perf_counter()
+        flat, st = pbvh.build_flat_bvh(mn, mx, mask=mask, strategy="sah")
+        secs = time.perf_counter() - t0
+        entry = {"builder": flat.builder, "build_s": secs,
+                 "nodes": st.node_count, "leaves": st.leaf_count,
+                 "depth": st.max_depth, "offsets": list(offsets)}
+        if name in ("random_spheres", "cornell_smoke"):
+            t0 = time.perf_counter()
+            ref_, ref_st = pbvh.build_flat_bvh(mn, mx, mask=mask,
+                                               use_native=False,
+                                               strategy="sah")
+            entry["numpy_build_s"] = time.perf_counter() - t0
+            entry["equal_to_numpy"] = all(
+                np.array_equal(getattr(flat, k), getattr(ref_, k))
+                for k in ("bb_min", "bb_max", "escape", "prim")) and (
+                    st == ref_st)
+        trees[name] = entry
+        phase(f"[48] {name}: {entry}")
+        if flat.builder != "native" or entry.get("equal_to_numpy") is False:
+            raise AssertionError(f"{name}: the tree was not built natively "
+                                 "or differs from the numpy SAH tree")
+    out["trees"] = trees
+
+    # ---- 49: the traversal kernel against its plain version ----
+    regs = nb.ptxas_usage("bvh_traverse_kernel")
+    regs = next(iter(regs.values()), None)
+    phase(f"[49] bvh_traverse_kernel registers and spills (ptxas): {regs}")
+    scenes49 = {}
+    max_err = 0.0
+    for name in ("random_spheres", "random", "random_spheres_xl", "cornell",
+                 "cornell_smoke", "final_full"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        sdev = scene_.to(dev)
+        op = flat.operand(sdev, feats_, offsets, dev)
+        n_media = sdev.media.count if feats_.has_media else 0
+        ro, rd, tm = generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev)
+        st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+        lane = st0.lane
+        sets = {}
+
+        def flights_at(depth):
+            if not feats_.has_media:
+                return None
+            return bvh_kernel.media_flights(op, fp.media_uniforms(
+                lane, 7, depth, n_media, 8))
+
+        sets["camera"] = (st0.planes[:6], st0.time, flights_at(0))
+        if fp.fastpath_refusal(feats_, sdev) is None:
+            tables = fp.prep_tables(sdev, feats_, bvh=flat,
+                                    bvh_offsets=offsets)
+            t_, idx_ = fp.closest_hit(tables, st0, 0, feats_, 7)
+            planes, _ = k2.shade_from_winners(
+                tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
+                st0.lane, 7, 0, DEPTH, tables.sky4, fp.feature_flags(feats_),
+                atlas=tables.atlas)
+            rays1 = planes[:6].contiguous()
+        else:  # final_full: the general bounce it renders through
+            fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats_)
+            gt = gint.prep_tables(sdev, feats_)
+            st1 = gint._bounce(sdev, gt, gint._initial_state(
+                ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
+                PRNGKey(7), DEPTH, feats_, intersect_fn=fn)
+            rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
+        sets["scattered"] = (rays1, st0.time, flights_at(1))
+        runs = {}
+        for label, (rays, time_, fl) in sets.items():
+            t, gid, vis = bvh_kernel.bvh_traverse(op, rays, time_, fl,
+                                                  visits=True)
+            tp, gp, vp, tests = bvh_kernel.bvh_traverse_plain(
+                op, rays, time_, fl, stats=True)
+            torch.cuda.synchronize()
+            same = (torch.equal(t, tp) and torch.equal(gid, gp)
+                    and torch.equal(vis, vp))
+            hit = t < 1e30
+            err = (float((t[hit] - tp[hit]).abs().max()) if bool(hit.any())
+                   else 0.0)
+            max_err = max(max_err, err)
+            ms = median_ms(lambda: bvh_kernel.bvh_traverse(op, rays, time_,
+                                                           fl), 10)
+            plain_ms = median_ms(lambda: bvh_kernel.bvh_traverse_plain(
+                op, rays, time_, fl), 1)
+            ys = bvh_kernel.yardsticks(op, R, vp, tests, n_media)
+            runs[label] = {
+                "rays": R, "hit_share": float(hit.float().mean()),
+                "equal": same, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": ys["bound_ms"],
+                "bound_by": ys["bound_by"],
+                "issue_ceiling_ms": ys["issue_ceiling_ms"],
+                "bytes_ms": ys["bytes_ms"],
+                "share_of_bound": ys["bound_ms"] / ms,
+                "mean_visits": ys["mean_visits"],
+                "max_visits": ys["max_visits"],
+                "leaf_tests": ys["leaf_tests"], "library_ms": None}
+            phase(f"[49] {name} {label}: {R} rays, hit "
+                  f"{runs[label]['hit_share']:.4f}, t, gid and visits equal "
+                  f"to plain: {same}; kernel {ms:.4f} ms (median of 10), "
+                  f"plain {plain_ms:.1f} ms, bound {ys['bound_ms']:.4f} ms "
+                  f"({ys['bound_by']}; {ys['bound_ms'] / ms:.1%} of it), "
+                  f"visits mean {ys['mean_visits']:.2f} max "
+                  f"{ys['max_visits']}, leaf tests {ys['leaf_tests']} ({smi})")
+            if not same:
+                raise AssertionError(f"{name} {label}: the traversal kernel "
+                                     "differs from its plain version")
+        scenes49[name] = {"nodes": flat.n_nodes, "node_rows": op.node_rows,
+                          "flags": op.flags, **runs}
+        del sdev, op, st0, sets, rays1
+    out["scenes"] = scenes49
+    out["registers"] = regs
+    out["max_abs_err"] = max_err
+
+    # ---- 50: the CLI's -B main path against the brute frames ----
+    cli_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ("random_spheres", "random_spheres_xl"):
+            imgs = {}
+            for flag in ("-B", None):
+                path = os.path.join(tmp, f"{name}{flag or ''}.npy")
+                argv = ["-P", name, "-W", str(WIDTH), "-H", str(HEIGHT),
+                        "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F",
+                        str(FRAMES), "--out", path] + ([flag] if flag else [])
+                tag = "50" if flag else "50 brute"
+                # the brute frames in raster order (xl's cull would trace
+                # in tile order, which renames lanes and so their
+                # samples): K1 over every sphere, the lanes of the -B run
+                cull_min = fp.CULL_MIN_TILES
+                fp.CULL_MIN_TILES = 1 << 30 if not flag else cull_min
+                try:
+                    rc, counts, log, frames = run_cli(tag, argv, k1, k2, k7)
+                finally:
+                    fp.CULL_MIN_TILES = cull_min
+                if rc != 0 or len(frames) != FRAMES:
+                    raise AssertionError(f"{name} {flag}: rc {rc}, {frames}")
+                imgs[flag] = np.load(path)
+                ms = [f_[0] for f_ in frames]
+                entry = {"frame_ms": ms,
+                         "median_ms": float(np.median(ms)),
+                         "segments": [f_[1] for f_ in frames],
+                         "readbacks": [f_[2] for f_ in frames],
+                         "launches": counts,
+                         "launches_per_frame": {k: v / FRAMES for k, v in
+                                                counts.items()}}
+                cli_runs[f"{name}{' -B' if flag else ''}"] = entry
+                phase(f"[{tag}] {name} {flag or '(brute)'}: frames "
+                      f"{[round(x, 2) for x in ms]} ms (CUDA events), median "
+                      f"{entry['median_ms']:.2f}, segments {entry['segments']}, "
+                      f"readbacks {entry['readbacks']}; launches {counts} "
+                      f"({smi})")
+                if flag and (counts["bvh"] <= 0 or counts["K2"] <= 0
+                             or counts["K1"] or counts["K4"] or counts["K5"]
+                             or counts["plain"]):
+                    raise AssertionError(f"{name} -B did not run through the "
+                                         "traversal kernel and K2 alone")
+            a, b = imgs["-B"], imgs[None]
+            close = (np.abs(a.astype(np.float64) - b)
+                     <= ATOL + RTOL * np.abs(b)).all(axis=-1)
+            budget_ray = (XL_DEPTH10_BUDGET if name == "random_spheres_xl"
+                          else DEPTH10_BUDGET)
+            budget = 1.0 - (1.0 - budget_ray) ** (SAMPLES * FRAMES)
+            share = float(1.0 - close.mean())
+            cli_runs[f"{name} -B"]["pixels_outside_brute"] = share
+            phase(f"[50] {name}: -B image against the brute image at the same "
+                  f"keys: {share:.4%} of pixels outside 1e-3 (budget "
+                  f"{budget:.2%}), finite {bool(np.isfinite(a).all())}")
+            if share > budget or not np.isfinite(a).all():
+                raise AssertionError(f"{name}: the -B frames leave the brute "
+                                     "frames")
+    out["cli"] = cli_runs
+
+    # ---- 51: config4_1024spp_bvh's schedule beside its brute twin ----
+    c4 = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flag in ("-B", None):
+            argv = ["-P", "random_spheres", "-W", "200", "-H", "100", "-S",
+                    "128", "-D", str(DEPTH), "-F", "8", "-O", "--out",
+                    os.path.join(tmp, "c4.npy")] + ([flag] if flag else [])
+            t0 = time.monotonic()
+            rc, counts, log, frames = run_cli("51", argv, k1, k2, k7)
+            wall = time.monotonic() - t0
+            if rc != 0 or len(frames) != 8:
+                raise AssertionError(f"config4 {flag}: rc {rc}")
+            rays = sum(f_[1] for f_ in frames)
+            ms = [f_[0] for f_ in frames]
+            c4["bvh" if flag else "brute"] = {
+                "seconds_to_1024spp": wall, "frames_ms_sum": sum(ms),
+                "frame_ms": ms, "segments": rays,
+                "mrays_per_s": rays / sum(ms) / 1e3, "launches": counts}
+            phase(f"[51] config4_1024spp {'-B' if flag else 'brute'}: "
+                  f"{wall:.2f} s to 1024 spp (cli wall), frames "
+                  f"{sum(ms):.1f} ms summed, {rays} segments, "
+                  f"{rays / sum(ms) / 1e3:.2f} Mrays/s; launches {counts} "
+                  f"({smi})")
+            if flag and (counts["bvh"] <= 0 or counts["plain"]):
+                raise AssertionError("config4 -B did not run the kernel")
+    out["config4"] = c4
+
+    # ---- 52: the general route: final_full -B (compacted) and NEE ----
+    gen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["-P", "final_full", "-B", "-W", str(WIDTH), "-H", str(HEIGHT),
+                "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", "1",
+                "--out", os.path.join(tmp, "ff.npy")]
+        r0 = compaction.READBACKS
+        rc, counts, log, frames = run_cli("52", argv, k1, k2, k7)
+        bounces = compaction.READBACKS - r0
+        img = np.load(os.path.join(tmp, "ff.npy"))
+        if (rc != 0 or "render path: compacted" not in log
+                or counts["bvh"] <= 0 or counts["plain"] or counts["K2"]
+                or not np.isfinite(img).all()):
+            raise AssertionError(f"final_full -B: rc {rc}, {counts}")
+        gen["final_full"] = {"frame_ms": frames[0][0], "segments": frames[0][1],
+                             "bounces": bounces, "launches": counts,
+                             "image_mean": float(img.mean())}
+        scene_, cam_ = presets.from_name("final_full", WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        sdev = scene_.to(dev)
+        fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats_)
+        r0 = compaction.READBACKS
+        wall_ms, busy_ms, n_launch, top = profiled(
+            lambda: compaction.render_frame_compacted(
+                sdev, cam_, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                fold_in(PRNGKey(0), 3), features=feats_, intersect_fn=fn))
+        nb_ = compaction.READBACKS - r0
+        gen["final_full"].update(
+            profiled_wall_ms=wall_ms, busy_ms=busy_ms, device_launches=n_launch,
+            bounces_profiled=nb_, launches_per_bounce=n_launch / max(nb_, 1),
+            top_kernels=top)
+        phase(f"[52] final_full -B (auto -> compacted, bvh): frame "
+              f"{frames[0][0]:.2f} ms (CUDA events), {frames[0][1]} segments, "
+              f"{bounces} bounces; profiled frame: wall {wall_ms:.2f} ms, busy "
+              f"{busy_ms:.2f} ms (idle {1.0 - busy_ms / wall_ms:.1%}), "
+              f"{n_launch} device launches over {nb_} bounces "
+              f"({n_launch / max(nb_, 1):.0f} a bounce; PR 16's general frame "
+              f"39,027); top {top} ({smi})")
+        del sdev
+        argv = ["-P", "cornell_smoke", "-B", "--nee", "--rr", str(RR_START),
+                "-W", str(WIDTH), "-H", str(HEIGHT), "-S", str(SAMPLES),
+                "-D", str(DEPTH), "-O", "-F", str(FRAMES), "--out",
+                os.path.join(tmp, "cs.npy")]
+        rc, counts, log, frames = run_cli("52", argv, k1, k2, k7)
+        img = np.load(os.path.join(tmp, "cs.npy"))
+        if (rc != 0 or "render path: fast" not in log or counts["bvh"] <= 0
+                or counts["K2"] <= 0 or counts["plain"]
+                or not np.isfinite(img).all()):
+            raise AssertionError(f"cornell_smoke -B --nee: rc {rc}, {counts}")
+        scene_, cam_ = presets.from_name("cornell_smoke", WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        sdev = scene_.to(dev)
+        lights = build_light_table(sdev)
+        wall_ms, busy_ms, n_launch, top = profiled(
+            lambda: fp.render_frame_fast(
+                sdev, cam_, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                fold_in(PRNGKey(0), 3), 3, feats_, nee_lights=lights,
+                rr_start=RR_START, bvh=flat, bvh_offsets=offsets))
+        ms = [f_[0] for f_ in frames]
+        gen["cornell_smoke_nee"] = {
+            "frame_ms": ms, "median_ms": float(np.median(ms)),
+            "segments": [f_[1] for f_ in frames],
+            "readbacks": [f_[2] for f_ in frames], "launches": counts,
+            "profiled_wall_ms": wall_ms, "busy_ms": busy_ms,
+            "device_launches": n_launch,
+            "launches_per_bounce": n_launch / (DEPTH + 1), "top_kernels": top,
+            "image_mean": float(img.mean())}
+        phase(f"[52] cornell_smoke -B --nee --rr {RR_START}: frames "
+              f"{[round(x, 2) for x in ms]} ms (CUDA events), segments "
+              f"{gen['cornell_smoke_nee']['segments']}; launches {counts}; "
+              f"profiled frame: wall {wall_ms:.2f} ms, busy {busy_ms:.2f} ms "
+              f"(idle {1.0 - busy_ms / wall_ms:.1%}), {n_launch} device "
+              f"launches (~{n_launch / (DEPTH + 1):.0f} a bounce); top {top} "
+              f"({smi})")
+        del sdev
+    out["general"] = gen
+    return out
 
 
 def main() -> int:
@@ -2762,6 +3162,8 @@ def main() -> int:
                                                   "c45s"))
     geo_run, diff_runs, sil_runs = (inv[k] for k in ("geo_run", "diff_runs",
                                                      "sil_runs"))
+    bvh = bvh_phases(dev, smi, k1, k2, k7, profiled)
+    bvh_main = bvh["scenes"]["random_spheres"]["camera"]
 
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
@@ -2906,6 +3308,19 @@ def main() -> int:
              "launches"]["threefry"],
          "general_golden_pixel_share_outside": general_share,
          "general_frames": general_runs},
+        {"name": "bvh_traverse", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/bvh_traverse.cu",
+         "replaces": "pathtrace_tpu/models/bvh.py:635 (bvh_scene_nearest, "
+                     "an XLA while_loop; no TPU kernel)",
+         "launches": bvh["cli"]["random_spheres -B"]["launches"]["bvh"],
+         "max_abs_err": bvh["max_abs_err"],
+         **{k: bvh_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                     "issue_ceiling_ms", "bytes_ms",
+                                     "mean_visits", "max_visits")},
+         "registers": bvh["registers"], "scenes": bvh["scenes"],
+         "trees": bvh["trees"], "native_build_s": bvh["native_build_s"],
+         "cli_frames": bvh["cli"], "config4": bvh["config4"],
+         "general": bvh["general"], "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",
            "replaces": f"tools/split_probe.py:{line}", "launches": c36[pid],

@@ -1,9 +1,11 @@
 """Command-line interface of the port: ``python -m pathtrace_tpu_torch``.
 
 The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
-the render path (``--mode auto|fast|general``: ``auto`` takes the fast
-path where it can and the general integrator otherwise; ``compacted`` and
-``sharded`` are refused as not ported yet), Latin-hypercube pixel samples
+the whole-scene BVH (``-B``: the tree's traversal kernel is the closest
+hit), the render path (``--mode auto|fast|general|compacted``: ``auto``
+takes the fast path where it can and the general integrator otherwise,
+under the compaction ladder with ``-B``; ``sharded`` is refused as not
+ported yet), Latin-hypercube pixel samples
 (``--stratify``), next-event estimation (``--nee``), Russian roulette
 (``--rr DEPTH``), a user's own texture map for ``earth`` (``--image
 PNG``), resumable renders (``--checkpoint PATH``: resume if it exists,
@@ -51,11 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-O", "--offline", action="store_true",
                    help="Offline render (no live preview)")
     p.add_argument("--seed", type=int, default=0, help="Base RNG seed")
+    p.add_argument("-B", "--bvh", action="store_true",
+                   help="Use bounding volume hierarchy instead of brute force")
     p.add_argument("--mode", default="auto",
                    choices=("auto", "fast", "general", "compacted", "sharded"),
                    help="Render path: auto (the fast path where it takes the "
-                        "scene, else the general integrator), fast, general; "
-                        "compacted and sharded are not ported yet")
+                        "scene, else the general integrator: compacted with "
+                        "-B), fast, general, compacted (the general "
+                        "integrator under the host's compaction ladder; no "
+                        "NEE or roulette); sharded is not ported yet")
     p.add_argument("--stratify", action="store_true",
                    help="Latin-hypercube pixel sampling: each pixel's S "
                         "samples in distinct 1/S strata on both film axes "
@@ -101,7 +107,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return 2
     params = Params(width=args.width, height=args.height,
                     samples=args.samples, max_depth=args.depth,
-                    seed=args.seed)
+                    seed=args.seed, use_bvh=args.bvh)
     print(f"generating '{args.preset}' preset at {params.width}x{params.height}"
           f" with {params.samples} samples per pixel")
     try:
@@ -111,18 +117,31 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         features = SceneFeatures.from_scene(scene)
         from pathtrace_tpu_torch.ops.lights import build_light_table
         from pathtrace_tpu_torch.render.progressive import (
+            auto_refusal,
             render_progressive,
             route,
             save_image,
         )
 
-        path = route(scene, features, args.mode,
-                     build_light_table(scene) if args.nee else None)
+        nee_lights = build_light_table(scene) if args.nee else None
+        path = route(scene, features, args.mode, nee_lights, args.bvh)
+        tree = None
+        if args.bvh:
+            from pathtrace_tpu_torch.models.bvh import build_scene_bvh
+
+            # "cannot build BVH over empty primitive set" ends here
+            tree = build_scene_bvh(scene, seed=params.seed)
     except (ValueError, OSError) as e:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
     print(f"scene features: {features}")
-    print(f"render path: {path} (--mode {args.mode})")
+    line = (f"render path: {path} (--mode {args.mode}, intersect: "
+            f"{'bvh' if args.bvh else 'sweep'})")
+    if args.mode == "auto" and path != "fast":
+        # the port's own fallback where the reference takes its fast path
+        line += f"; the fast path refuses the scene: " \
+                f"{auto_refusal(scene, features, nee_lights)}"
+    print(line)
 
     start = time.monotonic()
     result = render_progressive(scene, camera, params,
@@ -132,7 +151,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                 stratify=args.stratify, mode=path,
                                 checkpoint_path=args.checkpoint,
                                 snapshot_path=args.out,
-                                snapshot_every=args.snapshot_every)
+                                snapshot_every=args.snapshot_every, bvh=tree)
     elapsed = time.monotonic() - start
     # same report shape as the JAX CLI's offline line
     print(f"{elapsed:.2f}secs {result.total_rays}rays "

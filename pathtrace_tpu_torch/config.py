@@ -8,7 +8,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class Params:
     """Render parameters, the reference CLI surface (width, height, samples
-    per pixel per frame, bounce depth, seed)."""
+    per pixel per frame, bounce depth, seed, ``-B``)."""
 
     width: int = 1280
     height: int = 720
@@ -16,6 +16,7 @@ class Params:
     max_depth: int = 10
     seed: int = 0
     random_seed: bool = False  # if True, seed from entropy; else ``seed``
+    use_bvh: bool = False      # the whole-scene BVH (the reference's -B)
 
     @property
     def aspect(self) -> float:

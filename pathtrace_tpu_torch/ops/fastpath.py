@@ -30,6 +30,13 @@ One bounce is two kernels:
   isotropic material scatters into the unit-sphere direction; an image
   texture's texel read from the atlas at the winner's UV).
 
+With ``-B`` (``trace_fast(bvh=...)``, a ``models.bvh`` scene tree) the
+traversal kernel of :mod:`~pathtrace_tpu_torch.ops.bvh_kernel` replaces
+all of the sweeps above as the closest hit, of the bounce and of the NEE
+shadow rays: its winners' global ids map to the same table rows
+(:func:`_gid_to_table_row`) and K2 shades them as it shades the sweeps'.
+Such frames neither cull nor trace in tile order, as in the reference.
+
 With next-event estimation (``nee_lights``) a plain-PyTorch tail follows
 K2 each bounce: one light sample per Lambertian or isotropic lane, a
 shadow ray through the closest hit (K1 or K3, the rects, boxes and media;
@@ -146,6 +153,11 @@ from pathtrace_tpu_torch.ops.shade_kernel import (
     _trunc_clamp,
     box_frame,
     shade_from_winners,
+)
+from pathtrace_tpu_torch.ops.bvh_kernel import (
+    TreeOperand,
+    bvh_traverse,
+    media_flights,
 )
 from pathtrace_tpu_torch.render import compact_util
 
@@ -525,6 +537,7 @@ class FastTables(NamedTuple):
     lights: Optional[LightTable] = None  # NEE's light table (host)
     light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
     atlas: Optional[torch.Tensor] = None  # [H, W, 3] image atlas (images)
+    bvh: Optional[TreeOperand] = None  # -B: the scene tree's operand
 
 
 def table_rows(scene: Scene, features: SceneFeatures) -> TableRows:
@@ -561,21 +574,44 @@ def sphere_tiles(scene: Scene) -> int:
 def cull_scene(scene: Scene, features: SceneFeatures) -> bool:
     """Static sphere scenes of at least ``CULL_MIN_TILES`` tiles take the
     culled closest hit and tile-order frames (the reference's rule,
-    ``fastpath.py:1993-1998``; the port has no BVH)."""
+    ``fastpath.py:1993-1998``), unless they render through a BVH
+    (``trace_fast(bvh=...)``), which neither culls nor tiles."""
     return (features.has_spheres and not features.has_motion
             and sphere_tiles(scene) >= CULL_MIN_TILES)
 
 
+def _gid_to_table_row(gid: torch.Tensor, offsets, rows: TableRows):
+    """Global primitive id (the tree's sphere | rect | box | medium
+    blocks) -> row of :func:`winner_table` (the same kind order, each
+    block where :func:`table_rows` puts it). Branch-free, the blocks
+    applied in increasing order so the last one that starts at or below
+    the id wins, as the reference's (``fastpath.py:940-954``, whose rect
+    block is always 128 rows). A miss carries gid 0 -> sphere row 0, as
+    the brute sweep's miss does (shading masks on t). An id of a kind the
+    table has no block for (a scene's masked padding entry) is never in
+    the tree."""
+    _, off_r, off_b, off_m = offsets
+    row = gid
+    row = torch.where(gid >= off_r, gid - off_r + rows.rect, row)
+    row = torch.where(gid >= off_b, gid - off_b + rows.box, row)
+    row = torch.where(gid >= off_m, gid - off_m + rows.media, row)
+    return row
+
+
 def prep_tables(scene: Scene, features: SceneFeatures,
                 cull: bool = False,
-                lights: Optional[LightTable] = None) -> FastTables:
+                lights: Optional[LightTable] = None,
+                bvh=None, bvh_offsets=None) -> FastTables:
     """Per-trace tables, on the scene's device. ``cull``: build the boxes
     of the cull :func:`cull_mode` picks, and pad the closest-hit operand
     to its tiles (and supertiles). Rect, box and media scenes get their
     blocks after the sphere rows, image scenes the atlas K2 reads texels
     from, whose entries must lie inside its data (K2's clamps keep each
     read inside its entry). ``lights``: the light table of next-event
-    estimation, whose lights must all have constant textures."""
+    estimation, whose lights must all have constant textures. ``bvh``
+    (a ``models.bvh.FlatBVH`` over the scene, global ids laid out by
+    ``bvh_offsets``): the traversal's operand, which then replaces the
+    sweeps as the closest hit."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     boxes, n_slots = None, None
@@ -608,6 +644,8 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         lights=lights,
         light_rgb=light_rgb,
         atlas=atlas,
+        bvh=(bvh.operand(scene, features, bvh_offsets, sky4.device)
+             if bvh is not None else None),
     )
 
 
@@ -683,7 +721,12 @@ def nearest_t_only(tables: FastTables, rays: torch.Tensor,
     """Closest-hit distance only, over the spheres (K1 brute force, or K3
     for moving spheres), the rects, boxes and media, of ``rays`` [6, R]:
     the shadow rays' occlusion test (the reference's ``nearest_t_only``,
-    ``fastpath.py:356``). ``med_u``: the media's uniforms (media scenes)."""
+    ``fastpath.py:356``). ``med_u``: the media's uniforms (media scenes).
+    With a tree in the tables, its traversal instead."""
+    if tables.bvh is not None:
+        t, _ = bvh_traverse(tables.bvh, rays, time,
+                            media_flights(tables.bvh, med_u), MIN_T, MAX_T)
+        return t
     if not features.has_spheres:
         t, _ = _no_hit(rays)
     elif features.has_motion:
@@ -798,7 +841,20 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
     rect, box and media sweeps in that order, each kind's winner taking
     its row when strictly nearer (the earlier kinds keep ties). The media
     sweep draws its free flights from the bounce's ``seed`` (draws
-    ``8 + j``), which media scenes must pass."""
+    ``8 + j``), which media scenes must pass. With a tree in the tables
+    (``-B``) its traversal replaces all of these, and the winners' global
+    ids map to their table rows (:func:`_gid_to_table_row`)."""
+    if tables.media is not None and seed is None:
+        raise ValueError("closest_hit: a media scene needs the bounce "
+                         "seed (the free-flight draws)")
+    if tables.bvh is not None:
+        flights = None
+        if tables.media is not None:
+            flights = media_flights(tables.bvh, media_uniforms(
+                state.lane, seed, depth, tables.media.count, 8))
+        t, gid = bvh_traverse(tables.bvh, state.planes[:6], state.time,
+                              flights, MIN_T, MAX_T)
+        return t, _gid_to_table_row(gid, tables.bvh.offsets, tables.rows)
     if not features.has_spheres:
         t, idx = _no_hit(state.planes)
     elif features.has_motion:
@@ -816,9 +872,6 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
         t, idx = merge_winner(t, idx, *box_nearest(tables.boxes, *rays),
                               tables.rows.box)
     if tables.media is not None:
-        if seed is None:
-            raise ValueError("closest_hit: a media scene needs the bounce "
-                             "seed (the free-flight draws)")
         med_u = media_uniforms(state.lane, seed, depth, tables.media.count, 8)
         t, idx = merge_winner(
             t, idx, *media_nearest(tables.media, *rays, med_u),
@@ -978,17 +1031,23 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                features: SceneFeatures, min_size: int = 1 << 15,
                compaction: bool = True,
                nee_lights: Optional[LightTable] = None,
-               rr_start: int = 0) -> TraceResult:
+               rr_start: int = 0, bvh=None,
+               bvh_offsets=None) -> TraceResult:
     """Trace a wavefront of rays (ro, rd: [R, 3] unit directions; time
     [R]) on the scene's device. ``seed`` keys the bounce RNG (its int32
     bit pattern); lane id ``i`` keys ray i's stream, so compaction never
     changes a ray's result. ``nee_lights`` (the scene's
     :func:`~pathtrace_tpu_torch.ops.lights.build_light_table`) turns on
     next-event estimation with MIS, whose shadow rays the segment count
-    includes; ``rr_start`` > 0 Russian roulette from that depth."""
+    includes; ``rr_start`` > 0 Russian roulette from that depth.
+    ``bvh``/``bvh_offsets`` (``-B``: ``models.bvh.build_scene_bvh``'s
+    tree and offsets): the tree's traversal is the closest hit of every
+    bounce and shadow ray, with no cull; the ladder, K2 and the tails are
+    the same."""
     fastpath_supported(features, scene)
-    tables = prep_tables(scene, features, cull=cull_scene(scene, features),
-                         lights=nee_lights)
+    tables = prep_tables(scene, features,
+                         cull=bvh is None and cull_scene(scene, features),
+                         lights=nee_lights, bvh=bvh, bvh_offsets=bvh_offsets)
     seed = int(seed)
 
     def step(state, depth, g, segs):
@@ -1035,10 +1094,13 @@ def _tile_perm(height: int, width: int, device: torch.device):
 
 
 def tile_layout(scene: Scene, features: SceneFeatures, height: int,
-                width: int) -> bool:
+                width: int, bvh=None) -> bool:
     """Frames of culled scenes trace in tile order (the reference's rule,
-    ``fastpath.py:1866-1869``), when the film holds a whole tile."""
-    return cull_scene(scene, features) and height >= 64 and width >= 64
+    ``fastpath.py:1866-1869``), when the film holds a whole tile; never
+    through a BVH, as in the reference (tile order renames lanes, so it
+    would change a ``-B`` image's bits)."""
+    return (bvh is None and cull_scene(scene, features) and height >= 64
+            and width >= 64)
 
 
 def permute_rays(ro: torch.Tensor, rd: torch.Tensor, t: torch.Tensor,
@@ -1066,18 +1128,20 @@ def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 t: torch.Tensor, width: int, height: int, samples: int,
                 max_depth: int, seed: int, features: SceneFeatures,
                 nee_lights: Optional[LightTable] = None,
-                rr_start: int = 0) -> FrameResult:
+                rr_start: int = 0, bvh=None,
+                bvh_offsets=None) -> FrameResult:
     """A frame's rays (ro, rd [H*W*S, 3], t [H*W*S], in [H, W, S] order)
     to its image: permuted into tile order when :func:`tile_layout` says
     so, traced, un-permuted and averaged over the samples. Lane ids key
     the bounce RNG, so tile order renames lanes and renders the same
-    estimator."""
-    tiled = tile_layout(scene, features, height, width)
+    estimator. ``bvh``, ``bvh_offsets``: as :func:`trace_fast`'s."""
+    tiled = tile_layout(scene, features, height, width, bvh)
     if tiled:
         order, inv = _tile_perm(height, width, ro.device)
         ro, rd, t = permute_rays(ro, rd, t, order, samples)
     res = trace_fast(scene, ro, rd, t, seed, max_depth, features,
-                     nee_lights=nee_lights, rr_start=rr_start)
+                     nee_lights=nee_lights, rr_start=rr_start, bvh=bvh,
+                     bvh_offsets=bvh_offsets)
     if tiled:
         img = unpermute_image(res.radiance, inv, height, width, samples)
     else:
@@ -1089,13 +1153,14 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
                       samples: int, max_depth: int, frame_key: torch.Tensor,
                       seed: int, features: SceneFeatures,
                       nee_lights: Optional[LightTable] = None,
-                      rr_start: int = 0, stratify: bool = False) -> FrameResult:
+                      rr_start: int = 0, stratify: bool = False,
+                      bvh=None, bvh_offsets=None) -> FrameResult:
     """Whole-frame render through the fast path on the scene's device.
     ``frame_key`` (a Threefry key, :mod:`pathtrace_tpu_torch.utils.threefry`)
     draws the primary rays as the reference's does, ``stratify`` places
     each pixel's samples Latin-hypercube; ``seed`` must be frame-unique and
-    keys the bounce RNG. ``nee_lights``, ``rr_start``: as
-    :func:`trace_fast`'s."""
+    keys the bounce RNG. ``nee_lights``, ``rr_start``, ``bvh``,
+    ``bvh_offsets``: as :func:`trace_fast`'s."""
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
 
     ro, rd, t = generate_primary_rays(camera, width, height, samples,
@@ -1104,7 +1169,7 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
     R = height * width * samples
     return trace_frame(scene, ro.reshape(R, 3), rd.reshape(R, 3),
                        t.reshape(R), width, height, samples, max_depth, seed,
-                       features, nee_lights, rr_start)
+                       features, nee_lights, rr_start, bvh, bvh_offsets)
 
 
 # ---------------------------------------------------------------------------
@@ -1402,13 +1467,19 @@ def _check_atlas(scene: Scene) -> None:
 
 def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                     time: torch.Tensor, seed: int, max_depth: int,
-                    features: SceneFeatures):
+                    features: SceneFeatures, bvh=None):
     """Differentiable fast trace: all ``max_depth + 1`` bounces at full
     width, no compaction (twin of the reference's ``trace_fast_diff``,
     ``fastpath.py:1568``). Gradients flow to the scene's leaves through
     the attribute table, the closest hit's backward, the rect, box and
     media sweeps and the atlas gather. Returns (radiance [R, 3], segments
-    [] int64 on the device). Scenes of :func:`diff_refusal` raise."""
+    [] int64 on the device). Scenes of :func:`diff_refusal` raise, and
+    so does a ``bvh``: the traversal has no backward (the reference
+    asserts the same, ``fastpath.py:1597-1600``)."""
+    if bvh is not None:
+        raise ValueError("trace_fast_diff: the BVH traversal is not "
+                         "differentiable; differentiate through the brute "
+                         "fast path or the general integrator")
     diff_supported(features, scene)
     if features.has_image:
         _check_atlas(scene)

@@ -70,7 +70,7 @@ def render_frame(scene, camera: Camera, width: int, height: int,
                  differentiable: bool = False, features=None,
                  ray_chunk: int = 0, stratify: bool = False,
                  nee_lights=None, rr_start: int = 0,
-                 shard: Optional[int] = None):
+                 shard: Optional[int] = None, intersect_fn=None):
     """One frame through the general integrator: (image [H, W, 3] linear
     RGB, ray_count [] int64), on the scene's device.
 
@@ -86,7 +86,9 @@ def render_frame(scene, camera: Camera, width: int, height: int,
     pixel's sample mean. ``shard``: the bounces keyed ``fold_in(ktrace,
     shard)``, as the reference's ``render_frame_sharded`` keys the shard
     at that mesh position (``parallel/mesh.py:133-135``); ``shard=0`` is
-    its one-device frame, on which its trainer's general path renders."""
+    its one-device frame, on which its trainer's general path renders.
+    ``intersect_fn`` (``-B``: ``models.bvh.make_bvh_intersect_fn``)
+    replaces the per-kind sweep as every bounce's closest hit."""
     from pathtrace_tpu_torch.models.types import SceneFeatures
     from pathtrace_tpu_torch.render import integrator
 
@@ -102,7 +104,7 @@ def render_frame(scene, camera: Camera, width: int, height: int,
     trace_fn = integrator.trace_diff if differentiable else integrator.trace
     tables = integrator.prep_tables(scene, features, nee_lights)
     kw = dict(features=features, nee_lights=nee_lights, rr_start=rr_start,
-              tables=tables)
+              tables=tables, intersect_fn=intersect_fn)
     if ray_chunk and ray_chunk < R:
         n_chunks = -(-R // ray_chunk)
         pad = n_chunks * ray_chunk - R

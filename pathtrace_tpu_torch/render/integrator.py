@@ -22,6 +22,11 @@ Two drivers share the bounce:
   over every lane, under autograd (the spheres through
   ``SphereNearest``, whose backward is K6).
 
+Both take an ``intersect_fn`` in place of the per-kind sweep (``-B``:
+``models.bvh.make_bvh_intersect_fn``, the whole-scene tree's traversal
+kernel and the winners' records), for the bounce's hit and the NEE
+shadow rays, as the reference's ``_bounce`` does.
+
 Both run next-event estimation with MIS (``nee_lights``: one light sample
 and shadow ray per diffuse vertex, the power heuristic between light and
 BSDF sampling, the BSDF side's weight carried to the next emission hit)
@@ -124,10 +129,13 @@ def _bounce(scene: Scene, tables: GeneralTables, state: WavefrontState,
             key: torch.Tensor, max_depth: int, features: SceneFeatures,
             nee_lights=None, rr_start: int = 0,
             lanes: Optional[torch.Tensor] = None,
-            differentiable: bool = False) -> WavefrontState:
+            differentiable: bool = False,
+            intersect_fn=None) -> WavefrontState:
     """One bounce. ``lanes`` (int64 indices of the alive lanes): sweep and
     shade those only and write them back; None: every lane, dead ones
-    masked, as the reference computes."""
+    masked, as the reference computes. ``intersect_fn`` (``-B``:
+    ``models.bvh.make_bvh_intersect_fn``) replaces the per-kind sweep as
+    the closest hit of the bounce and of the NEE shadow rays."""
     f = features
     R = state.time.shape[0]
     dev = state.ro.device
@@ -156,8 +164,11 @@ def _bounce(scene: Scene, tables: GeneralTables, state: WavefrontState,
     alive = (torch.ones(lanes.shape[0], dtype=torch.bool, device=dev)
              if lanes is not None else state.alive)
 
-    rec = isect.intersect_scene(scene, ro, rd, time, sub(med_u), tables.soa,
-                                f, differentiable)
+    if intersect_fn is not None:
+        rec = intersect_fn(scene, ro, rd, time, sub(med_u))
+    else:
+        rec = isect.intersect_scene(scene, ro, rd, time, sub(med_u),
+                                    tables.soa, f, differentiable)
     sc = bsdf.scatter(scene, rec, rd, sub(scat_u), f)
 
     alive_f = alive.to(ro.dtype)[..., None]
@@ -184,8 +195,11 @@ def _bounce(scene: Scene, tables: GeneralTables, state: WavefrontState,
             nee_lights, safe_p, sub(lu))
         nee_mask = nee_mask & lvalid
         with torch.no_grad():
-            srec = isect.intersect_scene(scene, safe_p, wi, time, sub(smed_u),
-                                         tables.soa, f)
+            if intersect_fn is not None:
+                srec = intersect_fn(scene, safe_p, wi, time, sub(smed_u))
+            else:
+                srec = isect.intersect_scene(scene, safe_p, wi, time,
+                                             sub(smed_u), tables.soa, f)
         # unoccluded unless something lands strictly before the sample
         unoccluded = ~(srec.hit & (srec.t < ldist * (1.0 - 1e-3)))
         light_p = safe_p + wi * ldist[..., None]
@@ -260,10 +274,11 @@ def trace(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
           time: torch.Tensor, key: torch.Tensor, max_depth: int,
           features: Optional[SceneFeatures] = None, nee_lights=None,
           rr_start: int = 0,
-          tables: Optional[GeneralTables] = None) -> Tuple[torch.Tensor,
-                                                           torch.Tensor]:
+          tables: Optional[GeneralTables] = None,
+          intersect_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Forward trace with whole-wavefront early exit: (radiance [R, 3],
-    ray_count [] int64). ``key``: the Threefry key of the bounces."""
+    ray_count [] int64). ``key``: the Threefry key of the bounces;
+    ``intersect_fn``: as :func:`_bounce`'s."""
     features = features or SceneFeatures.from_scene(scene)
     tables = tables or prep_tables(scene, features, nee_lights)
     global READBACKS, BOUNCES
@@ -276,7 +291,8 @@ def trace(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 break
             BOUNCES += 1
             state = _bounce(scene, tables, state, key, max_depth, features,
-                            nee_lights, rr_start, lanes=lanes)
+                            nee_lights, rr_start, lanes=lanes,
+                            intersect_fn=intersect_fn)
     return state.radiance, state.ray_count
 
 
@@ -284,14 +300,17 @@ def trace_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                time: torch.Tensor, key: torch.Tensor, max_depth: int,
                features: Optional[SceneFeatures] = None, nee_lights=None,
                rr_start: int = 0,
-               tables: Optional[GeneralTables] = None) -> Tuple[torch.Tensor,
-                                                                torch.Tensor]:
+               tables: Optional[GeneralTables] = None,
+               intersect_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable trace: the full ``max_depth + 1`` bounces over every
-    lane; the same estimator as :func:`trace`."""
+    lane; the same estimator as :func:`trace`. Through an
+    ``intersect_fn`` (a BVH) t carries no gradient; the records' points
+    still do, through the rays."""
     features = features or SceneFeatures.from_scene(scene)
     tables = tables or prep_tables(scene, features, nee_lights)
     state = _initial_state(ro, rd, time)
     for _ in range(max_depth + 1):
         state = _bounce(scene, tables, state, key, max_depth, features,
-                        nee_lights, rr_start, differentiable=True)
+                        nee_lights, rr_start, differentiable=True,
+                        intersect_fn=intersect_fn)
     return state.radiance, state.ray_count

@@ -15,7 +15,18 @@ average with ``mix_prev = n/(n+1)``. Frame ``n`` draws from
   with boxes or media, or NEE lights whose texture is not a constant;
 * ``"fast"`` and ``"general"`` force their path (``"fast"`` raises for a
   scene it cannot take);
-* ``"compacted"`` and ``"sharded"`` are not ported yet and raise.
+* ``"compacted"``: the general integrator under the host's compaction
+  ladder (:func:`~pathtrace_tpu_torch.render.compaction.render_frame_compacted`,
+  without NEE or roulette, as the reference's);
+* ``"sharded"`` is not ported yet and raises.
+
+``Params.use_bvh`` (``-B``) builds the whole-scene BVH once
+(``models.bvh.build_scene_bvh``, native SAH) and logs its census. Its
+traversal then is the closest hit: the fast path's for a scene the fast
+path takes, else the general integrator's ``intersect_fn``, under the
+compaction ladder in ``auto`` (the reference's route: a fast-path
+scene, or ``compacted``), or plain ``render_frame`` with ``--mode
+general``.
 
 So a frame's image is the reference's up to the closest hit's rounding.
 On CUDA each frame is timed with CUDA events around its work; the ray
@@ -44,7 +55,7 @@ from pathtrace_tpu_torch.ops.fastpath import (
     render_frame_fast,
 )
 from pathtrace_tpu_torch.ops.lights import build_light_table
-from pathtrace_tpu_torch.render import film, integrator
+from pathtrace_tpu_torch.render import compaction, film, integrator
 from pathtrace_tpu_torch.render.frame import accumulate, render_frame
 from pathtrace_tpu_torch.utils import checkpoint as ckpt
 from pathtrace_tpu_torch.utils import threefry
@@ -60,27 +71,40 @@ class ProgressiveResult:
     frame_ms: List[float]    # per frame: CUDA-event time (host clock on CPU)
     readbacks: List[int]     # per frame: alive-count readbacks (host syncs)
     timer: str               # "cuda-events" or "host-clock"
-    path: str = ""           # the path that ran: "fast" or "general"
+    path: str = ""           # the path that ran: "fast", "general", "compacted"
 
 
-def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
-          nee_lights=None) -> str:
-    """The path ``mode`` takes for ``scene``: "fast" or "general". Raises
-    ``ValueError`` for a mode that is not ported yet or unknown, and for
-    ``"fast"`` on a scene the fast path cannot take."""
-    if mode in ("compacted", "sharded"):
-        raise ValueError(f"--mode {mode}: not ported yet")
-    if mode not in MODES:
-        raise ValueError(f"unknown mode '{mode}' (one of {', '.join(MODES)})")
-    if mode == "general":
-        return "general"
-    if mode == "fast":
-        fastpath_supported(features, scene)
-        return "fast"
+def auto_refusal(scene: Scene, features: SceneFeatures,
+                 nee_lights=None) -> Optional[str]:
+    """Why ``auto`` does not take ``scene`` on the fast path (None when
+    it does): :func:`~pathtrace_tpu_torch.ops.fastpath.fastpath_refusal`,
+    or NEE lights whose texture is not a constant."""
     refused = fastpath_refusal(features, scene)
     if refused is None and nee_lights is not None and nee_lights.color is None:
         refused = "NEE lights whose texture is not a constant"
-    return "general" if refused is not None else "fast"
+    return refused
+
+
+def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
+          nee_lights=None, use_bvh: bool = False) -> str:
+    """The path ``mode`` takes for ``scene``: "fast", "general" or
+    "compacted". ``auto`` takes the fast path where it can; elsewhere the
+    general integrator, under the compaction ladder with ``use_bvh``, as
+    the reference routes ``-B``. Raises ``ValueError`` for a mode that is
+    not ported yet or unknown, and for ``"fast"`` on a scene the fast path
+    cannot take."""
+    if mode == "sharded":
+        raise ValueError(f"--mode {mode}: not ported yet")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode '{mode}' (one of {', '.join(MODES)})")
+    if mode in ("general", "compacted"):
+        return mode
+    if mode == "fast":
+        fastpath_supported(features, scene)
+        return "fast"
+    if auto_refusal(scene, features, nee_lights) is None:
+        return "fast"
+    return "compacted" if use_bvh else "general"
 
 
 def save_image(path: str, image) -> None:
@@ -102,11 +126,16 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                        checkpoint_path: Optional[str] = None,
                        checkpoint_every: int = 50,
                        snapshot_path: Optional[str] = None,
-                       snapshot_every: int = 0) -> ProgressiveResult:
+                       snapshot_every: int = 0,
+                       bvh=None) -> ProgressiveResult:
     """Render ``max_frames`` accumulated frames on ``device`` by the path
     ``mode`` routes to (:func:`route`); ``nee``: next-event estimation;
     ``rr_start`` > 0: Russian roulette from that depth; ``stratify``:
-    Latin-hypercube samples in each pixel.
+    Latin-hypercube samples in each pixel (the compacted path draws iid
+    samples and runs neither NEE nor roulette, as the reference's).
+    ``params.use_bvh`` (``-B``): render through the whole-scene BVH,
+    built here unless ``bvh`` gives it (``build_scene_bvh``'s (flat,
+    stats, offsets), which also turns it on).
 
     ``checkpoint_path``: resume from it when it holds this seed's render
     at this film size (frames ``n..n + max_frames - 1`` follow its ``n``
@@ -119,7 +148,20 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     seed = params.resolve_seed()
     features = features or SceneFeatures.from_scene(scene)
     nee_lights = build_light_table(scene) if nee else None
-    path = route(scene, features, mode, nee_lights)
+    use_bvh = params.use_bvh or bvh is not None
+    flat = offsets = intersect_fn = None
+    if use_bvh:
+        from pathtrace_tpu_torch.models import bvh as pbvh
+
+        flat, stats, offsets = bvh or pbvh.build_scene_bvh(scene, seed=seed)
+        log(f"bvh stats: {stats} ({flat.builder} build)")
+    path = route(scene, features, mode, nee_lights, use_bvh)
+    if use_bvh and path != "fast":
+        intersect_fn = pbvh.make_bvh_intersect_fn(flat, offsets, features)
+    if path == "compacted" and (nee_lights is not None or rr_start
+                                or stratify):
+        log("nee, rr, stratify: ignored on the compacted path (as in the "
+            "reference)")
     scene = scene.to(device)
     camera = camera.to(device)
     base_key = threefry.PRNGKey(seed)
@@ -150,14 +192,24 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                 scene, camera, params.width, params.height, params.samples,
                 params.max_depth, key, seed * 1000003 + frame, features,
                 nee_lights=nee_lights, rr_start=rr_start, stratify=stratify,
+                bvh=flat, bvh_offsets=offsets,
             )
             image, count, n_read = res.image, res.ray_count, res.readbacks
+        elif path == "compacted":
+            before = compaction.READBACKS
+            image, count = compaction.render_frame_compacted(
+                scene, camera, params.width, params.height, params.samples,
+                params.max_depth, key, features=features,
+                intersect_fn=intersect_fn,
+            )
+            n_read = compaction.READBACKS - before
         else:
             before = integrator.READBACKS
             image, count = render_frame(
                 scene, camera, params.width, params.height, params.samples,
                 params.max_depth, key, features=features, stratify=stratify,
                 nee_lights=nee_lights, rr_start=rr_start,
+                intersect_fn=intersect_fn,
             )
             n_read = integrator.READBACKS - before
         acc = image if acc is None else accumulate(acc, image, frame)
@@ -173,7 +225,8 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
         readbacks.append(n_read)
         log(f"frame {frame + 1}/{start_frame + max_frames}: {ms:.2f} ms, "
             f"{rays} rays, {rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
-            f"{n_read} readbacks ({path} path)")
+            f"{n_read} readbacks ({path} path, "
+            f"{'bvh' if use_bvh else 'sweep'})")
         done = frame + 1
         if checkpoint_path and done % checkpoint_every == 0:
             ckpt.save(checkpoint_path, acc, done, seed)

@@ -173,7 +173,8 @@ def test_scene_from_numpy_round_trips_rects_and_refuses_instances():
 def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
     """The megakernel refuses image textures (``earth``), which the fast
     path takes now; the CLI refuses a mode not ported (``--mode
-    compacted``) and renders ``simple_light``, whose rect both paths take
+    sharded``; ``--mode compacted`` renders since the compaction ladder
+    was ported) and renders ``simple_light``, whose rect both paths take
     now."""
     scene, _ = presets.simple_light(ASPECT)
     feats = SceneFeatures.from_scene(scene)
@@ -192,8 +193,12 @@ def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
                              torch.zeros(8), 0, 2, feats)
     capsys.readouterr()
     assert cli.main(["-P", "simple_light", "-O", "--device", "cpu",
-                     "--mode", "compacted"]) == 2
+                     "--mode", "sharded"]) == 2
     assert "not ported yet" in capsys.readouterr().err
+    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu", "-W", "16",
+                     "-H", "9", "-S", "1", "--mode", "compacted", "--out",
+                     str(out)]) == 0
+    assert np.isfinite(np.load(out)).all()
 
 
 def test_megakernel_refuses_checker_with_noise_child():
