@@ -309,7 +309,27 @@ Phases (each prints a line before the next starts):
     plain version) and a profiled compacted frame (device busy, launches a
     bounce); ``cornell_smoke -B --nee --rr 3`` (3 frames: the traversal
     kernel for the bounces and the shadow rays, and K2) and a profiled
-    frame.
+    frame;
+53. the device-only fast trace (``fastpath.trace_fast_device``: every
+    bounce over every lane, no readback, compaction or cull) of
+    ``random_spheres`` (K1) and ``random`` (K3) at 1280x720x4, depth 10:
+    one shard against a mesh of 4 virtual shards on the card
+    (``parallel.mesh.trace_sharded``), bit for bit in radiance and
+    segments, then against the ladder's ``trace_fast`` on the same rays
+    and seed (rays outside 1e-3, whether bit for bit), with the median
+    times of the three and the launches (11 K1 or K3 and 11 K2 a trace);
+54. ``cli.main --mode sharded`` at 1280x720x4, depth 10: 3 frames of
+    ``random_spheres`` (fast shards: K1, K2), 3 with ``-B`` (the
+    traversal kernel, K2) and one of ``final_full`` (general shards: K3
+    and the plane loops), frame times, path and launches;
+55. the same ``random_spheres`` command through ``torchrun
+    --nproc_per_node=1 --standalone`` with ``--distributed`` (an NCCL
+    group of world size 1): its image must equal phase 54's bit for bit;
+56. one train step of ``random_spheres`` (every default leaf, depth 4,
+    1280x720x4) on a one-shard and a 4-shard mesh of the card: loss and
+    gradients within ``GRAD_TOL`` of each other (K6 sums with atomics),
+    step time and peak memory; then ``parallel.dryrun.dryrun_multichip``
+    on 4 virtual shards.
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -379,7 +399,13 @@ draw, its ``final_full`` frame for K3, phase 43 for K6); the ``threefry``
 entry also phases 41-42's shares and frames. K1 and K3 carry
 ``silhouette_launches`` (phase 44) and K1 and K6
 ``geometry_train_launches`` (phase 45) and ``diff_scene_launches``
-(phase 46); K6 carries phases 44-46's runs. Then
+(phase 46); K6 carries phases 44-46's runs. K1, K2 and K3 carry
+``device_trace_launches`` (phase 53's one-shard trace), K1, K2 and the
+traversal ``sharded_cli_launches`` (phase 54's 3 frames), K3
+``sharded_general_launches`` (phase 54's ``final_full`` frame), K1 and K6
+``sharded_train_launches`` (phase 56's 4-shard step), K6 phase 56's
+steps and the dryrun, and ``bvh_traverse`` phases 53-55's traces, frames
+and the ``torchrun`` run. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -391,6 +417,7 @@ import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1226,6 +1253,221 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
               f"({smi})")
         del sdev
     out["general"] = gen
+    return out
+
+
+def mesh_phases(dev, k1, k2, k7) -> dict:
+    """Phases 53-56, the render mesh: the device-only fast trace on one
+    shard and on 4 virtual shards of the card, ``--mode sharded`` through
+    the CLI (fast shards, ``-B``, general shards), ``--distributed``
+    through ``torchrun`` (an NCCL group of world size 1), and the trainer
+    on a one-shard and a 4-shard mesh, then the dryrun twin. Returns the
+    numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.parallel import mesh as pmesh
+    from pathtrace_tpu_torch.parallel.dryrun import dryrun_multichip
+    from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import GRAD_TOL, MOTION_GRAD_TOL
+
+    out = {}
+    R = WIDTH * HEIGHT * SAMPLES
+    mesh4 = pmesh.make_render_mesh([dev] * 4)
+    mesh1 = pmesh.make_render_mesh([dev])
+
+    # ---- 53: the device-only trace, one shard against 4 virtual shards
+    # and against the ladder ----
+    seed = 12345
+    out["trace"] = {}
+    for name in ("random_spheres", "random"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        sdev = scene_.to(dev)
+        ro, rd, tm = (x.reshape(R, -1).squeeze(-1) for x in
+                      generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
+                                            PRNGKey(0), device=dev))
+
+        def one():
+            return fp.trace_fast_device(sdev, ro, rd, tm, seed, DEPTH,
+                                        feats_)
+
+        def four():
+            return pmesh.trace_sharded(sdev, ro, rd, tm, None, DEPTH, mesh4,
+                                       features=feats_, mode="fast",
+                                       seed=seed)
+
+        def ladder():
+            return fp.trace_fast(sdev, ro, rd, tm, seed, DEPTH, feats_)
+
+        reset_counts(k1, k2, k7)
+        rad1, cnt1 = one()
+        torch.cuda.synchronize()
+        c_one = read_counts(k1, k2, k7)
+        reset_counts(k1, k2, k7)
+        rad4, cnt4 = four()
+        torch.cuda.synchronize()
+        c_four = read_counts(k1, k2, k7)
+        lad = ladder()
+        bitwise = bool(torch.equal(rad1, rad4)) and int(cnt1) == int(cnt4)
+        n_out, share = rays_outside(rad1, lad.radiance.cpu().numpy())
+        ladder_equal = bool(torch.equal(rad1, lad.radiance))
+        one_ms = median_ms(one, 5)
+        four_ms = median_ms(four, 5)
+        ladder_ms = median_ms(ladder, 5)
+        run = {"bitwise_4_shards": bitwise, "segments": int(cnt1),
+               "ladder_segments": int(lad.ray_count),
+               "ladder_rays_outside": n_out, "ladder_share_outside": share,
+               "ladder_bitwise": ladder_equal, "ms": one_ms,
+               "four_shards_ms": four_ms, "ladder_ms": ladder_ms,
+               "launches": c_one, "four_shards_launches": c_four}
+        out["trace"][name] = run
+        sweep = "K3" if feats_.has_motion else "K1"
+        phase(f"[53] {name} trace_fast_device {WIDTH}x{HEIGHT}x{SAMPLES} "
+              f"depth {DEPTH}: 4 virtual shards bit for bit {bitwise} "
+              f"({int(cnt1)} segments); against the ladder's trace_fast: "
+              f"{n_out} rays outside 1e-3 ({share:.4%}), bitwise "
+              f"{ladder_equal}, segments {int(lad.ray_count)}; median ms: "
+              f"device trace {one_ms:.3f}, 4 shards {four_ms:.3f}, ladder "
+              f"{ladder_ms:.3f} (CUDA events); launches one shard {c_one}, "
+              f"4 shards {c_four}")
+        if (not bitwise or c_one["plain"] or c_four["plain"]
+                or c_one[sweep] != DEPTH + 1 or c_one["K2"] != DEPTH + 1
+                or c_four[sweep] != 4 * (DEPTH + 1)
+                or not torch.isfinite(rad1).all()):
+            raise AssertionError(f"[53] {name}: the device trace failed")
+        del sdev, ro, rd, tm, rad1, rad4, lad
+
+    # ---- 54: --mode sharded through the CLI ----
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    img54 = os.path.join(tmp, "sharded.npy")
+    cli_runs = {}
+    for label, argv, frames in (
+            ("random_spheres", ["-P", "random_spheres"], FRAMES),
+            ("random_spheres -B", ["-P", "random_spheres", "-B"], FRAMES),
+            ("final_full", ["-P", "final_full"], 1)):
+        path_out = img54 if label == "random_spheres" else os.path.join(
+            tmp, "other.npy")
+        rc, counts, log, frames_ = run_cli(
+            "54", argv + ["-O", "-F", str(frames), "--mode", "sharded",
+                          "--out", path_out], k1, k2, k7)
+        run = {"rc": rc, "frames": frames_, "launches": counts,
+               "frame_ms": [f[0] for f in frames_],
+               "path": "sharded" if "(sharded path" in log else None}
+        cli_runs[label] = run
+        phase(f"[54] {label} --mode sharded: rc {rc}, path {run['path']}, "
+              f"frame ms {run['frame_ms']}, launches {counts}")
+        fast = label != "final_full"
+        ok = (rc == 0 and run["path"] == "sharded" and len(frames_) == frames
+              and not counts["plain"] and counts["threefry"] > 0)
+        if label == "random_spheres":
+            ok &= counts["K1"] == counts["K2"] == frames * (DEPTH + 1)
+        elif label == "random_spheres -B":
+            ok &= (counts["bvh"] == counts["K2"] == frames * (DEPTH + 1)
+                   and counts["K1"] == 0)
+        else:
+            ok &= "general shards" in log and counts["K3"] > 0
+        if not ok or (fast and "fast shards" not in log):
+            raise AssertionError(f"[54] {label}: failed its checks")
+    out["cli"] = cli_runs
+    image54 = np.load(img54)
+
+    # ---- 55: --distributed through torchrun (NCCL, world size 1) ----
+    img55 = os.path.join(tmp, "distributed.npy")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "pathtrace_tpu_torch", "--distributed",
+         "-P", "random_spheres", "-O", "-F", str(FRAMES), "--mode", "sharded",
+         "--out", img55], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    wall55 = time.monotonic() - t0
+    for ln in proc.stdout.splitlines():
+        phase(f"[55] torchrun: {ln}")
+    equal55 = (proc.returncode == 0 and os.path.exists(img55)
+               and np.array_equal(np.load(img55), image54))
+    frames55 = [float(ms) for ms in re.findall(r"frame \d+/\d+: ([\d.]+) ms",
+                                               proc.stdout)]
+    out["distributed"] = {"rc": proc.returncode, "image_equal": equal55,
+                          "frame_ms": frames55, "wall_s": wall55}
+    phase(f"[55] torchrun --nproc_per_node=1 ... --distributed --mode "
+          f"sharded: rc {proc.returncode}, NCCL group of 1, image == phase "
+          f"54's bit for bit: {equal55}; frame ms {frames55}; wall "
+          f"{wall55:.1f} s")
+    if not equal55 or "mesh: 1 shard(s) (1 process(es)" not in proc.stdout:
+        raise AssertionError("[55] --distributed failed: "
+                             + proc.stderr[-2000:])
+
+    # ---- 56: the trainer on a one-shard and a 4-shard mesh ----
+    t_scene, t_cam = presets.random_spheres(WIDTH / HEIGHT)
+    key = PRNGKey(0)
+    train = {}
+    for label, m in (("one", mesh1), ("four", mesh4)):
+        rend, st, names = make_inverse_renderer(
+            t_scene, t_cam, WIDTH, HEIGHT, samples=SAMPLES,
+            max_depth=TRAIN_DEPTH, mesh=m)
+        target = torch.zeros((HEIGHT, WIDTH, 3), device=dev)
+        loss = rend.loss(st.params, target, key)
+        grads = torch.autograd.grad(loss, st.params)
+        del loss
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(k1, k2, k7)
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        e0.record()
+        st, step_loss = rend.train_step(st, target, key)
+        e1.record()
+        e1.synchronize()
+        train[label] = {"loss": float(step_loss), "names": names,
+                        "grads": [g.detach().cpu() for g in grads],
+                        "step_ms": e0.elapsed_time(e1),
+                        "peak_gib": torch.cuda.max_memory_allocated(dev)
+                        / 2**30, "launches": read_counts(k1, k2, k7)}
+        del rend, st, grads
+        torch.cuda.empty_cache()
+    names = train["one"]["names"]
+    errs = {n: rel_l2(b, a) for n, a, b in zip(
+        names, train["one"]["grads"], train["four"]["grads"])}
+    tol = MOTION_GRAD_TOL if "spheres.center_delta" in errs else GRAD_TOL
+    ok56 = (all(e <= tol.get(n, 0.0) for n, e in errs.items())
+            and abs(train["four"]["loss"] - train["one"]["loss"])
+            <= 1e-6 * abs(train["one"]["loss"]))
+    c56 = train["four"]["launches"]
+    phase(f"[56] trainer random_spheres {WIDTH}x{HEIGHT}x{SAMPLES} depth "
+          f"{TRAIN_DEPTH}, leaves {names}: loss one shard "
+          f"{train['one']['loss']!r}, 4 shards {train['four']['loss']!r}; "
+          f"gradients 4 shards vs one, rel L2 "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + f" (GRAD_TOL); step ms one {train['one']['step_ms']:.2f}, four "
+          f"{train['four']['step_ms']:.2f} (CUDA events); peak GiB one "
+          f"{train['one']['peak_gib']:.3f}, four "
+          f"{train['four']['peak_gib']:.3f}; launches four {c56}")
+    if (not ok56 or c56["plain"] or c56["K1"] != 4 * (TRAIN_DEPTH + 1)
+            or c56["K6"] <= 0):
+        raise AssertionError("[56] the sharded trainer failed its checks")
+    buf = io.StringIO()
+    reset_counts(k1, k2, k7)
+    with contextlib.redirect_stdout(buf):
+        dry = dryrun_multichip(4, device=str(dev))
+    c56d = read_counts(k1, k2, k7)
+    phase(f"[56] {buf.getvalue().strip()}; launches {c56d}")
+    if c56d["plain"] or c56d["K1"] <= 0 or c56d["K6"] <= 0:
+        raise AssertionError("[56] dryrun_multichip failed its checks")
+    out["train"] = {k: {kk: vv for kk, vv in v.items() if kk != "grads"}
+                    for k, v in train.items()}
+    out["train"]["grad_rel_l2"] = errs
+    out["dryrun"] = {"loss": dry["loss"], "launches": c56d}
+    shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 
@@ -3164,6 +3406,9 @@ def main() -> int:
                                                      "sil_runs"))
     bvh = bvh_phases(dev, smi, k1, k2, k7, profiled)
     bvh_main = bvh["scenes"]["random_spheres"]["camera"]
+    mesh = mesh_phases(dev, k1, k2, k7)
+    mtrace = mesh["trace"]
+    mesh_cli = mesh["cli"]
 
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
@@ -3185,6 +3430,9 @@ def main() -> int:
          "general_golden_launches": {n_: c_["K1"] for n_, c_ in
                                      general_golden_counts.items()},
          "silhouette_launches": sil_k1,
+         "device_trace_launches": mtrace["random_spheres"]["launches"]["K1"],
+         "sharded_cli_launches": mesh_cli["random_spheres"]["launches"]["K1"],
+         "sharded_train_launches": mesh["train"]["four"]["launches"]["K1"],
          "geometry_train_launches": c45["K1"],
          "geometry_silhouette_launches": c45s["K1"],
          "diff_scene_launches": {n_: r_["launches"]["K1"]
@@ -3203,12 +3451,16 @@ def main() -> int:
          "issue_ceiling_ms": k3_ceiling, "registers": k3_regs,
          "general_launches": general_runs["final_full"]["launches"]["K3"],
          "silhouette_launches": sil_k3,
+         "device_trace_launches": mtrace["random"]["launches"]["K3"],
+         "sharded_general_launches": mesh_cli["final_full"]["launches"]["K3"],
          "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
          "replaces": "pathtrace_tpu/ops/shade_pallas.py:92",
          "launches": launches[1], **k2_run,
          "motion_launches": c17["K2"],
+         "device_trace_launches": mtrace["random_spheres"]["launches"]["K2"],
+         "sharded_cli_launches": mesh_cli["random_spheres"]["launches"]["K2"],
          **{f"motion_{k}": v for k, v in k2m_run.items()},
          "flags": {"FLAG_RECT": k2.FLAG_RECT,
                    "FLAG_EMIT_SCALE": k2.FLAG_EMIT_SCALE,
@@ -3241,6 +3493,8 @@ def main() -> int:
          "registers": kernel_registers(build_log,
                                        "sphere_nearest_bwd_kernelI"),
          "motion_launches": c20["K6"],
+         "sharded_train_launches": mesh["train"]["four"]["launches"]["K6"],
+         "sharded_train": mesh["train"], "dryrun": mesh["dryrun"],
          "motion_max_abs_err": k6m_err, "motion_max_ulp": k6m_ulp,
          "motion_sphere_rel_l2": k6m_sph, "motion_ms": k6m_ms,
          "motion_plain_ms": k6m_plain_ms, "motion_bound_ms": k6m_bound[0],
@@ -3319,6 +3573,10 @@ def main() -> int:
                                      "mean_visits", "max_visits")},
          "registers": bvh["registers"], "scenes": bvh["scenes"],
          "trees": bvh["trees"], "native_build_s": bvh["native_build_s"],
+         "sharded_cli_launches": mesh_cli["random_spheres -B"]["launches"][
+             "bvh"],
+         "sharded_cli_frames": mesh_cli, "device_trace": mtrace,
+         "distributed": mesh["distributed"],
          "cli_frames": bvh["cli"], "config4": bvh["config4"],
          "general": bvh["general"], "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",

@@ -2,10 +2,14 @@
 
 The reference CLI's render flags (``-W -H -S -D -P -F -O --seed --out``),
 the whole-scene BVH (``-B``: the tree's traversal kernel is the closest
-hit), the render path (``--mode auto|fast|general|compacted``: ``auto``
-takes the fast path where it can and the general integrator otherwise,
-under the compaction ladder with ``-B``; ``sharded`` is refused as not
-ported yet), Latin-hypercube pixel samples
+hit), the render path (``--mode auto|fast|general|compacted|sharded``:
+``auto`` takes the fast path where it can and the general integrator
+otherwise, under the compaction ladder with ``-B``; ``sharded`` splits
+each frame's rays over every visible card), multi-process rendering
+(``--distributed``: join the NCCL group of torchrun's environment, as
+``torchrun --nproc_per_node=N -m pathtrace_tpu_torch --distributed --mode
+sharded``; gloo with ``--device cpu``; rank 0 writes the files),
+Latin-hypercube pixel samples
 (``--stratify``), next-event estimation (``--nee``), Russian roulette
 (``--rr DEPTH``), a user's own texture map for ``earth`` (``--image
 PNG``), resumable renders (``--checkpoint PATH``: resume if it exists,
@@ -61,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "scene, else the general integrator: compacted with "
                         "-B), fast, general, compacted (the general "
                         "integrator under the host's compaction ladder; no "
-                        "NEE or roulette); sharded is not ported yet")
+                        "NEE or roulette), sharded (each frame's rays split "
+                        "over every visible card, or over the processes "
+                        "with --distributed)")
     p.add_argument("--stratify", action="store_true",
                    help="Latin-hypercube pixel sampling: each pixel's S "
                         "samples in distinct 1/S strata on both film axes "
@@ -85,6 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Write the accumulated image to --out every N frames")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="Join the process group of torchrun's environment "
+                        "(NCCL on cuda:LOCAL_RANK; gloo with --device cpu)")
     return p
 
 
@@ -105,6 +114,24 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"pathtrace_tpu_torch: --device {args.device} but CUDA is not "
               "available", file=sys.stderr)
         return 2
+    device = args.device
+    if args.distributed:
+        from pathtrace_tpu_torch.parallel.mesh import init_distributed
+
+        # raises without torchrun's environment or when the group fails
+        device = str(init_distributed(args.device))
+    try:
+        return _run(args, device)
+    finally:
+        if args.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, device: str) -> int:
+    import torch.distributed as dist
+
     params = Params(width=args.width, height=args.height,
                     samples=args.samples, max_depth=args.depth,
                     seed=args.seed, use_bvh=args.bvh)
@@ -135,8 +162,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"pathtrace_tpu_torch: {e}", file=sys.stderr)
         return 2
     print(f"scene features: {features}")
+    # general shards drop the tree (render_progressive logs it)
+    tree_used = args.bvh and not (path == "sharded"
+                                  and auto_refusal(scene, features) is not None)
     line = (f"render path: {path} (--mode {args.mode}, intersect: "
-            f"{'bvh' if args.bvh else 'sweep'})")
+            f"{'bvh' if tree_used else 'sweep'})")
     if args.mode == "auto" and path != "fast":
         # the port's own fallback where the reference takes its fast path
         line += f"; the fast path refuses the scene: " \
@@ -146,7 +176,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     start = time.monotonic()
     result = render_progressive(scene, camera, params,
                                 max_frames=args.frames or 1,
-                                device=args.device, features=features,
+                                device=device, features=features,
                                 nee=args.nee, rr_start=args.rr,
                                 stratify=args.stratify, mode=path,
                                 checkpoint_path=args.checkpoint,
@@ -160,8 +190,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           + " ".join(f"{ms:.2f}ms" for ms in result.frame_ms)
           + "; readbacks per frame: "
           + " ".join(str(r) for r in result.readbacks))
-    save_image(args.out, result.image)
-    print(f"wrote {args.out} after {result.frames} frames")
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        save_image(args.out, result.image)
+        print(f"wrote {args.out} after {result.frames} frames")
     return 0
 
 

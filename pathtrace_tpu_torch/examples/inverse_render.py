@@ -14,7 +14,10 @@ the texture colours; ``--trainable default`` trains every leaf of the
 reference's default selector (sphere centres and radii, texture colours,
 fuzz, refractive index; in a scene with moving spheres, such as
 ``--preset random``, the substring ``spheres.center`` also selects the
-motion leaf ``spheres.center_delta``). Every render is keyed by
+motion leaf ``spheres.center_delta``). It trains over
+``make_render_mesh()`` (every visible card) with ``--device cuda``, as
+the reference's example trains over every device, else on the named
+device. Every render is keyed by
 ``PRNGKey(0)``, as the reference example's, so the target and every step
 trace the same rays with the same bounce seed. Each step prints its loss
 (before the update) and its time: CUDA events around the step on the card, the host clock on
@@ -95,6 +98,7 @@ def _run(args) -> int:
     import torch
 
     from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.parallel.mesh import make_render_mesh
     from pathtrace_tpu_torch.parallel.inverse import (
         default_trainable,
         make_inverse_renderer,
@@ -109,6 +113,11 @@ def _run(args) -> int:
         print(f"{prog}: --device {args.device} but CUDA is not available",
               file=sys.stderr)
         return 2
+    # every visible card for --device cuda, as the reference's example
+    # trains on make_render_mesh(); a named device alone otherwise
+    mesh = make_render_mesh(None if args.device == "cuda" else [dev])
+    dev = mesh.home
+    print(f"mesh: {mesh.size} shard(s) on {', '.join(map(str, mesh.devices))}")
     width = args.width or args.size
     height = args.height or args.size
     try:
@@ -123,7 +132,7 @@ def _run(args) -> int:
                 return "textures.color" in p
         renderer, state, names = make_inverse_renderer(
             scene, cam, width, height, samples=args.samples,
-            max_depth=args.depth, device=dev, trainable=trainable,
+            max_depth=args.depth, mesh=mesh, trainable=trainable,
             learning_rate=args.lr, silhouette=args.geometry)
     except ValueError as e:
         print(f"{prog}: {e}", file=sys.stderr)

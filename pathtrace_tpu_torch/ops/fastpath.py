@@ -678,9 +678,25 @@ class FastStateP:
         return self.alive.shape[0]
 
 
+def lane_ids(R: int, device, lane_offset: int = 0,
+             alive_limit: Optional[int] = None):
+    """(lane [R] int32, alive [R] bool) of a wavefront whose lane ``i``
+    has the global id ``lane_offset + i``: the id's uint32 bit pattern
+    keys the lane's bounce RNG, so a shard of a larger wavefront draws
+    what those lanes draw in the whole one. Lanes whose id is at or
+    beyond ``alive_limit`` are born dead (a frame's padding)."""
+    gid = torch.arange(R, dtype=torch.int64, device=device) + int(lane_offset)
+    alive = (torch.ones(R, dtype=torch.bool, device=device)
+             if alive_limit is None else gid < int(alive_limit))
+    lane = torch.where(gid >= 1 << 31, gid - (1 << 32), gid)
+    return lane.to(torch.int32), alive
+
+
 def make_state(ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
-               nee: bool = False) -> FastStateP:
-    """The state of a new wavefront; ``nee`` adds the MIS plane, at 1."""
+               nee: bool = False, lane_offset: int = 0,
+               alive_limit: Optional[int] = None) -> FastStateP:
+    """The state of a new wavefront; ``nee`` adds the MIS plane, at 1.
+    ``lane_offset``, ``alive_limit``: global lane ids (:func:`lane_ids`)."""
     R = ro.shape[0]
     dev = ro.device
     planes = torch.empty((13 if nee else 12, R), dtype=torch.float32,
@@ -691,12 +707,9 @@ def make_state(ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
     planes[THR] = 1.0
     if nee:
         planes[ESC] = 1.0
-    return FastStateP(
-        planes=planes,
-        time=time.to(torch.float32).contiguous(),
-        alive=torch.ones(R, dtype=torch.bool, device=dev),
-        lane=torch.arange(R, dtype=torch.int32, device=dev),
-    )
+    lane, alive = lane_ids(R, dev, lane_offset, alive_limit)
+    return FastStateP(planes=planes, time=time.to(torch.float32).contiguous(),
+                      alive=alive, lane=lane)
 
 
 def _no_hit(rays: torch.Tensor):
@@ -1058,6 +1071,36 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     out_radiance, segs, readbacks = _host_ladder(
         step, state, max_depth, max(min_size, 128), compaction)
     return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
+
+
+def trace_fast_device(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                      time: torch.Tensor, seed: int, max_depth: int,
+                      features: SceneFeatures, lane_offset: int = 0,
+                      alive_limit: Optional[int] = None, bvh=None,
+                      bvh_offsets=None):
+    """The fused trace with no host loop (twin of the reference's
+    ``trace_fast_device``, ``fastpath.py:1635``): all ``max_depth + 1``
+    bounces over every lane, with no alive-count readback, no compaction
+    and no cull; each bounce is :func:`fast_bounce_fused` (K1 or K3, the
+    rect, box and media sweeps, K2), or with ``bvh``/``bvh_offsets`` the
+    tree's traversal as its closest hit. No NEE or roulette, as in the
+    reference. The bounce RNG is keyed on (lane, seed, depth, draw) with
+    global lane ids (``lane_offset``; lanes at or beyond ``alive_limit``
+    are born dead and trace nothing), so a shard of a wavefront renders
+    its lanes bit for bit as the whole wavefront does, and as
+    :func:`trace_fast` does, whose compaction keeps each lane's id.
+    Returns (radiance [R, 3], segments [] int64 on the device)."""
+    fastpath_supported(features, scene)
+    tables = prep_tables(scene, features, bvh=bvh, bvh_offsets=bvh_offsets)
+    seed = int(seed)
+    state = make_state(ro, rd, time, lane_offset=lane_offset,
+                       alive_limit=alive_limit)
+    segs = torch.zeros((), dtype=torch.int64, device=ro.device)
+    for depth in range(max_depth + 1):
+        segs = segs + state.alive.sum()
+        state, _ = fast_bounce_fused(tables, state, seed, depth, max_depth,
+                                     features)
+    return state.planes[RAD].T.contiguous(), segs
 
 
 class FrameResult(NamedTuple):
@@ -1467,7 +1510,8 @@ def _check_atlas(scene: Scene) -> None:
 
 def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                     time: torch.Tensor, seed: int, max_depth: int,
-                    features: SceneFeatures, bvh=None):
+                    features: SceneFeatures, bvh=None, lane_offset: int = 0,
+                    alive_limit: Optional[int] = None):
     """Differentiable fast trace: all ``max_depth + 1`` bounces at full
     width, no compaction (twin of the reference's ``trace_fast_diff``,
     ``fastpath.py:1568``). Gradients flow to the scene's leaves through
@@ -1475,7 +1519,8 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     media sweeps and the atlas gather. Returns (radiance [R, 3], segments
     [] int64 on the device). Scenes of :func:`diff_refusal` raise, and
     so does a ``bvh``: the traversal has no backward (the reference
-    asserts the same, ``fastpath.py:1597-1600``)."""
+    asserts the same, ``fastpath.py:1597-1600``). ``lane_offset``,
+    ``alive_limit``: global lane ids, as :func:`trace_fast_device`'s."""
     if bvh is not None:
         raise ValueError("trace_fast_diff: the BVH traversal is not "
                          "differentiable; differentiate through the brute "
@@ -1487,12 +1532,12 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     soa = build_sphere_soa(scene, motion=features.has_motion)
     R = ro.shape[0]
     dev = ro.device
+    lane, alive = lane_ids(R, dev, lane_offset, alive_limit)
     state = FastState(
         ro=ro, rd=rd, time=time,
         radiance=torch.zeros((R, 3), dtype=ro.dtype, device=dev),
         throughput=torch.ones((R, 3), dtype=ro.dtype, device=dev),
-        alive=torch.ones(R, dtype=torch.bool, device=dev),
-        lane=torch.arange(R, dtype=torch.int32, device=dev),
+        alive=alive, lane=lane,
     )
     seed = int(seed)
     segs = torch.zeros((), dtype=torch.int64, device=dev)

@@ -1,12 +1,13 @@
 """Differentiable inverse rendering: optimize scene parameters to match a
-target image (counterpart of ``pathtrace_tpu/parallel/inverse.py``, one
-device).
+target image, data-parallel over a render mesh (counterpart of
+``pathtrace_tpu/parallel/inverse.py``).
 
-The forward pass is the differentiable fast trace
-(:func:`~pathtrace_tpu_torch.render.frame.render_frame_diff`) on the
-scenes it takes, else the general integrator's
-``render_frame(..., differentiable=True)``, as the reference routes them
-(``use_fast_path=None``). The loss is the image MSE, and gradients flow to
+The forward pass is the mesh's differentiable frame
+(:func:`~pathtrace_tpu_torch.parallel.mesh.render_frame_sharded`): the
+fast trace (``trace_fast_diff`` in every shard) on the scenes it takes,
+else the general integrator's ``trace_diff``, as the reference routes
+them (``use_fast_path=None``). The loss is the MSE over the whole image,
+which every rank holds, and gradients flow to
 the trainable scene leaves through hit distances (the closest hit's
 backward kernel, which for moving spheres also differentiates the centre
 lerped to each ray's time), normals, attribute rows and the shading. With
@@ -17,15 +18,24 @@ update, from the forward image the loss already computed.
 ``torch.optim.Adam`` with its defaults (betas 0.9, 0.999, eps 1e-8) is
 ``optax.adam``'s update.
 
+Gradients across shards: within a process autograd sums the shards'
+contributions through the replicated leaves; across the processes of
+the mesh's group each trainable leaf's gradient is ``all_reduce``d (SUM)
+once, after the backward and before the silhouette term and Adam. Each
+rank's backward reaches only its own shards (the gathered rows of the
+others carry no gradient), so the sum is the gradient of the one global
+loss. The silhouette term runs on the whole forward image, the same on
+every rank, and is added after the all-reduce.
+
 A render is keyed as the reference's is: a Threefry key
 (:mod:`pathtrace_tpu_torch.utils.threefry`) gives the fast path's bounce
-seed ``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` and the primary rays
-from ``split(key)[0]``, the general path the rays of ``split(key)[0]`` and
-the bounces of ``fold_in(split(key)[1], 0)``, and the silhouette term
-``fold_in(key, 0x51)``, so the same key gives the reference's draws.
-:meth:`InverseRenderer.step_on` takes given rays and seed instead.
-
-Not ported yet: the multi-device split with its gradient all-reduce.
+seed ``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` (unfolded, as the
+reference's traced seed) and the primary rays from ``split(key)[0]``, the
+general path the rays of ``split(key)[0]`` and shard ``s``'s bounces
+``fold_in(split(key)[1], s)``, and the silhouette term ``fold_in(key,
+0x51)``, so the same key gives the reference's draws on a mesh of the
+same size. :meth:`InverseRenderer.step_on` takes given rays and seed
+instead.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import torch
 from pathtrace_tpu_torch.camera import Camera
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops.fastpath import diff_refusal, diff_supported
-from pathtrace_tpu_torch.render.frame import render_frame, render_frame_diff
+from pathtrace_tpu_torch.parallel import mesh as pmesh
 from pathtrace_tpu_torch.utils import threefry
 
 # the scene's leaf groups in the reference's flattening order
@@ -108,13 +118,14 @@ class TrainState(NamedTuple):
 
 @dataclasses.dataclass(eq=False)
 class InverseRenderer:
-    """Inverse-rendering problem bound to a camera and film."""
+    """Inverse-rendering problem bound to a camera, film and mesh."""
 
     camera: Camera
     width: int
     height: int
     samples: int
     max_depth: int
+    mesh: pmesh.RenderMesh
     features: SceneFeatures
     rebuild: Callable[[List[torch.Tensor]], Scene]
     learning_rate: float = 2e-2
@@ -127,24 +138,25 @@ class InverseRenderer:
     param_names: Tuple[str, ...] = ()
 
     def render(self, params, key: torch.Tensor) -> torch.Tensor:
-        """Image [H, W, 3], differentiable in ``params``, keyed as the
-        reference's one-device render: on the fast path the bounce seed
-        ``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` and the primary rays
-        from ``split(key)[0]``; on the general path
-        ``render_frame(..., differentiable=True)`` with the bounces of
-        shard 0."""
+        """Image [H, W, 3] on ``mesh.home``, differentiable in ``params``
+        through this rank's shards, keyed as the reference's render on a
+        mesh of the same size: on the fast path the bounce seed
+        ``randint(fold_in(key, 7), (), 0, 2^31 - 1)`` (a tensor, so not
+        folded) and the primary rays from ``split(key)[0]``; on the
+        general path shard ``s``'s bounces ``fold_in(split(key)[1], s)``."""
         scene = self.rebuild(params)
         if self.use_fast_path:
-            seed = int(threefry.randint(threefry.fold_in(key, 7), (), 0,
-                                        2**31 - 1))
-            img, _ = render_frame_diff(
+            seed = threefry.randint(threefry.fold_in(key, 7), (), 0,
+                                    2**31 - 1)
+            img, _ = pmesh.render_frame_sharded(
                 scene, self.camera, self.width, self.height, self.samples,
-                self.max_depth, threefry.split(key)[0], seed, self.features)
+                self.max_depth, key, self.mesh, features=self.features,
+                differentiable=True, mode="fast", seed=seed)
             return img
-        img, _ = render_frame(
+        img, _ = pmesh.render_frame_sharded(
             scene, self.camera, self.width, self.height, self.samples,
-            self.max_depth, key, differentiable=True, features=self.features,
-            shard=0)
+            self.max_depth, key, self.mesh, features=self.features,
+            differentiable=True)
         return img
 
     def loss(self, params, target, key: torch.Tensor):
@@ -155,7 +167,8 @@ class InverseRenderer:
                                                    lr=self.learning_rate), 0)
 
     def _step(self, state: TrainState, target, image_fn, key=None):
-        """zero_grad, forward, MSE, backward, then the silhouette term
+        """zero_grad, forward, MSE, backward, the gradients'
+        all-reduce across the mesh's processes, then the silhouette term
         (keyed ``fold_in(key, 0x51)``) and Adam. A leaf the loss does not
         reach gets a zero gradient, as ``jax.grad`` gives it, so Adam
         updates its moments and count as optax does."""
@@ -166,6 +179,7 @@ class InverseRenderer:
         for p in state.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        pmesh.all_reduce_grads(state.params, self.mesh)
         if self.silhouette:
             self._add_silhouette_grads(state.params, target, key,
                                        img.detach())
@@ -183,15 +197,22 @@ class InverseRenderer:
     def step_on(self, state: TrainState, target: torch.Tensor, rays,
                 seed: int):
         """:meth:`train_step` on the fast path with given primary rays
-        (ro, rd [R, 3], time [R]) and bounce seed; the silhouette term,
-        which needs the step's key, is refused."""
+        (ro, rd [R, 3], time [R], in [H, W, S] order) and bounce seed,
+        split over the mesh; the silhouette term, which needs the step's
+        key, is refused."""
         if self.silhouette or not self.use_fast_path:
             raise ValueError("step_on: the fast path without the silhouette "
                              "term only (train_step keys the others)")
-        return self._step(state, target, lambda: render_frame_diff(
-            self.rebuild(state.params), self.camera, self.width, self.height,
-            self.samples, self.max_depth, None, seed, self.features,
-            rays=rays)[0])
+
+        def image():
+            radiance, _ = pmesh.trace_padded(
+                self.rebuild(state.params), *rays, None, self.max_depth,
+                self.mesh, features=self.features, differentiable=True,
+                mode="fast", seed=seed)
+            return radiance.reshape(self.height, self.width, self.samples,
+                                    3).mean(dim=2)
+
+        return self._step(state, target, image)
 
     def silhouette_terms(self, params, target, key: torch.Tensor,
                          img: torch.Tensor):
@@ -230,9 +251,13 @@ def make_inverse_renderer(
     use_fast_path: Optional[bool] = None,
     silhouette: bool = False,
     silhouette_samples: int = 128,
+    mesh: Optional[pmesh.RenderMesh] = None,
 ):
-    """Build (renderer, initial TrainState, trainable-leaf names) on
-    ``device``. ``use_fast_path=None`` (auto) trains on the differentiable
+    """Build (renderer, initial TrainState, trainable-leaf names) over
+    ``mesh`` (:func:`~pathtrace_tpu_torch.parallel.mesh.make_render_mesh`;
+    default: one shard on ``device``), with the scene, camera and
+    parameters on ``mesh.home``. ``use_fast_path=None`` (auto) trains on
+    the differentiable
     fast path whenever it takes the scene (:func:`~pathtrace_tpu_torch.ops.fastpath.diff_refusal`),
     and through the general integrator otherwise (instances, more than
     128 rects, checkers with non-constant children); ``True`` raises
@@ -242,11 +267,12 @@ def make_inverse_renderer(
         use_fast_path = diff_refusal(features, scene) is None
     elif use_fast_path:
         diff_supported(features, scene)
-    scene = scene.to(device)
+    mesh = mesh or pmesh.make_render_mesh([device])
+    scene = scene.to(mesh.home)
     params, rebuild, names = split_scene(scene, trainable)
     renderer = InverseRenderer(
-        camera=camera.to(device), width=width, height=height,
-        samples=samples, max_depth=max_depth, features=features,
+        camera=camera.to(mesh.home), width=width, height=height,
+        samples=samples, max_depth=max_depth, mesh=mesh, features=features,
         rebuild=rebuild, learning_rate=learning_rate,
         use_fast_path=bool(use_fast_path), silhouette=silhouette,
         silhouette_samples=silhouette_samples, param_names=tuple(names),

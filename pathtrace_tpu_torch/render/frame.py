@@ -9,8 +9,6 @@ device (the kernel of ``csrc/threefry.cu`` on a CUDA device).
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from pathtrace_tpu_torch.camera import Camera, get_rays
@@ -69,8 +67,7 @@ def render_frame(scene, camera: Camera, width: int, height: int,
                  samples: int, max_depth: int, key: torch.Tensor,
                  differentiable: bool = False, features=None,
                  ray_chunk: int = 0, stratify: bool = False,
-                 nee_lights=None, rr_start: int = 0,
-                 shard: Optional[int] = None, intersect_fn=None):
+                 nee_lights=None, rr_start: int = 0, intersect_fn=None):
     """One frame through the general integrator: (image [H, W, 3] linear
     RGB, ray_count [] int64), on the scene's device.
 
@@ -83,10 +80,8 @@ def render_frame(scene, camera: Camera, width: int, height: int,
     chunk ``c`` keyed ``fold_in(ktrace, c)``; the last chunk is padded
     with lanes born dead (a NaN time), or, when differentiable, with
     copies of ray 0 (its image pixels are cut off). The image is each
-    pixel's sample mean. ``shard``: the bounces keyed ``fold_in(ktrace,
-    shard)``, as the reference's ``render_frame_sharded`` keys the shard
-    at that mesh position (``parallel/mesh.py:133-135``); ``shard=0`` is
-    its one-device frame, on which its trainer's general path renders.
+    pixel's sample mean (a mesh's frame, each shard keyed as the
+    reference's: :func:`~pathtrace_tpu_torch.parallel.mesh.render_frame_sharded`).
     ``intersect_fn`` (``-B``: ``models.bvh.make_bvh_intersect_fn``)
     replaces the per-kind sweep as every bounce's closest hit."""
     from pathtrace_tpu_torch.models.types import SceneFeatures
@@ -94,8 +89,6 @@ def render_frame(scene, camera: Camera, width: int, height: int,
 
     features = features or SceneFeatures.from_scene(scene)
     kray, ktrace = threefry.split(key)
-    if shard is not None:
-        ktrace = threefry.fold_in(ktrace, shard)
     dev = scene.sky.device
     ro, rd, time = generate_primary_rays(camera, width, height, samples,
                                          kray, stratify=stratify, device=dev)
@@ -129,28 +122,3 @@ def render_frame(scene, camera: Camera, width: int, height: int,
                                    **kw)
     img = radiance.reshape(height, width, samples, 3).mean(dim=2)
     return img, count
-
-
-def render_frame_diff(scene, camera: Camera, width: int, height: int,
-                      samples: int, max_depth: int,
-                      key, seed: int, features, rays=None):
-    """Differentiable whole-frame render: primary rays, then
-    :func:`~pathtrace_tpu_torch.ops.fastpath.trace_fast_diff`, then the
-    per-pixel sample mean. The one-device case of the reference's
-    ``render_frame_sharded(..., differentiable=True, mode="fast")``
-    (``parallel/mesh.py:148-228``): on one device the reference's padding
-    lanes are born dead, so its image is this unpadded trace's.
-    ``key`` draws the primary rays on the scene's device, unless ``rays``
-    (ro, rd [H*W*S, 3], time [H*W*S], in [H, W, S] order) gives them;
-    ``seed`` keys the bounce RNG. Returns (image [H, W, 3], segments []
-    int64 on the device)."""
-    from pathtrace_tpu_torch.ops.fastpath import trace_fast_diff
-
-    R = height * width * samples
-    if rays is None:
-        ro, rd, t = generate_primary_rays(
-            camera, width, height, samples, key,
-            device=scene.spheres.center.device)
-        rays = (ro.reshape(R, 3), rd.reshape(R, 3), t.reshape(R))
-    radiance, segs = trace_fast_diff(scene, *rays, seed, max_depth, features)
-    return radiance.reshape(height, width, samples, 3).mean(dim=2), segs

@@ -18,7 +18,17 @@ average with ``mix_prev = n/(n+1)``. Frame ``n`` draws from
 * ``"compacted"``: the general integrator under the host's compaction
   ladder (:func:`~pathtrace_tpu_torch.render.compaction.render_frame_compacted`,
   without NEE or roulette, as the reference's);
-* ``"sharded"`` is not ported yet and raises.
+* ``"sharded"``: the frame's ray axis split over a render mesh
+  (:func:`~pathtrace_tpu_torch.parallel.mesh.render_frame_sharded`; by
+  default every visible card, or this process's card under
+  ``--distributed``), as the reference's sharded branch
+  (``progressive.py:124-137, 150-154, 187-214``): fast shards
+  (``trace_fast_device``, bounce seed ``seed * 1000003 + n`` with the
+  frame key folded in) when the fast path takes the scene, else general
+  shards. ``-B``'s tree is the fast shards' closest hit; general shards
+  drop it, and ``--nee``, ``--rr`` and ``--stratify`` are ignored, each
+  with a log line. Every rank holds the whole image; rank 0 alone writes
+  checkpoints and snapshots.
 
 ``Params.use_bvh`` (``-B``) builds the whole-scene BVH once
 (``models.bvh.build_scene_bvh``, native SAH) and logs its census. Its
@@ -71,7 +81,8 @@ class ProgressiveResult:
     frame_ms: List[float]    # per frame: CUDA-event time (host clock on CPU)
     readbacks: List[int]     # per frame: alive-count readbacks (host syncs)
     timer: str               # "cuda-events" or "host-clock"
-    path: str = ""           # the path that ran: "fast", "general", "compacted"
+    path: str = ""           # the path that ran: "fast", "general",
+    #                          "compacted", "sharded"
 
 
 def auto_refusal(scene: Scene, features: SceneFeatures,
@@ -87,17 +98,15 @@ def auto_refusal(scene: Scene, features: SceneFeatures,
 
 def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
           nee_lights=None, use_bvh: bool = False) -> str:
-    """The path ``mode`` takes for ``scene``: "fast", "general" or
-    "compacted". ``auto`` takes the fast path where it can; elsewhere the
-    general integrator, under the compaction ladder with ``use_bvh``, as
-    the reference routes ``-B``. Raises ``ValueError`` for a mode that is
-    not ported yet or unknown, and for ``"fast"`` on a scene the fast path
-    cannot take."""
-    if mode == "sharded":
-        raise ValueError(f"--mode {mode}: not ported yet")
+    """The path ``mode`` takes for ``scene``: "fast", "general",
+    "compacted" or "sharded". ``auto`` takes the fast path where it can;
+    elsewhere the general integrator, under the compaction ladder with
+    ``use_bvh``, as the reference routes ``-B``. Raises ``ValueError`` for
+    an unknown mode, and for ``"fast"`` on a scene the fast path cannot
+    take."""
     if mode not in MODES:
         raise ValueError(f"unknown mode '{mode}' (one of {', '.join(MODES)})")
-    if mode in ("general", "compacted"):
+    if mode in ("general", "compacted", "sharded"):
         return mode
     if mode == "fast":
         fastpath_supported(features, scene)
@@ -127,7 +136,7 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                        checkpoint_every: int = 50,
                        snapshot_path: Optional[str] = None,
                        snapshot_every: int = 0,
-                       bvh=None) -> ProgressiveResult:
+                       bvh=None, mesh=None) -> ProgressiveResult:
     """Render ``max_frames`` accumulated frames on ``device`` by the path
     ``mode`` routes to (:func:`route`); ``nee``: next-event estimation;
     ``rr_start`` > 0: Russian roulette from that depth; ``stratify``:
@@ -135,7 +144,10 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     samples and runs neither NEE nor roulette, as the reference's).
     ``params.use_bvh`` (``-B``): render through the whole-scene BVH,
     built here unless ``bvh`` gives it (``build_scene_bvh``'s (flat,
-    stats, offsets), which also turns it on).
+    stats, offsets), which also turns it on). ``mesh``: the sharded
+    path's render mesh (default: ``make_render_mesh()`` for a ``cuda``
+    device without an index, else ``device`` alone; its process group
+    when one is joined).
 
     ``checkpoint_path``: resume from it when it holds this seed's render
     at this film size (frames ``n..n + max_frames - 1`` follow its ``n``
@@ -156,12 +168,36 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
         flat, stats, offsets = bvh or pbvh.build_scene_bvh(scene, seed=seed)
         log(f"bvh stats: {stats} ({flat.builder} build)")
     path = route(scene, features, mode, nee_lights, use_bvh)
-    if use_bvh and path != "fast":
+    shard_fast = path == "sharded" and fastpath_refusal(features,
+                                                        scene) is None
+    if use_bvh and path not in ("fast", "sharded"):
         intersect_fn = pbvh.make_bvh_intersect_fn(flat, offsets, features)
+    if use_bvh and path == "sharded" and not shard_fast:
+        log("bvh: sharded mode has no general-path BVH provider; "
+            "rendering sharded WITHOUT the tree")
+        flat = offsets = None
     if path == "compacted" and (nee_lights is not None or rr_start
                                 or stratify):
         log("nee, rr, stratify: ignored on the compacted path (as in the "
             "reference)")
+    writer = True
+    if path == "sharded":
+        from pathtrace_tpu_torch.parallel import mesh as pmesh
+
+        if nee_lights is not None:
+            log("nee: ignored in --mode sharded (fast/general feature)")
+            nee_lights = None
+        if rr_start or stratify:
+            log("rr, stratify: ignored in --mode sharded (as in the "
+                "reference)")
+        if mesh is None:
+            mesh = pmesh.make_render_mesh(
+                None if device == torch.device("cuda") else [device])
+        device = mesh.home
+        writer = mesh.rank == 0
+        log(f"mesh: {mesh.size} shard(s) ({mesh.world} process(es) x "
+            f"{mesh.n_local}: {', '.join(map(str, mesh.devices))}), "
+            f"{'fast' if shard_fast else 'general'} shards")
     scene = scene.to(device)
     camera = camera.to(device)
     base_key = threefry.PRNGKey(seed)
@@ -195,6 +231,15 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                 bvh=flat, bvh_offsets=offsets,
             )
             image, count, n_read = res.image, res.ray_count, res.readbacks
+        elif path == "sharded":
+            before = integrator.READBACKS
+            image, count = pmesh.render_frame_sharded(
+                scene, camera, params.width, params.height, params.samples,
+                params.max_depth, key, mesh, features=features,
+                mode="fast" if shard_fast else "general",
+                seed=seed * 1000003 + frame, bvh=flat, bvh_offsets=offsets,
+            )
+            n_read = integrator.READBACKS - before
         elif path == "compacted":
             before = compaction.READBACKS
             image, count = compaction.render_frame_compacted(
@@ -226,15 +271,16 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
         log(f"frame {frame + 1}/{start_frame + max_frames}: {ms:.2f} ms, "
             f"{rays} rays, {rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
             f"{n_read} readbacks ({path} path, "
-            f"{'bvh' if use_bvh else 'sweep'})")
+            f"{'bvh' if flat is not None else 'sweep'})")
         done = frame + 1
-        if checkpoint_path and done % checkpoint_every == 0:
+        if writer and checkpoint_path and done % checkpoint_every == 0:
             ckpt.save(checkpoint_path, acc, done, seed)
-        if snapshot_path and snapshot_every and done % snapshot_every == 0:
+        if (writer and snapshot_path and snapshot_every
+                and done % snapshot_every == 0):
             save_image(snapshot_path, acc)
     image = (acc.cpu().numpy() if acc is not None else
              np.zeros((params.height, params.width, 3), np.float32))
-    if checkpoint_path:
+    if writer and checkpoint_path:
         ckpt.save(checkpoint_path, image, start_frame + max_frames, seed)
     return ProgressiveResult(
         image=image, frames=max_frames, total_rays=total_rays,

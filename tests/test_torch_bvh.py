@@ -533,8 +533,9 @@ def test_cli_bvh_and_compacted(tmp_path):
     assert rc == 0 and "(general path, bvh)" in text
     rc, _, err = _cli("-P", "final", "-B", "--out", out)
     assert rc == 2 and "cannot build BVH over empty primitive set" in err
-    rc, _, err = _cli("-P", "small", "--mode", "sharded", "--out", out)
-    assert rc == 2 and "not ported yet" in err
+    rc, text, _ = _cli("-P", "small", "--mode", "sharded", "--out", out)
+    assert rc == 0 and "render path: sharded (--mode sharded" in text
+    assert "(sharded path, sweep)" in text and np.isfinite(np.load(out)).all()
 
 
 def test_no_plain_fallback_off_the_cpu(monkeypatch):

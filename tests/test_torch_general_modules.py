@@ -527,12 +527,12 @@ def test_many_rects_route_to_general_and_modes():
     with pytest.raises(ValueError, match="at most 128"):
         _progressive(s, cam, mode="fast")
     # --mode compacted renders (the general integrator under the
-    # compaction ladder); sharded is still refused
+    # compaction ladder), and so does sharded (general shards)
     r = _progressive(s, cam, size=8, spp=1, depth=2, mode="compacted")
     assert r.path == "compacted" and np.isfinite(r.image).all()
     assert 0.0 < r.image.mean() < 1.0
-    with pytest.raises(ValueError, match="not ported yet"):
-        _progressive(s, cam, mode="sharded")
+    r = _progressive(s, cam, size=8, spp=1, depth=2, mode="sharded")
+    assert r.path == "sharded" and np.isfinite(r.image).all()
     small, small_cam = presets.small(1.0)
     assert _progressive(small, small_cam, size=8, spp=1,
                         mode="general").path == "general"

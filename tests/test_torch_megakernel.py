@@ -192,9 +192,11 @@ def test_fast_path_and_cli_still_refuse_rects(capsys, tmp_path):
                              torch.tensor([[0.0, 0.0, 1.0]] * 8),
                              torch.zeros(8), 0, 2, feats)
     capsys.readouterr()
-    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu",
-                     "--mode", "sharded"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    assert cli.main(["-P", "simple_light", "-O", "--device", "cpu", "-W", "16",
+                     "-H", "9", "-S", "1", "--mode", "sharded", "--out",
+                     str(out)]) == 0
+    assert "render path: sharded" in capsys.readouterr().out
+    assert np.isfinite(np.load(out)).all()
     assert cli.main(["-P", "simple_light", "-O", "--device", "cpu", "-W", "16",
                      "-H", "9", "-S", "1", "--mode", "compacted", "--out",
                      str(out)]) == 0

@@ -189,14 +189,17 @@ def test_cli_renders_on_cpu_without_jax(tmp_path):
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
-def test_cli_refuses_what_is_not_ported(capsys):
+def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
     from pathtrace_tpu_torch.cli import main
 
     assert main(["--aovs", "-O", "--device", "cpu"]) == 2
     assert "not ported yet" in capsys.readouterr().err
-    assert main(["-P", "small", "-O", "--device", "cpu", "--mode",
-                 "sharded"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # --mode sharded is ported: it renders
+    out = tmp_path / "s.npy"
+    assert main(["-P", "small", "-O", "--device", "cpu", "--mode", "sharded",
+                 "-W", "16", "-H", "8", "-S", "1", "--out", str(out)]) == 0
+    assert "render path: sharded" in capsys.readouterr().out
+    assert np.isfinite(np.load(out)).all()
     if not torch.cuda.is_available():
         # no silent fallback to the CPU
         assert main(["-P", "small", "-O"]) == 2
