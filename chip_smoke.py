@@ -329,7 +329,45 @@ Phases (each prints a line before the next starts):
     1280x720x4) on a one-shard and a 4-shard mesh of the card: loss and
     gradients within ``GRAD_TOL`` of each other (K6 sums with atomics),
     step time and peak memory; then ``parallel.dryrun.dryrun_multichip``
-    on 4 virtual shards.
+    on 4 virtual shards;
+57. ``cli.main --adaptive 16`` on ``random_spheres`` and ``cornell`` at
+    1280x720, ``-S 4``, depth 10: 10 rounds, spp min/mean/max, the total
+    time and its split (warmup, refinement rounds, the metric's readback,
+    the host's ``argpartition``); K2 launched (and K1 on the sphere
+    scene), no plain version;
+58. ``cli.main -P cornell --nee --aovs --denoise -O``: the three AOV PNGs
+    at full size, the AOV and denoise times, and the denoised image's
+    display-domain MSE against 16 x 4 spp under another seed, which must
+    be lower than the raw 4-spp image's (``tests/test_denoise.py:33``);
+    then ``render_aovs`` of ``random_spheres`` (1 K1) and ``random`` (1
+    K3) at 1280x720 (median ms), and on the card against the CPU port
+    at 64x48x2 (at most 0.5% of pixels outside 1e-3);
+59. the interactive CLI (``-F 5``, no ``-O``) of ``random_spheres`` three
+    times: ``--no-preview``, the preview on a free port and unviewed,
+    and viewed by a thread that polls ``/stats.json`` and fetches each
+    new ``/frame.png``; the frame times of the three, the fetches and
+    their ms; each PNG the thread fetched while the loop ran must equal
+    the sRGB of a whole frame, the one ``/stats.json`` named or a later
+    one (each frame's accumulation is copied on the loop's stream by
+    ``on_frame``, no sync); then 3 frames of
+    ``render_progressive(preview=True)`` whose ``on_frame`` fetches: the
+    served PNG must be that frame's accumulation;
+60. ``-X`` of ``small``, ``cornell`` and ``cornell -B`` at 1280x720 on
+    the card against the CPU port's lines
+    (``torch_port_util.assert_trace_lines_match``), whether identical;
+61. ``render_image(preset="random_spheres")`` == the CLI's ``-O``
+    ``.npy`` bit for bit;
+62. 3 frames of ``random_spheres`` with ``--group 2``, ``--group 3`` and
+    ``--no-compaction``, each bit for bit the default's, with frame
+    times and readbacks;
+63. ``--profile-dir``: the Chrome trace names ``sphere_nearest_kernel``
+    and ``shade_kernel`` as often as K1 and K2 launched;
+64. ``render_adaptive`` of ``random_spheres`` and ``cornell`` at 64x48,
+    2 samples a round, depth 10, budget 8, on the card replaying the CPU
+    port's picks: the card's own pick of each round holds >= 99% of the
+    CPU's pixels, the spp maps agree on >= 99%, the images agree under
+    the golden-pixel budget; the free run's spp agreement is printed
+    (the pick's order parts the runs where a metric's last bit does).
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -405,7 +443,12 @@ traversal ``sharded_cli_launches`` (phase 54's 3 frames), K3
 ``sharded_general_launches`` (phase 54's ``final_full`` frame), K1 and K6
 ``sharded_train_launches`` (phase 56's 4-shard step), K6 phase 56's
 steps and the dryrun, and ``bvh_traverse`` phases 53-55's traces, frames
-and the ``torchrun`` run. Then
+and the ``torchrun`` run. K1 carries ``adaptive_launches`` (phase 57's
+``random_spheres``), ``aov_launches`` (phase 58), ``debug_trace_launches``
+(phase 60's ``small``) and ``drivers`` (every run's launches of phases
+57, 58 and 60), K3 ``aov_launches`` (phase 58's ``random``), and K2
+``adaptive_launches`` (both scenes) and ``drivers``, phases 57-64's
+numbers. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -1467,6 +1510,424 @@ def mesh_phases(dev, k1, k2, k7) -> dict:
                     for k, v in train.items()}
     out["train"]["grad_rel_l2"] = errs
     out["dryrun"] = {"loss": dry["loss"], "launches": c56d}
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _display_mse(a, b) -> float:
+    """Mean squared error in the display domain, ``clip(x, 0, 1)^(1/2.2)``
+    (``tests/test_denoise.py``'s measure)."""
+    import numpy as np
+
+    def disp(x):
+        return np.clip(x, 0.0, 1.0) ** (1.0 / 2.2)
+
+    return float(((disp(a) - disp(b)) ** 2).mean())
+
+
+def driver_phases(dev, k1, k2, k7) -> dict:
+    """Phases 57-64, the drivers and surfaces: ``--adaptive``, ``--aovs
+    --denoise``, the interactive loop's live preview, ``-X`` (and ``-X
+    -B``), ``render_image``, ``--group`` and ``--no-compaction``,
+    ``--profile-dir``, and the adaptive rounds on the card held to the CPU
+    port's. Returns the numbers of the kernels line."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch import cli, render_image
+    from pathtrace_tpu_torch.config import Params
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.render import film
+    from pathtrace_tpu_torch.render import preview as pv
+    from pathtrace_tpu_torch.render import progressive as prog
+    from pathtrace_tpu_torch.render.adaptive import render_adaptive
+    from pathtrace_tpu_torch.render.aov import render_aovs
+    from pathtrace_tpu_torch.render.progressive import render_progressive
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_port_util import (
+        DEPTH10_BUDGET, adaptive_picks, assert_trace_lines_match, lane_close,
+    )
+
+    out = {}
+    film_args = ["-W", str(WIDTH), "-H", str(HEIGHT), "-S", str(SAMPLES),
+                 "-D", str(DEPTH)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_drivers_")
+
+    # ---- 57: --adaptive 16 through the CLI ----
+    out["adaptive"] = {}
+    for name in ("random_spheres", "cornell"):
+        path = os.path.join(tmp, f"ad_{name}.npy")
+        rc, c, log, _ = run_cli("57", ["-P", name, *film_args, "--adaptive",
+                                       "16", "--out", path], k1, k2, k7)
+        m = re.search(r"adaptive: (\d+) rounds, spp min/mean/max "
+                      r"([\d.]+)/([\d.]+)/([\d.]+)", log)
+        t = dict((k, float(v)) for k, v in re.findall(
+            r"(\w+) ([\d.]+) ms", re.search(r"adaptive time: (.*)",
+                                           log).group(1)))
+        total = re.search(r"([\d.]+)secs (\d+)rays", log)
+        img = np.load(path)
+        run = {"rounds": int(m.group(1)),
+               "spp_min_mean_max": [float(m.group(k)) for k in (2, 3, 4)],
+               "total_ms": float(total.group(1)) * 1e3,
+               "rays": int(total.group(2)), "split_ms": t, "launches": c,
+               "image_mean": float(img.mean())}
+        out["adaptive"][name] = run
+        phase(f"[57] {name} --adaptive 16 at {WIDTH}x{HEIGHT} -S {SAMPLES} "
+              f"depth {DEPTH}: {run['rounds']} rounds, spp min/mean/max "
+              f"{run['spp_min_mean_max']}, total {run['total_ms']:.1f} ms "
+              f"(split: {t}), launches {c}")
+        if (rc != 0 or run["rounds"] != 10 or run["spp_min_mean_max"][1] != 16.0
+                or not np.isfinite(img).all() or c["K2"] <= 0 or c["plain"]
+                or (name == "random_spheres" and c["K1"] <= 0)):
+            raise AssertionError(f"[57] {name}: --adaptive failed its checks")
+
+    # ---- 58: --aovs --denoise -O, and AOVs of sphere scenes ----
+    base = ["-P", "cornell", *film_args, "-O", "--nee"]
+    raw, den, ref = (os.path.join(tmp, f"{k}.npy") for k in ("raw", "den",
+                                                            "ref"))
+    rc1, c_raw, _, _ = run_cli("58", base + ["--out", raw], k1, k2, k7)
+    rc2, c_den, log, _ = run_cli("58", base + ["--aovs", "--denoise",
+                                               "--out", den], k1, k2, k7)
+    # 16 frames of 4 spp under another seed: the 64-spp reference
+    rc3, _, _, _ = run_cli("58", base + ["-F", "16", "--seed", "1", "--out",
+                                         ref], k1, k2, k7)
+    aov_ms = float(re.search(r"aovs: ([\d.]+) ms", log).group(1))
+    den_ms = float(re.search(r"denoise: ([\d.]+) ms", log).group(1))
+    pngs = {k: film.read_png(f"{den}.{k}.png").shape
+            for k in ("normal", "albedo", "depth")}
+    img_raw, img_den, img_ref = np.load(raw), np.load(den), np.load(ref)
+    mse_raw, mse_den = _display_mse(img_raw, img_ref), _display_mse(img_den,
+                                                                    img_ref)
+    out["denoise"] = {"aov_ms": aov_ms, "denoise_ms": den_ms,
+                      "mse_raw": mse_raw, "mse_denoised": mse_den,
+                      "ratio": mse_den / mse_raw, "launches": c_den}
+    phase(f"[58] cornell --aovs --denoise -O --nee at {WIDTH}x{HEIGHT}x"
+          f"{SAMPLES}: AOV pngs {pngs}; aovs {aov_ms:.1f} ms, denoise "
+          f"{den_ms:.1f} ms; display MSE against 64 spp: raw {mse_raw:.6f}, "
+          f"denoised {mse_den:.6f} (ratio {mse_den / mse_raw:.3f}); "
+          f"launches {c_den}")
+    if (rc1 or rc2 or rc3 or any(s != (HEIGHT, WIDTH, 3) for s in
+                                 pngs.values())
+            or not np.isfinite(img_den).all() or not mse_den < mse_raw
+            or c_den["plain"]):
+        raise AssertionError("[58] --aovs --denoise failed its checks")
+    out["aov"] = {}
+    for name, kern in (("random_spheres", "K1"), ("random", "K3")):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        sdev, cdev = scene_.to(dev), cam_.to(dev)
+
+        def aov_pass():
+            return render_aovs(sdev, cdev, WIDTH, HEIGHT, PRNGKey(0),
+                               features=feats_, samples=1)
+
+        reset_counts(k1, k2, k7)
+        aov_pass()
+        torch.cuda.synchronize()
+        c = read_counts(k1, k2, k7)
+        ms = median_ms(aov_pass, 5)
+        small = {d: render_aovs(scene_.to(d), cam_.to(d), 64, 48, PRNGKey(0),
+                                features=feats_, samples=2)
+                 for d in ("cpu", dev)}
+        outside = np.zeros((48, 64), bool)
+        exact = True
+        for k in ("normal", "albedo", "depth", "hit"):
+            a, b = small[dev][k].cpu().numpy(), small["cpu"][k].numpy()
+            close = lane_close(a, b)
+            outside |= ~(close.all(axis=-1) if close.ndim == 3 else close)
+            exact = exact and bool(np.array_equal(a, b))
+        share = float(outside.mean())
+        out["aov"][name] = {"ms": ms, "launches": c,
+                            "cpu_share_outside": share, "cpu_exact": exact}
+        phase(f"[58] render_aovs {name} {WIDTH}x{HEIGHT}x1: {ms:.3f} ms "
+              f"(median of 5), launches {c}; card vs CPU port at 64x48x2: "
+              f"{share:.4%} of pixels outside 1e-3, bit for bit {exact}")
+        if c[kern] != 1 or c["plain"] or share > 0.005:
+            raise AssertionError(f"[58] render_aovs {name} failed its checks")
+
+    # ---- 59: the interactive loop and its live preview ----
+    runs = {}
+    for label, extra, fetch in (("no preview", ["--no-preview"], False),
+                                ("preview, not fetched", [], False),
+                                ("preview, fetched", [], True)):
+        port = _free_port()
+        url = f"http://127.0.0.1:{port}/"
+        got, stop = [], threading.Event()
+
+        def fetcher():
+            # as the viewer page does: poll the stats, fetch each new frame
+            seen = 0
+            while not stop.is_set():
+                try:
+                    named = json.loads(urllib.request.urlopen(
+                        url + "stats.json", timeout=5).read())["frame"]
+                    if named <= seen:
+                        time.sleep(0.002)
+                        continue
+                    t0 = time.monotonic()
+                    png = urllib.request.urlopen(url + "frame.png",
+                                                 timeout=60).read()
+                    got.append((named, png, (time.monotonic() - t0) * 1e3))
+                    seen = named
+                except OSError:
+                    time.sleep(0.002)
+
+        th = threading.Thread(target=fetcher, daemon=True)
+        kept = {}
+        real_loop = prog.render_progressive
+        real_png = pv.PreviewServer._frame_png
+        serving = threading.Event()
+
+        def serving_png(self):
+            serving.set()
+            return real_png(self)
+
+        def keeping_loop(*a, on_frame=None, **kw):
+            # each frame's accumulation, copied on the loop's stream right
+            # after the frame (no sync), to hold the fetched PNGs to. After
+            # frame 1 the loop waits until the handler has taken a
+            # /frame.png request, so that fetch reads back while frames 2-5
+            # launch (five ~15 ms frames are over before a polling fetcher
+            # reliably gets in, and a request queued when the loop closes
+            # the server is refused)
+            def both(n, acc):
+                kept[n] = acc.clone()
+                if n == 1:
+                    serving.wait(timeout=30)
+                if on_frame is not None:
+                    on_frame(n, acc)
+            return real_loop(*a, on_frame=both, **kw)
+
+        if fetch:
+            prog.render_progressive = keeping_loop
+            pv.PreviewServer._frame_png = serving_png
+            th.start()
+        path = os.path.join(tmp, "live.npy")
+        try:
+            rc, c, log, frames = run_cli(
+                "59", ["-P", "random_spheres", *film_args, "-F", "5",
+                       "--preview-port", str(port), "--out", path] + extra,
+                k1, k2, k7)
+        finally:
+            prog.render_progressive = real_loop
+            pv.PreviewServer._frame_png = real_png
+            stop.set()
+        if fetch:
+            th.join(timeout=120)
+        runs[label] = {"frame_ms": [f[0] for f in frames], "launches": c,
+                       "fetches": len(got),
+                       "fetch_ms": [g[2] for g in got]}
+        phase(f"[59] interactive -F 5 ({label}): rc {rc}, frame ms "
+              f"{[round(f[0], 3) for f in frames]}, fetches {len(got)} "
+              f"(frames {[g[0] for g in got]}, ms "
+              f"{[round(g[2], 1) for g in got]})")
+        if (rc != 0 or len(frames) != 5 or c["plain"] or c["K1"] <= 0
+                or ("live preview at" in log) == (label == "no preview")):
+            raise AssertionError(f"[59] interactive ({label}) failed")
+        if fetch:
+            # each PNG is one whole frame: the one /stats.json named, or a
+            # later one published between the two requests
+            srgb = {n: film.to_srgb_u8(a.cpu().numpy()[::-1])
+                    for n, a in kept.items()}
+            matched = []
+            for named, png, _ in got:
+                p_ = os.path.join(tmp, "fetched.png")
+                with open(p_, "wb") as f:
+                    f.write(png)
+                img_ = film.read_png(p_)
+                matched.append((named, [n for n, ref in srgb.items()
+                                        if np.array_equal(img_, ref)]))
+            runs[label]["fetched_equal_frames"] = matched
+            phase(f"[59] fetched (named frame, frames whose sRGB equals the "
+                  f"PNG): {matched}")
+            if not serving.is_set() or not got:
+                raise AssertionError("[59] no fetch reached the preview "
+                                     "while the loop ran")
+            if (sorted(kept) != [1, 2, 3, 4, 5]
+                    or not all(any(n >= named for n in m)
+                               for named, m in matched)):
+                raise AssertionError("[59] a concurrent fetch served no "
+                                     "whole frame it could name")
+    # a fetch inside the loop (on_frame, the main thread's HTTP call; the
+    # handler thread reads the frame back) serves the frame it names
+    scene_, cam_ = presets.from_name("random_spheres", WIDTH / HEIGHT)
+    served = []
+    servers, orig = [], pv.PreviewServer
+
+    def make(*a, **k):
+        servers.append(orig(*a, **k))
+        return servers[-1]
+
+    def on_frame(frame_n, acc):
+        srv = servers[0]
+        named = json.loads(urllib.request.urlopen(
+            srv.url + "stats.json", timeout=5).read())["frame"]
+        t0 = time.monotonic()
+        png = urllib.request.urlopen(srv.url + "frame.png", timeout=60).read()
+        ms = (time.monotonic() - t0) * 1e3
+        p_ = os.path.join(tmp, "named.png")
+        with open(p_, "wb") as f:
+            f.write(png)
+        same = bool(np.array_equal(film.read_png(p_), film.to_srgb_u8(
+            acc.cpu().numpy()[::-1])))
+        served.append((frame_n, named, same, ms))
+
+    pv.PreviewServer = make
+    try:
+        render_progressive(scene_, cam_, Params(width=WIDTH, height=HEIGHT,
+                                                samples=SAMPLES,
+                                                max_depth=DEPTH),
+                           max_frames=3, device=dev, preview=True,
+                           on_frame=on_frame, log=lambda _s: None)
+    finally:
+        pv.PreviewServer = orig
+    out["preview"] = {"runs": runs, "named_fetches": served}
+    phase(f"[59] fetch from on_frame: (frame, named, equal, ms) {served}")
+    if len(served) != 3 or not all(f == n and s for f, n, s, _ in served):
+        raise AssertionError("[59] a fetch served another frame")
+
+    # ---- 60: -X and -X -B against the CPU port's lines ----
+    out["trace"] = {}
+    for name, extra in (("small", []), ("cornell", []), ("cornell", ["-B"])):
+        argv = ["-P", name, "-W", str(WIDTH), "-H", str(HEIGHT), "-D",
+                str(DEPTH), "-X", *extra]
+        rc, c, log, _ = run_cli("60", argv, k1, k2, k7)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc_cpu = cli.main(argv + ["--device", "cpu"])
+
+        def trace_lines(text):
+            lines = text.splitlines()
+            i = next(i for i, ln in enumerate(lines)
+                     if ln.startswith(("bvh stats", "center ray")))
+            return lines[i:]
+
+        card, cpu = trace_lines(log), trace_lines(buf.getvalue())
+        assert_trace_lines_match(card, cpu)
+        label = f"{name} {' '.join(extra)}".strip()
+        out["trace"][label] = {"lines": len(card), "identical": card == cpu,
+                               "launches": c}
+        phase(f"[60] -X {label}: {len(card)} lines, identical to the CPU "
+              f"port's: {card == cpu}; launches {c}")
+        if rc or rc_cpu or c["plain"] or (name == "small" and c["K1"] <= 0):
+            raise AssertionError(f"[60] -X {label} failed")
+
+    # ---- 61: render_image == the CLI's .npy ----
+    path = os.path.join(tmp, "api.npy")
+    reset_counts(k1, k2, k7)
+    img_api = render_image(preset="random_spheres", width=WIDTH,
+                           height=HEIGHT, samples=SAMPLES, max_depth=DEPTH)
+    c_api = read_counts(k1, k2, k7)
+    rc, _, _, _ = run_cli("61", ["-P", "random_spheres", *film_args, "-O",
+                                 "--out", path], k1, k2, k7)
+    api_equal = bool(np.array_equal(img_api, np.load(path)))
+    out["api"] = {"bitwise": api_equal, "launches": c_api}
+    phase(f"[61] render_image(preset='random_spheres') == cli -O .npy bit "
+          f"for bit: {api_equal}; launches {c_api}")
+    if rc or not api_equal or c_api["plain"] or c_api["K1"] <= 0:
+        raise AssertionError("[61] render_image differs from the CLI")
+
+    # ---- 62: --group and --no-compaction change no bit ----
+    knobs = {}
+    for label, extra in (("default", []), ("--group 2", ["--group", "2"]),
+                         ("--group 3", ["--group", "3"]),
+                         ("--no-compaction", ["--no-compaction"])):
+        path = os.path.join(tmp, f"knob{len(knobs)}.npy")
+        rc, c, _, frames = run_cli("62", ["-P", "random_spheres", *film_args,
+                                          "-O", "-F", str(FRAMES), "--out",
+                                          path] + extra, k1, k2, k7)
+        knobs[label] = {"image": np.load(path), "rc": rc, "launches": c,
+                        "frame_ms": [f[0] for f in frames],
+                        "readbacks": [f[2] for f in frames]}
+    same = {k: bool(np.array_equal(v["image"], knobs["default"]["image"]))
+            for k, v in knobs.items()}
+    out["knobs"] = {k: {kk: vv for kk, vv in v.items() if kk != "image"}
+                    for k, v in knobs.items()}
+    for k, v in knobs.items():
+        phase(f"[62] {k}: bit for bit the default frame {same[k]}; frame ms "
+              f"{[round(x, 3) for x in v['frame_ms']]}, readbacks "
+              f"{v['readbacks']}")
+    if not all(same.values()) or any(v["rc"] or v["launches"]["plain"]
+                                     for v in knobs.values()):
+        raise AssertionError("[62] a knob changed the image")
+
+    # ---- 63: --profile-dir ----
+    prof = os.path.join(tmp, "prof")
+    rc, c, log, _ = run_cli("63", ["-P", "random_spheres", *film_args, "-O",
+                                   "--profile-dir", prof, "--out",
+                                   os.path.join(tmp, "p.npy")], k1, k2, k7)
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["name"]] = kernels.get(e["name"], 0) + 1
+    named = {tag: sum(n for k, n in kernels.items() if tag in k)
+             for tag in ("sphere_nearest_kernel", "shade_kernel")}
+    out["profile"] = {"kernel_events": sum(kernels.values()),
+                      "named": named, "launches": c}
+    phase(f"[63] --profile-dir: {sum(kernels.values())} kernel events, "
+          f"K1 (sphere_nearest_kernel) {named['sphere_nearest_kernel']}, K2 "
+          f"(shade_kernel) {named['shade_kernel']}; launches {c}")
+    if (rc or f"profiler trace written to {prof}" not in log
+            or named["sphere_nearest_kernel"] != c["K1"]
+            or named["shade_kernel"] != c["K2"] or c["K1"] <= 0):
+        raise AssertionError("[63] the profiler trace misses K1 or K2")
+
+    # ---- 64: the adaptive rounds on the card against the CPU port's ----
+    out["adaptive_vs_cpu"] = {}
+    aw, ah, budget = 64, 48, 8
+    budget_px = 1.0 - (1.0 - DEPTH10_BUDGET) ** 8
+    for name in ("random_spheres", "cornell"):
+        scene_, cam_ = presets.from_name(name, aw / ah)
+        p = Params(width=aw, height=ah, samples=2, max_depth=DEPTH)
+        with adaptive_picks() as cpu_ids:
+            img_c, rays_c, spp_c = render_adaptive(scene_, cam_, p, budget,
+                                                   device="cpu",
+                                                   log=lambda _s: None)
+        reset_counts(k1, k2, k7)
+        with adaptive_picks(replay=cpu_ids) as own:
+            img_g, rays_g, spp_g = render_adaptive(scene_, cam_, p, budget,
+                                                   device=dev,
+                                                   log=lambda _s: None)
+        c = read_counts(k1, k2, k7)
+        _, _, spp_f = render_adaptive(scene_, cam_, p, budget, device=dev,
+                                      log=lambda _s: None)
+        overlap = min(len(set(a.tolist()) & set(b.tolist())) / len(b)
+                      for a, b in zip(own, cpu_ids))
+        outside = float((~lane_close(img_g, img_c).all(axis=-1)).mean())
+        spp_same = float((spp_g == spp_c).mean())
+        free_same = float((spp_f == spp_c).mean())
+        out["adaptive_vs_cpu"][name] = {
+            "rounds": len(cpu_ids) + 2, "min_pick_overlap": overlap,
+            "spp_agree": spp_same, "share_outside": outside,
+            "rays": [rays_g, rays_c], "free_run_spp_agree": free_same,
+            "launches": c}
+        phase(f"[64] {name} adaptive {aw}x{ah} -S 2 depth {DEPTH} budget "
+              f"{budget}, card replaying the CPU port's picks: own picks "
+              f"hold >= {overlap:.4f} of them, spp maps agree {spp_same:.4f}, "
+              f"{outside:.4%} of pixels outside 1e-3 (budget "
+              f"{budget_px:.4%}), rays {rays_g} / {rays_c}; free run's spp "
+              f"maps agree {free_same:.4f}; launches {c}")
+        if (overlap < 0.99 or spp_same < 0.99 or outside > budget_px
+                or c["K2"] <= 0 or c["plain"]
+                or (name == "random_spheres" and c["K1"] <= 0)):
+            raise AssertionError(f"[64] {name}: the card's adaptive rounds "
+                                 "left the CPU port's")
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -3409,6 +3870,14 @@ def main() -> int:
     mesh = mesh_phases(dev, k1, k2, k7)
     mtrace = mesh["trace"]
     mesh_cli = mesh["cli"]
+    drv = driver_phases(dev, k1, k2, k7)
+    drv_launches = {
+        "adaptive_launches": {n_: r_["launches"] for n_, r_ in
+                              drv["adaptive"].items()},
+        "aov_launches": {n_: r_["launches"] for n_, r_ in drv["aov"].items()},
+        "debug_trace_launches": {n_: r_["launches"] for n_, r_ in
+                                 drv["trace"].items()},
+    }
 
     kernels = [
         {"name": "sphere_nearest", "route": "cuda",
@@ -3439,7 +3908,12 @@ def main() -> int:
                                  for n_, r_ in diff_runs.items()},
          "sphere_presets": {n_: {**r_["k1"],
                                  "cli_launches": cli_runs[n_]["launches"]["K1"]}
-                            for n_, r_ in sphere_runs.items()}},
+                            for n_, r_ in sphere_runs.items()},
+         "adaptive_launches": drv["adaptive"]["random_spheres"]["launches"][
+             "K1"],
+         "aov_launches": drv["aov"]["random_spheres"]["launches"]["K1"],
+         "debug_trace_launches": drv["trace"]["small"]["launches"]["K1"],
+         "drivers": drv_launches},
         {"name": "sphere_nearest_moving (K3)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest.cu",
          "replaces": "pathtrace_tpu/ops/intersect_pallas.py:340",
@@ -3453,6 +3927,7 @@ def main() -> int:
          "silhouette_launches": sil_k3,
          "device_trace_launches": mtrace["random"]["launches"]["K3"],
          "sharded_general_launches": mesh_cli["final_full"]["launches"]["K3"],
+         "aov_launches": drv["aov"]["random"]["launches"]["K3"],
          "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
@@ -3481,6 +3956,9 @@ def main() -> int:
                                  "fixture_share_outside":
                                      r_["fixture_share_outside"]}
                             for n_, r_ in sphere_runs.items()},
+         "adaptive_launches": {n_: r_["launches"]["K2"]
+                               for n_, r_ in drv["adaptive"].items()},
+         "drivers": drv,
          "library_ms": None},
         {"name": "sphere_nearest_bwd", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_bwd.cu",

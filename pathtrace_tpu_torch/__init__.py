@@ -26,9 +26,41 @@ boundary term (``ops/silhouette.py``), a differentiable bounce for every
 scene class the reference trains, the general path for the rest, and
 render and TrainState checkpoints (``utils/checkpoint.py``).
 
+The drivers and surfaces complete it: adaptive sampling
+(``render/adaptive.py``), first-hit AOVs and the à-trous denoiser
+(``render/aov.py``, ``render/denoise.py``), the live preview
+(``render/preview.py``), the ``-X`` ray trace (``utils/debug.py``), the
+throughput meter and image comparison (``utils/profiling.py``,
+``utils/compare.py``) and the one-call API below.
+
 Every kernel has a plain PyTorch version beside it; a wrapper runs the
 plain version only for CPU tensors and launches its CUDA kernel for CUDA
-tensors. The package imports torch and numpy, never jax.
+tensors. The package imports torch and numpy, never jax; importing it
+builds and loads no CUDA code (the kernels build at their first launch).
 """
 
 __version__ = "0.1.0"
+
+# The exports load on first use (PEP 562), so that importing the package,
+# as the CLI does before it parses its arguments, does not import torch.
+# The render/ subpackage owns the name `render` at package scope, so the
+# one-call API exports as `render_image` (also `pathtrace_tpu_torch.api.render`).
+_EXPORTS = {
+    "render_image": ("pathtrace_tpu_torch.api", "render"),
+    "preset_names": ("pathtrace_tpu_torch.api", "preset_names"),
+    "make_camera": ("pathtrace_tpu_torch.camera", "make_camera"),
+    "Params": ("pathtrace_tpu_torch.config", "Params"),
+    "SceneBuilder": ("pathtrace_tpu_torch.models.build", "SceneBuilder"),
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    module, attr = _EXPORTS[name]
+    value = getattr(importlib.import_module(module), attr)
+    globals()[name] = value
+    return value

@@ -349,6 +349,25 @@ def bvh_scene_nearest(bvh: FlatBVH, scene: Scene, ro: torch.Tensor,
     return bvh_kernel.bvh_traverse(op, rays, time, flights, t_min, t_max)
 
 
+def leaf_candidate(bvh: FlatBVH, scene: Scene, gid: torch.Tensor,
+                   ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
+                   med_u=None, best_t: Optional[torch.Tensor] = None,
+                   t_min: float = MIN_T,
+                   features: Optional[SceneFeatures] = None,
+                   offsets=(0, 0, 0, 0)) -> torch.Tensor:
+    """The candidate t [R] of one primitive a ray, by its global id
+    ``gid`` [R] (the reference's ``_leaf_candidate``): the leaf test of
+    the plain traversal (``bvh_kernel.leaf_candidate``) against
+    ``best_t``, MAX_T where it misses. Rays, time and ``med_u`` as
+    :func:`bvh_scene_nearest`'s."""
+    f = features or SceneFeatures.from_scene(scene)
+    op = bvh.operand(scene, f, offsets, ro.device)
+    rays = torch.cat([ro.T, rd.T]).to(torch.float32).contiguous()
+    flights = bvh_kernel.media_flights(op, med_u.T) if f.has_media else None
+    return bvh_kernel.leaf_candidate(op, gid, rays, time, flights, best_t,
+                                     t_min)
+
+
 def bvh_sphere_nearest(bvh: FlatBVH, spheres: Spheres, ro: torch.Tensor,
                        rd: torch.Tensor, time: torch.Tensor,
                        t_min: float = MIN_T, t_max: float = MAX_T,

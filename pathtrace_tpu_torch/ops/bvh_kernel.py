@@ -319,6 +319,61 @@ def _leaf_media(rec, o, d, flight, best_t, t_min):
     return torch.where(ok & inside & (hit < best_t), hit, _INF)
 
 
+def _inline_row(rec: torch.Tensor) -> torch.Tensor:
+    """A sphere's record [A, PRIM_W] laid out as the inline leaf row that
+    :func:`_leaf_sphere_inline` reads (centre and radius from float 8,
+    then delta, time0 and inv_dt)."""
+    row = torch.zeros((rec.shape[0], 17), dtype=rec.dtype, device=rec.device)
+    row[:, 8:12] = rec[:, 0:4]
+    row[:, 12:15] = rec[:, 4:7]
+    row[:, 15:17] = rec[:, 7:9]
+    return row
+
+
+def leaf_candidate(op: TreeOperand, gid: torch.Tensor, rays: torch.Tensor,
+                   time: Optional[torch.Tensor] = None,
+                   flights: Optional[torch.Tensor] = None,
+                   best_t: Optional[torch.Tensor] = None,
+                   t_min: float = MIN_T) -> torch.Tensor:
+    """The candidate t of one primitive a ray, by its global id ``gid``
+    [R] (the reference's ``_leaf_candidate``, ``models/bvh.py:513``): the
+    plain traversal's leaf test of the id's kind, against ``best_t`` [R]
+    (default MAX_T); MAX_T where it misses. ``rays`` [6, R], ``time``
+    and ``flights`` as :func:`bvh_traverse_plain`'s."""
+    dev = rays.device
+    R = rays.shape[1]
+    off_s, off_r, off_b, off_m = op.offsets
+    fl = op.flags
+    motion = bool(fl & F_MOTION)
+    o = [rays[k] for k in range(3)]
+    d = [rays[3 + k] for k in range(3)]
+    gid = gid.to(torch.int64)
+    bt = (torch.full((R,), _INF, dtype=torch.float32, device=dev)
+          if best_t is None else best_t)
+    tm = time if motion else None
+    rec = op.prims[torch.clamp(gid, 0, op.prims.shape[0] - 1)]
+    cand = torch.full((R,), _INF, dtype=torch.float32, device=dev)
+    if fl & F_SPHERES:
+        if fl & F_INLINE:
+            c = _leaf_sphere_inline(_inline_row(rec), o, d, tm, bt, t_min,
+                                    motion)
+        else:
+            c = _leaf_sphere_instanced(rec, o, d, tm, bt, t_min, motion)
+        cand = torch.where(gid < off_r, c, cand)
+    if fl & F_RECTS:
+        c = _leaf_rect(rec, o, d, bt, t_min, bool(fl & F_RECT_INST))
+        cand = torch.where((gid >= off_r) & (gid < off_b), c, cand)
+    if fl & F_BOXES:
+        c = _leaf_box(rec, o, d, bt, t_min)
+        cand = torch.where((gid >= off_b) & (gid < off_m), c, cand)
+    if fl & F_MEDIA:
+        mid = torch.clamp(gid - off_m, 0, flights.shape[0] - 1)
+        flight = flights[mid, torch.arange(R, device=dev)]
+        c = _leaf_media(rec, o, d, flight, bt, t_min)
+        cand = torch.where(gid >= off_m, c, cand)
+    return cand
+
+
 def bvh_traverse_plain(op: TreeOperand, rays: torch.Tensor,
                        time: Optional[torch.Tensor] = None,
                        flights: Optional[torch.Tensor] = None,

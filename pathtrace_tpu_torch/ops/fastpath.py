@@ -943,7 +943,8 @@ LANE_COMPACT_MAX = 1 << 19
 COMPACT_SHRINK = 0.35
 ROW_SHRINK = 0.75
 SMALL_SHRINK = 0.6
-# Bounces between alive-count readbacks.
+# Bounces between alive-count readbacks (``group=None``; the CLI's
+# ``--group N`` overrides it per frame).
 GROUP = 1
 # Static sphere scenes spanning at least this many 128-sphere tiles take
 # the culled closest hit and tile-order frames. Patchable.
@@ -987,13 +988,19 @@ class TraceResult(NamedTuple):
 
 
 def _host_ladder(step, state: FastStateP, max_depth: int, min_size: int,
-                 compaction: bool):
+                 compaction: bool, group: Optional[int] = None):
     """Bounce loop with lagged alive counts and the two-tier compaction
     ladder (rows above LANE_COMPACT_MAX lanes, exact lanes below).
 
-    Each group's count is read one group later: the alive set only
-    shrinks, so a lagged count is a safe upper bound, and the copy has
-    landed by then while the next group runs on the device."""
+    ``group`` bounces (default :data:`GROUP`) run between alive-count
+    readbacks. Each group's count is read one group later: the alive set
+    only shrinks, so a lagged count is a safe upper bound, and the copy
+    has landed by then while the next group runs on the device. Neither
+    the group nor the compaction changes a lane's result: a dead lane's
+    bounce changes nothing, and lanes keep their ids."""
+    group = GROUP if group is None else int(group)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
     R = state.size
     dev = state.alive.device
     out_radiance = torch.zeros((3, R), dtype=torch.float32, device=dev)
@@ -1005,7 +1012,7 @@ def _host_ladder(step, state: FastStateP, max_depth: int, min_size: int,
     readbacks = 0
     depth = 0
     while depth <= max_depth:
-        g = min(GROUP, max_depth + 1 - depth)
+        g = min(group, max_depth + 1 - depth)
         state, segs = step(state, depth, g, segs)
         depth += g
         if depth > max_depth:
@@ -1045,7 +1052,7 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                compaction: bool = True,
                nee_lights: Optional[LightTable] = None,
                rr_start: int = 0, bvh=None,
-               bvh_offsets=None) -> TraceResult:
+               bvh_offsets=None, group: Optional[int] = None) -> TraceResult:
     """Trace a wavefront of rays (ro, rd: [R, 3] unit directions; time
     [R]) on the scene's device. ``seed`` keys the bounce RNG (its int32
     bit pattern); lane id ``i`` keys ray i's stream, so compaction never
@@ -1056,7 +1063,9 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     ``bvh``/``bvh_offsets`` (``-B``: ``models.bvh.build_scene_bvh``'s
     tree and offsets): the tree's traversal is the closest hit of every
     bounce and shadow ray, with no cull; the ladder, K2 and the tails are
-    the same."""
+    the same. ``group``: bounces between alive-count readbacks (default
+    :data:`GROUP`); ``compaction=False`` keeps every lane to the end. No
+    image bit depends on either."""
     fastpath_supported(features, scene)
     tables = prep_tables(scene, features,
                          cull=bvh is None and cull_scene(scene, features),
@@ -1069,7 +1078,7 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
 
     state = make_state(ro, rd, time, nee=nee_lights is not None)
     out_radiance, segs, readbacks = _host_ladder(
-        step, state, max_depth, max(min_size, 128), compaction)
+        step, state, max_depth, max(min_size, 128), compaction, group)
     return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
 
 
@@ -1172,19 +1181,22 @@ def trace_frame(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                 max_depth: int, seed: int, features: SceneFeatures,
                 nee_lights: Optional[LightTable] = None,
                 rr_start: int = 0, bvh=None,
-                bvh_offsets=None) -> FrameResult:
+                bvh_offsets=None, group: Optional[int] = None,
+                compaction: bool = True) -> FrameResult:
     """A frame's rays (ro, rd [H*W*S, 3], t [H*W*S], in [H, W, S] order)
     to its image: permuted into tile order when :func:`tile_layout` says
     so, traced, un-permuted and averaged over the samples. Lane ids key
     the bounce RNG, so tile order renames lanes and renders the same
-    estimator. ``bvh``, ``bvh_offsets``: as :func:`trace_fast`'s."""
+    estimator. ``bvh``, ``bvh_offsets``, ``group``, ``compaction``: as
+    :func:`trace_fast`'s."""
     tiled = tile_layout(scene, features, height, width, bvh)
     if tiled:
         order, inv = _tile_perm(height, width, ro.device)
         ro, rd, t = permute_rays(ro, rd, t, order, samples)
     res = trace_fast(scene, ro, rd, t, seed, max_depth, features,
                      nee_lights=nee_lights, rr_start=rr_start, bvh=bvh,
-                     bvh_offsets=bvh_offsets)
+                     bvh_offsets=bvh_offsets, group=group,
+                     compaction=compaction)
     if tiled:
         img = unpermute_image(res.radiance, inv, height, width, samples)
     else:
@@ -1197,13 +1209,14 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
                       seed: int, features: SceneFeatures,
                       nee_lights: Optional[LightTable] = None,
                       rr_start: int = 0, stratify: bool = False,
-                      bvh=None, bvh_offsets=None) -> FrameResult:
+                      bvh=None, bvh_offsets=None, group: Optional[int] = None,
+                      compaction: bool = True) -> FrameResult:
     """Whole-frame render through the fast path on the scene's device.
     ``frame_key`` (a Threefry key, :mod:`pathtrace_tpu_torch.utils.threefry`)
     draws the primary rays as the reference's does, ``stratify`` places
     each pixel's samples Latin-hypercube; ``seed`` must be frame-unique and
     keys the bounce RNG. ``nee_lights``, ``rr_start``, ``bvh``,
-    ``bvh_offsets``: as :func:`trace_fast`'s."""
+    ``bvh_offsets``, ``group``, ``compaction``: as :func:`trace_fast`'s."""
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
 
     ro, rd, t = generate_primary_rays(camera, width, height, samples,
@@ -1212,7 +1225,8 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
     R = height * width * samples
     return trace_frame(scene, ro.reshape(R, 3), rd.reshape(R, 3),
                        t.reshape(R), width, height, samples, max_depth, seed,
-                       features, nee_lights, rr_start, bvh, bvh_offsets)
+                       features, nee_lights, rr_start, bvh, bvh_offsets,
+                       group, compaction)
 
 
 # ---------------------------------------------------------------------------

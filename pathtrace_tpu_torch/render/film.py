@@ -18,8 +18,9 @@ def to_srgb_u8(img_linear: np.ndarray) -> np.ndarray:
     return (srgb * 255.99).astype(np.uint8)
 
 
-def encode_png(rgb_u8: np.ndarray) -> bytes:
-    """Encode [H, W, 3] u8 RGB as PNG bytes (8-bit, no filtering)."""
+def encode_png(rgb_u8: np.ndarray, compress_level: int = 6) -> bytes:
+    """Encode [H, W, 3] u8 RGB as PNG bytes (8-bit, no filtering; zlib at
+    ``compress_level``)."""
     img = np.asarray(rgb_u8, dtype=np.uint8)
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[row].tobytes() for row in range(h))
@@ -34,7 +35,7 @@ def encode_png(rgb_u8: np.ndarray) -> bytes:
     return (
         b"\x89PNG\r\n\x1a\n"
         + chunk(b"IHDR", ihdr)
-        + chunk(b"IDAT", zlib.compress(raw, 6))
+        + chunk(b"IDAT", zlib.compress(raw, compress_level))
         + chunk(b"IEND", b"")
     )
 

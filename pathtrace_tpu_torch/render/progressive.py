@@ -45,11 +45,23 @@ count is read back once per frame, after the frame's last kernel.
 estimation; a scene without lights renders with the plain estimator, as
 the reference's does. A checkpoint resumes and saves the accumulation as
 the reference's loop does (``progressive.py:247-252, 307-320``).
+
+The loop's hooks are the reference's (``progressive.py:45-66,
+256-316``): a rolling Mrays/s line every 10 frames
+(:class:`~pathtrace_tpu_torch.utils.profiling.RollingMraysMeter`),
+``on_frame(frame, acc)`` after each frame, and the live preview
+(``preview``: :class:`~pathtrace_tpu_torch.render.preview.PreviewServer`
+on ``preview_port``, fed the accumulation by reference). ``group`` and
+``compaction`` are the fast path's knobs (bounces between alive-count
+readbacks; the compaction ladder on or off); neither changes an image
+bit. ``max_frames=None`` renders until Ctrl-C and returns the frames
+done.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import time
 from typing import Callable, List, Optional
 
@@ -65,10 +77,12 @@ from pathtrace_tpu_torch.ops.fastpath import (
     render_frame_fast,
 )
 from pathtrace_tpu_torch.ops.lights import build_light_table
-from pathtrace_tpu_torch.render import compaction, film, integrator
+from pathtrace_tpu_torch.render import compaction as pcompact
+from pathtrace_tpu_torch.render import film, integrator
 from pathtrace_tpu_torch.render.frame import accumulate, render_frame
 from pathtrace_tpu_torch.utils import checkpoint as ckpt
 from pathtrace_tpu_torch.utils import threefry
+from pathtrace_tpu_torch.utils.profiling import RollingMraysMeter
 
 MODES = ("auto", "fast", "general", "compacted", "sharded")
 
@@ -128,7 +142,8 @@ def save_image(path: str, image) -> None:
 
 
 def render_progressive(scene: Scene, camera: Camera, params: Params,
-                       max_frames: int, device, features: Optional[SceneFeatures] = None,
+                       max_frames: Optional[int], device,
+                       features: Optional[SceneFeatures] = None,
                        log: Callable[[str], None] = print, nee: bool = False,
                        rr_start: int = 0, stratify: bool = False,
                        mode: str = "auto",
@@ -136,7 +151,11 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                        checkpoint_every: int = 50,
                        snapshot_path: Optional[str] = None,
                        snapshot_every: int = 0,
-                       bvh=None, mesh=None) -> ProgressiveResult:
+                       bvh=None, mesh=None, group: Optional[int] = None,
+                       compaction: bool = True,
+                       on_frame: Optional[Callable] = None,
+                       preview: bool = False,
+                       preview_port: int = 0) -> ProgressiveResult:
     """Render ``max_frames`` accumulated frames on ``device`` by the path
     ``mode`` routes to (:func:`route`); ``nee``: next-event estimation;
     ``rr_start`` > 0: Russian roulette from that depth; ``stratify``:
@@ -155,7 +174,16 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     (:mod:`~pathtrace_tpu_torch.utils.checkpoint`), as the reference's
     loop does, so ``-F 2`` twice equals ``-F 4`` bit for bit.
     ``snapshot_path``: write the accumulated image there every
-    ``snapshot_every`` frames (:func:`save_image`)."""
+    ``snapshot_every`` frames (:func:`save_image`).
+
+    ``group``, ``compaction``: the fast path's bounces between alive-count
+    readbacks and its compaction ladder (the other paths ignore them).
+    ``on_frame(frame, acc)``: called after each frame with the frames
+    done and the accumulation (a tensor on the device). ``preview``: serve
+    the accumulation live on ``preview_port`` (0: an ephemeral port).
+    ``max_frames=None``: render until the caller stops the loop (a
+    ``KeyboardInterrupt`` propagates, as the reference's; the CLI's
+    interactive mode catches it and writes the frames done)."""
     device = torch.device(device)
     seed = params.resolve_seed()
     features = features or SceneFeatures.from_scene(scene)
@@ -213,9 +241,12 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
             acc = torch.from_numpy(acc_np).to(device)
             start_frame = saved_frame
             log(f"resumed from {checkpoint_path} at frame {start_frame}")
-    total_rays = 0
-    frame_ms, readbacks = [], []
-    for frame in range(start_frame, start_frame + max_frames):
+
+    def render_one(frame: int, acc):
+        """Frame ``frame`` by ``path``, blended into ``acc``: (acc, ms,
+        rays, readbacks). Timed with CUDA events around its work on the
+        card (the host clock on the CPU); the ray count is read back once,
+        after the frame's last kernel."""
         if on_cuda:
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
@@ -228,7 +259,8 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
                 scene, camera, params.width, params.height, params.samples,
                 params.max_depth, key, seed * 1000003 + frame, features,
                 nee_lights=nee_lights, rr_start=rr_start, stratify=stratify,
-                bvh=flat, bvh_offsets=offsets,
+                bvh=flat, bvh_offsets=offsets, group=group,
+                compaction=compaction,
             )
             image, count, n_read = res.image, res.ray_count, res.readbacks
         elif path == "sharded":
@@ -241,13 +273,13 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
             )
             n_read = integrator.READBACKS - before
         elif path == "compacted":
-            before = compaction.READBACKS
-            image, count = compaction.render_frame_compacted(
+            before = pcompact.READBACKS
+            image, count = pcompact.render_frame_compacted(
                 scene, camera, params.width, params.height, params.samples,
                 params.max_depth, key, features=features,
                 intersect_fn=intersect_fn,
             )
-            n_read = compaction.READBACKS - before
+            n_read = pcompact.READBACKS - before
         else:
             before = integrator.READBACKS
             image, count = render_frame(
@@ -264,26 +296,57 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
             ms = start.elapsed_time(end)
         else:
             ms = (time.perf_counter() - t0) * 1e3
-        rays = int(count)
-        total_rays += rays
-        frame_ms.append(ms)
-        readbacks.append(n_read)
-        log(f"frame {frame + 1}/{start_frame + max_frames}: {ms:.2f} ms, "
-            f"{rays} rays, {rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
-            f"{n_read} readbacks ({path} path, "
-            f"{'bvh' if flat is not None else 'sweep'})")
-        done = frame + 1
-        if writer and checkpoint_path and done % checkpoint_every == 0:
-            ckpt.save(checkpoint_path, acc, done, seed)
-        if (writer and snapshot_path and snapshot_every
-                and done % snapshot_every == 0):
-            save_image(snapshot_path, acc)
+        return acc, ms, int(count), n_read
+
+    preview_server = None
+    if preview and writer:
+        from pathtrace_tpu_torch.render.preview import PreviewServer
+
+        preview_server = PreviewServer(port=preview_port)
+        log(f"live preview at {preview_server.url}")
+    meter = RollingMraysMeter()
+    total_rays = 0
+    frame_ms, readbacks = [], []
+    frames = (range(start_frame, start_frame + max_frames)
+              if max_frames is not None else itertools.count(start_frame))
+    end = None if max_frames is None else start_frame + max_frames
+    done = start_frame
+    t_start = time.monotonic()
+    try:
+        for frame in frames:
+            acc, ms, rays, n_read = render_one(frame, acc)
+            total_rays += rays
+            frame_ms.append(ms)
+            readbacks.append(n_read)
+            log(f"frame {frame + 1}/{end if end is not None else '-'}: "
+                f"{ms:.2f} ms, {rays} rays, "
+                f"{rays / 1e3 / max(ms, 1e-9):.2f} Mrays/s, "
+                f"{n_read} readbacks ({path} path, "
+                f"{'bvh' if flat is not None else 'sweep'})")
+            line = meter.add_frame(rays)
+            if line:
+                log(line)
+            done = frame + 1
+            if preview_server is not None:
+                rate = total_rays / 1e6 / max(time.monotonic() - t_start,
+                                              1e-9)
+                preview_server.update(acc, done, rate)
+            if on_frame is not None:
+                on_frame(done, acc)
+            if writer and checkpoint_path and done % checkpoint_every == 0:
+                ckpt.save(checkpoint_path, acc, done, seed)
+            if (writer and snapshot_path and snapshot_every
+                    and done % snapshot_every == 0):
+                save_image(snapshot_path, acc)
+    finally:
+        if preview_server is not None:
+            preview_server.close()
     image = (acc.cpu().numpy() if acc is not None else
              np.zeros((params.height, params.width, 3), np.float32))
     if writer and checkpoint_path:
-        ckpt.save(checkpoint_path, image, start_frame + max_frames, seed)
+        ckpt.save(checkpoint_path, image, done, seed)
     return ProgressiveResult(
-        image=image, frames=max_frames, total_rays=total_rays,
+        image=image, frames=done - start_frame, total_rays=total_rays,
         frame_ms=frame_ms, readbacks=readbacks,
         timer="cuda-events" if on_cuda else "host-clock", path=path,
     )

@@ -1,1 +1,3 @@
-"""Utilities of the port: the Threefry twin of ``jax.random``."""
+"""Utilities of the port: the Threefry twin of ``jax.random``, checkpoints,
+the native builder, throughput counters, image comparison and the
+single-ray debug trace."""

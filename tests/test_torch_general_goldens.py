@@ -22,8 +22,18 @@ smallpt 0, two_perlin_spheres 0. ``final_full``'s 3.81% comes from its
 1000 radius-10 spheres and 400 boxes at ~600 units (K3's expanded
 quadratic and the box sweep's affine products round unlike XLA's), inside
 the shared budget (7.73%), so it needs none of its own.
+
+The same frames of ``small``, ``two_perlin_spheres``, ``cornell`` and
+``simple_light`` also hold the reference's statistical goldens
+(``tests/goldens/<preset>.json``, ``tests/test_golden.py``'s
+determinism goldens, whose render is this one): the per-channel image
+mean within 2e-3 and the ray count within 0.2%, ``test_golden.py:41``'s
+tolerances. Each frame is rendered once per worker and shared by the
+two checks.
 """
 
+import functools
+import json
 import os
 
 import numpy as np
@@ -56,14 +66,21 @@ def test_every_preset_is_ported():
     assert "final_full" in presets.names() and len(presets.names()) == 13
 
 
+@functools.lru_cache(maxsize=None)
+def general_frame(preset: str):
+    """The port's CPU ``render_frame`` of ``preset`` at the goldens'
+    settings: (image [H, W, 3] numpy, ray count)."""
+    scene, cam = presets.from_name(preset, W / H, seed=0)
+    img, count = render_frame(scene, cam, W, H, SPP, DEPTH, PRNGKey(SEED),
+                              features=SceneFeatures.from_scene(scene))
+    return img.numpy(), int(count)
+
+
 @pytest.mark.parametrize("preset", presets.names())
 def test_cpu_general_frame_matches_pixel_golden(preset):
     golden = np.load(os.path.join(GOLDEN_DIR,
                                   f"pixels_{preset}_general.npz"))["img"]
-    scene, cam = presets.from_name(preset, W / H, seed=0)
-    img, count = render_frame(scene, cam, W, H, SPP, DEPTH, PRNGKey(SEED),
-                              features=SceneFeatures.from_scene(scene))
-    img = img.numpy()
+    img, count = general_frame(preset)
     assert img.shape == (H, W, 3) and np.isfinite(img).all()
     assert int(count) >= W * H * SPP  # every camera ray is a segment
     outside = ~lane_close(img, golden).all(axis=-1)
@@ -72,3 +89,19 @@ def test_cpu_general_frame_matches_pixel_golden(preset):
         f"{preset}: {int(outside.sum())} pixels ({share:.4%}) outside 1e-3, "
         f"budget {budget:.4%}; largest difference "
         f"{np.abs(img - golden).max()}")
+
+
+STAT_GOLDEN_PRESETS = ["small", "two_perlin_spheres", "cornell",
+                       "simple_light"]
+
+
+@pytest.mark.parametrize("preset", STAT_GOLDEN_PRESETS)
+def test_cpu_general_frame_matches_statistical_golden(preset):
+    """``tests/test_golden.py``'s determinism goldens, held by the port."""
+    with open(os.path.join(GOLDEN_DIR, f"{preset}.json")) as f:
+        golden = json.load(f)
+    img, count = general_frame(preset)
+    mean = [round(float(x), 5) for x in img.mean(axis=(0, 1))]
+    np.testing.assert_allclose(mean, golden["mean"], atol=2e-3)
+    assert abs(count - golden["ray_count"]) <= golden["ray_count"] * 0.002, (
+        count, golden["ray_count"])

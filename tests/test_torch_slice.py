@@ -192,8 +192,11 @@ def test_cli_renders_on_cpu_without_jax(tmp_path):
 def test_cli_refuses_what_is_not_ported(capsys, tmp_path):
     from pathtrace_tpu_torch.cli import main
 
-    assert main(["--aovs", "-O", "--device", "cpu"]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # every flag of the JAX CLI is ported but the TPU-only ones
+    assert main(["--pallas", "-O", "--device", "cpu"]) == 2
+    assert "TPU-only" in capsys.readouterr().err
+    assert main(["--no-such-flag", "-O", "--device", "cpu"]) == 2
+    assert "unrecognized arguments" in capsys.readouterr().err
     # --mode sharded is ported: it renders
     out = tmp_path / "s.npy"
     assert main(["-P", "small", "-O", "--device", "cpu", "--mode", "sharded",

@@ -4,9 +4,11 @@ Inputs are made with numpy from a fixed seed and handed to both packages;
 arrays cross between JAX and PyTorch as numpy.
 """
 
+import contextlib
 import dataclasses
 import functools
 import os
+import re
 
 import numpy as np
 
@@ -419,6 +421,32 @@ def jax_camera_rays(camera, n: int, seed: int = 0):
     return np.asarray(ro), np.asarray(rd), np.asarray(tm)
 
 
+@contextlib.contextmanager
+def adaptive_picks(replay=None):
+    """Within the block, ``np.argpartition`` keeps each call's pick (the
+    last ``a.size - kth`` ids: a refinement round of ``render_adaptive``)
+    in the yielded list and, given ``replay`` (one id array a round),
+    returns call ``i``'s result with those ids put in place of its own, so
+    a run replays another's choices. Only ``render_adaptive`` may call
+    ``np.argpartition`` within the block."""
+    real = np.argpartition
+    own = []
+
+    def hooked(a, kth, *args, **kw):
+        res = real(a, kth, *args, **kw)
+        own.append(res[kth:].copy())
+        if replay is not None:
+            res = res.copy()
+            res[kth:] = replay[len(own) - 1]
+        return res
+
+    np.argpartition = hooked
+    try:
+        yield own
+    finally:
+        np.argpartition = real
+
+
 def lane_close(a, b, rtol=1e-3, atol=1e-3):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return np.abs(a - b) <= atol + rtol * np.abs(b)
@@ -670,3 +698,51 @@ MOTION_FIXTURE_GRAD_TOL = {
     "materials.ref_idx": 1e-3,
     "textures.color": 1e-4,
 }
+
+
+# ---------------------------------------------------------------------------
+# the -X trace's lines (tests/test_torch_drivers.py, chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+_NUM = re.compile(r"-?\d+\.\d*(?:e[-+]?\d+)?|-?\d+")
+
+
+def _split_line(line: str):
+    """(the line with every number replaced by '#', its floats after
+    ``t=``, its other floats, its integers)."""
+    ts, floats, ints = [], [], []
+
+    def sub(m):
+        tok = m.group(0)
+        if "." in tok or "e" in tok:
+            is_t = line[max(m.start() - 2, 0):m.start()] == "t="
+            (ts if is_t else floats).append(float(tok))
+        else:
+            ints.append(int(tok))
+        return "#"
+
+    shape = " ".join(_NUM.sub(sub, line).split())
+    # numpy pads an array's columns to a common width
+    shape = shape.replace("[ ", "[").replace(" ]", "]")
+    return shape, ts, floats, ints
+
+
+def assert_trace_lines_match(lines, ref_lines):
+    """The ``-X`` contract: the same line structure (words and brackets),
+    the same integers (indices, node ids, census counts, materials), every
+    hit distance ``t=`` within rel 1e-5, and the other floats (origins,
+    directions, points, normals) within 1e-4, relative and absolute: a
+    direction one ULP off (the card's camera normalizes in another order)
+    moves a grazing root's t by ~2e-6 relative through the expanded
+    quadratic, and a point near the origin ``ro + t rd`` keeps only the
+    digits that ``ro`` (~3 on ``small``) leaves it."""
+    assert len(lines) == len(ref_lines), (lines, ref_lines)
+    for a, b in zip(lines, ref_lines):
+        sa, ta, fa, ia = _split_line(a)
+        sb, tb, fb, ib = _split_line(b)
+        assert sa == sb, (a, b)
+        assert ia == ib, (a, b)
+        np.testing.assert_allclose(ta, tb, rtol=1e-5, atol=0.0,
+                                   err_msg=f"{a!r} vs {b!r}")
+        np.testing.assert_allclose(fa, fb, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{a!r} vs {b!r}")
