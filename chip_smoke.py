@@ -30,7 +30,8 @@ Phases (each prints a line before the next starts):
 7. K6 (the closest hit's backward) against its plain version on the
    winners of phase 3: per-ray g_ro and g_rd equal bit for bit (at most
    ``K6_MAX_ULP`` ULPs allowed), per-sphere sums within relative L2 1e-4
-   (warp trees and atomics sum in another order); K6's time, its share
+   (warp trees, the block's warps in turn, then the blocks' rows: another
+   order, a fixed one); K6's time, its share
    of the byte bound, its grid and instance (``bwd_launch``) and ptxas's
    registers for each instance;
 8. the port's CUDA ``trace_fast_diff`` (depth 4) of the gradient
@@ -238,8 +239,8 @@ Phases (each prints a line before the next starts):
     pixel budget: K1 (K3 in a moving scene) launched, no plain version,
     no K2 or K7;
 42. ``render_progressive`` renders ``random_spheres`` with ``mode=
-    "general"`` (3 frames) and ``final_full`` with ``mode="auto"`` (1
-    frame; routed to the general path), 1280x720, 4 spp, depth 10: frame
+    "general"`` (3 frames) and ``final_full`` with ``mode="general"`` (1
+    frame; ``auto`` takes the fast path, phase 65), 1280x720, 4 spp, depth 10: frame
     times (CUDA events), segments, Mrays/s, bounces, readbacks, the
     launches of K1, K3 and the Threefry draw; then one more frame of
     ``random_spheres`` under ``torch.profiler`` (device activity only):
@@ -274,8 +275,8 @@ Phases (each prints a line before the next starts):
     (the colours, under torch's deterministic algorithms, which the
     example turns on with ``--checkpoint``): images and checkpoint leaves
     equal bit for bit; two identical 3-step ``--geometry`` runs under the
-    same deterministic algorithms compared (K6 sums with atomics; printed,
-    not required).
+    same deterministic algorithms equal bit for bit (K6 sums in a fixed
+    order).
 
 48. the whole-scene BVH's native trees (``utils/native.py``, SAH) of
     ``random_spheres``, ``random_spheres_xl``, ``cornell_smoke`` and
@@ -304,10 +305,10 @@ Phases (each prints a line before the next starts):
 51. ``config4_1024spp_bvh``'s schedule (``random_spheres`` 200x100, 128
     spp a frame x 8 frames, depth 10) through ``cli.main`` with and without
     ``-B``: seconds to 1024 spp, Mrays/s;
-52. the general route: ``cli.main -P final_full -B`` at 1280x720x4, depth
-    10 (``auto`` -> compacted + BVH: the traversal kernel, no K2, no
-    plain version) and a profiled compacted frame (device busy, launches a
-    bounce); ``cornell_smoke -B --nee --rr 3`` (3 frames: the traversal
+52. the general route: ``cli.main -P final_full -B --mode compacted`` at
+    1280x720x4, depth 10 (compacted + BVH: the traversal kernel, no K2,
+    no plain version; ``auto`` takes the fast path, phase 67) and a
+    profiled compacted frame (device busy, launches a bounce); ``cornell_smoke -B --nee --rr 3`` (3 frames: the traversal
     kernel for the bounces and the shadow rays, and K2) and a profiled
     frame;
 53. the device-only fast trace (``fastpath.trace_fast_device``: every
@@ -327,7 +328,8 @@ Phases (each prints a line before the next starts):
     group of world size 1): its image must equal phase 54's bit for bit;
 56. one train step of ``random_spheres`` (every default leaf, depth 4,
     1280x720x4) on a one-shard and a 4-shard mesh of the card: loss and
-    gradients within ``GRAD_TOL`` of each other (K6 sums with atomics),
+    gradients within ``GRAD_TOL`` of each other (the shards sum in
+    another order),
     step time and peak memory; then ``parallel.dryrun.dryrun_multichip``
     on 4 virtual shards;
 57. ``cli.main --adaptive 16`` on ``random_spheres`` and ``cornell`` at
@@ -367,7 +369,43 @@ Phases (each prints a line before the next starts):
     port's picks: the card's own pick of each round holds >= 99% of the
     CPU's pixels, the spp maps agree on >= 99%, the images agree under
     the golden-pixel budget; the free run's spp agreement is printed
-    (the pick's order parts the runs where a metric's last bit does).
+    (the pick's order parts the runs where a metric's last bit does);
+65. ``final_full`` on ``auto`` -> fast (``route`` with and without
+    ``-B``; the non-fused bounce, ``fastpath.fast_bounce`` on [R, 3]
+    state): ``tools/profile_step.main --what frame --preset final_full``
+    at 1280x720x4, depth 10 (1 warm-up, 3 timed frames, 1 profiled: frame
+    median, readbacks, busy, idle, device launches a bounce, the top
+    kernels), K3's launches over those 5 frames (no K1, no K2, no plain
+    version); then its 64x48x8 depth-8 frame on the card against
+    ``tests/goldens/pixels_final_full_fast.npz`` and against the CPU
+    port's frame, each within the golden-pixel budget;
+66. ``final_full --nee --rr 3`` on the same route: the card's
+    ``trace_fast`` of ``tests/goldens/torch_port_nonfused.npz``'s 2048
+    rays against JAX's radiance (``DEPTH10_BUDGET``), then a full-width
+    frame after a warm-up (K3, no K2, no plain version);
+67. ``final_full -B``: ``render_frame_fast`` with the tree as the
+    non-fused bounce's provider (the traversal kernel, no K3, no K2) in
+    turns against ``render_frame_compacted`` with the tree (the route of
+    ``--mode compacted``), 5 rounds of compacted, fast, fast, compacted;
+68. the [R, N] box and media sweeps (``intersect_box.box_nearest_rn``,
+    ``media_nearest_rn``) against the plane loops for N = 2, 4, 8, 16,
+    32, 64 and 400 (``final_full``'s first N boxes; N of 400 random slab
+    and sphere media over its floor) on its 3,686,400 camera rays: equal
+    bit for bit, the medians of both forms at full width and at 131,072
+    rays, and the crossover (every sweep of the port takes the [R, N]
+    form; the loop is its reference);
+69. NEE for textured lights: ``presets.image_light_scene(
+    textured_light=True)`` (fused: K1 and K2) and with ``box=True``
+    (non-fused: K1, no K2) against the fixture's JAX radiance, then a
+    median full-width frame of each;
+70. K6's fixed-order sums: on ``random_spheres``' and ``random``'s camera
+    and scattered winners at full width, three runs equal bit for bit,
+    per-ray gradients == plain, per-sphere sums within
+    ``K6_SPHERE_RTOL``, the kernel's time in turns against the parent
+    tree's K6 (``build/parent``, built alone; when present); two
+    ``--geometry`` train steps (1280x720x4, depth 4, the silhouette term,
+    deterministic algorithms) from one state bit for bit; the example's
+    ``--geometry`` 4 steps == 2 + checkpoint + 2 bit for bit.
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -448,7 +486,11 @@ and the ``torchrun`` run. K1 carries ``adaptive_launches`` (phase 57's
 (phase 60's ``small``) and ``drivers`` (every run's launches of phases
 57, 58 and 60), K3 ``aov_launches`` (phase 58's ``random``), and K2
 ``adaptive_launches`` (both scenes) and ``drivers``, phases 57-64's
-numbers. Then
+numbers. K3 carries ``final_full_fast_launches`` (phase 65's 5 frames),
+``final_full_fast`` and ``final_full_nee`` (phases 65-66), K6
+``fixed_order`` (phase 70), and ``bvh_traverse`` phase 67's launches and
+times, phase 68's sweeps and crossover and phase 69's textured-light
+runs. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -493,7 +535,7 @@ RTOL = ATOL = 1e-3
 # thread (202,752 rays on 132 SMs)
 CULL_NARROW = 131_072
 # K6 per-ray gradients repeat autograd's operations one for one (bitwise
-# expected); per-sphere sums are atomics in another order
+# expected); per-sphere sums are taken in another (fixed) order
 K6_MAX_ULP = 4
 K6_SPHERE_RTOL = 1e-4
 LIGHT_FIXTURE = os.path.join(ROOT, "tests", "goldens",
@@ -917,8 +959,8 @@ def inverse_phases(dev, smi: str) -> dict:
                 np.array_equal(za[k], zb[k]) for k in za.files))
         img_equal = bool(np.array_equal(np.load(os.path.join(tmp, "a.npy")),
                                         np.load(os.path.join(tmp, "b.npy"))))
-        # K6's per-sphere atomics: two identical --geometry runs under
-        # the deterministic algorithms (a new checkpoint each), compared
+        # two identical --geometry runs under the deterministic algorithms
+        # (a new checkpoint each) give equal bits: K6 sums in a fixed order
         with contextlib.redirect_stdout(io.StringIO()):
             for tag_ in ("g1", "g2"):
                 rcs.append(inverse_render.main(
@@ -932,10 +974,10 @@ def inverse_phases(dev, smi: str) -> dict:
           f"{resumed}); example 5 steps == 2 + checkpoint + 3: checkpoint "
           f"leaves {ck_equal}, images {img_equal} (resumed {train_resumed}); "
           f"launches {c47}; two --geometry runs of 3 steps bit-equal: "
-          f"{geo_repeat} (K6 sums per sphere with atomics; not required); "
+          f"{geo_repeat}; "
           f"return codes {rcs}")
     if (any(rcs) or not (cli_equal and resumed and ck_equal and img_equal
-                         and train_resumed) or c47["plain"]):
+                         and train_resumed and geo_repeat) or c47["plain"]):
         raise AssertionError("resume on the card is not bit-exact")
 
     return {"sil_k1": sil_k1, "sil_k3": sil_k3, "c45": c45, "c45s": c45s,
@@ -1218,10 +1260,12 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
                 raise AssertionError("config4 -B did not run the kernel")
     out["config4"] = c4
 
-    # ---- 52: the general route: final_full -B (compacted) and NEE ----
+    # ---- 52: the general route: final_full -B --mode compacted (auto
+    # takes the fast path with the tree: phase 67) and NEE ----
     gen = {}
     with tempfile.TemporaryDirectory() as tmp:
-        argv = ["-P", "final_full", "-B", "-W", str(WIDTH), "-H", str(HEIGHT),
+        argv = ["-P", "final_full", "-B", "--mode", "compacted",
+                "-W", str(WIDTH), "-H", str(HEIGHT),
                 "-S", str(SAMPLES), "-D", str(DEPTH), "-O", "-F", "1",
                 "--out", os.path.join(tmp, "ff.npy")]
         r0 = compaction.READBACKS
@@ -1250,7 +1294,7 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
             profiled_wall_ms=wall_ms, busy_ms=busy_ms, device_launches=n_launch,
             bounces_profiled=nb_, launches_per_bounce=n_launch / max(nb_, 1),
             top_kernels=top)
-        phase(f"[52] final_full -B (auto -> compacted, bvh): frame "
+        phase(f"[52] final_full -B --mode compacted (bvh): frame "
               f"{frames[0][0]:.2f} ms (CUDA events), {frames[0][1]} segments, "
               f"{bounces} bounces; profiled frame: wall {wall_ms:.2f} ms, busy "
               f"{busy_ms:.2f} ms (idle {1.0 - busy_ms / wall_ms:.1%}), "
@@ -1932,6 +1976,548 @@ def driver_phases(dev, k1, k2, k7) -> dict:
     return out
 
 
+# the parent tree whose K6 phase 70 times in turns against this one's:
+# ``build/parent`` (unpack the parent commit there with ``git archive``);
+# without it the phase times this K6 alone
+PARENT_TREE = os.path.join(ROOT, "build", "parent")
+NONFUSED_FIXTURE = os.path.join(ROOT, "tests", "goldens",
+                                "torch_port_nonfused.npz")
+
+
+def parent_k6(tree: str):
+    """The parent tree's K6 (its ``csrc/sphere_nearest_bwd.cu``, the
+    per-sphere sums by atomics), built alone with this package's flags
+    into ``build/k6_parent``, as a function of K6's wrapper arguments; or
+    None when ``tree`` has no such source."""
+    import ctypes
+
+    import torch
+
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    src = os.path.join(tree, "pathtrace_tpu_torch", "csrc",
+                       "sphere_nearest_bwd.cu")
+    if not os.path.isfile(src):
+        return None
+    out_dir = os.path.join(ROOT, "build", "k6_parent")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, "libk6_parent.so")
+    subprocess.run([_cuda_build.find_nvcc(), *_cuda_build.NVCC_FLAGS,
+                    "-shared", "-o", lib_path, src], check=True,
+                   capture_output=True, text=True)
+    fn = ctypes.CDLL(lib_path).pt_sphere_nearest_bwd
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [vp] * 6 + [ci] + [vp] * 5 + [ci, cf, cf] + [vp] * 8 + [
+        ci, ci, vp]
+    fn.restype = ci
+
+    def run(center, radius, ro, rd, t, idx, g_t, motion=None):
+        R, N = t.shape[0], radius.shape[0]
+        moving = motion is not None
+        g = [torch.zeros_like(center), torch.zeros_like(radius),
+             torch.empty_like(ro), torch.empty_like(rd)]
+        delta = time0 = inv_dt = time_ = None
+        if moving:
+            delta, time0, inv_dt, time_ = motion
+            g += [torch.zeros_like(delta), torch.zeros_like(time0),
+                  torch.zeros_like(inv_dt), torch.empty_like(time_)]
+        g_c, g_r, g_ro, g_rd, g_d, g_t0, g_i, g_tm = (g + [None] * 4)[:8]
+
+        def p(x):
+            return None if x is None else x.data_ptr()
+
+        # the parent's rule: a block per 1024 rays, its sums in shared
+        # memory while they fit in 227 KB
+        quads = -(-R // 4)
+        blocks = max(1, -(-quads // 256))
+        shared = (9 if moving else 4) * 4 * N <= 232_448
+        code = fn(p(ro), p(rd), p(time_), p(t), p(idx), p(g_t), R, p(center),
+                  p(delta), p(time0), p(inv_dt), p(radius), N, 1e-3, 1e30,
+                  p(g_ro), p(g_rd), p(g_tm), p(g_c), p(g_d), p(g_t0), p(g_i),
+                  p(g_r), blocks, int(shared),
+                  torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise RuntimeError(f"the parent's K6 failed to launch ({code})")
+        return tuple(g)
+
+    return run
+
+
+def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
+    """Phases 65-70, the last render slice: ``final_full`` on the fast
+    path (plain, NEE and roulette, ``-B``), the [R, N] sweeps' crossover,
+    NEE for textured lights on both routes, and K6's fixed-order sums.
+    Returns the numbers the kernels line carries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.examples import inverse_render
+    from pathtrace_tpu_torch.models import build
+    from pathtrace_tpu_torch.models import bvh as pbvh
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import intersect_box as ib
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
+    from pathtrace_tpu_torch.render import compaction, progressive
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools import profile_step
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
+    from torch_port_util import DEPTH10_BUDGET, check_slice_contract
+
+    out = {}
+    fixture = np.load(NONFUSED_FIXTURE)
+
+    def pixels_outside(img, ref):
+        img, ref = img.double(), ref.double()
+        bad = ~((img - ref).abs() <= ATOL + RTOL * ref.abs()).all(dim=-1)
+        return int(bad.sum()), float(bad.double().mean())
+
+    def fixture_case(tag, case, scene_):
+        """``trace_fast`` on the card of a case of the non-fused fixture
+        (NEE and roulette): (share outside, launches)."""
+        sdev = scene_.to(dev)
+        rays = [torch.from_numpy(fixture[f"{case}.{k}"]).to(dev)
+                for k in ("ro", "rd", "time")]
+        reset_counts(k1, k2, k7)
+        res = fp.trace_fast(sdev, *rays, int(fixture["seed"]),
+                            int(fixture["max_depth"]),
+                            SceneFeatures.from_scene(sdev), min_size=128,
+                            nee_lights=build_light_table(sdev),
+                            rr_start=int(fixture["rr_start"]))
+        rad = res.radiance.cpu().numpy()
+        counts = read_counts(k1, k2, k7)
+        share = check_slice_contract(
+            rad, int(res.ray_count), fixture[f"{case}.radiance"],
+            fixture[f"{case}.ray_count"], int(fixture["max_depth"]),
+            budget=DEPTH10_BUDGET)
+        phase(f"[{tag}] {case}: {share:.4%} of {rad.shape[0]} rays outside "
+              f"1e-3 of the JAX fixture (budget {DEPTH10_BUDGET:.0%}), "
+              f"segments {int(res.ray_count)} vs "
+              f"{int(fixture[f'{case}.ray_count'])}; launches {counts}")
+        if counts["plain"] or not np.isfinite(rad).all():
+            raise AssertionError(f"[{tag}] {case}: failed its checks")
+        return share, counts
+
+    # ---- 65: final_full on auto -> fast (the non-fused bounce) ----
+    scene, cam = presets.from_name("final_full", WIDTH / HEIGHT)
+    feats = SceneFeatures.from_scene(scene)
+    routes = {"auto": progressive.route(scene, feats, "auto"),
+              "auto -B": progressive.route(scene, feats, "auto",
+                                           use_bvh=True)}
+    if (set(routes.values()) != {"fast"}
+            or fp.fused_shade_supported(feats)):
+        raise AssertionError(f"[65] final_full routes {routes}")
+    reset_counts(k1, k2, k7)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = profile_step.main(["--what", "frame", "--preset", "final_full",
+                                "--warmup", "1", "--reps", "3"])
+    c65 = read_counts(k1, k2, k7)
+    prof = json.loads(buf.getvalue().strip().splitlines()[-1])
+    frames65 = 5  # profile_step: warm-up 1, timed 3, profiled 1
+    per_bounce = prof["device_launches"] / (DEPTH + 1)
+    top = [(k_["name"][:60], k_["launches"], round(k_["ms"], 3))
+           for k_ in prof["top_kernels"][:6]]
+    phase(f"[65] final_full {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH} "
+          f"(auto -> fast, non-fused bounce; routes {routes}): frame median "
+          f"{prof['step_ms_median']:.2f} ms of {[round(x, 2) for x in prof['step_ms']]} "
+          f"(CUDA events, after 1 warm-up), {prof['segments']} segments, "
+          f"{prof['readbacks']} readbacks; profiled frame: wall "
+          f"{prof['profiled_wall_ms']:.2f} ms, busy {prof['device_busy_ms']:.2f} "
+          f"ms (idle {prof['idle_share']:.1%}), {prof['device_launches']} "
+          f"device launches (~{per_bounce:.0f} a bounce), peak "
+          f"{prof['peak_gib']:.3f} GiB; K3 {c65['K3']} launches over "
+          f"{frames65} frames; launches {c65}; top {top} ({smi})")
+    if (rc != 0 or c65["K3"] <= 0 or c65["K1"] or c65["K2"] or c65["plain"]
+            or c65["threefry"] <= 0):
+        raise AssertionError("[65] final_full's fast frame failed its checks")
+    gw, gh, gs, gd = 64, 48, 8, 8
+    golden = torch.from_numpy(np.load(os.path.join(
+        ROOT, "tests", "goldens", "pixels_final_full_fast.npz"))["img"])
+    sc_, cm_ = presets.from_name("final_full", gw / gh, seed=0)
+    f_ = SceneFeatures.from_scene(sc_)
+    reset_counts(k1, k2, k7)
+    img_card = fp.render_frame_fast(sc_.to(dev), cm_, gw, gh, gs, gd,
+                                    PRNGKey(0), 0, f_).image.cpu()
+    c65g = read_counts(k1, k2, k7)
+    t_cpu = time.monotonic()
+    img_cpu = fp.render_frame_fast(sc_, cm_, gw, gh, gs, gd, PRNGKey(0), 0,
+                                   f_).image
+    t_cpu = time.monotonic() - t_cpu
+    budget = 1.0 - (1.0 - DEPTH10_BUDGET) ** gs
+    n_g, share_g = pixels_outside(img_card, golden)
+    n_c, share_c = pixels_outside(img_card, img_cpu)
+    phase(f"[65] final_full {gw}x{gh}x{gs} depth {gd}: {n_g} pixels "
+          f"({share_g:.4%}) outside 1e-3 of the JAX golden, {n_c} "
+          f"({share_c:.4%}) of the CPU port's frame ({t_cpu:.1f} s on the "
+          f"host); budget {budget:.2%}; launches {c65g}")
+    if (share_g > budget or share_c > budget or c65g["plain"]
+            or not bool(torch.isfinite(img_card).all())):
+        raise AssertionError("[65] final_full's card frame leaves its golden")
+    out["final_full"] = {
+        "frame_ms": prof["step_ms"], "median_ms": prof["step_ms_median"],
+        "segments": prof["segments"], "readbacks": prof["readbacks"],
+        "profiled_wall_ms": prof["profiled_wall_ms"],
+        "busy_ms": prof["device_busy_ms"], "idle_share": prof["idle_share"],
+        "device_launches": prof["device_launches"],
+        "launches_per_bounce": per_bounce, "peak_gib": prof["peak_gib"],
+        "launches": c65, "k3_launches_per_frame": c65["K3"] / frames65,
+        "top_kernels": prof["top_kernels"][:6],
+        "golden_share_outside": share_g, "cpu_share_outside": share_c}
+
+    # ---- 66: final_full --nee --rr 3 on the same route ----
+    share66, c66 = fixture_case("66", "final_full_nee",
+                                presets.final_full(16 / 9, seed=0)[0])
+    sdev = scene.to(dev)
+    lights = build_light_table(sdev)
+    reset_counts(k1, k2, k7)
+    nee_ms = []
+    for k_ in range(2):  # a warm-up frame, then 1 timed
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        res = fp.render_frame_fast(sdev, cam, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                                   fold_in(PRNGKey(0), k_), k_, feats,
+                                   nee_lights=lights, rr_start=RR_START)
+        end.record()
+        end.synchronize()
+        nee_ms.append(start.elapsed_time(end))
+    c66f = read_counts(k1, k2, k7)
+    phase(f"[66] final_full --nee --rr {RR_START} {WIDTH}x{HEIGHT}x{SAMPLES} "
+          f"depth {DEPTH}: frame {nee_ms[1]:.2f} ms (warm-up "
+          f"{nee_ms[0]:.2f}), {int(res.ray_count)} segments, "
+          f"{res.readbacks} readbacks; launches {c66f} ({smi})")
+    if (c66f["K3"] <= 0 or c66f["K2"] or c66f["plain"]
+            or not bool(torch.isfinite(res.image).all())):
+        raise AssertionError("[66] final_full --nee failed its checks")
+    out["final_full_nee"] = {"fixture_share_outside": share66,
+                             "fixture_launches": c66, "frame_ms": nee_ms[1:],
+                             "median_ms": float(np.median(nee_ms[1:])),
+                             "segments": int(res.ray_count),
+                             "launches": c66f}
+    del res
+
+    # ---- 67: final_full -B: auto -> fast with the tree, in turns against
+    # the compacted general frame (--mode compacted) ----
+    flat, _, offsets = pbvh.build_scene_bvh(scene)
+    isect_fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats)
+    key67 = fold_in(PRNGKey(0), 3)
+
+    def old():
+        return compaction.render_frame_compacted(
+            sdev, cam, WIDTH, HEIGHT, SAMPLES, DEPTH, key67, features=feats,
+            intersect_fn=isect_fn)[0]
+
+    def new():
+        return fp.render_frame_fast(sdev, cam, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                                    key67, 3, feats, bvh=flat,
+                                    bvh_offsets=offsets).image
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        img_ = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), img_
+
+    old()
+    reset_counts(k1, k2, k7)
+    _, img_new = timed(new)
+    c67 = read_counts(k1, k2, k7)
+    t_old, t_new = [], []
+    for _ in range(5):
+        for which in ("old", "new", "new", "old"):
+            ms_, img_ = timed(old if which == "old" else new)
+            (t_old if which == "old" else t_new).append(ms_)
+    img_old = img_
+    phase(f"[67] final_full -B {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH} in "
+          f"turns (5 rounds of compacted, fast, fast, compacted): fast with "
+          f"the tree median {float(np.median(t_new)):.2f} ms "
+          f"{[round(x, 1) for x in t_new]}, compacted median "
+          f"{float(np.median(t_old)):.2f} ms {[round(x, 1) for x in t_old]}; "
+          f"image means {float(img_new.mean()):.6f} / "
+          f"{float(img_old.mean()):.6f}; launches of a fast frame {c67} "
+          f"({smi})")
+    if (c67["bvh"] <= 0 or c67["K3"] or c67["K2"] or c67["plain"]
+            or not bool(torch.isfinite(img_new).all())):
+        raise AssertionError("[67] final_full -B failed its checks")
+    # the tree's frame against the frame without it at phase 65's key and
+    # size (the card's, and JAX's golden), within the golden pixel budget
+    sc_dev = sc_.to(dev)
+    flat_, _, offsets_ = pbvh.build_scene_bvh(sc_dev)
+    reset_counts(k1, k2, k7)
+    img_tree = fp.render_frame_fast(sc_dev, cm_, gw, gh, gs, gd, PRNGKey(0),
+                                    0, f_, bvh=flat_,
+                                    bvh_offsets=offsets_).image.cpu()
+    c67g = read_counts(k1, k2, k7)
+    n_b, share_b = pixels_outside(img_tree, img_card)
+    n_bg, share_bg = pixels_outside(img_tree, golden)
+    phase(f"[67] final_full -B {gw}x{gh}x{gs} depth {gd}: {n_b} pixels "
+          f"({share_b:.4%}) outside 1e-3 of the card's frame without the "
+          f"tree (phase 65), {n_bg} ({share_bg:.4%}) of the JAX golden; "
+          f"budget {budget:.2%}; launches {c67g}")
+    if (share_b > budget or share_bg > budget or c67g["bvh"] <= 0
+            or c67g["K3"] or c67g["plain"]
+            or not bool(torch.isfinite(img_tree).all())):
+        raise AssertionError("[67] final_full -B leaves the frame without "
+                             "the tree")
+    out["final_full_bvh"] = {
+        "fast_ms": t_new, "fast_median_ms": float(np.median(t_new)),
+        "compacted_ms": t_old, "compacted_median_ms": float(np.median(t_old)),
+        "launches": c67, "share_outside_no_tree": share_b,
+        "share_outside_golden": share_bg}
+    del sdev, img_new, img_old, sc_dev, img_tree
+
+    # ---- 68: the [R, N] sweeps against the plane loops: the crossover ----
+    ro, rd, _ = generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES,
+                                      PRNGKey(0), device=dev)
+    planes = (*ro.reshape(-1, 3).T.contiguous(),
+              *rd.reshape(-1, 3).T.contiguous())
+    del ro, rd
+    R = planes[0].shape[0]
+    R_late = 131_072  # a late rung of the ladder
+
+    def first(prims, n):
+        return dataclasses.replace(prims, **{
+            f.name: getattr(prims, f.name)[:n]
+            for f in dataclasses.fields(prims)})
+
+    bld = build.SceneBuilder()
+    iso = bld.constant_texture((0.7, 0.7, 0.7))
+    g68 = np.random.default_rng(0)
+    for i in range(400):
+        c = g68.uniform((-1000.0, 0.0, -1000.0), (1000.0, 300.0, 1000.0))
+        if i % 3 == 0:
+            bld.medium_sphere(tuple(c), float(g68.uniform(30.0, 100.0)),
+                              float(g68.uniform(1e-3, 1e-2)), iso)
+        else:
+            bld.medium_box(tuple(c - 50.0), tuple(c + 50.0),
+                           float(g68.uniform(1e-3, 1e-2)), iso)
+    media_all = bld.finish().media.to(dev)
+    boxes_all = scene.boxes.to(dev)
+    u_all = torch.rand((400, R), generator=torch.Generator(
+        device=dev).manual_seed(68), device=dev)
+    sweep = {"boxes": {}, "media": {}}
+    for kind_ in ("boxes", "media"):
+        for n in (2, 4, 8, 16, 32, 64, 400):
+            if kind_ == "boxes":
+                prims = first(boxes_all, n)
+                loop_fn, rn_fn, extra = ib.box_nearest, ib.box_nearest_rn, ()
+            else:
+                prims = first(media_all, n)
+                loop_fn, rn_fn = ib.media_nearest, ib.media_nearest_rn
+                extra = (u_all[:n],)
+            a = loop_fn(prims, *planes, *extra)
+            b = rn_fn(prims, *planes, *extra)
+            same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            hits = float((a[0] < 1e30).float().mean())
+            del a, b
+            late = [p_[:R_late] for p_ in planes]
+            late_x = tuple(x[:, :R_late] for x in extra)
+            row = {"equal": same, "hits": hits,
+                   "loop_ms": median_ms(lambda: loop_fn(prims, *planes,
+                                                        *extra), 2),
+                   "rn_ms": median_ms(lambda: rn_fn(prims, *planes, *extra),
+                                      2),
+                   "loop_late_ms": median_ms(lambda: loop_fn(prims, *late,
+                                                             *late_x), 2),
+                   "rn_late_ms": median_ms(lambda: rn_fn(prims, *late,
+                                                         *late_x), 2)}
+            sweep[kind_][n] = row
+            phase(f"[68] {kind_} N={n}: [R, N] == loop bit for bit: {same} "
+                  f"(hit share {hits:.3f}); {R} rays: loop "
+                  f"{row['loop_ms']:.3f} ms, [R, N] {row['rn_ms']:.3f} ms; "
+                  f"{R_late} rays: loop {row['loop_late_ms']:.3f} ms, [R, N] "
+                  f"{row['rn_late_ms']:.3f} ms")
+            if not same:
+                raise AssertionError(f"[68] {kind_} N={n}: the [R, N] form "
+                                     "differs from the loop")
+    del u_all
+    cross = {}
+    for kind_, rows in sweep.items():
+        for width, lk, rk in (("full", "loop_ms", "rn_ms"),
+                              ("late", "loop_late_ms", "rn_late_ms")):
+            loop_wins = [n for n, r_ in rows.items() if r_[lk] < r_[rk]]
+            rn_wins = [n for n, r_ in rows.items() if r_[rk] <= r_[lk]]
+            cross[f"{kind_} {width}"] = {
+                "loop_faster_at": loop_wins, "rn_faster_at": rn_wins,
+                "crossover": min(rn_wins) if rn_wins else None}
+    phase(f"[68] crossover (the smallest N where the [R, N] form is at least "
+          f"as fast): {json.dumps(cross)}; the port sweeps in the [R, N] "
+          f"form at every N ({smi})")
+    out["sweeps"] = {"rows": sweep, "crossover": cross}
+
+    # ---- 69: NEE for textured lights, on the fused and non-fused routes ----
+    tl = {}
+    for case, box in (("textured_light", False), ("textured_light_box", True)):
+        sc69 = presets.image_light_scene(build,
+                                         presets._procedural_earth_image(),
+                                         textured_light=True, box=box)
+        share69, c69 = fixture_case("69", case, sc69)
+        fused = case == "textured_light"
+        if (c69["K1"] <= 0 or (c69["K2"] > 0) != fused
+                or build_light_table(sc69).color is not None):
+            raise AssertionError(f"[69] {case}: the wrong route {c69}")
+        sdev = sc69.to(dev)
+        f69 = SceneFeatures.from_scene(sdev)
+        cam69 = presets.simple_light(WIDTH / HEIGHT)[1]
+        lt = build_light_table(sdev)
+        ms69 = median_ms(lambda: fp.render_frame_fast(
+            sdev, cam69, WIDTH, HEIGHT, SAMPLES, DEPTH, PRNGKey(5), 5, f69,
+            nee_lights=lt, rr_start=RR_START), 2)
+        phase(f"[69] {case} ({'fused' if fused else 'non-fused'} route) "
+              f"--nee --rr {RR_START} at {WIDTH}x{HEIGHT}x{SAMPLES} depth "
+              f"{DEPTH}: median frame {ms69:.2f} ms ({smi})")
+        tl[case] = {"fixture_share_outside": share69, "launches": c69,
+                    "frame_median_ms": ms69}
+        del sdev
+    out["textured_light"] = tl
+
+    # ---- 70: K6's fixed-order sums ----
+    k6 = {}
+    parent = parent_k6(PARENT_TREE)
+    for pname in ("random_spheres", "random"):
+        moving = pname == "random"
+        sc70, cam70 = presets.from_name(pname, WIDTH / HEIGHT)
+        sc70 = sc70.to(dev)
+        f70 = SceneFeatures.from_scene(sc70)
+        tb = fp.prep_tables(sc70, f70)
+        ro_, rd_, tm_ = generate_primary_rays(cam70, WIDTH, HEIGHT, SAMPLES,
+                                              PRNGKey(0), device=dev)
+        st = fp.make_state(ro_.reshape(-1, 3), rd_.reshape(-1, 3),
+                           tm_.reshape(-1))
+        del ro_, rd_, tm_
+        sp = sc70.spheres
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(70)
+        for label in ("camera", "scattered"):
+            rays = st.planes[:6]
+            if moving:
+                t_, idx_ = k1.sphere_nearest_moving(tb.soa, rays, st.time)
+            else:
+                t_, idx_ = k1.sphere_nearest(tb.soa, rays)
+            ro_ = rays[:3].T.contiguous()
+            rd_ = rays[3:6].T.contiguous()
+            g_t = torch.rand(t_.shape[0], generator=gen, device=dev) + 0.5
+            args = (sp.center, sp.radius, ro_, rd_, t_, idx_, g_t)
+            motion = ((sp.center_delta, sp.time0, sp.inv_time_delta,
+                       st.time.contiguous()) if moving else None)
+            runs = [k1.sphere_nearest_bwd(*args, motion=motion)
+                    for _ in range(3)]
+            repeat = all(torch.equal(a, b) for r_ in runs[1:]
+                         for a, b in zip(runs[0], r_))
+            ref = k1.sphere_nearest_bwd_plain(*args, motion=motion)
+            sph = max(rel_l2(runs[0][k_], ref[k_])
+                      for k_ in ((0, 1, 4, 5, 6) if moving else (0, 1)))
+            per_ray = all(torch.equal(runs[0][k_], ref[k_])
+                          for k_ in ((2, 3, 7) if moving else (2, 3)))
+            del runs, ref
+            new_ms, old_ms = [], []
+            for _ in range(3 if parent is not None else 1):
+                order = (("old", "new", "new", "old") if parent is not None
+                         else ("new",))
+                for which in order:
+                    if which == "new":
+                        new_ms.append(time_ms(lambda: k1.sphere_nearest_bwd(
+                            *args, motion=motion), 20))
+                    else:
+                        old_ms.append(time_ms(lambda: parent(
+                            *args, motion=motion), 20))
+            row = {"repeat_bitwise": repeat, "per_ray_equal_plain": per_ray,
+                   "sphere_rel_l2": sph, "ms": new_ms,
+                   "ms_median": float(np.median(new_ms)),
+                   "parent_ms": old_ms or None,
+                   "parent_median_ms": (float(np.median(old_ms)) if old_ms
+                                        else None),
+                   "launch": list(k1.bwd_launch(t_.shape[0],
+                                                sp.radius.shape[0], moving))}
+            k6[f"{pname} {label}"] = row
+            phase(f"[70] K6 {pname} {label} winners ({t_.shape[0]} rays, "
+                  f"{'moving' if moving else 'static'}): 3 runs bit for bit "
+                  f"{repeat}, per-ray == plain {per_ray}, per-sphere rel L2 "
+                  f"{sph:.3e}; {row['launch'][0]} blocks, sums in "
+                  f"{'shared' if row['launch'][1] else 'device'} memory; "
+                  f"kernel {[round(x, 4) for x in new_ms]} ms, parent "
+                  + (f"{[round(x, 4) for x in old_ms]} ms (in turns)"
+                     if old_ms else f"not timed (no tree at {PARENT_TREE})")
+                  + f" ({smi})")
+            if not (repeat and per_ray) or sph > K6_SPHERE_RTOL:
+                raise AssertionError(f"[70] K6 {pname} {label} failed")
+            if label == "camera":
+                planes_, alive_ = k2.shade_from_winners(
+                    tb.table, idx_, t_, st.planes, st.time, st.alive,
+                    st.lane, 7, 0, DEPTH, tb.sky4, fp.feature_flags(f70))
+                st = fp.FastStateP(planes_[:12].contiguous(), st.time,
+                                   alive_, st.lane)
+        del sc70, tb, st
+    # two --geometry steps from one state, full width, as --checkpoint runs
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        steps = []
+        for _ in range(2):
+            sc70, cam70 = presets.random_spheres(WIDTH / HEIGHT)
+            r_, s_, names_ = make_inverse_renderer(
+                sc70, cam70, WIDTH, HEIGHT, samples=SAMPLES, max_depth=4,
+                device=dev, silhouette=True,
+                trainable=lambda p: ("textures.color" in p
+                                     or p == "spheres.center"))
+            with torch.no_grad():  # the example's start: centres moved
+                target = r_.render(s_.params, PRNGKey(0))
+                for name_, p_ in zip(names_, s_.params):
+                    if name_ == "spheres.center":
+                        p_[:, 0] += 0.05
+            reset_counts(k1, k2, k7)
+            s_, loss = r_.train_step(s_, target, PRNGKey(0))
+            c70 = read_counts(k1, k2, k7)
+            steps.append([float(loss)] + [p_.grad.clone() for p_ in s_.params]
+                         + [p_.detach().clone() for p_ in s_.params])
+            del r_, s_, target
+        step_equal = steps[0][0] == steps[1][0] and all(
+            torch.equal(a, b) for a, b in zip(steps[0][1:], steps[1][1:]))
+    finally:
+        torch.use_deterministic_algorithms(before)
+    del steps
+    # the example's --geometry run: 4 steps against 2, a checkpoint, then 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = ["--geometry", "--preset", "random_spheres", "--size", "96",
+              "--device", "cuda"]
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rcs = [inverse_render.main(ex + [
+                "--steps", "4", "--checkpoint", os.path.join(tmp, "a.npz"),
+                "--out", os.path.join(tmp, "a.npy")])]
+            for n in ("2", "4"):
+                rcs.append(inverse_render.main(ex + [
+                    "--steps", n, "--checkpoint", os.path.join(tmp, "b.npz"),
+                    "--out", os.path.join(tmp, "b.npy")]))
+        resumed = "resumed from" in buf.getvalue()
+        with np.load(os.path.join(tmp, "a.npz")) as za, \
+                np.load(os.path.join(tmp, "b.npz")) as zb:
+            ck_equal = (za.files == zb.files and all(
+                np.array_equal(za[k], zb[k]) for k in za.files))
+        img_equal = bool(np.array_equal(np.load(os.path.join(tmp, "a.npy")),
+                                        np.load(os.path.join(tmp, "b.npy"))))
+    phase(f"[70] two --geometry steps (random_spheres {WIDTH}x{HEIGHT}x"
+          f"{SAMPLES} depth 4, silhouette term, deterministic algorithms) "
+          f"from one state: loss, gradients and parameters bit for bit "
+          f"{step_equal}; launches {c70}; the example's --geometry 4 steps "
+          f"== 2 + checkpoint + 2: checkpoint leaves {ck_equal}, images "
+          f"{img_equal} (resumed {resumed}); return codes {rcs}")
+    if (not (step_equal and ck_equal and img_equal and resumed) or any(rcs)
+            or c70["K6"] <= 0 or c70["plain"]):
+        raise AssertionError("[70] the geometry runs are not bit-exact")
+    out["k6"] = {"runs": k6, "geometry_steps_equal": step_equal,
+                 "geometry_resume_equal": ck_equal and img_equal,
+                 "geometry_step_launches": c70}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1950,7 +2536,9 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.ops import shade_kernel as k2
-    from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
+    from pathtrace_tpu_torch.ops.intersect_box import (
+        box_nearest_rn, media_nearest_rn,
+    )
     from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.tools import _probe
@@ -3052,11 +3640,12 @@ def main() -> int:
               f"of {R} lanes ({int(ealive.sum())} alive after K2)")
         pieces = {"rect sweep": lambda: rect_nearest(ctables.rects, *rays)}
         if ctables.boxes is not None:
-            pieces["box sweep"] = lambda: box_nearest(ctables.boxes, *rays)
+            pieces["box sweep"] = lambda: box_nearest_rn(ctables.boxes,
+                                                         *rays)
         if ctables.media is not None:
-            pieces["media sweep (with its draws)"] = lambda: media_nearest(
-                ctables.media, *rays, fp.media_uniforms(
-                    cst0.lane, 7, 0, ctables.media.count, 8))
+            pieces["media sweep (with its draws)"] = lambda: (
+                media_nearest_rn(ctables.media, *rays, fp.media_uniforms(
+                    cst0.lane, 7, 0, ctables.media.count, 8)))
         pieces["NEE tail"] = lambda: fp.nee_tail(
             ctables, ct0, cidx0, est0, eout, ealive, 7, 0, cfeats)
         pieces["bounce"] = lambda: fp.fast_bounce_fused(
@@ -3529,8 +4118,8 @@ def main() -> int:
     # ---- 38: the port's frames on the card against the pixel goldens ----
     gw, gh, gs, gd = 64, 48, 8, 8
     golden_share = {}
-    # final_full: the fast path refuses it (an image texture in a scene
-    # with boxes and media); phase 41 holds its general golden
+    # final_full: phase 65 holds its fast frame (the non-fused bounce) to
+    # its golden and to the CPU port's frame; phase 41 its general golden
     for preset in [n for n in presets.names() if n != "final_full"]:
         golden = np.load(os.path.join(ROOT, "tests", "goldens",
                                       f"pixels_{preset}_fast.npz"))["img"]
@@ -3773,7 +4362,7 @@ def main() -> int:
 
     general_runs = {}
     for gname, gmode, gframes in (("random_spheres", "general", FRAMES),
-                                  ("final_full", "auto", 1)):
+                                  ("final_full", "general", 1)):
         scene_, cam_ = presets.from_name(gname, WIDTH / HEIGHT)
         params_ = Params(width=WIDTH, height=HEIGHT, samples=SAMPLES,
                          max_depth=DEPTH)
@@ -3871,6 +4460,7 @@ def main() -> int:
     mtrace = mesh["trace"]
     mesh_cli = mesh["cli"]
     drv = driver_phases(dev, k1, k2, k7)
+    nf = nonfused_phases(dev, smi, k1, k2, k7)
     drv_launches = {
         "adaptive_launches": {n_: r_["launches"] for n_, r_ in
                               drv["adaptive"].items()},
@@ -3928,6 +4518,9 @@ def main() -> int:
          "device_trace_launches": mtrace["random"]["launches"]["K3"],
          "sharded_general_launches": mesh_cli["final_full"]["launches"]["K3"],
          "aov_launches": drv["aov"]["random"]["launches"]["K3"],
+         "final_full_fast_launches": nf["final_full"]["launches"]["K3"],
+         "final_full_fast": nf["final_full"],
+         "final_full_nee": nf["final_full_nee"],
          "library_ms": None},
         {"name": "shade_from_winners", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/shade.cu",
@@ -3983,6 +4576,7 @@ def main() -> int:
          "diff_scene_launches": {n_: r_["launches"]["K6"]
                                  for n_, r_ in diff_runs.items()},
          "diff_scenes": diff_runs, "silhouette": sil_runs,
+         "fixed_order": nf["k6"],
          "library_ms": None},
         {"name": "sphere_nearest_culled (K4, flat)", "route": "cuda",
          "source": "pathtrace_tpu_torch/csrc/sphere_nearest_culled.cu",
@@ -4056,7 +4650,11 @@ def main() -> int:
          "sharded_cli_frames": mesh_cli, "device_trace": mtrace,
          "distributed": mesh["distributed"],
          "cli_frames": bvh["cli"], "config4": bvh["config4"],
-         "general": bvh["general"], "library_ms": None},
+         "general": bvh["general"],
+         "final_full_fast_launches": nf["final_full_bvh"]["launches"]["bvh"],
+         "final_full_fast": nf["final_full_bvh"],
+         "textured_light": nf["textured_light"], "sweeps": nf["sweeps"],
+         "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",
            "replaces": f"tools/split_probe.py:{line}", "launches": c36[pid],

@@ -20,8 +20,11 @@ The general wavefront integrator (``render/integrator.py``: records of
 every primitive kind, instanced spheres and rects included, table Perlin
 noise and the recursive checker, the material scatter, NEE and roulette;
 ``render/frame.render_frame``, differentiable through K6) renders every
-scene the fast path refuses, ``final_full`` among them: ``--mode
-general``, or ``auto``'s fallback. The trainer is whole: the silhouette
+scene the fast path refuses (instances, checkers with non-constant
+children, more than 128 rects): ``--mode general``, or ``auto``'s
+fallback. The fast path takes every preset, ``final_full`` through its
+non-fused bounce (``fastpath.fast_bounce`` on [R, 3] state, with NEE and
+roulette, under the same ladder), as the reference's does. The trainer is whole: the silhouette
 boundary term (``ops/silhouette.py``), a differentiable bounce for every
 scene class the reference trains, the general path for the rest, and
 render and TrainState checkpoints (``utils/checkpoint.py``).

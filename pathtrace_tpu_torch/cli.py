@@ -224,16 +224,19 @@ def _run(args, device: str) -> int:
                                           seed=params.seed,
                                           image_path=args.image)
         features = SceneFeatures.from_scene(scene)
+        from pathtrace_tpu_torch.ops.fastpath import (
+            fastpath_refusal,
+            fused_refusal,
+        )
         from pathtrace_tpu_torch.ops.lights import build_light_table
         from pathtrace_tpu_torch.render.progressive import (
-            auto_refusal,
             render_progressive,
             route,
             save_image,
         )
 
         nee_lights = build_light_table(scene) if args.nee else None
-        path = route(scene, features, args.mode, nee_lights, args.bvh)
+        path = route(scene, features, args.mode, args.bvh)
         tree = None
         if args.bvh:
             from pathtrace_tpu_torch.models.bvh import build_scene_bvh
@@ -271,13 +274,14 @@ def _run(args, device: str) -> int:
                          nee_lights, writer)
     # general shards drop the tree (render_progressive logs it)
     tree_used = args.bvh and not (path == "sharded"
-                                  and auto_refusal(scene, features) is not None)
+                                  and fused_refusal(features, scene)
+                                  is not None)
     line = (f"render path: {path} (--mode {args.mode}, intersect: "
             f"{'bvh' if tree_used else 'sweep'})")
     if args.mode == "auto" and path != "fast":
         # the port's own fallback where the reference takes its fast path
         line += f"; the fast path refuses the scene: " \
-                f"{auto_refusal(scene, features, nee_lights)}"
+                f"{fastpath_refusal(features, scene)}"
     print(line)
 
     # offline: -F frames (default 1); interactive: until -F or Ctrl-C,

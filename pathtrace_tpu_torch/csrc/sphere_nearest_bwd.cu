@@ -1,5 +1,5 @@
 // Backward of the closest hit (K6) on Hopper (sm_90a), for static and
-// moving spheres: four rays a thread, per-sphere sums aggregated per warp.
+// moving spheres: four rays a thread, per-sphere sums in a fixed order.
 //
 // Replaces the TPU path's custom VJP of sphere_nearest_pallas
 // (pathtrace_tpu/ops/intersect_pallas.py _vjp_bwd / _winner_t): the
@@ -7,7 +7,8 @@
 // d t / d (sphere leaves, ro, rd, time) is the derivative of the winner's
 // root, recomputed from (t, idx) in O(R). On the TPU that ran as XLA
 // gathers and an XLA scatter-add; here one kernel does the per-ray
-// derivative and the per-sphere sum.
+// derivative and each block's per-sphere sums, and two small passes sum
+// the blocks' sums.
 //
 // Per ray, with oc = ro - c, b = oc.rd, cq = oc.oc - r^2, disc = b^2 - cq
 // and s = sqrt(disc), the chosen root is t = -b - s (near root in the
@@ -24,31 +25,44 @@
 // (intersect_kernel.sphere_nearest_bwd_plain), built with -fmad=false and
 // IEEE division and square root, so the per-ray g_ro, g_rd (and g_time)
 // equal the plain version's bit for bit. The per-sphere sums are taken in
-// another order (a tree per warp, then atomics) and agree to a tolerance.
+// another order than the plain version's and agree to a tolerance; their
+// order is fixed by the inputs and the launch rule alone, so they have
+// the same bits on every run (no float atomic anywhere: the order in
+// which atomics land, in shared memory as in device memory, changes from
+// run to run, and so would the sums' last bits):
+// - a thread folds its rays that share its first ray's sphere, in ray
+//   order;
+// - per ray slot, the warp's lanes on one sphere (__match_any_sync) sum
+//   their components in a tree of shuffles in lane order, and the group's
+//   lowest lane holds the sum;
+// - the block's warps add those sums into the block's per-sphere
+//   accumulator one warp at a time, in warp order (a barrier between
+//   turns), slot by slot within a warp (a warp barrier between slots;
+//   within one slot the groups' spheres differ);
+// - the block writes its accumulator to row blockIdx.x of a
+//   [blocks, kComp * n_spheres] buffer, and sum_partials_kernel sums
+//   each column over the rows: segments of kSeg rows, each a fixed tree
+//   (warp w takes rows w, w + 8, ...; then the warps in order), then the
+//   segments the same way, straight into the outputs.
 //
 // What bounds it: bytes, 60 per ray (ro, rd, t, idx, g_t in and g_ro,
-// g_rd out; 68 with the time and g_time). The design keeps the rest off
-// that path:
+// g_rd out; 68 with the time and g_time), plus the block sums' buffer
+// written once and read once (4 * kComp * n_spheres bytes a block). The
+// design keeps the rest off that path:
 // - Four consecutive rays a thread: their [R, 3] rows are three float4s,
 //   so ro, rd, g_ro and g_rd move in 16-byte loads and stores, and t, idx,
 //   g_t (and time, g_time) in one each.
-// - Same-sphere atomics do not serialise. Every bounce sends a large
-//   share of its rays to a few spheres (the 1000-radius ground), so a warp
-//   often holds 128 rays on one sphere. A thread first folds its rays
-//   that share its first ray's sphere; then, per ray slot, the lanes with
-//   the same sphere (__match_any_sync) sum their components in a tree of
-//   shuffles, and only the group's lowest lane adds them: one atomic per
-//   (warp, distinct sphere, component).
-// - Each block sums into shared memory (4 floats a sphere, 9 with motion;
-//   opted in past 48 KB, up to the 227 KB a block may hold) and then adds
-//   one atomic per (touched sphere, component) into device memory. A block
-//   takes a contiguous share of the rays, neighbours on the film, which
-//   touch few spheres. The wrapper launches a block per 1024 rays
-//   (intersect_kernel.bwd_launch): a persistent grid of two blocks an SM,
-//   which zeroes and flushes the sums fewer times, measured slower, since
-//   it keeps fewer loads in flight. Scenes whose sums exceed the shared
-//   memory the wrapper allows add the warp sums straight into device
-//   memory.
+// - Same-sphere sums do not serialise: every bounce sends a large share
+//   of its rays to a few spheres (the 1000-radius ground), so a warp
+//   often holds 128 rays on one sphere; the fold and the shuffle tree
+//   leave one add per (warp, distinct sphere, component).
+// - Each block's accumulator is shared memory (4 floats a sphere, 9 with
+//   motion; opted in past 48 KB, up to the 227 KB a block may hold), or,
+//   for scenes whose sums do not fit there, the block's own row of the
+//   buffer in device memory. A block takes a contiguous share of the
+//   rays, neighbours on the film, which touch few spheres. The wrapper
+//   launches a block per 1024 rays (intersect_kernel.bwd_launch), fewer
+//   where the buffer would pass BWD_PARTIAL_BYTES.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +70,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kRays = 4;  // consecutive rays a thread per step
+constexpr int kSeg = 64;  // buffer rows a block of the first column pass sums
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Leaves {
@@ -77,20 +93,23 @@ struct SphereGrads {
   float* inv_dt;
 };
 
-// adds one sphere's components v[0..kComp) into the per-sphere outputs
-template <int kComp>
-__device__ __forceinline__ void add_sphere(const SphereGrads& out, int j,
-                                           const float* v) {
-  atomicAdd(&out.center[3 * j], v[0]);
-  atomicAdd(&out.center[3 * j + 1], v[1]);
-  atomicAdd(&out.center[3 * j + 2], v[2]);
-  atomicAdd(&out.radius[j], v[3]);
-  if (kComp == 9) {
-    atomicAdd(&out.delta[3 * j], v[4]);
-    atomicAdd(&out.delta[3 * j + 1], v[5]);
-    atomicAdd(&out.delta[3 * j + 2], v[6]);
-    atomicAdd(&out.time0[j], v[7]);
-    atomicAdd(&out.inv_dt[j], v[8]);
+// writes column `col` (component col / n_spheres of sphere col % n_spheres)
+// of the per-sphere sums into its output
+__device__ __forceinline__ void store_component(const SphereGrads& out,
+                                                int n_spheres, int col,
+                                                float v) {
+  const int c = col / n_spheres;
+  const int j = col - c * n_spheres;
+  if (c < 3) {
+    out.center[3 * j + c] = v;
+  } else if (c == 3) {
+    out.radius[j] = v;
+  } else if (c < 7) {
+    out.delta[3 * j + c - 4] = v;
+  } else if (c == 7) {
+    out.time0[j] = v;
+  } else {
+    out.inv_dt[j] = v;
   }
 }
 
@@ -195,26 +214,26 @@ sphere_nearest_bwd_kernel(const float* __restrict__ ro,
                           const float* __restrict__ g_t, int n_rays,
                           Leaves s, int n_spheres, float t_min, float t_max,
                           float* __restrict__ g_ro, float* __restrict__ g_rd,
-                          float* __restrict__ g_time, SphereGrads out) {
+                          float* __restrict__ g_time,
+                          float* __restrict__ partial) {
   constexpr int kComp = kMoving ? 9 : 4;
+  const int cols = kComp * n_spheres;
   // [kComp][n_spheres]: gcx, gcy, gcz, gr (, gdx, gdy, gdz, gt0, ginv)
   extern __shared__ float s_acc[];
-  if (kShared) {
-    for (int j = threadIdx.x; j < kComp * n_spheres; j += kThreads) {
-      s_acc[j] = 0.f;
-    }
-    __syncthreads();
-  }
+  float* row = partial + static_cast<size_t>(blockIdx.x) * cols;
+  float* acc = kShared ? s_acc : row;
+  for (int j = threadIdx.x; j < cols; j += kThreads) acc[j] = 0.f;
+  __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // this block's quads of rays, a contiguous share, walked 32 quads a
-  // warp at a time (the loop bound is uniform across a warp)
+  // this block's quads of rays, a contiguous share, walked kThreads quads
+  // at a time: every warp runs every step (the turns below are barriers)
   const int n_quads = (n_rays + kRays - 1) / kRays;
   const int share = (n_quads + gridDim.x - 1) / gridDim.x;
   const int lo = blockIdx.x * share;
   const int hi = min(lo + share, n_quads);
-  for (int base = lo + warp * 32; base < hi; base += kThreads) {
-    const int q = base + lane;
+  for (int step = lo; step < hi; step += kThreads) {
+    const int q = step + warp * 32 + lane;
     const int first = q * kRays;
     const int n_here = q < hi ? min(kRays, n_rays - first) : 0;
     float rox[kRays], roy[kRays], roz[kRays], rdx[kRays], rdy[kRays];
@@ -294,7 +313,7 @@ sphere_nearest_bwd_kernel(const float* __restrict__ ro,
       }
     }
     // fold the thread's rays on its first ray's sphere into that ray's
-    // slot (neighbouring rays mostly share a winner)
+    // slot, in ray order (neighbouring rays mostly share a winner)
 #pragma unroll
     for (int k = 1; k < kRays; ++k) {
       if (adds[0] && adds[k] && jj[k] == jj[0]) {
@@ -303,36 +322,75 @@ sphere_nearest_bwd_kernel(const float* __restrict__ ro,
         adds[k] = false;
       }
     }
-    // per slot: the warp's lanes on one sphere sum, their lowest lane adds
+    // per slot: the warp's lanes on one sphere sum, their lowest lane
+    // holds the group's sum
+    bool lead[kRays];
 #pragma unroll
     for (int k = 0; k < kRays; ++k) {
+      lead[k] = false;
       if (!__any_sync(kFull, adds[k])) continue;
       const int key = adds[k] ? jj[k] : -1 - lane;
       const unsigned peers = __match_any_sync(kFull, key);
       reduce_peers<kComp>(peers, comp[k]);
-      if (adds[k] && lane == __ffs(peers) - 1) {
-        if (kShared) {
+      lead[k] = adds[k] && lane == __ffs(peers) - 1;
+    }
+    // the warps add their groups' sums into the block's accumulator in
+    // warp order, slot by slot: every add lands in a fixed order
+    for (int w = 0; w < kWarps; ++w) {
+      if (warp == w) {
 #pragma unroll
-          for (int c = 0; c < kComp; ++c) {
-            atomicAdd(&s_acc[c * n_spheres + jj[k]], comp[k][c]);
+        for (int k = 0; k < kRays; ++k) {
+          if (lead[k]) {
+#pragma unroll
+            for (int c = 0; c < kComp; ++c) {
+              acc[c * n_spheres + jj[k]] += comp[k][c];
+            }
           }
-        } else {
-          add_sphere<kComp>(out, jj[k], comp[k]);
+          __syncwarp();
         }
       }
+      __syncthreads();
     }
   }
   if (kShared) {
-    __syncthreads();
-    for (int j = threadIdx.x; j < n_spheres; j += kThreads) {
-      float v[kComp];
-      bool touched = false;
+    for (int j = threadIdx.x; j < cols; j += kThreads) row[j] = s_acc[j];
+  }
+}
+
+// Sums each column of the [rows, cols] `in` over the rows in a fixed
+// order: a block takes 32 columns (a lane each) and the rows of its
+// segment, blockIdx.y (`seg` rows): warp w sums rows w, w + kWarps, ...
+// in turn, then warp 0 sums the warps' sums in warp order. kFinal: one
+// segment, written into the per-sphere outputs; else row blockIdx.y of
+// `out` ([segments, cols]).
+template <bool kFinal>
+__global__ void __launch_bounds__(kThreads)
+sum_partials_kernel(const float* __restrict__ in, int rows, int cols,
+                    int seg, float* __restrict__ out, SphereGrads grads,
+                    int n_spheres) {
+  __shared__ float s_part[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * 32 + lane;
+  const int r0 = blockIdx.y * seg;
+  const int r1 = min(r0 + seg, rows);
+  float sum = 0.f;
+  if (col < cols) {
+#pragma unroll 4
+    for (int r = r0 + warp; r < r1; r += kWarps) {
+      sum += in[static_cast<size_t>(r) * cols + col];
+    }
+  }
+  s_part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && col < cols) {
+    float v = s_part[0][lane];
 #pragma unroll
-      for (int c = 0; c < kComp; ++c) {
-        v[c] = s_acc[c * n_spheres + j];
-        touched = touched || v[c] != 0.f;
-      }
-      if (touched) add_sphere<kComp>(out, j, v);
+    for (int w = 1; w < kWarps; ++w) v += s_part[w][lane];
+    if (kFinal) {
+      store_component(grads, n_spheres, col, v);
+    } else {
+      out[static_cast<size_t>(blockIdx.y) * cols + col] = v;
     }
   }
 }
@@ -347,8 +405,9 @@ int launch_instance(int blocks, const float* ro, const float* rd,
                     const float* g_t, int n_rays, const Leaves& s,
                     int n_spheres, float t_min, float t_max, float* g_ro,
                     float* g_rd, float* g_time, const SphereGrads& out,
-                    cudaStream_t stream) {
+                    float* partial, float* mid, cudaStream_t stream) {
   constexpr int kComp = kMoving ? 9 : 4;
+  const int cols = kComp * n_spheres;
   const size_t smem =
       kShared ? kComp * sizeof(float) * static_cast<size_t>(n_spheres) : 0;
   auto kernel = sphere_nearest_bwd_kernel<kShared, kMoving>;
@@ -360,33 +419,55 @@ int launch_instance(int blocks, const float* ro, const float* rd,
   }
   kernel<<<blocks, kThreads, smem, stream>>>(
       ro, rd, time, t, idx, g_t, n_rays, s, n_spheres, t_min, t_max, g_ro,
-      g_rd, g_time, out);
+      g_rd, g_time, partial);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the blocks' sums, column by column: kSeg rows at a time, then the
+  // segments (one pass when the blocks fit one segment)
+  const int col_blocks = (cols + 31) / 32;
+  const int segments = (blocks + kSeg - 1) / kSeg;
+  const float* rows = partial;
+  int n_rows = blocks;
+  if (segments > 1) {
+    sum_partials_kernel<false><<<dim3(col_blocks, segments), kThreads, 0,
+                                 stream>>>(partial, blocks, cols, kSeg, mid,
+                                           out, n_spheres);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    rows = mid;
+    n_rows = segments;
+  }
+  sum_partials_kernel<true><<<dim3(col_blocks, 1), kThreads, 0, stream>>>(
+      rows, n_rows, cols, n_rows, nullptr, out, n_spheres);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// ro, rd, g_ro, g_rd are contiguous [n_rays, 3]; g_center [n_spheres, 3]
-// and g_radius [n_spheres] must be zeroed by the caller. Moving spheres
-// pass the rays' time [n_rays], delta [n_spheres, 3], time0 and inv_dt
-// [n_spheres], and get g_time [n_rays] and g_delta, g_time0, g_inv_dt
-// (zeroed by the caller); static spheres pass NULL for all eight. Every
-// per-ray array is 16-byte aligned. `blocks` and `shared` (per-block sums
-// in shared memory, else straight into device memory) are the wrapper's
-// launch rule (intersect_kernel.bwd_launch).
+// ro, rd, g_ro, g_rd are contiguous [n_rays, 3]; every per-sphere output
+// (g_center [n_spheres, 3], g_radius [n_spheres]) is written whole. Moving
+// spheres pass the rays' time [n_rays], delta [n_spheres, 3], time0 and
+// inv_dt [n_spheres], and get g_time [n_rays] and g_delta, g_time0,
+// g_inv_dt; static spheres pass NULL for all eight. Every per-ray array is
+// 16-byte aligned. `partial` holds blocks * kComp * n_spheres floats (the
+// blocks' sums; kComp 4, 9 with motion) and `mid` ceil(blocks / 64) *
+// kComp * n_spheres when blocks > 64 (else NULL). `blocks` and `shared`
+// (the blocks' sums in shared memory, else in their row of `partial`) are
+// the wrapper's launch rule (intersect_kernel.bwd_launch).
 extern "C" int pt_sphere_nearest_bwd(
     const float* ro, const float* rd, const float* time, const float* t,
     const int* idx, const float* g_t, int n_rays, const float* center,
     const float* delta, const float* time0, const float* inv_dt,
     const float* radius, int n_spheres, float t_min, float t_max,
     float* g_ro, float* g_rd, float* g_time, float* g_center, float* g_delta,
-    float* g_time0, float* g_inv_dt, float* g_radius, int blocks, int shared,
-    cudaStream_t stream) {
+    float* g_time0, float* g_inv_dt, float* g_radius, float* partial,
+    float* mid, int blocks, int shared, cudaStream_t stream) {
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const bool moving = time != nullptr;
-  if (blocks <= 0 || !aligned16(ro) || !aligned16(rd) || !aligned16(t) ||
-      !aligned16(idx) || !aligned16(g_t) || !aligned16(g_ro) ||
-      !aligned16(g_rd) ||
+  if (blocks <= 0 || partial == nullptr ||
+      (blocks > kSeg && mid == nullptr) || !aligned16(ro) || !aligned16(rd) ||
+      !aligned16(t) || !aligned16(idx) || !aligned16(g_t) ||
+      !aligned16(g_ro) || !aligned16(g_rd) ||
       (moving && (!aligned16(time) || !aligned16(g_time)))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -396,10 +477,10 @@ extern "C" int pt_sphere_nearest_bwd(
     return (shared ? &launch_instance<true, true>
                    : &launch_instance<false, true>)(
         blocks, ro, rd, time, t, idx, g_t, n_rays, s, n_spheres, t_min,
-        t_max, g_ro, g_rd, g_time, out, stream);
+        t_max, g_ro, g_rd, g_time, out, partial, mid, stream);
   }
   return (shared ? &launch_instance<true, false>
                  : &launch_instance<false, false>)(
       blocks, ro, rd, time, t, idx, g_t, n_rays, s, n_spheres, t_min, t_max,
-      g_ro, g_rd, g_time, out, stream);
+      g_ro, g_rd, g_time, out, partial, mid, stream);
 }

@@ -79,9 +79,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # step is deterministic. With a checkpoint the run takes torch's
     # deterministic algorithms (on CUDA, the scatter-add behind the
     # backward of the attribute rows' gather), and restores the setting on
-    # return. The closest hit's backward (K6) sums per-sphere gradients
-    # with atomics, so a run that trains sphere geometry resumes equal to
-    # the last bits of those sums only.
+    # return; the closest hit's backward (K6) sums its per-sphere
+    # gradients in a fixed order on every run, geometry runs included.
     before = torch.are_deterministic_algorithms_enabled()
     if args.checkpoint:
         torch.use_deterministic_algorithms(True)

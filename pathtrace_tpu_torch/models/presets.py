@@ -375,7 +375,8 @@ def wall_image() -> np.ndarray:
     return np.random.default_rng(3).random((40, 72, 3), dtype=np.float32)
 
 
-def image_light_scene(build, earth_image: np.ndarray):
+def image_light_scene(build, earth_image: np.ndarray,
+                      textured_light: bool = False, box: bool = False):
     """``simple_light``'s geometry with image textures (a test and bench
     scene, not a preset; ``simple_light``'s camera sees it): the big
     sphere wears ``earth_image`` (:func:`_procedural_earth_image`, or the
@@ -386,10 +387,15 @@ def image_light_scene(build, earth_image: np.ndarray):
     rays. The marble ground, the emissive sphere and rect and the black
     sky stay. ``build`` is a build module: this package's
     (``pathtrace_tpu_torch.models.build``) or one with the same
-    ``SceneBuilder`` (the reference package's builds identical leaves)."""
+    ``SceneBuilder`` (the reference package's builds identical leaves).
+    ``textured_light``: both lights wear the marble noise instead of a
+    constant (next-event estimation then evaluates their texture);
+    ``box``: a grey box beside the globe (an image texture in a box
+    scene: the fast path's non-fused bounce)."""
     b = build.SceneBuilder()
     noise = b.noise_texture(4.0)
-    light_tex = b.constant_texture((4.0, 4.0, 4.0))
+    light_tex = (b.noise_texture(4.0) if textured_light
+                 else b.constant_texture((4.0, 4.0, 4.0)))
     earth = b.lambertian(b.image_texture(earth_image))
     wall = b.lambertian(b.image_texture(wall_image()))
     b.sphere((0.0, -1000.0, 0.0), 1000.0, b.lambertian(noise))
@@ -398,6 +404,9 @@ def image_light_scene(build, earth_image: np.ndarray):
     b.rect_xy(3.0, 5.0, 1.0, 3.0, -2.0, False, b.diffuse_light(light_tex))
     b.rect_yz(0.0, 8.0, -7.0, 7.0, -6.0, False, wall)
     b.rect_xy(-6.0, 6.0, 0.0, 8.0, -7.0, False, wall)
+    if box:
+        b.box((-1.0, 0.0, 2.5), (0.5, 1.5, 4.0),
+              b.lambertian_color((0.6, 0.6, 0.6)))
     b.sky = (0.0, 0.0, 0.0)
     return b.finish()
 

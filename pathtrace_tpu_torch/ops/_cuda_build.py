@@ -79,6 +79,7 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,         # g_ro, g_rd, g_time
         _c_void_p, _c_void_p, _c_void_p,         # g_center, g_delta, g_time0
         _c_void_p, _c_void_p,                    # g_inv_dt, g_radius
+        _c_void_p, _c_void_p,                    # partial, mid or NULL
         _c_int, _c_int, _c_void_p,               # blocks, shared, stream
     ],
     "pt_sphere_nearest_culled": [

@@ -1,10 +1,12 @@
 """Fast render path: closest-hit kernel + fused shade/scatter kernel +
 host-driven stream compaction.
 
-Counterpart of ``pathtrace_tpu/ops/fastpath.py`` (fused flavour: static
-or moving spheres, rects, transformed boxes and constant-density media;
-image textures on spheres and rects).
-One bounce is two kernels:
+Counterpart of ``pathtrace_tpu/ops/fastpath.py``: its fused flavour
+(static or moving spheres, rects, transformed boxes and constant-density
+media; image textures on spheres and rects) and, for image textures in a
+scene with boxes or media (``final_full``), its non-fused flavour
+(:func:`fast_bounce` on [R, 3] state, below). A fused bounce is two
+kernels:
 
 * :func:`~pathtrace_tpu_torch.ops.intersect_kernel.sphere_nearest` — the
   closest hit over every sphere, giving (t, idx) per ray; scenes of at
@@ -42,9 +44,18 @@ K2 each bounce: one light sample per Lambertian or isotropic lane, a
 shadow ray through the closest hit (K1 or K3, the rects, boxes and media;
 the shadow media draw ``8 + n_media + j``), the power-heuristic split of
 the light and BSDF strategies, and the MIS weight of the next vertex's
-emission, which K2 applies there (the 13th state plane). With Russian
-roulette (``rr_start``) a tail from that depth on ends lanes of low
-throughput and boosts the survivors.
+emission, which K2 applies there (the 13th state plane); a light whose
+texture is not a constant has its emission evaluated by
+``texture_value`` at the light point (:func:`light_emission`). With
+Russian roulette (``rr_start``) a tail from that depth on ends lanes of
+low throughput and boosts the survivors.
+
+The non-fused bounce (the reference's XLA flavour, which its
+``fused_shade_supported`` picks for an image texture in a scene with
+boxes or media) is :func:`fast_bounce`, the differentiable trace's
+bounce: the closest hit through K1 or K3 (or the tree), one row gather,
+the shading in plain PyTorch (box UV included), and the same NEE and
+roulette on [R, 3] state, under the same host ladder.
 
 Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
@@ -118,7 +129,9 @@ from pathtrace_tpu_torch.ops.intersect_kernel import (
     sphere_nearest_culled,
     sphere_nearest_moving,
 )
-from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
+from pathtrace_tpu_torch.ops.intersect_box import (
+    box_nearest_rn, media_nearest_rn,
+)
 from pathtrace_tpu_torch.ops.intersect_rect import (
     RECT_ROWS,
     merge_rects,
@@ -127,7 +140,9 @@ from pathtrace_tpu_torch.ops.intersect_rect import (
 )
 from pathtrace_tpu_torch.ops.lights import (
     LightTable,
+    light_dir_pdf,
     light_dir_pdf_planes,
+    sample_light_dirs,
     sample_light_dirs_planes,
 )
 from pathtrace_tpu_torch.ops.shade_kernel import (
@@ -305,18 +320,11 @@ def diff_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
 
 def fastpath_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
     """Why the fast path cannot render ``scene`` (None when it can): the
-    reference's own fallbacks to the general integrator
-    (:func:`diff_refusal`), or image textures in a scene with boxes or
-    media, which the reference shades outside its fused kernel (the
-    differentiable bounce, which has the box UV, takes them)."""
-    why = diff_refusal(features, scene)
-    if why is None and features.has_image and (features.has_boxes
-                                                or features.has_media):
-        why = ("scene needs image textures in a scene with boxes or media: "
-               "the reference shades such scenes outside the fused kernel "
-               "(fused_shade_supported: the non-fused bounce with box "
-               "normals and box UV), which is not ported yet")
-    return why
+    reference's own fallbacks to the general integrator, those of its
+    ``fastpath_supported`` (:func:`diff_refusal`). Image textures in a
+    scene with boxes or media take the fast path's non-fused bounce
+    (:func:`fused_refusal`)."""
+    return diff_refusal(features, scene)
 
 
 def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
@@ -324,14 +332,39 @@ def fastpath_supported(features: SceneFeatures, scene: Scene) -> bool:
     world-space spheres, world-space rects (at most ``RECT_ROWS``),
     transformed boxes and constant-density media with Lambertian, metal,
     dielectric, emissive or isotropic materials and constant, checker
-    (constant children), noise or, in scenes without boxes or media, image
-    textures. Raises ``ValueError`` naming what is missing for anything
-    else (:func:`fastpath_refusal`); ``mode="auto"`` renders such scenes
-    through the general integrator."""
+    (constant children), noise or image textures. Raises ``ValueError``
+    naming what is missing for anything else (:func:`fastpath_refusal`);
+    ``mode="auto"`` renders such scenes through the general integrator."""
     why = fastpath_refusal(features, scene)
     if why is not None:
         raise ValueError(why)
     return True
+
+
+def fused_shade_supported(features: SceneFeatures) -> bool:
+    """The reference's ``fused_shade_supported`` (``shade_pallas.py:73``):
+    every scene class of the fast path except image textures in a scene
+    with boxes or media, which the reference shades outside its fused
+    kernel, in the non-fused bounce (:func:`fast_bounce`), and the port
+    does too."""
+    return not (features.has_image
+                and (features.has_boxes or features.has_media))
+
+
+def fused_refusal(features: SceneFeatures, scene: Scene) -> Optional[str]:
+    """Why the fused bounce (K2) cannot render ``scene`` (None when it
+    can): :func:`fastpath_refusal`, or image textures in a scene with
+    boxes or media. :func:`trace_fast` renders the latter through the
+    non-fused bounce; the device-only trace (:func:`trace_fast_device`)
+    and ``--mode sharded``'s fast shards, which the reference runs fused
+    only, refuse them."""
+    why = fastpath_refusal(features, scene)
+    if why is None and not fused_shade_supported(features):
+        why = ("scene needs image textures in a scene with boxes or media: "
+               "the fused shade kernel has no box UV "
+               "(fused_shade_supported); the ladder's non-fused bounce "
+               "(trace_fast) takes such scenes")
+    return why
 
 
 def feature_flags(features: SceneFeatures) -> int:
@@ -538,6 +571,9 @@ class FastTables(NamedTuple):
     light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
     atlas: Optional[torch.Tensor] = None  # [H, W, 3] image atlas (images)
     bvh: Optional[TreeOperand] = None  # -B: the scene tree's operand
+    # NEE lights whose texture is not a constant: (scene, features, the
+    # lights' texture ids on the device), for texture_value
+    light_tex: Optional[tuple] = None
 
 
 def table_rows(scene: Scene, features: SceneFeatures) -> TableRows:
@@ -608,7 +644,9 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     blocks after the sphere rows, image scenes the atlas K2 reads texels
     from, whose entries must lie inside its data (K2's clamps keep each
     read inside its entry). ``lights``: the light table of next-event
-    estimation, whose lights must all have constant textures. ``bvh``
+    estimation: their emission's [3, L] colours when every light's
+    texture is a constant, else what :func:`light_emission` evaluates
+    their textures from. ``bvh``
     (a ``models.bvh.FlatBVH`` over the scene, global ids laid out by
     ``bvh_offsets``): the traversal's operand, which then replaces the
     sweeps as the closest hit."""
@@ -626,12 +664,12 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     if features.has_image:
         _check_atlas(scene)
         atlas = scene.atlas.data.contiguous()
-    light_rgb = None
-    if lights is not None:
-        if lights.color is None:
-            raise ValueError("lights whose texture is not a constant: not "
-                             "ported yet")
+    light_rgb = light_tex = None
+    if lights is not None and lights.color is not None:
         light_rgb = torch.from_numpy(lights.color.T.copy()).to(sky4.device)
+    elif lights is not None:
+        light_tex = (scene, features,
+                     torch.from_numpy(lights.tex_id).to(sky4.device))
     return FastTables(
         table=table.contiguous(),
         soa=build_sphere_soa(scene, n_slots, motion=features.has_motion),
@@ -646,7 +684,27 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         atlas=atlas,
         bvh=(bvh.operand(scene, features, bvh_offsets, sky4.device)
              if bvh is not None else None),
+        light_tex=light_tex,
     )
+
+
+def light_emission(tables: FastTables, light: torch.Tensor, p, wi,
+                   dist: torch.Tensor) -> torch.Tensor:
+    """[3, R] emission of the sampled lights ``light`` [R] seen from the
+    points ``p`` along ``wi`` (three [R] planes each) at ``dist``: the
+    constant colours' gather, or, for lights whose texture is not a
+    constant, ``texture_value`` at (0.5, 0.5, the light point), as the
+    reference evaluates them (``fastpath.py:833-838, 1345-1352``)."""
+    if tables.light_rgb is not None:
+        return tables.light_rgb.index_select(1, light.long())
+    from pathtrace_tpu_torch.ops.texture import texture_value
+
+    scene, features, tex_id = tables.light_tex
+    point = torch.stack(list(p), dim=-1) + torch.stack(list(wi), dim=-1) \
+        * dist[:, None]
+    half = torch.full_like(dist, 0.5)
+    return texture_value(scene, tex_id.index_select(0, light.long()), half,
+                         half, point, features).T
 
 
 # ---------------------------------------------------------------------------
@@ -749,9 +807,10 @@ def nearest_t_only(tables: FastTables, rays: torch.Tensor,
     if tables.rects is not None:
         t = torch.minimum(t, rect_nearest(tables.rects, *rays)[0])
     if tables.boxes is not None:
-        t = torch.minimum(t, box_nearest(tables.boxes, *rays)[0])
+        t = torch.minimum(t, box_nearest_rn(tables.boxes, *rays)[0])
     if tables.media is not None:
-        t = torch.minimum(t, media_nearest(tables.media, *rays, med_u)[0])
+        t = torch.minimum(t,
+                          media_nearest_rn(tables.media, *rays, med_u)[0])
     return t
 
 
@@ -808,7 +867,8 @@ def nee_tail(tables: FastTables, t: torch.Tensor, idx: torch.Tensor,
                                8 + n_media)
     s_t = nearest_t_only(tables, sh.rays, state_in.time, features, med_u)
     unoccluded = ~((s_t < _INF) & (s_t < ldist * (1.0 - 1e-3)))
-    le = tables.light_rgb.index_select(1, sh.light.long())
+    le = light_emission(tables, sh.light, (spx, spy, spz), (wix, wiy, wiz),
+                        ldist)
     snx, sny, snz = (torch.where(nee_mask, n, zero) for n in planes[NORMAL])
     cos_s = torch.clamp(wix * snx + wiy * sny + wiz * snz, min=0.0)
     pdf_f = torch.where(is_lam, cos_s * _INV_PI, 0.25 * _INV_PI)
@@ -882,12 +942,12 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
     if tables.rects is not None:
         t, idx = merge_rects(tables.rects, rays, t, idx, tables.rows.rect)
     if tables.boxes is not None:
-        t, idx = merge_winner(t, idx, *box_nearest(tables.boxes, *rays),
+        t, idx = merge_winner(t, idx, *box_nearest_rn(tables.boxes, *rays),
                               tables.rows.box)
     if tables.media is not None:
         med_u = media_uniforms(state.lane, seed, depth, tables.media.count, 8)
         t, idx = merge_winner(
-            t, idx, *media_nearest(tables.media, *rays, med_u),
+            t, idx, *media_nearest_rn(tables.media, *rays, med_u),
             tables.rows.media)
     return t, idx
 
@@ -987,10 +1047,13 @@ class TraceResult(NamedTuple):
     readbacks: int           # alive-count readbacks (host syncs)
 
 
-def _host_ladder(step, state: FastStateP, max_depth: int, min_size: int,
+def _host_ladder(step, state, max_depth: int, min_size: int,
                  compaction: bool, group: Optional[int] = None):
     """Bounce loop with lagged alive counts and the two-tier compaction
-    ladder (rows above LANE_COMPACT_MAX lanes, exact lanes below).
+    ladder (rows above LANE_COMPACT_MAX lanes, exact lanes below), on
+    either state form: :class:`FastStateP` (the fused bounce) or
+    :class:`FastState` (the non-fused one), as the reference's
+    ``radiance_fields`` does (:mod:`~pathtrace_tpu_torch.render.compact_util`).
 
     ``group`` bounces (default :data:`GROUP`) run between alive-count
     readbacks. Each group's count is read one group later: the alive set
@@ -1001,7 +1064,7 @@ def _host_ladder(step, state: FastStateP, max_depth: int, min_size: int,
     group = GROUP if group is None else int(group)
     if group < 1:
         raise ValueError(f"group must be >= 1, got {group}")
-    R = state.size
+    R = state.alive.shape[0]
     dev = state.alive.device
     out_radiance = torch.zeros((3, R), dtype=torch.float32, device=dev)
     indices = torch.arange(R, dtype=torch.int64, device=dev)
@@ -1062,23 +1125,50 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     includes; ``rr_start`` > 0 Russian roulette from that depth.
     ``bvh``/``bvh_offsets`` (``-B``: ``models.bvh.build_scene_bvh``'s
     tree and offsets): the tree's traversal is the closest hit of every
-    bounce and shadow ray, with no cull; the ladder, K2 and the tails are
-    the same. ``group``: bounces between alive-count readbacks (default
-    :data:`GROUP`); ``compaction=False`` keeps every lane to the end. No
-    image bit depends on either."""
+    bounce and shadow ray, with no cull; the ladder, the shading and the
+    tails are the same. ``group``: bounces between alive-count readbacks
+    (default :data:`GROUP`); ``compaction=False`` keeps every lane to the
+    end. No image bit depends on either.
+
+    As in the reference (``fastpath.py:1984, 2092-2120``), scenes that
+    :func:`fused_shade_supported` takes run on plane state through K2 and
+    its tails; the others (image textures in a scene with boxes or
+    media) run on [R, 3] state through :func:`fast_bounce`, which has the
+    box UV, under the same ladder, with no gradient."""
     fastpath_supported(features, scene)
+    fused = fused_shade_supported(features)
     tables = prep_tables(scene, features,
-                         cull=bvh is None and cull_scene(scene, features),
+                         cull=fused and bvh is None and cull_scene(scene,
+                                                                   features),
                          lights=nee_lights, bvh=bvh, bvh_offsets=bvh_offsets)
     seed = int(seed)
 
-    def step(state, depth, g, segs):
-        return _bounce_group_fused(tables, state, seed, depth, max_depth,
-                                   features, g, segs, rr_start)
+    if fused:
+        def step(state, depth, g, segs):
+            return _bounce_group_fused(tables, state, seed, depth, max_depth,
+                                       features, g, segs, rr_start)
 
-    state = make_state(ro, rd, time, nee=nee_lights is not None)
-    out_radiance, segs, readbacks = _host_ladder(
-        step, state, max_depth, max(min_size, 128), compaction, group)
+        state = make_state(ro, rd, time, nee=nee_lights is not None)
+    else:
+        def step(state, depth, g, segs):
+            for k in range(g):
+                segs = segs + state.alive.sum()
+                state, shadow = fast_bounce(
+                    tables.table, tables.soa, scene, state, seed, depth + k,
+                    max_depth, features, tables=tables, rr_start=rr_start)
+                segs = segs + shadow
+            return state, segs
+
+        lane, alive = lane_ids(ro.shape[0], ro.device)
+        state = FastState(
+            ro=ro, rd=rd, time=time.to(torch.float32),
+            radiance=torch.zeros_like(ro), throughput=torch.ones_like(ro),
+            alive=alive, lane=lane,
+            emit_scale=(torch.ones_like(time, dtype=torch.float32)
+                        if nee_lights is not None else None))
+    with torch.no_grad():
+        out_radiance, segs, readbacks = _host_ladder(
+            step, state, max_depth, max(min_size, 128), compaction, group)
     return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
 
 
@@ -1098,8 +1188,12 @@ def trace_fast_device(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     are born dead and trace nothing), so a shard of a wavefront renders
     its lanes bit for bit as the whole wavefront does, and as
     :func:`trace_fast` does, whose compaction keeps each lane's id.
-    Returns (radiance [R, 3], segments [] int64 on the device)."""
-    fastpath_supported(features, scene)
+    Scenes of :func:`fused_refusal` raise: the reference runs this trace
+    fused only. Returns (radiance [R, 3], segments [] int64 on the
+    device)."""
+    why = fused_refusal(features, scene)
+    if why is not None:
+        raise ValueError(why)
     tables = prep_tables(scene, features, bvh=bvh, bvh_offsets=bvh_offsets)
     seed = int(seed)
     state = make_state(ro, rd, time, lane_offset=lane_offset,
@@ -1234,8 +1328,8 @@ def render_frame_fast(scene: Scene, camera, width: int, height: int,
 # ---------------------------------------------------------------------------
 
 class FastState(NamedTuple):
-    """[R, 3]-form wavefront state of the differentiable trace (twin of
-    the reference's ``FastState`` without the NEE plane)."""
+    """[R, 3]-form wavefront state of the differentiable trace and of the
+    non-fused render bounce (twin of the reference's ``FastState``)."""
 
     ro: torch.Tensor          # [R, 3]
     rd: torch.Tensor          # [R, 3]
@@ -1244,22 +1338,33 @@ class FastState(NamedTuple):
     throughput: torch.Tensor  # [R, 3]
     alive: torch.Tensor       # [R] bool
     lane: torch.Tensor        # [R] int32, uint32 bit pattern of the stream id
+    # the MIS weight of the lane's next emission hit (NEE only, else None)
+    emit_scale: Optional[torch.Tensor] = None
 
 
 def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                       ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
-                      features: SceneFeatures, med_u=None):
+                      features: SceneFeatures, med_u=None,
+                      bvh: Optional[TreeOperand] = None):
     """Closest hit over every kind of the scene, differentiable in t, and
     the winner's attribute row by one row gather from ``table`` (the
     blocks of :func:`winner_table`): (t [R], attrs [R, K]). Twin of the
     reference's ``nearest_hit_attrs`` (``fastpath.py:242``): the spheres
-    through ``SphereNearest`` (moving spheres pass their motion leaves and
-    the rays' time; a scene without spheres has no sweep), then the rects,
-    boxes and media in plain PyTorch (the media at the free-flight
-    uniforms ``med_u``), each kind winning only when strictly nearer.
-    Nothing here writes in place, so autograd reaches every kind's
-    leaves."""
+    through ``SphereNearest`` (K1, or K3 for moving spheres, which pass
+    their motion leaves and the rays' time; a scene without spheres has
+    no sweep), then the rects, boxes and media in plain PyTorch (the
+    media at the free-flight uniforms ``med_u``; boxes and media in the
+    [R, N] form), each kind
+    winning only when strictly nearer. Nothing here writes in place, so
+    autograd reaches every kind's leaves. ``bvh`` (a render's tree
+    operand, ``-B``): its traversal is the closest hit instead, with no
+    gradient, and the winners' ids map to their table rows."""
     f = features
+    if bvh is not None:
+        t, gid = bvh_traverse(bvh, torch.cat([ro.T, rd.T]).contiguous(),
+                              time, media_flights(bvh, med_u), MIN_T, MAX_T)
+        idx = _gid_to_table_row(gid, bvh.offsets, table_rows(scene, f))
+        return t, table.index_select(0, idx.long())
     if f.has_spheres:
         sp = scene.spheres
         motion = ((sp.center_delta, sp.time0, sp.inv_time_delta, time)
@@ -1274,11 +1379,11 @@ def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     if f.has_rects:
         t, idx = merge_rects(scene.rects, rays, t, idx, rows.rect)
     if f.has_boxes:
-        t, idx = merge_winner(t, idx, *box_nearest(scene.boxes, *rays),
+        t, idx = merge_winner(t, idx, *box_nearest_rn(scene.boxes, *rays),
                               rows.box)
     if f.has_media:
-        t, idx = merge_winner(t, idx, *media_nearest(scene.media, *rays,
-                                                     med_u), rows.media)
+        t, idx = merge_winner(t, idx, *media_nearest_rn(scene.media, *rays,
+                                                        med_u), rows.media)
     return t, table.index_select(0, idx.long())
 
 
@@ -1345,20 +1450,36 @@ def _diff_image_rgb(scene: Scene, attrs: torch.Tensor, point: torch.Tensor,
 
 def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                 state: FastState, seed: int, depth: int, max_depth: int,
-                features: SceneFeatures) -> FastState:
-    """One differentiable bounce: the twin of the reference's
-    ``fast_bounce`` (``fastpath.py:549-895``) without NEE and roulette:
-    the media's free-flight uniforms (draws ``8 + j``), the sphere, rect,
-    box (the slab test redone from the winner's row) and medium normals,
+                features: SceneFeatures, tables: Optional[FastTables] = None,
+                rr_start: int = 0):
+    """One bounce on [R, 3] state: the twin of the reference's
+    ``fast_bounce`` (``fastpath.py:549-895``), the differentiable trace's
+    bounce and the render path's non-fused one: the media's free-flight
+    uniforms (draws ``8 + j``), the sphere, rect, box (the slab test
+    redone from the winner's row) and medium normals,
     constant/checker/noise/image albedo, emission and sky, and the
     Lambertian/metal/dielectric/isotropic scatter. The masked square
     roots keep the reference's double-where guards, so masked lanes leak
-    no NaN into the gradients."""
+    no NaN into the gradients.
+
+    ``tables`` (:func:`prep_tables`' for a render; None in the
+    differentiable trace) brings the render's closest hit through the
+    tree when it carries one (``-B``) and, when it carries lights,
+    next-event estimation with MIS: a light sample (draws 4-6) per live
+    Lambertian or isotropic lane, its shadow ray through
+    :func:`nearest_t_only` (shadow media draws ``8 + n_media + j``), the
+    emission by :func:`light_emission`, the power-heuristic split, and
+    the BSDF side's weight in ``emit_scale``, which scales the next hit's
+    emission. ``rr_start`` > 0: Russian roulette from that depth (draw
+    7). With ``tables`` it returns (state, shadow rays traced: a device
+    int64, or 0 without lights), else the state."""
     f = features
+    nee = tables is not None and tables.lights is not None
     med_u = (media_uniforms(state.lane, seed, depth, scene.media.count, 8)
              if f.has_media else None)
-    t, attrs = nearest_hit_attrs(table, soa, scene, state.ro, state.rd,
-                                 state.time, f, med_u)
+    t, attrs = nearest_hit_attrs(
+        table, soa, scene, state.ro, state.rd, state.time, f, med_u,
+        bvh=tables.bvh if tables is not None else None)
     hit = t < _INF
     t_safe = torch.where(hit, t, 0.0)
     point = state.ro + t_safe[:, None] * state.rd
@@ -1418,6 +1539,10 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                           scene.sky.reshape(1, 3))
     is_light = mat_kind == float(MAT_DIFFUSE_LIGHT)
     prim_emit = torch.where(is_light[:, None], rgb, 0.0)
+    if nee:
+        # the previous vertex's light sample owns (1 - emit_scale) of this
+        # emission; the sky is never sampled
+        prim_emit = prim_emit * state.emit_scale[:, None]
     emit = torch.where(hit[:, None], prim_emit, sky_rgb)
     alive_f = state.alive.to(point.dtype)[:, None]
     radiance = state.radiance + state.throughput * emit * alive_f
@@ -1489,16 +1614,75 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
 
     can = state.alive & hit & ok & (depth < max_depth)
     cs = can[:, None]
-    return FastState(
+
+    emit_scale, shadow = state.emit_scale, 0
+    if nee:
+        radiance, emit_scale, shadow = _nee_rn(
+            tables, scene, state, seed, depth, f, can, mat_kind, point,
+            normal, rgb, direction, radiance)
+    throughput = torch.where(cs, state.throughput * atten, state.throughput)
+    if rr_start > 0 and depth >= rr_start:
+        p_rr = torch.clamp(throughput.amax(dim=-1), 0.05, 1.0)
+        survive = counter_uniform(state.lane, seed, depth, 7) < p_rr
+        throughput = torch.where((can & survive)[:, None],
+                                 throughput / p_rr[:, None], throughput)
+        can = can & survive
+        cs = can[:, None]
+    out = FastState(
         ro=torch.where(cs, point, state.ro),
         rd=torch.where(cs, direction, state.rd),
         time=state.time,
         radiance=radiance,
-        throughput=torch.where(cs, state.throughput * atten,
-                               state.throughput),
+        throughput=throughput,
         alive=can,
         lane=state.lane,
+        emit_scale=emit_scale,
     )
+    return out if tables is None else (out, shadow)
+
+
+def _nee_rn(tables: FastTables, scene: Scene, state: FastState, seed: int,
+            depth: int, f: SceneFeatures, can, mat_kind, point, normal, rgb,
+            direction, radiance):
+    """:func:`fast_bounce`'s next-event estimation (the reference's
+    ``fastpath.py:796-863``): (radiance, the next emit_scale, shadow rays
+    traced)."""
+    lights = tables.lights
+    is_lam = mat_kind == float(MAT_LAMBERTIAN)
+    nee_mask = can & (is_lam | (mat_kind == float(MAT_ISOTROPIC)))
+    lu = torch.stack([counter_uniform(state.lane, seed, depth, k)
+                      for k in (4, 5, 6)], dim=-1)
+    safe_p = torch.where(nee_mask[:, None], point, 0.0)
+    wi, ldist, lpdf, lidx, lvalid = sample_light_dirs(lights, safe_p, lu)
+    nee_mask = nee_mask & lvalid
+    smed_u = None
+    if f.has_media:
+        n_media = scene.media.count
+        smed_u = media_uniforms(state.lane, seed, depth, n_media,
+                                8 + n_media)
+    s_t = nearest_t_only(tables, torch.cat([safe_p.T, wi.T]).contiguous(),
+                         state.time, f, smed_u)
+    unoccluded = ~((s_t < _INF) & (s_t < ldist * (1.0 - 1e-3)))
+    le = light_emission(tables, lidx, safe_p.unbind(1), wi.unbind(1),
+                        ldist).T
+    safe_n = torch.where(nee_mask[:, None], normal, 0.0)
+    cos_s = torch.clamp((wi * safe_n).sum(dim=-1), min=0.0)
+    f_term = torch.where(is_lam[:, None], rgb * (cos_s * _INV_PI)[:, None],
+                         rgb * (0.25 * _INV_PI))
+    p_b = torch.where(is_lam, cos_s * _INV_PI, 0.25 * _INV_PI)
+    w_light = lpdf * lpdf / torch.clamp(lpdf * lpdf + p_b * p_b, min=1e-20)
+    contrib = state.throughput * f_term * le * (
+        w_light / torch.clamp(lpdf, min=1e-12))[:, None]
+    radiance = radiance + torch.where((nee_mask & unoccluded)[:, None],
+                                      contrib, 0.0)
+    # the BSDF side of the split, for the next hit's emission
+    cos_b = torch.clamp((direction * safe_n).sum(dim=-1), min=0.0)
+    p_b_next = torch.where(is_lam, cos_b * _INV_PI, 0.25 * _INV_PI)
+    p_l_next = light_dir_pdf(lights, safe_p, direction)
+    w_bsdf = p_b_next * p_b_next / torch.clamp(
+        p_b_next * p_b_next + p_l_next * p_l_next, min=1e-20)
+    emit_scale = torch.where(nee_mask & (p_l_next > 0.0), w_bsdf, 1.0)
+    return radiance, emit_scale, nee_mask.sum()
 
 
 def diff_supported(features: SceneFeatures, scene: Scene) -> bool:

@@ -20,12 +20,13 @@ normal, UV, material) is built by gathers from its index.
   rect's plane test runs ([R, N] in ray chunks). t is the same in both
   frames, so their winners merge with the world-space kinds'. Normals
   map back by the inverse transpose; UV stays in object space.
-- World-space rects, boxes and media take the plane-loop sweeps of
-  :mod:`~pathtrace_tpu_torch.ops.intersect_rect` and
-  :mod:`~pathtrace_tpu_torch.ops.intersect_box`, which give the
-  reference's [R, N] winners (ascending-index running minimum with a
-  strict ``<`` is the first-minimum argmin). A medium's free flight
-  takes the caller's [R, n_media] uniforms.
+- World-space rects take the plane-loop sweep of
+  :mod:`~pathtrace_tpu_torch.ops.intersect_rect`; boxes and media the
+  [R, N] form of :mod:`~pathtrace_tpu_torch.ops.intersect_box`
+  (``box_nearest_rn``, ``media_nearest_rn``: its plane loop's bits).
+  Each gives the reference's [R, N] winners (ascending-index running
+  minimum with a strict ``<`` is the first-minimum argmin). A medium's
+  free flight takes the caller's [R, n_media] uniforms.
 
 A miss has t = MAX_T; its record's point is the ray origin (t taken as 0,
 which keeps every miss lane finite for reverse mode).
@@ -47,7 +48,9 @@ from pathtrace_tpu_torch.models.types import (
     Spheres,
 )
 from pathtrace_tpu_torch.ops import intersect_kernel as ik
-from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
+from pathtrace_tpu_torch.ops.intersect_box import (
+    box_nearest_rn, media_nearest_rn,
+)
 from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
 
 _INF = float(MAX_T)
@@ -387,12 +390,12 @@ def intersect_scene(scene: Scene, ro, rd, time, media_uniforms,
         nxt = rect_record(scene.rects, t, idx, ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
     if f.has_boxes:
-        t, idx = box_nearest(scene.boxes, *_planes(ro, rd))
+        t, idx = box_nearest_rn(scene.boxes, *_planes(ro, rd))
         nxt = box_record(scene.boxes, t, idx.long(), ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
     if f.has_media:
-        t, idx = media_nearest(scene.media, *_planes(ro, rd),
-                               media_uniforms.T)
+        t, idx = media_nearest_rn(scene.media, *_planes(ro, rd),
+                                  media_uniforms.T)
         nxt = media_record(scene.media, t, idx.long(), ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
     return _miss_record(ro) if rec is None else rec

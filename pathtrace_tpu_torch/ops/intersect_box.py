@@ -2,14 +2,23 @@
 of a scene, in plain PyTorch.
 
 Counterpart of ``pathtrace_tpu/ops/intersect.py`` ``box_nearest_planes``
-and ``media_nearest_planes`` (a Python loop over the primitives on [R]
-planes, with each primitive's parameters as scalars). The reference
-routes more than 16 of them to an [R, N] form (``box_nearest``,
-``media_nearest``); the port keeps the plane loop for every count, since
-both forms give the same winners: an ascending-``j`` running minimum with
-a strict ``<`` is the first-minimum argmin. The reference sweeps boxes and
-media in XLA, not in a Pallas kernel; here they are PyTorch element-wise
-operations on the rays' planes, on any device.
+and ``media_nearest_planes`` (:func:`box_nearest`, :func:`media_nearest`:
+a Python loop over the primitives on [R] planes, with each primitive's
+parameters as scalars) and of its [R, N] forms ``box_nearest`` and
+``media_nearest`` (:func:`box_nearest_rn`, :func:`media_nearest_rn`: the
+rays in chunks of ``RN_PAIRS`` (ray, primitive) pairs, every primitive at
+once on [Rc, N]). The two forms compute each pair in the same operations
+in the same order and pick the same winner (an ascending-``j`` running
+minimum with a strict ``<`` is ``torch.argmin``'s first minimum), so they
+give the same (t, idx) bit for bit; the [R, N] form only launches fewer,
+larger operations. Every sweep of the port takes the [R, N] form, at any
+count: on the H100 it beat the loop at every count from 2 to 400 boxes
+and media, at full width and at a late rung of the ladder, except 400
+media at full width, which no preset has (``chip_smoke.py`` phase 68).
+The loop stays as its bit-for-bit reference. The reference sweeps
+boxes and media in XLA, not in a Pallas kernel; here they are PyTorch
+element-wise operations, on any device, and autograd flows through both
+forms (the [R, N] form's t is a gather at the argmin).
 
 Per box: the ray mapped to object space by ``obj_from_world``, the slab
 test (a direction component below 1e-12 in magnitude is replaced by
@@ -30,6 +39,11 @@ from pathtrace_tpu_torch.config import MAX_T, MIN_T
 from pathtrace_tpu_torch.models.types import MEDIUM_SPHERE, Boxes, Media
 
 _INF = float(MAX_T)
+
+# (ray, primitive) pairs a chunk of the [R, N] forms: each [Rc, N] float
+# temporary takes 4 * RN_PAIRS bytes (32 MiB) and ~12 are live at the
+# peak, ~400 MiB whatever R and N (400 boxes: 20,971 rays a chunk)
+RN_PAIRS = 1 << 23
 
 
 def _slab(p0, p1, ofw, rox, roy, roz, rdx, rdy, rdz):
@@ -114,3 +128,110 @@ def media_nearest(media: Media, rox, roy, roz, rdx, rdy, rdz, uniforms,
         tbest = torch.where(better, cand, tbest)
         ibest = torch.where(better, j, ibest)
     return tbest, ibest
+
+
+# ---------------------------------------------------------------------------
+# the [R, N] forms
+# ---------------------------------------------------------------------------
+
+def _rn_chunks(R: int, n: int):
+    step = max(1, RN_PAIRS // max(n, 1))
+    return [(lo, min(lo + step, R)) for lo in range(0, R, step)]
+
+
+def _slab_rn(p0, p1, ofw, rox, roy, roz, rdx, rdy, rdz):
+    """:func:`_slab` of [Rc] rays against every primitive at once:
+    (t_enter, t_exit) [Rc, N], each pair in :func:`_slab`'s operations and
+    order (one axis at a time, so fewer temporaries are live)."""
+    ro = (rox[:, None], roy[:, None], roz[:, None])
+    rd = (rdx[:, None], rdy[:, None], rdz[:, None])
+    tn = tf = None
+    for r in range(3):
+        m = ofw[None, :, r]
+        ro_o = m[..., 0] * ro[0] + m[..., 1] * ro[1] + m[..., 2] * ro[2] \
+            + m[..., 3]
+        rd_o = m[..., 0] * rd[0] + m[..., 1] * rd[1] + m[..., 2] * rd[2]
+        d = torch.where(torch.abs(rd_o) < 1e-12, 1e-12, rd_o)
+        rcp = 1.0 / d
+        d0 = (p0[None, :, r] - ro_o) * rcp
+        d1 = (p1[None, :, r] - ro_o) * rcp
+        lo = torch.minimum(d0, d1)
+        hi = torch.maximum(d0, d1)
+        tn = lo if tn is None else torch.maximum(tn, lo)
+        tf = hi if tf is None else torch.minimum(tf, hi)
+    return tn, tf
+
+
+def _first_min(cand: torch.Tensor):
+    """(t [Rc], idx [Rc] int32) of the first minimum of each row."""
+    idx = torch.argmin(cand, dim=1)
+    return cand.gather(1, idx[:, None])[:, 0], idx.to(torch.int32)
+
+
+def _cat(parts, R: int, like: torch.Tensor):
+    if not parts:
+        return (torch.full((R,), _INF, dtype=like.dtype, device=like.device),
+                torch.zeros((R,), dtype=torch.int32, device=like.device))
+    ts, idxs = zip(*parts)
+    return torch.cat(ts), torch.cat(idxs)
+
+
+def box_nearest_rn(boxes: Boxes, rox, roy, roz, rdx, rdy, rdz,
+                   t_min: float = MIN_T, t_max: float = MAX_T):
+    """:func:`box_nearest` on [Rc, N] (the reference's ``box_nearest``):
+    the same (t [R] f32, idx [R] int32) bit for bit."""
+    R, N = rox.shape[0], boxes.count
+    mask = boxes.mask[None, :]
+    parts = []
+    for lo, hi in _rn_chunks(R, N):
+        tn, tf = _slab_rn(boxes.p0, boxes.p1, boxes.obj_from_world,
+                          rox[lo:hi], roy[lo:hi], roz[lo:hi],
+                          rdx[lo:hi], rdy[lo:hi], rdz[lo:hi])
+        crosses = (tf > tn) & mask
+        enter_ok = crosses & (tn > t_min) & (tn < t_max)
+        exit_ok = crosses & (tn <= t_min) & (tf > t_min) & (tf < t_max)
+        parts.append(_first_min(
+            torch.where(enter_ok, tn, torch.where(exit_ok, tf, _INF))))
+    return _cat(parts, R, rox)
+
+
+def media_nearest_rn(media: Media, rox, roy, roz, rdx, rdy, rdz, uniforms,
+                     t_min: float = MIN_T, t_max: float = MAX_T):
+    """:func:`media_nearest` on [Rc, N] (the reference's
+    ``media_nearest``): the same (t [R] f32, idx [R] int32) bit for bit.
+    ``uniforms[j]`` is medium ``j``'s [R] uniform, as the loop takes
+    them."""
+    R, N = rox.shape[0], media.count
+    p0 = media.p0
+    r2 = (media.radius * media.radius)[None, :]
+    is_sphere = (media.kind == MEDIUM_SPHERE)[None, :]
+    mask = media.mask[None, :]
+    density = media.density[None, :]
+    parts = []
+    for lo, hi in _rn_chunks(R, N):
+        ro = (rox[lo:hi], roy[lo:hi], roz[lo:hi])
+        rd = (rdx[lo:hi], rdy[lo:hi], rdz[lo:hi])
+        tn, tf = _slab_rn(p0, media.p1, media.obj_from_world, *ro, *rd)
+        box_crosses = tf > tn
+        ocx, ocy, ocz = (ro[k][:, None] - p0[None, :, k] for k in range(3))
+        a = (rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2])[:, None]
+        b = (ocx * rd[0][:, None] + ocy * rd[1][:, None]
+             + ocz * rd[2][:, None])
+        c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+        del ocx, ocy, ocz
+        disc = b * b - a * c
+        sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+        t1 = torch.where(is_sphere, (-b - sq) / a, tn)
+        t2 = torch.where(is_sphere, (-b + sq) / a, tf)
+        crosses = torch.where(is_sphere, disc > 0.0, box_crosses) & mask
+        t1 = torch.clamp(t1, min=t_min)
+        t2 = torch.clamp(t2, max=t_max)
+        ok = crosses & (t1 < t2)
+        t1 = torch.clamp(t1, min=0.0)
+        u = torch.stack([uniforms[j][lo:hi] for j in range(N)], dim=1)
+        hit_dist = -torch.log(torch.clamp(u, min=1e-38)) / density
+        inside = hit_dist < (t2 - t1)
+        parts.append(_first_min(
+            torch.where(ok & inside, t1 + hit_dist, _INF)))
+    return _cat(parts, R, rox)
+

@@ -47,9 +47,11 @@ counterpart of the reference's custom VJP (``_sphere_nearest_vjp``,
 ``intersect_pallas.py:639-683``): the forward is the kernel above, the
 backward is the kernel ``csrc/sphere_nearest_bwd.cu`` (K6), which
 recomputes the winner's root from (t, idx) and differentiates it in O(R),
-four rays a thread, a warp's per-sphere terms summed before any atomic;
-:func:`bwd_launch` is its launch rule (grid, and sums in shared or device
-memory).
+four rays a thread, the per-sphere sums in a fixed order (a warp's
+terms, then the block's warps in turn, then the blocks' rows of a buffer
+column by column), so they have the same bits on every run;
+:func:`bwd_launch` is its launch rule (grid, and a block's sums in shared
+or device memory).
 For moving spheres the forward is K3 and the backward differentiates the
 lerped centre too: it gives gradients to the motion leaves (delta, time0,
 inv_dt) and to the rays' time.
@@ -95,9 +97,15 @@ H100_SMS = 132     # SMs the plain culls assume off the card
 # K6's launch (bwd_launch): 4 rays a thread, 256 threads a block, a block
 # per 1024 rays (a persistent grid of two blocks an SM was slower, PERF.md);
 # per-block sums in shared memory up to the 227 KB a block may opt into on
-# the H100 (faster than adding into device memory at 4096 spheres)
+# the H100 (faster than adding into device memory at 4096 spheres). Each
+# block writes its sums to a row of a [blocks, 4 or 9 x N] buffer, which
+# the column passes sum in a fixed order; fewer blocks, each a larger
+# share of the rays, where the buffer would pass BWD_PARTIAL_BYTES
+# (final_full's 1,024 moving-scene spheres at 3.69M rays: 133 MB)
 BWD_RAYS, BWD_THREADS = 4, 256
 BWD_SHARED_BYTES = 232_448
+BWD_PARTIAL_BYTES = 256 << 20
+BWD_SEG = 64  # buffer rows a block of the first column pass sums
 
 # rays per plain-version chunk, at most PLAIN_CHUNK and at most
 # PLAIN_PAIRS / N: each [chunk, N] temporary takes at most 4 PLAIN_PAIRS
@@ -368,12 +376,17 @@ def _check_bwd(center, radius, ro, rd, t, idx, g_t, motion) -> None:
 
 def bwd_launch(n_rays: int, n_spheres: int, moving: bool) -> tuple:
     """K6's launch rule: (blocks, shared). A block per ``BWD_THREADS``
-    steps of ``BWD_RAYS`` rays. ``shared``: the per-block sums (4 floats a
-    sphere, 9 with motion) fit in ``BWD_SHARED_BYTES`` (read at the
-    call), else the warps add straight into device memory."""
-    shared = (9 if moving else 4) * 4 * n_spheres <= BWD_SHARED_BYTES
+    steps of ``BWD_RAYS`` rays, or as many blocks as the buffer of their
+    sums (4 floats a sphere a block, 9 with motion) holds within
+    ``BWD_PARTIAL_BYTES`` when that is fewer (each block then takes a
+    larger share of the rays). ``shared``: a block's sums fit in
+    ``BWD_SHARED_BYTES`` (read at the call), else the block sums in its
+    row of the buffer in device memory."""
+    row_bytes = (9 if moving else 4) * 4 * max(n_spheres, 1)
+    shared = row_bytes <= BWD_SHARED_BYTES
     quads = -(-n_rays // BWD_RAYS)
-    return max(1, -(-quads // BWD_THREADS)), shared
+    blocks = max(1, -(-quads // BWD_THREADS))
+    return max(1, min(blocks, BWD_PARTIAL_BYTES // row_bytes)), shared
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -394,7 +407,8 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     g_inv_dt, g_time).
 
     CPU tensors run the plain version; CUDA tensors launch K6 on the
-    current stream (raising if it cannot launch)."""
+    current stream (raising if it cannot launch), whose per-sphere sums
+    are taken in a fixed order: the same bits on every run."""
     global BWD_LAUNCHES, BWD_PLAIN_CALLS
     _check_bwd(center, radius, ro, rd, t, idx, g_t, motion)
     if t.device.type == "cpu":
@@ -409,15 +423,19 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
     center, radius = center.contiguous(), radius.contiguous()
     ro, rd, t, idx, g_t = (_aligned(x) for x in (ro, rd, t, idx, g_t))
     R, N = t.shape[0], radius.shape[0]
-    grads = [torch.zeros_like(center), torch.zeros_like(radius),
-             torch.empty_like(ro), torch.empty_like(rd)]
+    # the per-sphere sums are written whole by the kernel's last pass
+    new = torch.zeros_like if R == 0 or N == 0 else torch.empty_like
+    grads = [new(center), new(radius), torch.empty_like(ro),
+             torch.empty_like(rd)]
     delta = time0 = inv_dt = time = None
     if motion is not None:
         delta, time0, inv_dt = (x.contiguous() for x in motion[:3])
         time = _aligned(motion[3])
-        grads += [torch.zeros_like(delta), torch.zeros_like(time0),
-                  torch.zeros_like(inv_dt), torch.empty_like(time)]
-    if R == 0:
+        grads += [new(delta), new(time0), new(inv_dt),
+                  torch.empty_like(time)]
+    if R == 0 or N == 0:
+        for g in grads[2:4] + grads[7:]:
+            g.zero_()
         return tuple(grads)
     g_center, g_radius, g_ro, g_rd, g_delta, g_time0, g_inv_dt, g_time = (
         grads + [None] * 4)[:8]
@@ -426,13 +444,19 @@ def sphere_nearest_bwd(center, radius, ro, rd, t, idx, g_t,
         return None if x is None else x.data_ptr()
 
     blocks, shared = bwd_launch(R, N, motion is not None)
+    cols = (9 if motion is not None else 4) * N
+    partial = torch.empty(blocks * cols, dtype=torch.float32,
+                          device=t.device)
+    segments = -(-blocks // BWD_SEG)
+    mid = (torch.empty(segments * cols, dtype=torch.float32,
+                       device=t.device) if segments > 1 else None)
     stream = torch.cuda.current_stream(t.device).cuda_stream
     code = lib.pt_sphere_nearest_bwd(
         ptr(ro), ptr(rd), ptr(time), ptr(t), ptr(idx), ptr(g_t), R,
         ptr(center), ptr(delta), ptr(time0), ptr(inv_dt), ptr(radius), N,
         float(t_min), float(t_max), ptr(g_ro), ptr(g_rd), ptr(g_time),
         ptr(g_center), ptr(g_delta), ptr(g_time0), ptr(g_inv_dt),
-        ptr(g_radius), blocks, int(shared), stream,
+        ptr(g_radius), ptr(partial), ptr(mid), blocks, int(shared), stream,
     )
     _cuda_build.check(code, "sphere_nearest_bwd launch")
     BWD_LAUNCHES += 1

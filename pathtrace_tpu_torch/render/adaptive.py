@@ -21,12 +21,10 @@ images equal them up to the closest hit's rounding.
 
 Routes: ``mode="auto"`` traces each round on the fast path
 (:func:`~pathtrace_tpu_torch.ops.fastpath.trace_fast`: K1/K3/K4/K5 and K2
-on the gathered pixel wavefront, the ladder from 4096 lanes) where the
-port's fast path takes the scene, else on the general integrator
-(``"general"`` forces it). The port's fast path refuses more than the
-reference's (an image texture in a scene with boxes or media), so such a
-scene takes the general route here where the reference takes its fast
-one: the same estimator, other random streams.
+on the gathered pixel wavefront, or its non-fused bounce for an image
+texture in a scene with boxes or media, the ladder from 4096 lanes)
+where the fast path takes the scene, as the reference's does, else on the
+general integrator (``"general"`` forces it).
 """
 
 from __future__ import annotations

@@ -1,7 +1,10 @@
 """Stream-compaction primitives for the fast path's host ladder.
 
 Counterpart of ``pathtrace_tpu/render/compact_util.py`` on the port's
-:class:`~pathtrace_tpu_torch.ops.fastpath.FastStateP`. Compaction moves
+two state forms: the planes of
+:class:`~pathtrace_tpu_torch.ops.fastpath.FastStateP` and the [R, 3]
+fields of :class:`~pathtrace_tpu_torch.ops.fastpath.FastState` (the
+reference's ``radiance_fields``). Compaction moves
 lanes, never changes them: lane ids ride along and key the RNG, so a
 compacted trace follows the same paths as the uncompacted one. The
 radiance rows are flushed into the full-size output (``indices`` maps
@@ -44,13 +47,20 @@ def partition_order(mask: torch.Tensor):
 def _flush(out_radiance, state, indices, identity: bool):
     """Add the state's radiance rows into the [3, R0] output. Before the
     first compaction ``indices`` is the identity and the add is dense."""
-    rad = state.planes[_RAD]
+    rad = (state.planes[_RAD] if hasattr(state, "planes")
+           else state.radiance.T)
     if identity:
         return out_radiance + rad
     return out_radiance.index_add(1, indices, rad)
 
 
 def _take(state, perm):
+    """The lanes ``perm`` of either state form, their radiance zeroed."""
+    if not hasattr(state, "planes"):
+        moved = {k: (v.index_select(0, perm) if v is not None else None)
+                 for k, v in state._asdict().items()}
+        moved["radiance"] = torch.zeros_like(moved["radiance"])
+        return type(state)(**moved)
     planes = state.planes.index_select(1, perm)
     planes[_RAD] = 0.0
     return dataclasses.replace(state, planes=planes, time=state.time[perm],
@@ -72,7 +82,7 @@ def compact_rows(out_radiance, state, indices, next_rows: int,
     """Row-granular compaction: drop whole 128-lane rows whose lanes are
     all dead, keeping survivors' rows intact and in order."""
     out_radiance = _flush(out_radiance, state, indices, identity)
-    R = state.size
+    R = state.alive.shape[0]
     rows = R // ROW
     row_alive = state.alive.view(rows, ROW).any(dim=1)
     order, _, _ = partition_order(row_alive)

@@ -11,8 +11,9 @@ average with ``mix_prev = n/(n+1)``. Frame ``n`` draws from
   it takes the scene, else the general integrator
   (:func:`~pathtrace_tpu_torch.render.frame.render_frame`): more than 128
   rects, instanced spheres or rects, checkers with non-constant
-  children (the reference's own fallbacks), an image texture in a scene
-  with boxes or media, or NEE lights whose texture is not a constant;
+  children (the reference's own fallbacks). An image texture in a scene
+  with boxes or media (``final_full``) takes the fast path's non-fused
+  bounce, as in the reference;
 * ``"fast"`` and ``"general"`` force their path (``"fast"`` raises for a
   scene it cannot take);
 * ``"compacted"``: the general integrator under the host's compaction
@@ -24,8 +25,10 @@ average with ``mix_prev = n/(n+1)``. Frame ``n`` draws from
   ``--distributed``), as the reference's sharded branch
   (``progressive.py:124-137, 150-154, 187-214``): fast shards
   (``trace_fast_device``, bounce seed ``seed * 1000003 + n`` with the
-  frame key folded in) when the fast path takes the scene, else general
-  shards. ``-B``'s tree is the fast shards' closest hit; general shards
+  frame key folded in) when the fused bounce takes the scene
+  (``fastpath.fused_refusal``: not an image texture in a scene with
+  boxes or media, as the reference's ``fused_shade_supported`` gate),
+  else general shards. ``-B``'s tree is the fast shards' closest hit; general shards
   drop it, and ``--nee``, ``--rr`` and ``--stratify`` are ignored, each
   with a log line. Every rank holds the whole image; rank 0 alone writes
   checkpoints and snapshots.
@@ -33,8 +36,9 @@ average with ``mix_prev = n/(n+1)``. Frame ``n`` draws from
 ``Params.use_bvh`` (``-B``) builds the whole-scene BVH once
 (``models.bvh.build_scene_bvh``, native SAH) and logs its census. Its
 traversal then is the closest hit: the fast path's for a scene the fast
-path takes, else the general integrator's ``intersect_fn``, under the
-compaction ladder in ``auto`` (the reference's route: a fast-path
+path takes (``final_full`` included: its non-fused bounce takes the tree
+as its provider), else the general integrator's ``intersect_fn``, under
+the compaction ladder in ``auto`` (the reference's route: a fast-path
 scene, or ``compacted``), or plain ``render_frame`` with ``--mode
 general``.
 
@@ -74,6 +78,7 @@ from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops.fastpath import (
     fastpath_refusal,
     fastpath_supported,
+    fused_refusal,
     render_frame_fast,
 )
 from pathtrace_tpu_torch.ops.lights import build_light_table
@@ -99,19 +104,8 @@ class ProgressiveResult:
     #                          "compacted", "sharded"
 
 
-def auto_refusal(scene: Scene, features: SceneFeatures,
-                 nee_lights=None) -> Optional[str]:
-    """Why ``auto`` does not take ``scene`` on the fast path (None when
-    it does): :func:`~pathtrace_tpu_torch.ops.fastpath.fastpath_refusal`,
-    or NEE lights whose texture is not a constant."""
-    refused = fastpath_refusal(features, scene)
-    if refused is None and nee_lights is not None and nee_lights.color is None:
-        refused = "NEE lights whose texture is not a constant"
-    return refused
-
-
 def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
-          nee_lights=None, use_bvh: bool = False) -> str:
+          use_bvh: bool = False) -> str:
     """The path ``mode`` takes for ``scene``: "fast", "general",
     "compacted" or "sharded". ``auto`` takes the fast path where it can;
     elsewhere the general integrator, under the compaction ladder with
@@ -125,7 +119,7 @@ def route(scene: Scene, features: SceneFeatures, mode: str = "auto",
     if mode == "fast":
         fastpath_supported(features, scene)
         return "fast"
-    if auto_refusal(scene, features, nee_lights) is None:
+    if fastpath_refusal(features, scene) is None:
         return "fast"
     return "compacted" if use_bvh else "general"
 
@@ -195,9 +189,9 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
 
         flat, stats, offsets = bvh or pbvh.build_scene_bvh(scene, seed=seed)
         log(f"bvh stats: {stats} ({flat.builder} build)")
-    path = route(scene, features, mode, nee_lights, use_bvh)
-    shard_fast = path == "sharded" and fastpath_refusal(features,
-                                                        scene) is None
+    path = route(scene, features, mode, use_bvh)
+    shard_fast = path == "sharded" and fused_refusal(features,
+                                                     scene) is None
     if use_bvh and path not in ("fast", "sharded"):
         intersect_fn = pbvh.make_bvh_intersect_fn(flat, offsets, features)
     if use_bvh and path == "sharded" and not shard_fast:

@@ -24,8 +24,9 @@ same film, with its readbacks (one a bounce), bounces and segments.
 ``megakernel``: one frame of the megakernel
 path at the same film (primary rays, K7 over tables built once per scene,
 the sample mean). After warm-up steps, ``--reps`` unprofiled steps are
-timed with CUDA events, then one step runs under ``torch.profiler``: the
-device time of every kernel, summed by kind, the forward's share, the
+timed with CUDA events, then one step runs under ``torch.profiler`` (the
+device's activity; the host's too for ``train``, whose forward range it
+reads): the device time of every kernel, summed by kind, the forward's share, the
 step's device launches (kernels, copies and fills), and the device's idle
 share two ways: of the profiled step's wall time (the
 profiler's own, inflated by its overhead on the host), and of the
@@ -313,8 +314,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             spans["rays_host_ms"] = statistics.median(
                 info["rays_host_ms"][-args.reps:])
     torch.cuda.reset_peak_memory_stats(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if args.what == "train":
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()

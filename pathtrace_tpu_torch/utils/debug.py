@@ -28,7 +28,9 @@ from pathtrace_tpu_torch.config import MAX_T
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops import bsdf
 from pathtrace_tpu_torch.ops import intersect as isect
-from pathtrace_tpu_torch.ops.intersect_box import box_nearest, media_nearest
+from pathtrace_tpu_torch.ops.intersect_box import (
+    box_nearest_rn, media_nearest_rn,
+)
 from pathtrace_tpu_torch.render.integrator import prep_tables
 from pathtrace_tpu_torch.utils import threefry
 
@@ -136,9 +138,10 @@ def print_ray_trace(scene: Scene, camera: Camera, max_depth: int,
             if f.has_rects:
                 candidates["rect"] = isect.rect_hits(scene.rects, ro, rd)
             if f.has_boxes:
-                candidates["box"] = box_nearest(scene.boxes, *planes(ro, rd))
+                candidates["box"] = box_nearest_rn(scene.boxes,
+                                                   *planes(ro, rd))
             if f.has_media:
-                candidates["media"] = media_nearest(
+                candidates["media"] = media_nearest_rn(
                     scene.media, *planes(ro, rd), med_u.T)
             rec = isect.intersect_scene(scene, ro, rd, time, med_u, soa, f)
             sc = bsdf.scatter(scene, rec, rd, scat_u, f)

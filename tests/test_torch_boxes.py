@@ -438,8 +438,9 @@ def test_gates_on_box_scenes():
     """The fast path takes ``cornell`` and ``cornell_smoke``; the
     megakernel refuses them, as the reference's megakernel does; the
     differentiable trace and the trainer take them, as the reference's do;
-    an image texture on a box is refused by the fast path (the reference
-    shades it outside the fused kernel)."""
+    an image texture on a box takes the fast path's non-fused bounce (the
+    reference shades it outside the fused kernel), and the device-only
+    trace, fused only, refuses it."""
     from pathtrace_tpu_torch.parallel.inverse import make_inverse_renderer
 
     for name, kind in (("cornell", "boxes"), ("cornell_smoke", "media")):
@@ -462,8 +463,12 @@ def test_gates_on_box_scenes():
     b.box((0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
           b.lambertian(b.image_texture(np.ones((2, 2, 3), np.float32))))
     scene = b.finish()
+    feats = SceneFeatures.from_scene(scene)
+    assert tfp.fastpath_supported(feats, scene)
+    rad = tfp.trace_fast(scene, ro, -rd, torch.zeros(8), 0, 4, feats).radiance
+    assert rad.shape == (8, 3) and torch.isfinite(rad).all()
     with pytest.raises(ValueError, match="image textures"):
-        tfp.fastpath_supported(SceneFeatures.from_scene(scene), scene)
+        tfp.trace_fast_device(scene, ro, -rd, torch.zeros(8), 0, 4, feats)
 
 
 def test_cli_renders_cornell(tmp_path, capsys):

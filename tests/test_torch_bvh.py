@@ -24,10 +24,10 @@ tests/test_torch_bvh.py``, JAX on the CPU, ~2 min):
   preset with a tree, and the blocks of its table.
 * frames: JAX's ``render_frame_fast`` with the tree (64x32, 2 spp, depth
   8, ``PRNGKey(3)``, seed 12345: ``tests/test_bvh_wide.py``'s frames,
-  with the flat tree) of ``random_spheres``, ``simple_light`` and
-  ``cornell_smoke``; ``render_frame_compacted`` of ``final_full`` through
-  the tree and of ``random_spheres`` without it (``min_size`` 128, so the
-  ladder compacts at this size).
+  with the flat tree) of ``random_spheres``, ``simple_light``,
+  ``cornell_smoke`` and ``final_full``; ``render_frame_compacted`` of
+  ``final_full`` through the tree and of ``random_spheres`` without it
+  (``min_size`` 128, so the ladder compacts at this size).
 
 Bounds: the traversal as ``tests/test_bvh.py``'s ``test_matches_brute_force``
 (hit masks equal, t within rtol 1e-3 / atol 1e-4, gid equal on >= 99.9%
@@ -90,7 +90,8 @@ N_RAYS = 4096
 TREE_SCENES = ("random_spheres", "random", "cornell_smoke", "final_full")
 TRAV_SCENES = ("random_spheres", "random", "cornell", "cornell_smoke",
                "final_full", "instanced")
-FRAME_SCENES = ("random_spheres", "simple_light", "cornell_smoke")
+FRAME_SCENES = ("random_spheres", "simple_light", "cornell_smoke",
+                "final_full")
 FRAME = dict(width=64, height=32, samples=2, depth=8, key=3, seed=12345)
 # compacted frames: (preset, through the tree, width, height, spp, depth)
 COMPACTED = (("final_full", True, 32, 24, 4, 6),
@@ -399,7 +400,12 @@ def _pixel_budget(samples: int) -> float:
 @pytest.mark.parametrize("name", FRAME_SCENES)
 def test_bvh_fast_frame_matches_jax_and_brute(ref, name):
     """The ``-B`` fast frame against JAX's (the per-pixel budget) and
-    against the port's brute frame (test_bvh_wide.py's bounds)."""
+    against the port's brute frame (test_bvh_wide.py's bounds).
+    ``final_full`` (the non-fused bounce with the tree as its provider)
+    is 94% black at this film and bright elsewhere, so a mean difference
+    says little: its brute frame is held to the per-pixel budget too
+    (measured: 8 pixels of 2,048 outside JAX's, 11 outside the brute
+    frame's, budget 40)."""
     before = bvh_kernel.PLAIN_CALLS
     res = _bvh_frame(name, True)
     assert bvh_kernel.PLAIN_CALLS > before  # the tree was the closest hit
@@ -411,9 +417,14 @@ def test_bvh_fast_frame_matches_jax_and_brute(ref, name):
     rays_ref = int(ref[f"frame.{name}.rays"])
     assert abs(int(res.ray_count) - rays_ref) <= 0.01 * rays_ref
     brute = _bvh_frame(name, False)
-    diff = np.abs(img - brute.image.numpy())
-    assert diff.mean() < 1e-3
-    assert (diff < 1e-3).mean() > 0.98
+    if name == "final_full":
+        outside = ~lane_close(img, brute.image.numpy()).all(axis=-1)
+        assert outside.mean() <= _pixel_budget(FRAME["samples"]), (
+            f"{name}: {int(outside.sum())} pixels outside the brute frame")
+    else:
+        diff = np.abs(img - brute.image.numpy())
+        assert diff.mean() < 1e-3
+        assert (diff < 1e-3).mean() > 0.98
     rb = int(brute.ray_count)
     assert abs(int(res.ray_count) - rb) <= max(rb, 1) * 0.01
 
@@ -521,10 +532,18 @@ def test_cli_bvh_and_compacted(tmp_path):
     assert "render path: fast (--mode auto, intersect: bvh)" in text
     assert "bvh stats: BVHStats(node_count=975, leaf_count=488" in text
     assert np.isfinite(np.load(out)).all()
+    # final_full -B: auto takes the fast path (its non-fused bounce, the
+    # tree as provider), as the reference's route does; --mode compacted
+    # keeps the general route under the ladder
     rc, text, _ = _cli("-P", "final_full", "-B", "--out", out)
     assert rc == 0
-    assert "render path: compacted (--mode auto, intersect: bvh)" in text
-    assert "the fast path refuses the scene" in text
+    assert "render path: fast (--mode auto, intersect: bvh)" in text
+    assert "the fast path refuses the scene" not in text
+    assert "(fast path, bvh)" in text and np.isfinite(np.load(out)).all()
+    rc, text, _ = _cli("-P", "final_full", "-B", "--mode", "compacted",
+                       "--out", out)
+    assert rc == 0
+    assert "render path: compacted (--mode compacted, intersect: bvh)" in text
     assert "(compacted path, bvh)" in text
     rc, text, _ = _cli("-P", "small", "--mode", "compacted", "--out", out)
     assert rc == 0 and "render path: compacted (--mode compacted, " \

@@ -2,8 +2,11 @@
 
 K6 (``csrc/sphere_nearest_bwd.cu``) takes its grid and its instance from
 ``intersect_kernel.bwd_launch``: a block of 256 threads per 1024 rays
-(four a thread); per-block sums in shared memory while they fit in the
-227 KB a block may opt into, else added straight into device memory. It
+(four a thread), fewer where the buffer of the blocks' per-sphere sums
+would pass ``BWD_PARTIAL_BYTES``; per-block sums in shared memory while
+they fit in the 227 KB a block may opt into, else in the block's row of
+that buffer in device memory. Its column passes sum ``BWD_SEG`` rows a
+segment (the source's ``kSeg``). It
 moves rays as float4s, so the wrapper hands it every per-ray array on a
 16-byte boundary (``intersect_kernel._aligned``). The plain version, which the wrapper runs
 on the CPU, is held to JAX in ``tests/test_torch_grad.py`` and
@@ -28,9 +31,39 @@ R_FULL = 1280 * 720 * 4
     (R_FULL, 3600),
 ])
 def test_a_block_per_1024_rays(n_rays, blocks):
-    """256 threads of 4 rays a block, whatever the spheres."""
+    """256 threads of 4 rays a block, as long as the blocks' sums (a row
+    of 4 floats a sphere, 9 with motion) fit in ``BWD_PARTIAL_BYTES``;
+    past it as many blocks as fit (20,000 spheres at full width)."""
     for n_spheres, moving in ((512, False), (512, True), (20_000, False)):
-        assert ik.bwd_launch(n_rays, n_spheres, moving)[0] == blocks
+        row = (9 if moving else 4) * 4 * n_spheres
+        fit = ik.BWD_PARTIAL_BYTES // row
+        assert ik.bwd_launch(n_rays, n_spheres, moving)[0] == min(blocks, fit)
+        assert (blocks <= fit) == (n_spheres == 512 or n_rays < R_FULL)
+
+
+@pytest.mark.parametrize("n_spheres,moving,blocks", [
+    (488, False, 3600),     # random_spheres: 26.8 MiB of sums
+    (1024, True, 3600),     # final_full's spheres with motion: 126.6 MiB
+    (14_528, False, 1154),  # 256 MiB / 58,112 bytes a row
+    (20_000, False, 838),
+    (6457, True, 1154),
+])
+def test_blocks_capped_by_the_sums_buffer(n_spheres, moving, blocks):
+    assert ik.bwd_launch(R_FULL, n_spheres, moving)[0] == blocks
+    row = (9 if moving else 4) * 4 * n_spheres
+    assert blocks * row <= ik.BWD_PARTIAL_BYTES
+
+
+def test_segment_length_mirrors_the_source():
+    import os
+    import re
+
+    src = open(os.path.join(os.path.dirname(ik.__file__), "..", "csrc",
+                            "sphere_nearest_bwd.cu")).read()
+    assert int(re.search(r"constexpr int kSeg = (\d+);", src).group(1)) \
+        == ik.BWD_SEG
+    # no float atomic is left to order the sums
+    assert "atomicAdd" not in src
 
 
 @pytest.mark.parametrize("n_spheres,moving,shared", [

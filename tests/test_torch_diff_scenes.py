@@ -128,8 +128,8 @@ def test_trace_fast_diff_matches_jax(name):
 def test_diff_supported_takes_what_fastpath_takes():
     """``diff_supported`` refuses only what the reference's
     ``fastpath_supported`` refuses: boxes, media and images pass, an image
-    on a box too (the fused path's refusal; ``final_full`` and
-    ``image_box``), while more than 128 rects, instances and checkers
+    on a box too (the fused bounce's refusal, :func:`fused_refusal`;
+    ``final_full`` and ``image_box``), while more than 128 rects, instances and checkers
     with non-constant children are refused."""
     for name in ("cornell", "cornell_smoke", "earth", "image_box",
                  "sky_boxes", "small", "simple_light", "final_full"):
@@ -138,10 +138,9 @@ def test_diff_supported_takes_what_fastpath_takes():
         feats = SceneFeatures.from_scene(scene)
         assert tfp.diff_supported(feats, scene)
         assert tfp.diff_refusal(feats, scene) is None
+        assert tfp.fastpath_supported(feats, scene)
         if name in ("image_box", "final_full"):
-            assert "image textures" in tfp.fastpath_refusal(feats, scene)
-        else:
-            assert tfp.fastpath_supported(feats, scene)
+            assert "image textures" in tfp.fused_refusal(feats, scene)
     b = build.SceneBuilder()
     mat = b.lambertian_color((0.5, 0.5, 0.5))
     b.sphere((0.0, 0.0, 0.0), 0.5, mat,

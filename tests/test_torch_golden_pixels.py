@@ -14,8 +14,9 @@ except a share no larger than ``1 - (1 - b)^8``, where b is the preset's
 per-ray budget at depth 10 (``DEPTH10_BUDGET``, ``XL_DEPTH10_BUDGET`` for
 ``random_spheres_xl``): a pixel is outside when one of its 8 rays is.
 Measured on the CPU (pixels outside of 3072): aras 3, cornell 2,
-cornell_smoke 3, earth 0, final 0, random 56, random_spheres 50,
-random_spheres_xl 134, simple_light 2, small 1, smallpt 0,
+cornell_smoke 3, earth 0, final 0, final_full 103 (its non-fused bounce:
+K3's rounding on 1,024 spheres; budget 237), random 56, random_spheres
+50, random_spheres_xl 134, simple_light 2, small 1, smallpt 0,
 two_perlin_spheres 0.
 """
 
@@ -37,10 +38,9 @@ from torch_port_util import (  # noqa: E402
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 W, H, SPP, DEPTH, SEED = 64, 48, 8, 8, 0
-# the presets the fast path takes: final_full (an image texture in a scene
-# with boxes and media) renders through the general integrator only, and
-# tests/test_torch_general_goldens.py holds its general golden
-FAST_PRESETS = [n for n in presets.names() if n != "final_full"]
+# the presets the fast path takes: all 13 (final_full, an image texture in
+# a scene with boxes and media, through the non-fused bounce)
+FAST_PRESETS = list(presets.names())
 
 
 def pixel_budget(preset: str) -> float:

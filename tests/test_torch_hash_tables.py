@@ -263,16 +263,17 @@ class TestSceneState:
         tables = tfp.prep_tables(scene, feats)
         assert tuple(tables.soa.shape) == (12, 512)
         assert np.count_nonzero(tables.soa[9].numpy()) == 391  # inv_dt
-        # image textures are ported, but not in a scene with boxes
+        # image textures are ported, in a scene with boxes too (the
+        # non-fused bounce); the fused bounce refuses that pair
         feats.has_image = True
         assert tfp.fastpath_supported(feats, scene)
         feats.has_boxes = True
-        with pytest.raises(ValueError, match="image textures"):
-            tfp.fastpath_supported(feats, scene)
+        assert tfp.fastpath_supported(feats, scene)
+        assert "image textures" in tfp.fused_refusal(feats, scene)
 
     def test_unported_preset_raises(self):
-        # every preset is ported (final_full renders through the general
-        # integrator); an unknown name is refused
+        # every preset is ported (final_full through the fast path's
+        # non-fused bounce); an unknown name is refused
         assert presets.NOT_PORTED == () and "final_full" in PORTED
         with pytest.raises(ValueError, match="unrecognised preset"):
             presets.from_name("final_fuller", 1.0)

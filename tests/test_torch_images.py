@@ -33,8 +33,9 @@
   within 1e-3 with at most ``DEPTH10_BUDGET`` of the rays outside,
   segments equal where no ray is outside. Regenerate them with
   ``PYTHONPATH=. python tests/test_torch_images.py``.
-* The gates: an image on a box or in a media scene raises ``ValueError``
-  naming the missing path; so do an atlas entry outside the atlas data
+* The gates: an image on a box or in a media scene takes the non-fused
+  bounce, and the fused device-only trace raises ``ValueError`` naming
+  the reference's gate; so do an atlas entry outside the atlas data
   and K2's image flag without the atlas; the megakernel refuses image
   scenes, the differentiable path takes them; the CLI renders ``-P earth`` and
   ``--image`` (a missing file is an error, rc 2).
@@ -535,10 +536,10 @@ def test_port_cpu_trace_holds_image_fixture(name, path):
 
 def test_gates_on_image_scenes():
     """Images on spheres and rects take the fast path; an image on a box,
-    or in a scene with media, raises naming the path the reference takes
-    for them; the megakernel refuses image scenes; the differentiable
-    path takes them all, as the reference's does (its image branch has
-    the box UV)."""
+    or in a scene with media, takes its non-fused bounce, and the fused
+    device-only trace raises naming the reference's gate; the megakernel
+    refuses image scenes; the differentiable path takes them all, as the
+    reference's does (its image branch has the box UV)."""
     scene = _scenes("image_light")[2]
     feats = SceneFeatures.from_scene(scene)
     assert tfp.fastpath_supported(feats, scene)
@@ -559,13 +560,15 @@ def test_gates_on_image_scenes():
                             b.constant_texture((0.5, 0.5, 0.5)))
         s = b.finish()
         f = SceneFeatures.from_scene(s)
-        with pytest.raises(ValueError, match="fused_shade_supported"):
-            tfp.fastpath_supported(f, s)
+        assert tfp.fastpath_supported(f, s)
+        assert "fused_shade_supported" in tfp.fused_refusal(f, s)
         assert tfp.diff_supported(f, s)
-        with pytest.raises(ValueError, match="box normals and box UV"):
-            tfp.trace_fast(s, torch.zeros(8, 3),
-                           torch.tensor([[0.0, -1.0, 0.0]] * 8),
-                           torch.zeros(8), 0, 2, f)
+        down = (torch.zeros(8, 3), torch.tensor([[0.0, -1.0, 0.0]] * 8),
+                torch.zeros(8))
+        rad = tfp.trace_fast(s, *down, 0, 2, f).radiance
+        assert rad.shape == (8, 3) and torch.isfinite(rad).all()
+        with pytest.raises(ValueError, match="box UV"):
+            tfp.trace_fast_device(s, *down, 0, 2, f)
     # an atlas entry outside the atlas data (a converted scene's) is refused
     bad = convert.scene_to_numpy(scene)
     bad["atlas.height"] = bad["atlas.height"] + np.int32(1)

@@ -3,7 +3,8 @@ fast path, against the JAX package (CPU).
 
 * The light table (``build_light_table``) equal to JAX's field for field,
   the lightless scene (None) and a light whose texture is not a constant
-  (colour None, which the fast path refuses as not ported yet).
+  (colour None: the fast path evaluates their texture at the light
+  point).
 * The light sampler and its density (``sample_light_dirs_planes``,
   ``light_dir_pdf_planes``) against JAX's on seeded points, uniforms and
   directions: discrete results (light index, valid, whether a direction
@@ -130,11 +131,18 @@ def test_lightless_and_textured_lights():
     scene = b.finish()
     table = lights.build_light_table(scene)
     assert table.count == 1 and table.color is None
-    ro = torch.zeros(128, 3)
+    # the fast path evaluates a textured light's emission (texture_value
+    # at the light point), as the reference does: rays from the ground
+    # towards the light gather its marble through their light samples
+    feats = SceneFeatures.from_scene(scene)
+    tables = tfp.prep_tables(scene, feats, lights=table)
+    assert tables.light_rgb is None and tables.light_tex is not None
+    ro = torch.tensor([[0.5, 0.0, 0.5]] * 128)
     rd = torch.tensor([[0.0, 1.0, 0.0]] * 128)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tfp.trace_fast(scene, ro, rd, torch.zeros(128), 1, 4,
-                       SceneFeatures.from_scene(scene), nee_lights=table)
+    res = tfp.trace_fast(scene, ro, rd, torch.zeros(128), 1, 4, feats,
+                         nee_lights=table)
+    assert torch.isfinite(res.radiance).all()
+    assert float(res.radiance.mean()) > 0.0
 
 
 def _points_and_uniforms(n=4096, seed=3):
