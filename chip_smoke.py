@@ -405,7 +405,25 @@ Phases (each prints a line before the next starts):
     tree's K6 (``build/parent``, built alone; when present); two
     ``--geometry`` train steps (1280x720x4, depth 4, the silhouette term,
     deterministic algorithms) from one state bit for bit; the example's
-    ``--geometry`` 4 steps == 2 + checkpoint + 2 bit for bit.
+    ``--geometry`` 4 steps == 2 + checkpoint + 2 bit for bit;
+71. the wide-node tree's traversal kernel (``csrc/bvh_wide_traverse.cu``)
+    against its plain version (t, gid and visits bit for bit) and against
+    the flat tree's kernel ((t, gid) bit for bit) on 3,686,400 camera
+    rays and one bounce of scattered rays of ``random_spheres``, xl,
+    ``random`` (motion, ``leaf_m`` 4), ``cornell_smoke`` (media leaves)
+    and ``final_full``: both kernels' medians, the plain version's time,
+    nodes and visits a ray of both trees, the bound
+    (``bvh_kernel.wide_yardsticks``) and the kernel's share of it, and its
+    registers;
+72. full-width frames (1280x720x4, depth 10) of ``random_spheres`` and
+    xl through ``render_frame_fast(bvh=wide)`` equal the flat tree's bit
+    for bit, timed in turns; the wide kernel and K2 launched, no K1, no
+    flat traversal, no plain version;
+73. the interleaved ladder: ``tools/ladder_ab.run_pairs`` on full-width
+    ``random_spheres`` frames (one frame key): the one ladder against
+    chunks of 2^21 and 2^20, and ``-B`` (one ladder) at the three tiers'
+    thresholds against 0.35 for every tier, each pair equal bit for bit,
+    in 5 rounds of A, B, B, A, with readbacks and segments a frame.
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -665,6 +683,7 @@ def reset_counts(k1, k2, k7) -> None:
     k7.LAUNCHES = k7.PLAIN_CALLS = 0
     threefry.LAUNCHES = threefry.PLAIN_CALLS = 0
     bvh_kernel.LAUNCHES = bvh_kernel.PLAIN_CALLS = 0
+    bvh_kernel.WIDE_LAUNCHES = bvh_kernel.WIDE_PLAIN_CALLS = 0
     bf16_probe.LAUNCHES = bf16_probe.PLAIN_CALLS = 0
     for kind in ("SPLIT", "MINOR", "MAJOR"):
         setattr(split_probe, f"{kind}_LAUNCHES", 0)
@@ -683,8 +702,9 @@ def read_counts(k1, k2, k7) -> dict:
             "K6": k1.BWD_LAUNCHES, "K7": k7.LAUNCHES, "P1": p1.LAUNCHES,
             "P2": p24.SPLIT_LAUNCHES, "P3": p24.MINOR_LAUNCHES,
             "P4": p24.MAJOR_LAUNCHES, "threefry": tf.LAUNCHES,
-            "bvh": bvh.LAUNCHES,
-            "plain": (bvh.PLAIN_CALLS + k1.PLAIN_CALLS + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
+            "bvh": bvh.LAUNCHES, "bvh_wide": bvh.WIDE_LAUNCHES,
+            "plain": (bvh.PLAIN_CALLS + bvh.WIDE_PLAIN_CALLS + k1.PLAIN_CALLS
+                      + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
                       + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS
                       + p1.PLAIN_CALLS + p24.SPLIT_PLAIN_CALLS
@@ -2515,6 +2535,212 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     out["k6"] = {"runs": k6, "geometry_steps_equal": step_equal,
                  "geometry_resume_equal": ck_equal and img_equal,
                  "geometry_step_launches": c70}
+    return out
+
+
+def wide_phases(dev, smi: str, k1, k2, k7) -> dict:
+    """Phases 71-73: the wide-node tree's traversal kernel against its
+    plain version and the flat tree's kernel, full-width frames through
+    either tree, and the interleaved ladder. Returns the numbers the
+    kernels line carries."""
+    import torch
+
+    from pathtrace_tpu_torch.models import bvh as pbvh
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.render import integrator as gint
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools import ladder_ab
+    from pathtrace_tpu_torch.tools import nearest_bench as nb
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
+
+    out = {}
+    R = WIDTH * HEIGHT * SAMPLES
+
+    # ---- 71: the wide kernel against its plain version and the flat one
+    regs = next(iter(nb.ptxas_usage("bvh_wide_traverse_kernel").values()),
+                None)
+    phase(f"[71] bvh_wide_traverse_kernel registers and spills (ptxas): "
+          f"{regs}")
+    scenes = {}
+    max_err = 0.0
+    for name in ("random_spheres", "random_spheres_xl", "random",
+                 "cornell_smoke", "final_full"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        t0 = time.perf_counter()
+        wide = pbvh.widen_flat_bvh(flat, scene_, offsets, features=feats_)
+        widen_s = time.perf_counter() - t0
+        sdev = scene_.to(dev)
+        op_f = flat.operand(sdev, feats_, offsets, dev)
+        op_w = wide.operand(sdev, feats_, offsets, dev)
+        n_media = sdev.media.count if feats_.has_media else 0
+        ro, rd, tm = generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
+                                           PRNGKey(0), device=dev)
+        st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+
+        def flights_at(depth):
+            if not feats_.has_media:
+                return None
+            return bvh_kernel.media_flights(op_w, fp.media_uniforms(
+                st0.lane, 7, depth, n_media, 8))
+
+        if fp.fused_refusal(feats_, sdev) is None:
+            tables = fp.prep_tables(sdev, feats_, bvh=flat,
+                                    bvh_offsets=offsets)
+            t_, idx_ = fp.closest_hit(tables, st0, 0, feats_, 7)
+            planes, _ = k2.shade_from_winners(
+                tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
+                st0.lane, 7, 0, DEPTH, tables.sky4, fp.feature_flags(feats_),
+                atlas=tables.atlas)
+            rays1 = planes[:6].contiguous()
+            del tables, planes
+        else:  # final_full: the general bounce's scattered rays
+            fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats_)
+            gt = gint.prep_tables(sdev, feats_)
+            st1 = gint._bounce(sdev, gt, gint._initial_state(
+                ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
+                PRNGKey(7), DEPTH, feats_, intersect_fn=fn)
+            rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
+            del gt, st1
+        sets = {"camera": (st0.planes[:6], st0.time, flights_at(0)),
+                "scattered": (rays1, st0.time, flights_at(1))}
+        runs = {}
+        for label, (rays, time_, fl) in sets.items():
+            t, gid, vis = bvh_kernel.bvh_traverse(op_w, rays, time_, fl,
+                                                  visits=True)
+            tf_, gf, vf = bvh_kernel.bvh_traverse(op_f, rays, time_, fl,
+                                                  visits=True)
+            tp, gp, vp, tests = bvh_kernel.wide_traverse_plain(
+                op_w, rays, time_, fl, stats=True)
+            torch.cuda.synchronize()
+            same_plain = (torch.equal(t, tp) and torch.equal(gid, gp)
+                          and torch.equal(vis, vp))
+            same_flat = torch.equal(t, tf_) and torch.equal(gid, gf)
+            hit = t < 1e30
+            err = (float((t[hit] - tp[hit]).abs().max()) if bool(hit.any())
+                   else 0.0)
+            max_err = max(max_err, err)
+            ms = median_ms(lambda: bvh_kernel.bvh_traverse(op_w, rays, time_,
+                                                           fl), 10)
+            flat_ms = median_ms(lambda: bvh_kernel.bvh_traverse(
+                op_f, rays, time_, fl), 10)
+            t0 = time.perf_counter()
+            bvh_kernel.wide_traverse_plain(op_w, rays, time_, fl)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            ys = bvh_kernel.wide_yardsticks(op_w, R, vp, tests, n_media)
+            runs[label] = {
+                "rays": R, "hit_share": float(hit.float().mean()),
+                "equal_to_plain": same_plain, "equal_to_flat": same_flat,
+                "max_abs_err": err, "ms": ms, "flat_ms": flat_ms,
+                "plain_ms": plain_ms, "bound_ms": ys["bound_ms"],
+                "bound_by": ys["bound_by"],
+                "issue_ceiling_ms": ys["issue_ceiling_ms"],
+                "bytes_ms": ys["bytes_ms"],
+                "share_of_bound": ys["bound_ms"] / ms,
+                "mean_visits": ys["mean_visits"],
+                "max_visits": ys["max_visits"],
+                "flat_mean_visits": float(vf.double().mean()),
+                "flat_max_visits": int(vf.max()),
+                "leaf_tests": ys["leaf_tests"], "library_ms": None}
+            phase(f"[71] {name} {label}: {R} rays, hit "
+                  f"{runs[label]['hit_share']:.4f}; t, gid, visits equal to "
+                  f"plain: {same_plain}; (t, gid) equal to the flat kernel: "
+                  f"{same_flat}; wide {ms:.4f} ms, flat {flat_ms:.4f} ms "
+                  f"(medians of 10; wide/flat {ms / flat_ms:.3f}), plain "
+                  f"{plain_ms:.1f} ms, bound {ys['bound_ms']:.4f} ms "
+                  f"({ys['bound_by']}; {ys['bound_ms'] / ms:.1%} of it); "
+                  f"visits a ray wide {ys['mean_visits']:.2f} (max "
+                  f"{ys['max_visits']}) against flat "
+                  f"{runs[label]['flat_mean_visits']:.2f} (max "
+                  f"{runs[label]['flat_max_visits']}); leaf tests "
+                  f"{ys['leaf_tests']} ({smi})")
+            if not (same_plain and same_flat):
+                raise AssertionError(f"{name} {label}: the wide kernel "
+                                     "differs from its plain version or "
+                                     "from the flat kernel")
+        scenes[name] = {"nodes": wide.n_nodes, "flat_nodes": flat.n_nodes,
+                        "leaf_m": wide.leaf_m, "node_rows": op_w.node_rows,
+                        "widen_s": widen_s, **runs}
+        phase(f"[71] {name}: wide tree {wide.n_nodes} nodes (leaf_m "
+              f"{wide.leaf_m}, {op_w.node_rows} float4 rows a node, widened "
+              f"in {widen_s:.3f} s) against the flat tree's {flat.n_nodes}")
+        del sdev, op_f, op_w, st0, sets, rays1
+    out["scenes"] = scenes
+    out["registers"] = regs
+    out["max_abs_err"] = max_err
+
+    # ---- 72: full-width frames through either tree, in turns ----
+    frames = {}
+    for name in ("random_spheres", "random_spheres_xl"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        wide = pbvh.widen_flat_bvh(flat, scene_, offsets, features=feats_)
+        sdev, cdev = scene_.to(dev), cam_.to(dev)
+        key = fold_in(PRNGKey(0), 2)
+        trees = {"flat": flat, "wide": wide}
+
+        def frame(tree):
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            res = fp.render_frame_fast(sdev, cdev, WIDTH, HEIGHT, SAMPLES,
+                                       DEPTH, key, 7, feats_,
+                                       bvh=trees[tree], bvh_offsets=offsets)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end), res
+
+        imgs, counts = {}, {}
+        for tree in ("flat", "wide"):   # warm-up, the images, the launches
+            reset_counts(k1, k2, k7)
+            _, res = frame(tree)
+            counts[tree] = read_counts(k1, k2, k7)
+            imgs[tree] = (res.image, int(res.ray_count), res.readbacks)
+        times = {"flat": [], "wide": []}
+        for _ in range(3):
+            for tree in ("flat", "wide", "wide", "flat"):
+                times[tree].append(frame(tree)[0])
+        same = (torch.equal(imgs["flat"][0], imgs["wide"][0])
+                and imgs["flat"][1] == imgs["wide"][1])
+        c = counts["wide"]
+        entry = {"equal": same, "segments": imgs["wide"][1],
+                 "readbacks": imgs["wide"][2], "launches": c,
+                 "flat_launches": counts["flat"],
+                 **{f"{t}_ms": times[t] for t in times},
+                 **{f"{t}_median_ms": float(sorted(times[t])[len(times[t])
+                                                              // 2])
+                    for t in times}}
+        frames[name] = entry
+        phase(f"[72] {name} {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH}: wide "
+              f"frame == flat frame bit for bit: {same}; {imgs['wide'][1]} "
+              f"segments, {imgs['wide'][2]} readbacks; in turns (3 rounds of "
+              f"flat, wide, wide, flat): wide "
+              f"{[round(x, 2) for x in times['wide']]} ms (median "
+              f"{entry['wide_median_ms']:.2f}), flat "
+              f"{[round(x, 2) for x in times['flat']]} (median "
+              f"{entry['flat_median_ms']:.2f}); launches of the wide frame "
+              f"{c} ({smi})")
+        if (not same or c["bvh_wide"] <= 0 or c["K2"] <= 0 or c["K1"]
+                or c["bvh"] or c["plain"]):
+            raise AssertionError(f"{name}: the wide frame failed its checks")
+        del sdev, cdev
+    out["frames"] = frames
+
+    # ---- 73: the interleaved ladder and -B's thresholds, in turns ----
+    knobs = {k: getattr(fp, k) for k in ("INTERLEAVE_CHUNK", "COUNT_SKIP_SIZE",
+                                         "ROW_SHRINK", "COMPACT_SHRINK",
+                                         "SMALL_SHRINK")}
+    phase(f"[73] ladder knobs: {knobs}")
+    lad = ladder_ab.run_pairs(ladder_ab.PAIRS, 5, dev,
+                              log=lambda ln: phase(f"[73] {ln}"))
+    phase(f"[73] medians B / A: {json.dumps(lad['pairs'])} ({smi})")
+    out["ladder"] = {"knobs": knobs, **lad}
     return out
 
 
@@ -4461,6 +4687,8 @@ def main() -> int:
     mesh_cli = mesh["cli"]
     drv = driver_phases(dev, k1, k2, k7)
     nf = nonfused_phases(dev, smi, k1, k2, k7)
+    wide = wide_phases(dev, smi, k1, k2, k7)
+    wide_main = wide["scenes"]["random_spheres"]["camera"]
     drv_launches = {
         "adaptive_launches": {n_: r_["launches"] for n_, r_ in
                               drv["adaptive"].items()},
@@ -4654,6 +4882,21 @@ def main() -> int:
          "final_full_fast_launches": nf["final_full_bvh"]["launches"]["bvh"],
          "final_full_fast": nf["final_full_bvh"],
          "textured_light": nf["textured_light"], "sweeps": nf["sweeps"],
+         "library_ms": None},
+        {"name": "bvh_wide_traverse", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/bvh_wide_traverse.cu",
+         "replaces": "pathtrace_tpu/models/bvh.py:978 (wide_scene_nearest, "
+                     "an XLA while_loop; no TPU kernel)",
+         "launches": wide["frames"]["random_spheres"]["launches"]["bvh_wide"],
+         "max_abs_err": wide["max_abs_err"],
+         **{k: wide_main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "issue_ceiling_ms",
+                                      "bytes_ms", "mean_visits", "max_visits",
+                                      "flat_ms", "flat_mean_visits")},
+         "ms_scattered": wide["scenes"]["random_spheres"]["scattered"]["ms"],
+         "visits": wide_main["mean_visits"],
+         "registers": wide["registers"], "scenes": wide["scenes"],
+         "frames": wide["frames"], "ladder": wide["ladder"],
          "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",

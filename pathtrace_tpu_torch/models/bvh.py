@@ -24,9 +24,19 @@ arrays, the traversal and the hit records of its winners.
 keeps the full quadratic (``a = |rd|^2``, and a division), unlike the
 scene traversal's unit-direction leaf.
 
-The reference's straggler slicing (``_BULK_IT``, ``_SLICE_N``) and its
-wide-node tree are not here: the first is a static-shape workaround that
-gives the plain loop's bits, and no entry point builds the second.
+* **Wide tree** (:class:`WideBVH`, :func:`widen_flat_bvh`,
+  :func:`build_scene_wide_bvh`; the reference's ``:815-970``): a
+  host-side post-pass over the flat tree. Child boxes live in the
+  parent's row, and an all-sphere subtree of at most ``leaf_m`` leaves
+  becomes one leaf carrying its spheres inline. Every provider below
+  and the fast path take it wherever they take the flat tree; its
+  traversal is ``csrc/bvh_wide_traverse.cu`` on the card and its plain
+  version on the CPU, with the flat tree's (t, gid). ``-B`` builds the
+  flat tree, as the reference does.
+
+The reference's straggler slicing (``_BULK_IT``, ``_SLICE_N`` and the
+wide tree's ``_WIDE_BULK_IT``, ``_WIDE_SLICE_N``) is not here: it is a
+static-shape workaround that gives the plain loop's bits.
 """
 
 from __future__ import annotations
@@ -70,13 +80,20 @@ class FlatBVH:
                 device) -> bvh_kernel.TreeOperand:
         """The traversal's operand over ``scene`` on ``device``, kept for
         the next call with the same scene tensors."""
-        key = (str(torch.device(device)), features._key(), tuple(offsets))
-        hit = self._operands.get(key)
-        if hit is not None and hit[0] is scene.spheres.center:
-            return hit[1]
-        op = bvh_kernel.tree_operand(self, scene, features, offsets, device)
-        self._operands[key] = (scene.spheres.center, op)
-        return op
+        return _cached_operand(self, bvh_kernel.tree_operand, scene, features,
+                               offsets, device)
+
+
+def _cached_operand(tree, build, scene, features, offsets, device):
+    """``build(tree, scene, features, offsets, device)``, kept in the
+    tree's ``_operands`` for the next call with the same scene tensors."""
+    key = (str(torch.device(device)), features._key(), tuple(offsets))
+    hit = tree._operands.get(key)
+    if hit is not None and hit[0] is scene.spheres.center:
+        return hit[1]
+    op = build(tree, scene, features, offsets, device)
+    tree._operands[key] = (scene.spheres.center, op)
+    return op
 
 
 @dataclasses.dataclass
@@ -326,10 +343,158 @@ def build_scene_bvh(scene: Scene, seed: int = 0, use_native: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# traversal
+# the wide-node tree
 # ---------------------------------------------------------------------------
 
-def bvh_scene_nearest(bvh: FlatBVH, scene: Scene, ro: torch.Tensor,
+@dataclasses.dataclass
+class WideBVH:
+    """Packed wide-node rows (the reference's ``WideBVH``).
+
+    ``pack`` [M, W] float32, int columns as int32 bits, W = max(14, 2 +
+    leaf_m * (1 + slot_f)):
+
+    * column 0, nav: an inner node's right child, -1 at a leaf;
+    * column 1, the escape: the next node when the subtree is done;
+    * inner: columns 2-7 the left child's box (min xyz, max xyz), 8-13
+      the right child's;
+    * leaf: columns 2 .. 2 + leaf_m - 1 the slots' global ids (-1 empty),
+      then each slot's sphere, ``slot_f`` floats: centre xyz, radius and
+      with motion delta xyz, time0, inv_dt. A non-sphere leaf has one slot
+      and zeros for its sphere.
+    """
+
+    pack: torch.Tensor   # [M, W] f32
+    leaf_m: int
+    has_motion: bool
+    builder: str = "numpy"  # the flat tree's builder
+    _operands: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
+
+    @property
+    def n_nodes(self) -> int:
+        return self.pack.shape[0]
+
+    @property
+    def slot_f(self) -> int:
+        return 9 if self.has_motion else 4
+
+    def operand(self, scene: Scene, features: SceneFeatures, offsets,
+                device) -> bvh_kernel.WideOperand:
+        """The wide traversal's operand on ``device``
+        (:func:`~pathtrace_tpu_torch.ops.bvh_kernel.wide_operand`), kept
+        for the next call with the same scene tensors."""
+        return _cached_operand(self, bvh_kernel.wide_operand, scene, features,
+                               offsets, device)
+
+
+def widen_flat_bvh(flat: FlatBVH, scene: Scene, offsets,
+                   features: Optional[SceneFeatures] = None,
+                   leaf_m: Optional[int] = None) -> WideBVH:
+    """Collapse a flat tree into wide-node rows (numpy, on the host), as
+    the reference's ``widen_flat_bvh``: each inner row carries its
+    children's boxes; a flat leaf, or a subtree of spheres only with at
+    most ``leaf_m`` leaves, becomes one leaf row, its spheres inlined.
+    ``leaf_m`` defaults to 8 in a static scene, 4 with motion, 1 without
+    spheres. Rows are emitted in pre-order (the left child next), so the
+    rows' order is the flat tree's.
+
+    Snapshot semantics, as in the reference: the spheres' centres, radii
+    and motion are copied into the rows here, so the tree intersects the
+    scene as it was at this call. The flat tree's operand reads the live
+    sphere tensors; a wide tree kept across parameter updates (a training
+    loop) must be rebuilt, or it answers for the old geometry.
+
+    Instanced spheres or rects raise ``ValueError``: their leaves need
+    the object-space records the flat tree keeps."""
+    f = features or SceneFeatures.from_scene(scene)
+    if scene.spheres.instanced or scene.rects.instanced:
+        raise ValueError("widen_flat_bvh inlines world-space leaf data; "
+                         "instanced scenes use the flat tree")
+    has_motion = bool(f.has_motion)
+    if leaf_m is None:
+        leaf_m = (8 if not has_motion else 4) if f.has_spheres else 1
+    off_s, off_r = int(offsets[0]), int(offsets[1])
+    prim = np.asarray(flat.prim, np.int64)
+    esc = np.asarray(flat.escape, np.int64)
+    is_leaf = prim >= 0
+    is_sph = is_leaf & (prim < off_r)
+    # prefix sums: a subtree [i, esc[i]) has leaf_pre[esc] - leaf_pre[i]
+    # leaves, sph_pre[...] of them spheres
+    leaf_pre = np.concatenate([[0], np.cumsum(is_leaf)])
+    sph_pre = np.concatenate([[0], np.cumsum(is_sph)])
+    sd = 9 if has_motion else 4
+    W = max(14, 2 + leaf_m * (1 + sd))
+    sp = scene.spheres
+    data = [_np64(sp.center), _np64(sp.radius)[:, None]]
+    if has_motion:
+        data += [_np64(sp.center_delta), _np64(sp.time0)[:, None],
+                 _np64(sp.inv_time_delta)[:, None]]
+    sph = np.concatenate(data, axis=1).astype(np.float32)
+
+    rows, nav = [], []
+    # (flat node, wide row of the parent whose nav it sets, or -1)
+    stack = [(0, -1)]
+    while stack:
+        i, parent = stack.pop()
+        me = len(rows)
+        row = np.zeros(W, np.float32)
+        rows.append(row)
+        nav.append(-1)
+        if parent >= 0:
+            nav[parent] = me
+        n_leaf = leaf_pre[esc[i]] - leaf_pre[i]
+        n_sph = sph_pre[esc[i]] - sph_pre[i]
+        if is_leaf[i] or (n_sph == n_leaf and n_leaf <= leaf_m):
+            gids = prim[i:esc[i]]
+            gids = gids[gids >= 0]
+            bits = np.full(leaf_m, -1, np.int32)
+            bits[:gids.size] = gids
+            row[2:2 + leaf_m] = bits.view(np.float32)
+            for k, g in enumerate(gids):
+                if g < off_r:
+                    b = 2 + leaf_m + k * sd
+                    row[b:b + sd] = sph[g - off_s]
+            continue
+        left, right = i + 1, esc[i + 1]
+        row[2:5], row[5:8] = flat.bb_min[left], flat.bb_max[left]
+        row[8:11], row[11:14] = flat.bb_min[right], flat.bb_max[right]
+        nav[me] = 0   # an inner row: set when its right child is emitted
+        stack.append((right, me))
+        stack.append((left, -1))
+    M = len(rows)
+    nav_a = np.asarray(nav, np.int64)
+    # escapes: a row's subtree is the row, its left child's subtree (the
+    # next row) and its right child's (from nav)
+    size = np.ones(M, np.int64)
+    for r in range(M - 1, -1, -1):
+        if nav_a[r] >= 0:
+            size[r] = 1 + size[r + 1] + size[nav_a[r]]
+    pack = np.stack(rows)
+    pack_i = pack.view(np.int32)
+    pack_i[:, 0] = nav_a
+    pack_i[:, 1] = np.arange(M) + size
+    return WideBVH(pack=torch.from_numpy(pack), leaf_m=leaf_m,
+                   has_motion=has_motion, builder=flat.builder)
+
+
+def build_scene_wide_bvh(scene: Scene,
+                         features: Optional[SceneFeatures] = None,
+                         seed: int = 0, leaf_m: Optional[int] = None,
+                         use_native: bool = True):
+    """The whole-scene wide tree: (wide, stats, offsets), ``stats`` the
+    flat tree's census."""
+    flat, stats, offsets = build_scene_bvh(scene, seed=seed,
+                                           use_native=use_native)
+    wide = widen_flat_bvh(flat, scene, offsets, features=features,
+                          leaf_m=leaf_m)
+    return wide, stats, offsets
+
+
+# ---------------------------------------------------------------------------
+# traversal (either tree)
+# ---------------------------------------------------------------------------
+
+def bvh_scene_nearest(bvh, scene: Scene, ro: torch.Tensor,
                       rd: torch.Tensor, time: torch.Tensor, med_u=None,
                       t_min: float = MIN_T, t_max: float = MAX_T,
                       features: Optional[SceneFeatures] = None,
@@ -338,8 +503,9 @@ def bvh_scene_nearest(bvh: FlatBVH, scene: Scene, ro: torch.Tensor,
     id [R] int32) for rays ``ro``, ``rd`` [R, 3] (unit directions) at
     ``time`` [R]; ``med_u`` the media's [R, n_media] free-flight uniforms.
     The same winners as the brute per-kind sweep (``ops/intersect.py``),
-    the reference's ``bvh_scene_nearest``. The kernel on a CUDA device,
-    the plain version on the CPU."""
+    the reference's ``bvh_scene_nearest``; through a :class:`WideBVH`
+    its ``wide_scene_nearest``, with the same winners. The kernel on a
+    CUDA device, the plain version on the CPU."""
     f = features or SceneFeatures.from_scene(scene)
     op = bvh.operand(scene, f, offsets, ro.device)
     rays = torch.cat([ro.T, rd.T]).to(torch.float32).contiguous()
@@ -349,7 +515,7 @@ def bvh_scene_nearest(bvh: FlatBVH, scene: Scene, ro: torch.Tensor,
     return bvh_kernel.bvh_traverse(op, rays, time, flights, t_min, t_max)
 
 
-def leaf_candidate(bvh: FlatBVH, scene: Scene, gid: torch.Tensor,
+def leaf_candidate(bvh, scene: Scene, gid: torch.Tensor,
                    ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
                    med_u=None, best_t: Optional[torch.Tensor] = None,
                    t_min: float = MIN_T,
@@ -491,9 +657,10 @@ def scene_record_from_gid(scene: Scene, t: torch.Tensor, gid: torch.Tensor,
     return isect._miss_record(ro) if rec is None else rec
 
 
-def make_bvh_intersect_fn(bvh: FlatBVH, offsets, features: SceneFeatures):
-    """Bind a scene tree into the general integrator's ``intersect_fn``
-    slot: ``fn(scene, ro, rd, time, med_u, t_min, t_max)`` -> HitRecord."""
+def make_bvh_intersect_fn(bvh, offsets, features: SceneFeatures):
+    """Bind a scene tree (flat or wide) into the general integrator's
+    ``intersect_fn`` slot: ``fn(scene, ro, rd, time, med_u, t_min,
+    t_max)`` -> HitRecord."""
 
     def fn(scene, ro, rd, time, med_u, t_min=MIN_T, t_max=MAX_T):
         t, gid = bvh_scene_nearest(bvh, scene, ro, rd, time, med_u, t_min,

@@ -88,6 +88,25 @@ def scene_to_numpy(scene: T.Scene) -> dict:
     return out
 
 
+def wide_bvh_from_numpy(pack: np.ndarray, leaf_m: int, has_motion: bool,
+                        device="cuda"):
+    """The port's ``WideBVH`` of the reference's ``WideBVH.pack`` ([M, W]
+    float32, int columns as bits; ``np.asarray`` of it), its ``leaf_m``
+    and ``has_motion``; the rows are copied bit for bit."""
+    from pathtrace_tpu_torch.models.bvh import WideBVH
+
+    pack = np.ascontiguousarray(pack)
+    if pack.dtype != np.float32 or pack.ndim != 2:
+        raise ValueError(f"pack must be float32 [M, W], got {pack.dtype} "
+                         f"{pack.shape}")
+    want = max(14, 2 + int(leaf_m) * (1 + (9 if has_motion else 4)))
+    if pack.shape[1] != want:
+        raise ValueError(f"pack width {pack.shape[1]} does not fit leaf_m "
+                         f"{leaf_m} (has_motion {has_motion}): {want}")
+    return WideBVH(pack=torch.from_numpy(pack.copy()).to(device),
+                   leaf_m=int(leaf_m), has_motion=bool(has_motion))
+
+
 def camera_to_numpy(camera: Camera) -> dict:
     return {f"camera.{f.name}": getattr(camera, f.name).cpu().numpy()
             for f in dataclasses.fields(Camera)}

@@ -134,6 +134,17 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,         # t_out, gid_out, visits or NULL
         _c_void_p,                               # stream
     ],
+    "pt_bvh_wide_traverse": [
+        _c_void_p, _c_longlong, _c_int,          # rays [6, R], row stride, R
+        _c_void_p,                               # time [R] or NULL
+        _c_void_p, _c_int, _c_int,               # nodes, n_nodes, float4 rows
+        _c_int, _c_int, _c_int,                  # leaf_m, slot base, slot floats
+        _c_void_p, _c_void_p,                    # prim records, flights or NULL
+        _c_int, _c_int, _c_int, _c_int,          # rect, box, medium starts, flags
+        _c_float, _c_float,                      # t_min, t_max
+        _c_void_p, _c_void_p, _c_void_p,         # t_out, gid_out, visits or NULL
+        _c_void_p,                               # stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 

@@ -38,6 +38,16 @@ m3``). min and max propagate a NaN in both (PTX ``min.NaN``, as
 plain version roots in float64 and rounds once (the correctly rounded
 float32 sqrt that the kernel's IEEE ``sqrtf`` gives).
 
+The wide-node tree (``models.bvh.WideBVH``, the reference's
+``wide_scene_nearest``, ``:978-1101``) has its own operand
+(:func:`wide_operand`), plain version (:func:`wide_traverse_plain`) and
+kernel (``csrc/bvh_wide_traverse.cu``), with the same leaf tests
+(``csrc/bvh_leaf.cuh``) and the same (t, gid) as the flat tree's;
+:func:`bvh_traverse` takes either operand. Its counts are
+``WIDE_LAUNCHES`` and ``WIDE_PLAIN_CALLS``; :func:`wide_yardsticks` is its
+bound. The reference's straggler slicing of the wide loop
+(``_WIDE_BULK_IT``, ``_WIDE_SLICE_N``) is not here, as for the flat tree.
+
 Bound on the card: issue slots, not bytes. With ``-fmad=false`` a box
 test is ~24 instructions and a leaf test 25-60; the reads are two node
 rows a visit (L2-resident: ~975 nodes on the cover scene, ~8,200 on xl)
@@ -57,6 +67,8 @@ from pathtrace_tpu_torch.models.types import MEDIUM_SPHERE
 
 LAUNCHES = 0     # kernel launches (CUDA tensors)
 PLAIN_CALLS = 0  # calls the wrapper served with the plain version (CPU)
+WIDE_LAUNCHES = 0     # the same for the wide tree's kernel
+WIDE_PLAIN_CALLS = 0
 
 _INF = float(MAX_T)
 THREADS = 128    # threads a block, one ray a thread
@@ -77,6 +89,12 @@ F_RECT_INST = 64  # rect leaves map the ray to object space
 OPS_VISIT = 24
 OPS_LEAF = {"sphere": 24, "sphere_inst": 50, "rect": 18, "rect_inst": 42,
             "box": 58, "media": 80}
+# the wide tree: an inner visit tests two child boxes and picks the next
+# node, a leaf visit reads its slots' ids; a sphere slot's test is the
+# inline leaf's (with motion 8 more for the lerp)
+OPS_WIDE_INNER = 54
+OPS_WIDE_LEAF = 12
+OPS_WIDE_SLOT_MOVING = 32
 
 
 class TreeOperand(NamedTuple):
@@ -100,17 +118,11 @@ def tree_operand(bvh, scene, features, offsets, device) -> TreeOperand:
     """The kernel's operand of a built tree (``models.bvh.FlatBVH``) over
     ``scene``'s primitives, global ids laid out by ``offsets``; on
     ``device``."""
-    f = features
     off_s, off_r, off_b, off_m = (int(o) for o in offsets)
-    sp, rc, bx, md = scene.spheres, scene.rects, scene.boxes, scene.media
-    inline = bool(f.has_spheres) and not sp.instanced
-    motion = bool(f.has_motion)
-    flags = ((F_INLINE if inline else 0) | (F_MOTION if motion else 0)
-             | (F_SPHERES if f.has_spheres else 0)
-             | (F_RECTS if f.has_rects else 0)
-             | (F_BOXES if f.has_boxes else 0)
-             | (F_MEDIA if f.has_media else 0)
-             | (F_RECT_INST if rc.instanced else 0))
+    sp = scene.spheres
+    flags = _flags(scene, features)
+    inline = bool(flags & F_INLINE)
+    motion = bool(flags & F_MOTION)
     rows = 2 + ((3 if motion else 1) if inline else 0)
     M = bvh.n_nodes
     prim = np.asarray(bvh.prim, np.int32)
@@ -129,6 +141,102 @@ def tree_operand(bvh, scene, features, offsets, device) -> TreeOperand:
         lid = np.clip(prim - off_s, 0, sp.count - 1)
         nodes[leaf, 8:8 + sph.shape[1]] = sph[lid[leaf]]
 
+    prims, density = _prim_records(scene, features, (off_s, off_r, off_b,
+                                                     off_m), device)
+    return TreeOperand(
+        nodes=torch.from_numpy(nodes).to(torch.device(device)),
+        prims=prims, density=density, n_nodes=M,
+        offsets=(off_s, off_r, off_b, off_m), flags=flags)
+
+
+class WideOperand(NamedTuple):
+    """The wide-node tree's operand (``models.bvh.WideBVH``; see
+    :func:`wide_operand` for the row layout)."""
+    nodes: torch.Tensor     # [M, 4 * node_rows] f32 (int columns as bits)
+    prims: torch.Tensor     # [P, PRIM_W] f32 records of non-sphere leaves
+    density: torch.Tensor   # [n_media] f32 (media scenes; else empty)
+    n_nodes: int
+    offsets: Tuple[int, int, int, int]
+    flags: int
+    leaf_m: int             # slots a leaf
+    slot_base: int          # first column of slot 0's sphere
+    slot_f: int             # floats a slot's sphere (4 static, 12 moving)
+
+    @property
+    def node_rows(self) -> int:
+        return self.nodes.shape[1] // 4
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def wide_operand(wide, scene, features, offsets, device) -> WideOperand:
+    """The wide kernel's operand of a ``models.bvh.WideBVH`` (its pack,
+    the reference's ``[M, W]`` rows) over ``scene``'s non-sphere
+    primitives, on ``device``. The pack's rows are re-laid for 16-byte
+    loads, its int columns moved as int32 bits:
+
+    * columns 0-3: nav (inner: the right child; leaf: -1), escape, 0, 0;
+    * inner, columns 4-15: the left child's box (min xyz, max xyz), then
+      the right child's;
+    * leaf, columns 4 .. 4 + MP: the slots' global ids (-1 empty; MP the
+      slot count rounded up to 4), then from ``slot_base`` each slot's
+      sphere: centre xyz, radius; with motion also delta xyz, time0,
+      inv_dt and 3 zeros (12 floats, three float4 rows).
+
+    The spheres are the pack's (its build-time snapshot); a non-sphere
+    leaf reads its record by global id, as the flat tree's does."""
+    off_s, off_r, off_b, off_m = (int(o) for o in offsets)
+    flags = _flags(scene, features)
+    if features.has_spheres and bool(features.has_motion) != wide.has_motion:
+        raise ValueError("the wide tree was built for another motion "
+                         "setting than the features'")
+    pack = wide.pack.detach().cpu().numpy()
+    pack_i = pack.view(np.int32)
+    M = pack.shape[0]
+    lm, sd = wide.leaf_m, wide.slot_f
+    SD = 12 if wide.has_motion else 4
+    base = 4 + _round4(lm)
+    nodes = np.zeros((M, _round4(max(16, base + lm * SD))), np.float32)
+    nodes_i = nodes.view(np.int32)
+    nodes_i[:, 0:2] = pack_i[:, 0:2]
+    inner = pack_i[:, 0] >= 0
+    nodes[inner, 4:16] = pack[inner, 2:14]
+    leaf = ~inner
+    nodes_i[leaf, 4:base] = -1
+    nodes_i[leaf, 4:4 + lm] = pack_i[leaf, 2:2 + lm]
+    for m in range(lm):
+        src = 2 + lm + m * sd
+        dst = base + m * SD
+        nodes[leaf, dst:dst + sd] = pack[leaf, src:src + sd]
+    prims, density = _prim_records(scene, features, (off_s, off_r, off_b,
+                                                     off_m), device)
+    return WideOperand(
+        nodes=torch.from_numpy(nodes).to(torch.device(device)),
+        prims=prims, density=density, n_nodes=M,
+        offsets=(off_s, off_r, off_b, off_m), flags=flags, leaf_m=lm,
+        slot_base=base, slot_f=SD)
+
+
+def _flags(scene, features) -> int:
+    f = features
+    inline = bool(f.has_spheres) and not scene.spheres.instanced
+    return ((F_INLINE if inline else 0)
+            | (F_MOTION if f.has_motion else 0)
+            | (F_SPHERES if f.has_spheres else 0)
+            | (F_RECTS if f.has_rects else 0)
+            | (F_BOXES if f.has_boxes else 0)
+            | (F_MEDIA if f.has_media else 0)
+            | (F_RECT_INST if scene.rects.instanced else 0))
+
+
+def _prim_records(scene, features, offsets, device):
+    """(records [P, PRIM_W], media densities) of every primitive by global
+    id, on ``device``: what a leaf reads that does not carry its
+    primitive inline."""
+    off_s, off_r, off_b, off_m = offsets
+    sp, rc, bx, md = scene.spheres, scene.rects, scene.boxes, scene.media
     P = off_m + md.count
     prims = np.zeros((P, PRIM_W), np.float32)
 
@@ -158,12 +266,8 @@ def tree_operand(bvh, scene, features, offsets, device) -> TreeOperand:
     affine(off_m, md.count, md.obj_from_world)
     dev = torch.device(device)
     density = (md.density.detach().to(dev, torch.float32).contiguous()
-               if f.has_media else torch.zeros(0, device=dev))
-    return TreeOperand(
-        nodes=torch.from_numpy(nodes).to(dev),
-        prims=torch.from_numpy(prims).to(dev),
-        density=density, n_nodes=M,
-        offsets=(off_s, off_r, off_b, off_m), flags=flags)
+               if features.has_media else torch.zeros(0, device=dev))
+    return torch.from_numpy(prims).to(dev), density
 
 
 def media_flights(op: TreeOperand, uniforms) -> Optional[torch.Tensor]:
@@ -223,12 +327,14 @@ def _root_pick(t0, t1, valid, best_t, t_min):
     return torch.where(t0_ok, t0, torch.where(t1_ok, t1, _INF))
 
 
-def _leaf_sphere_inline(row, o, d, tm, best_t, t_min, motion):
-    c = [row[:, 8], row[:, 9], row[:, 10]]
-    r = row[:, 11]
+def _leaf_sphere_inline(row, o, d, tm, best_t, t_min, motion, base=8):
+    """The unit-direction sphere test of a sphere inline in ``row`` from
+    column ``base``: centre, radius, then delta, time0 and inv_dt."""
+    c = [row[:, base], row[:, base + 1], row[:, base + 2]]
+    r = row[:, base + 3]
     if motion:
-        s = (tm - row[:, 15]) * row[:, 16]
-        c = [c[k] + s * row[:, 12 + k] for k in range(3)]
+        s = (tm - row[:, base + 7]) * row[:, base + 8]
+        c = [c[k] + s * row[:, base + 4 + k] for k in range(3)]
     oc = [o[k] - c[k] for k in range(3)]
     b = oc[0] * d[0] + oc[1] * d[1] + oc[2] * d[2]
     cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r * r
@@ -374,6 +480,58 @@ def leaf_candidate(op: TreeOperand, gid: torch.Tensor, rays: torch.Tensor,
     return cand
 
 
+def _leaf_tests(op, gid, ray, o_all, d_all, time, flights, best_t, t_min,
+                tests=None, inline_rows=None) -> torch.Tensor:
+    """The candidate t of the leaves ``gid`` [A] (global ids) of the rays
+    ``ray`` [A] against their ``best_t``, by kind: an inline sphere from
+    ``inline_rows`` [A, ...] (the flat tree's node rows), every other kind
+    from its record. ``tests`` ({kind: [R] int32}) counts the tests run."""
+    off_s, off_r, off_b, off_m = op.offsets
+    fl = op.flags
+    motion = bool(fl & F_MOTION)
+    cand = torch.full((gid.shape[0],), _INF, dtype=torch.float32,
+                      device=gid.device)
+    kinds = (
+        ("sphere" if fl & F_INLINE else "sphere_inst",
+         gid < off_r, F_SPHERES),
+        ("rect_inst" if fl & F_RECT_INST else "rect",
+         (gid >= off_r) & (gid < off_b), F_RECTS),
+        ("box", (gid >= off_b) & (gid < off_m), F_BOXES),
+        ("media", gid >= off_m, F_MEDIA),
+    )
+    for name, sel, flag in kinds:
+        if not fl & flag:
+            continue
+        j = torch.nonzero(sel).flatten()
+        if j.numel() == 0:
+            continue
+        r_ = ray[j]
+        oj = [x[r_] for x in o_all]
+        dj = [x[r_] for x in d_all]
+        bj = best_t[r_]
+        if name == "sphere":
+            c = _leaf_sphere_inline(inline_rows[j], oj, dj,
+                                    time[r_] if motion else None, bj, t_min,
+                                    motion)
+        else:
+            rec = op.prims[gid[j].to(torch.int64)]
+            if name == "sphere_inst":
+                c = _leaf_sphere_instanced(
+                    rec, oj, dj, time[r_] if motion else None, bj, t_min,
+                    motion)
+            elif name in ("rect", "rect_inst"):
+                c = _leaf_rect(rec, oj, dj, bj, t_min, name == "rect_inst")
+            elif name == "box":
+                c = _leaf_box(rec, oj, dj, bj, t_min)
+            else:
+                mid = (gid[j] - off_m).to(torch.int64)
+                c = _leaf_media(rec, oj, dj, flights[mid, r_], bj, t_min)
+        cand[j] = c
+        if tests is not None:
+            tests[name][r_] += 1
+    return cand
+
+
 def bvh_traverse_plain(op: TreeOperand, rays: torch.Tensor,
                        time: Optional[torch.Tensor] = None,
                        flights: Optional[torch.Tensor] = None,
@@ -390,9 +548,6 @@ def bvh_traverse_plain(op: TreeOperand, rays: torch.Tensor,
     dev = rays.device
     R = rays.shape[1]
     M = op.n_nodes
-    off_s, off_r, off_b, off_m = op.offsets
-    fl = op.flags
-    motion = bool(fl & F_MOTION)
     nodes = op.nodes
     nodes_i = nodes.view(torch.int32)
     o_all = [rays[k] for k in range(3)]
@@ -424,52 +579,126 @@ def bvh_traverse_plain(op: TreeOperand, rays: torch.Tensor,
         if leaf.numel():
             ray = live[leaf]
             gid = prim[leaf]
-            cand = torch.full((leaf.numel(),), _INF, dtype=torch.float32,
-                              device=dev)
-            kinds = (
-                ("sphere" if fl & F_INLINE else "sphere_inst",
-                 gid < off_r, F_SPHERES),
-                ("rect_inst" if fl & F_RECT_INST else "rect",
-                 (gid >= off_r) & (gid < off_b), F_RECTS),
-                ("box", (gid >= off_b) & (gid < off_m), F_BOXES),
-                ("media", gid >= off_m, F_MEDIA),
-            )
-            for name, sel, flag in kinds:
-                if not fl & flag:
-                    continue
-                j = torch.nonzero(sel).flatten()
-                if j.numel() == 0:
-                    continue
-                r_ = ray[j]
-                oj = [x[r_] for x in o_all]
-                dj = [x[r_] for x in d_all]
-                bj = best_t[r_]
-                if name == "sphere":
-                    c = _leaf_sphere_inline(
-                        row[leaf[j]], oj, dj,
-                        time[r_] if motion else None, bj, t_min, motion)
-                else:
-                    rec = op.prims[gid[j].to(torch.int64)]
-                    if name == "sphere_inst":
-                        c = _leaf_sphere_instanced(
-                            rec, oj, dj, time[r_] if motion else None, bj,
-                            t_min, motion)
-                    elif name in ("rect", "rect_inst"):
-                        c = _leaf_rect(rec, oj, dj, bj, t_min,
-                                       name == "rect_inst")
-                    elif name == "box":
-                        c = _leaf_box(rec, oj, dj, bj, t_min)
-                    else:
-                        mid = (gid[j] - off_m).to(torch.int64)
-                        c = _leaf_media(rec, oj, dj, flights[mid, r_], bj,
-                                        t_min)
-                cand[j] = c
-                if stats:
-                    tests[name][r_] += 1
+            cand = _leaf_tests(op, gid, ray, o_all, d_all, time, flights,
+                               best_t, t_min, tests if stats else None,
+                               inline_rows=row[leaf])
             better = cand < best_t[ray]
             best_t[ray] = torch.where(better, cand, best_t[ray])
             best_i[ray] = torch.where(better, gid, best_i[ray])
         nxt = torch.where(hit & (prim < 0), cur + 1, esc)
+        cursor[live] = nxt
+        visits[live] += 1
+        step += 1
+        live = live[nxt < M]
+    t = torch.where(best_t < t_max, best_t, _INF)
+    if stats:
+        return t, best_i, visits, tests
+    return t, best_i
+
+
+def wide_traverse_plain(op: WideOperand, rays: torch.Tensor,
+                        time: Optional[torch.Tensor] = None,
+                        flights: Optional[torch.Tensor] = None,
+                        t_min: float = MIN_T, t_max: float = MAX_T,
+                        stats: bool = False):
+    """Plain PyTorch version of the wide traversal: the reference's
+    lock-step loop of ``wide_scene_nearest`` (``models/bvh.py:978-1101``,
+    unsliced), each step over the rays still inside the tree. One row a
+    ray a step: at an inner node both child boxes are tested against the
+    running best t and the ray moves to the left child if it is hit
+    (pre-order), else the right one, else the escape; at a leaf each
+    slot's inline sphere is tested in slot order (the unit-direction test
+    of the flat tree's inline leaf), then a non-sphere leaf's one
+    primitive through its record; a leaf moves to its escape. Arguments
+    and returns as :func:`bvh_traverse_plain`'s; ``stats`` counts inner
+    visits (``"inner"``), leaf visits (``"leaf"``), sphere slots tested
+    (``"sphere"``) and other leaf tests by kind."""
+    dev = rays.device
+    R = rays.shape[1]
+    M = op.n_nodes
+    off_r = op.offsets[1]
+    fl = op.flags
+    motion = bool(fl & F_MOTION)
+    nodes = op.nodes
+    nodes_i = nodes.view(torch.int32)
+    o_all = [rays[k] for k in range(3)]
+    d_all = [rays[3 + k] for k in range(3)]
+    rcp_all = [1.0 / torch.where(torch.abs(x) < 1e-12, 1e-12, x)
+               for x in d_all]
+    tmin_t = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    cursor = torch.zeros(R, dtype=torch.int64, device=dev)
+    best_t = torch.full((R,), t_max, dtype=torch.float32, device=dev)
+    best_i = torch.zeros(R, dtype=torch.int32, device=dev)
+    visits = torch.zeros(R, dtype=torch.int32, device=dev)
+    tests = {k: torch.zeros(R, dtype=torch.int32, device=dev)
+             for k in ("inner", "leaf", *OPS_LEAF)}
+
+    def child_hit(box, o, rc, bt, b):
+        d0 = [(box[:, b + k] - o[k]) * rc[k] for k in range(3)]
+        d1 = [(box[:, b + 3 + k] - o[k]) * rc[k] for k in range(3)]
+        tn = _maximum3(*(torch.minimum(d0[k], d1[k]) for k in range(3)))
+        tf = _minimum3(*(torch.maximum(d0[k], d1[k]) for k in range(3)))
+        return torch.minimum(tf, bt) > torch.maximum(tn, tmin_t)
+
+    live = torch.arange(R, device=dev)
+    step = 0
+    while live.numel() > 0 and step < 4 * M:
+        cur = cursor[live]
+        nav = nodes_i[cur, 0].to(torch.int64)
+        nxt = nodes_i[cur, 1].to(torch.int64)        # the escape
+        inner = torch.nonzero(nav >= 0).flatten()
+        if inner.numel():
+            r_ = live[inner]
+            c_ = cur[inner]
+            box = nodes[c_, 4:16]
+            o = [x[r_] for x in o_all]
+            rc = [x[r_] for x in rcp_all]
+            bt = best_t[r_]
+            l_hit = child_hit(box, o, rc, bt, 0)
+            r_hit = child_hit(box, o, rc, bt, 6)
+            nxt[inner] = torch.where(l_hit, c_ + 1,
+                                     torch.where(r_hit, nav[inner],
+                                                 nxt[inner]))
+            if stats:
+                tests["inner"][r_] += 1
+        leaf = torch.nonzero(nav < 0).flatten()
+        if leaf.numel():
+            r_ = live[leaf]
+            row = nodes[cur[leaf]]
+            row_i = row.view(torch.int32)
+            bt = best_t[r_]
+            bi = best_i[r_]
+            if fl & F_SPHERES:
+                o = [x[r_] for x in o_all]
+                d = [x[r_] for x in d_all]
+                tm = time[r_] if motion else None
+                for m in range(op.leaf_m):
+                    gid = row_i[:, 4 + m]
+                    valid = (gid >= 0) & (gid < off_r)
+                    if not bool(valid.any()):
+                        continue
+                    c = _leaf_sphere_inline(row, o, d, tm, bt, t_min, motion,
+                                            base=op.slot_base + m * op.slot_f)
+                    c = torch.where(valid, c, _INF)
+                    better = c < bt
+                    bt = torch.where(better, c, bt)
+                    bi = torch.where(better, gid, bi)
+                    if stats:
+                        tests["sphere"][r_] += valid.to(torch.int32)
+            gid0 = row_i[:, 4]
+            other = torch.nonzero(gid0 >= off_r).flatten()
+            if other.numel():
+                best_t[r_], best_i[r_] = bt, bi
+                ray = r_[other]
+                cand = _leaf_tests(op, gid0[other], ray, o_all, d_all, time,
+                                   flights, best_t, t_min,
+                                   tests if stats else None)
+                better = cand < bt[other]
+                bt[other] = torch.where(better, cand, bt[other])
+                bi[other] = torch.where(better, gid0[other], bi[other])
+            best_t[r_], best_i[r_] = bt, bi
+            if stats:
+                tests["leaf"][r_] += 1
         cursor[live] = nxt
         visits[live] += 1
         step += 1
@@ -513,23 +742,31 @@ def bvh_traverse(op: TreeOperand, rays: torch.Tensor,
                  visits: bool = False):
     """Closest hit through the tree for every ray: (t [R] f32, gid [R]
     int32), and with ``visits`` the nodes each ray visited ([R] int32).
+    ``op`` is a flat tree's :class:`TreeOperand` (the kernel of
+    ``csrc/bvh_traverse.cu``) or a wide tree's :class:`WideOperand`
+    (``csrc/bvh_wide_traverse.cu``); both give the same (t, gid).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel on
     the current stream (raising if it cannot build or launch)."""
-    global LAUNCHES, PLAIN_CALLS
+    global PLAIN_CALLS, WIDE_PLAIN_CALLS
     _check(op, rays, time, flights)
+    wide = isinstance(op, WideOperand)
     if rays.device.type == "cpu":
-        PLAIN_CALLS += 1
-        out = bvh_traverse_plain(op, rays, time, flights, t_min, t_max,
-                                 stats=visits)
+        if wide:
+            WIDE_PLAIN_CALLS += 1
+            plain = wide_traverse_plain
+        else:
+            PLAIN_CALLS += 1
+            plain = bvh_traverse_plain
+        out = plain(op, rays, time, flights, t_min, t_max, stats=visits)
         return out[:3] if visits else out
     if rays.device.type != "cuda":
         raise ValueError(f"bvh_traverse: unsupported device {rays.device}")
     return _launch(op, rays, time, flights, t_min, t_max, visits)
 
 
-def _launch(op: TreeOperand, rays, time, flights, t_min, t_max, visits):
-    global LAUNCHES
+def _launch(op, rays, time, flights, t_min, t_max, visits):
+    global LAUNCHES, WIDE_LAUNCHES
     from pathtrace_tpu_torch.ops import _cuda_build
 
     lib = _cuda_build.library()
@@ -543,17 +780,23 @@ def _launch(op: TreeOperand, rays, time, flights, t_min, t_max, visits):
                   if op.flags & F_MOTION else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         off_s, off_r, off_b, off_m = op.offsets
-        code = lib.pt_bvh_traverse(
-            rays.data_ptr(), rays.stride(0), R,
-            time_c.data_ptr() if time_c is not None else None,
-            op.nodes.data_ptr(), op.n_nodes, op.node_rows,
-            op.prims.data_ptr(),
-            flights.data_ptr() if flights is not None else None,
-            off_r, off_b, off_m, op.flags, float(t_min), float(t_max),
-            t_out.data_ptr(), g_out.data_ptr(),
-            v_out.data_ptr() if v_out is not None else None, stream)
-        _cuda_build.check(code, "bvh_traverse launch")
-        LAUNCHES += 1
+        head = (rays.data_ptr(), rays.stride(0), R,
+                time_c.data_ptr() if time_c is not None else None,
+                op.nodes.data_ptr(), op.n_nodes, op.node_rows)
+        tail = (op.prims.data_ptr(),
+                flights.data_ptr() if flights is not None else None,
+                off_r, off_b, off_m, op.flags, float(t_min), float(t_max),
+                t_out.data_ptr(), g_out.data_ptr(),
+                v_out.data_ptr() if v_out is not None else None, stream)
+        if isinstance(op, WideOperand):
+            code = lib.pt_bvh_wide_traverse(
+                *head, op.leaf_m, op.slot_base, op.slot_f, *tail)
+            _cuda_build.check(code, "bvh_wide_traverse launch")
+            WIDE_LAUNCHES += 1
+        else:
+            code = lib.pt_bvh_traverse(*head, *tail)
+            _cuda_build.check(code, "bvh_traverse launch")
+            LAUNCHES += 1
     return (t_out, g_out, v_out) if visits else (t_out, g_out)
 
 
@@ -568,6 +811,32 @@ def yardsticks(op: TreeOperand, R: int, visits: torch.Tensor,
 
     ops = OPS_VISIT * int(visits.sum()) + sum(
         OPS_LEAF[k] * int(v.sum()) for k, v in tests.items())
+    nbytes = (R * (24 + (4 if op.flags & F_MOTION else 0) + 4 * n_media + 8)
+              + op.nodes.numel() * 4 + op.prims.numel() * 4)
+    ops_ms = ops / ISSUE_PER_S * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "issue_ceiling_ms": ops_ms, "bytes_ms": bytes_ms,
+            "operations": ops, "bytes": nbytes,
+            "mean_visits": float(visits.double().mean()),
+            "max_visits": int(visits.max()) if R else 0,
+            "leaf_tests": {k: int(v.sum()) for k, v in tests.items()
+                           if int(v.sum())}}
+
+
+def wide_yardsticks(op: WideOperand, R: int, visits: torch.Tensor,
+                    tests: dict, n_media: int = 0) -> dict:
+    """:func:`yardsticks` for the wide traversal, from its plain version's
+    counts: ``OPS_WIDE_INNER`` an inner visit, ``OPS_WIDE_LEAF`` a leaf
+    visit, a sphere slot's test (24, or ``OPS_WIDE_SLOT_MOVING``) and
+    other leaf tests at ``OPS_LEAF``, over the 33.5 T/s issue rate."""
+    from pathtrace_tpu_torch.tools._probe import HBM_BYTES_PER_S, ISSUE_PER_S
+
+    slot = OPS_WIDE_SLOT_MOVING if op.flags & F_MOTION else OPS_LEAF["sphere"]
+    per = {"inner": OPS_WIDE_INNER, "leaf": OPS_WIDE_LEAF, "sphere": slot}
+    ops = sum(per.get(k, OPS_LEAF.get(k, 0)) * int(v.sum())
+              for k, v in tests.items())
     nbytes = (R * (24 + (4 if op.flags & F_MOTION else 0) + 4 * n_media + 8)
               + op.nodes.numel() * 4 + op.prims.numel() * 4)
     ops_ms = ops / ISSUE_PER_S * 1e3

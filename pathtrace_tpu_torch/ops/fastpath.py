@@ -59,8 +59,14 @@ roulette on [R, 3] state, under the same host ladder.
 
 Between bounces the host ladder reads lagged alive counts and compacts the
 wavefront. Each count readback is a stream sync on CUDA; the ladder counts
-them. Frames of culled scenes trace in 64x64 pixel-tile order, so that a
-warp's rays form a narrow frustum the culls can prune.
+them. A fused trace of more than ``INTERLEAVE_CHUNK`` rays (the full-width
+frame) runs as balanced chunks round-robin under the interleaved ladder
+(:func:`_interleaved_ladder`), each chunk reading its count at its next
+turn, while the others' bounces are queued; a trace through a tree
+(``-B``, the flat or the wide one alike: ``models.bvh.FlatBVH``,
+``WideBVH``) stays on one ladder. Frames of culled
+scenes trace in 64x64 pixel-tile order, so that a warp's rays form a
+narrow frustum the culls can prune.
 
 The differentiable trace (:func:`trace_fast_diff`, the training path) runs
 every bounce at full width with no compaction, on every scene class the
@@ -647,9 +653,9 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     estimation: their emission's [3, L] colours when every light's
     texture is a constant, else what :func:`light_emission` evaluates
     their textures from. ``bvh``
-    (a ``models.bvh.FlatBVH`` over the scene, global ids laid out by
-    ``bvh_offsets``): the traversal's operand, which then replaces the
-    sweeps as the closest hit."""
+    (a ``models.bvh.FlatBVH`` or ``WideBVH`` over the scene, global ids
+    laid out by ``bvh_offsets``): the traversal's operand, which then
+    replaces the sweeps as the closest hit."""
     sky4 = torch.cat([scene.sky.to(torch.float32).reshape(3),
                       scene.use_gradient_sky.to(torch.float32).reshape(1)])
     boxes, n_slots = None, None
@@ -1012,6 +1018,17 @@ CULL_MIN_TILES = 8
 # Cull every bounce of such scenes, not only depth 0: tile-order frames
 # keep later bounces' warps pixel-coherent enough to skip tiles. Patchable.
 CULL_ALL_DEPTHS = True
+# The interleaved ladder's knobs, set from an H100 (``tools/ladder_ab.py``,
+# 1280x720x4 depth-10 ``random_spheres`` frames in turns; PERF.md). Fused
+# traces of more rays than INTERLEAVE_CHUNK run as balanced chunks of at
+# most that many rays (:func:`_interleaved_ladder`): two chunks of
+# 1,843,200 took 0.90-0.99x the one ladder's frame time, four of 921,600
+# 1.03-1.13x. Chunks at or below COUNT_SKIP_SIZE stop reading alive counts
+# (a floor of 2^16 took 1.11x). Traces through a tree (``-B``) stay on one
+# ladder at any size, where the reference interleaves them too: chunks of
+# 2^21 took 1.47-1.62x the one ladder's time on a ``-B`` frame. Patchable.
+INTERLEAVE_CHUNK = 1 << 21
+COUNT_SKIP_SIZE = 1 << 18
 
 
 class _AliveCounts:
@@ -1109,6 +1126,77 @@ def _host_ladder(step, state, max_depth: int, min_size: int,
     return out_radiance, segs, readbacks
 
 
+def _interleaved_ladder(step, states, max_depth: int, min_size: int,
+                        group: Optional[int] = None):
+    """The compaction ladder round-robin over several chunks of one
+    wavefront (the reference's ``_interleaved_ladder``,
+    ``fastpath.py:2212-2290``): each turn a chunk reads the alive count
+    its last turn left (the copy landed while the other chunks' bounces
+    were queued), compacts its exact lanes to the count's rung when that
+    is at most :data:`COMPACT_SHRINK` of its size, runs ``group`` bounces
+    and starts the next count's copy, unless it is at or below
+    :data:`COUNT_SKIP_SIZE` lanes (or twice ``min_size``),
+    where it stops reading counts and runs its remaining bounces at that
+    size. Lanes keep their global ids, so no lane's bits move. Each
+    chunk's segment count stays on the device; they are summed once at
+    the end. ``states``: the chunks' :class:`FastStateP`. Returns (the
+    radiance [3, R] of the chunks in order, segments, readbacks)."""
+    group = GROUP if group is None else int(group)
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    count_skip = max(2 * min_size, COUNT_SKIP_SIZE)
+    chunks = []
+    for st in states:
+        R = st.alive.shape[0]
+        dev = st.alive.device
+        chunks.append({
+            "state": st, "size": R, "depth": 0, "pending": None,
+            "out": torch.zeros((3, R), dtype=torch.float32, device=dev),
+            "indices": torch.arange(R, dtype=torch.int64, device=dev),
+            "identity": True, "done": False,
+            "segs": torch.zeros((), dtype=torch.int64, device=dev)})
+    readbacks = 0
+    while not all(c["done"] for c in chunks):
+        for c in chunks:
+            if c["done"]:
+                continue
+            if c["pending"] is not None:
+                lanes, _ = c["pending"].read()
+                c["pending"] = None
+                readbacks += 1
+                if lanes == 0:
+                    c["done"] = True
+                    continue
+                next_size = compact_util.rung(lanes, min_size)
+                if next_size <= int(c["size"] * COMPACT_SHRINK):
+                    c["out"], c["state"], c["indices"] = compact_util.compact(
+                        c["out"], c["state"], c["indices"], next_size,
+                        c["identity"])
+                    c["size"], c["identity"] = next_size, False
+            g = min(group, max_depth + 1 - c["depth"])
+            c["state"], c["segs"] = step(c["state"], c["depth"], g, c["segs"])
+            c["depth"] += g
+            if c["depth"] > max_depth:
+                c["done"] = True
+            elif c["size"] > count_skip:
+                c["pending"] = _AliveCounts(c["state"].alive)
+    out = torch.cat([compact_util.final_flush(c["out"], c["state"],
+                                              c["indices"], c["identity"])
+                     for c in chunks], dim=1)
+    segs = torch.stack([c["segs"] for c in chunks]).sum()
+    return out, segs, readbacks
+
+
+def interleave_bounds(R: int, chunk: int):
+    """The interleaved ladder's chunks of ``R`` rays, as the reference
+    balances them: ``ceil(R / chunk)`` chunks of one size, rounded up to
+    1024 rays (the last one shorter): [(lo, hi), ...]."""
+    n_chunks = -(-R // chunk)
+    per_chunk = -(-R // n_chunks)
+    base = -(-per_chunk // 1024) * 1024
+    return [(lo, min(lo + base, R)) for lo in range(0, R, base)]
+
+
 def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                time: torch.Tensor, seed: int, max_depth: int,
                features: SceneFeatures, min_size: int = 1 << 15,
@@ -1124,11 +1212,19 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     next-event estimation with MIS, whose shadow rays the segment count
     includes; ``rr_start`` > 0 Russian roulette from that depth.
     ``bvh``/``bvh_offsets`` (``-B``: ``models.bvh.build_scene_bvh``'s
-    tree and offsets): the tree's traversal is the closest hit of every
+    tree and offsets, or ``build_scene_wide_bvh``'s wide tree, with the
+    same bits): the tree's traversal is the closest hit of every
     bounce and shadow ray, with no cull; the ladder, the shading and the
-    tails are the same. ``group``: bounces between alive-count readbacks
-    (default :data:`GROUP`); ``compaction=False`` keeps every lane to the
-    end. No image bit depends on either.
+    tails are the same. ``group``: bounces between alive-count
+    readbacks (default :data:`GROUP`); ``compaction=False`` keeps every
+    lane to the end. No image bit depends on either.
+
+    A fused trace of more than :data:`INTERLEAVE_CHUNK` rays with
+    compaction and no tree runs as balanced chunks
+    (:func:`interleave_bounds`) under :func:`_interleaved_ladder`, as the
+    reference's does (``fastpath.py:2055-2080``); the others run one
+    ladder. The reference interleaves ``-B`` traces too; the port keeps
+    them on one ladder, which the card measured faster.
 
     As in the reference (``fastpath.py:1984, 2092-2120``), scenes that
     :func:`fused_shade_supported` takes run on plane state through K2 and
@@ -1143,12 +1239,23 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                          lights=nee_lights, bvh=bvh, bvh_offsets=bvh_offsets)
     seed = int(seed)
 
+    min_size = max(min_size, 128)
     if fused:
         def step(state, depth, g, segs):
             return _bounce_group_fused(tables, state, seed, depth, max_depth,
                                        features, g, segs, rr_start)
 
-        state = make_state(ro, rd, time, nee=nee_lights is not None)
+        R0 = ro.shape[0]
+        nee = nee_lights is not None
+        if bvh is None and compaction and R0 > INTERLEAVE_CHUNK:
+            states = [make_state(ro[lo:hi], rd[lo:hi], time[lo:hi], nee=nee,
+                                 lane_offset=lo)
+                      for lo, hi in interleave_bounds(R0, INTERLEAVE_CHUNK)]
+            with torch.no_grad():
+                out_radiance, segs, readbacks = _interleaved_ladder(
+                    step, states, max_depth, min_size, group)
+            return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
+        state = make_state(ro, rd, time, nee=nee)
     else:
         def step(state, depth, g, segs):
             for k in range(g):
@@ -1168,7 +1275,7 @@ def trace_fast(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                         if nee_lights is not None else None))
     with torch.no_grad():
         out_radiance, segs, readbacks = _host_ladder(
-            step, state, max_depth, max(min_size, 128), compaction, group)
+            step, state, max_depth, min_size, compaction, group)
     return TraceResult(out_radiance.T.contiguous(), segs, readbacks)
 
 

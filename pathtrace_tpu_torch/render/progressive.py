@@ -157,7 +157,8 @@ def render_progressive(scene: Scene, camera: Camera, params: Params,
     samples and runs neither NEE nor roulette, as the reference's).
     ``params.use_bvh`` (``-B``): render through the whole-scene BVH,
     built here unless ``bvh`` gives it (``build_scene_bvh``'s (flat,
-    stats, offsets), which also turns it on). ``mesh``: the sharded
+    stats, offsets) or ``build_scene_wide_bvh``'s (wide, stats,
+    offsets), which also turns it on). ``mesh``: the sharded
     path's render mesh (default: ``make_render_mesh()`` for a ``cuda``
     device without an index, else ``device`` alone; its process group
     when one is joined).
