@@ -388,12 +388,13 @@ Phases (each prints a line before the next starts):
     turns against ``render_frame_compacted`` with the tree (the route of
     ``--mode compacted``), 5 rounds of compacted, fast, fast, compacted;
 68. the [R, N] box and media sweeps (``intersect_box.box_nearest_rn``,
-    ``media_nearest_rn``) against the plane loops for N = 2, 4, 8, 16,
-    32, 64 and 400 (``final_full``'s first N boxes; N of 400 random slab
-    and sphere media over its floor) on its 3,686,400 camera rays: equal
-    bit for bit, the medians of both forms at full width and at 131,072
-    rays, and the crossover (every sweep of the port takes the [R, N]
-    form; the loop is its reference);
+    ``media_nearest_rn``) and the box and media kernel against the plane
+    loops for N = 2, 4, 8, 16, 32, 64 and 400 (``final_full``'s first N
+    boxes; N of 400 random slab and sphere media over its floor) on its
+    3,686,400 camera rays: equal bit for bit, the medians of the three at
+    full width and at 131,072 rays, and the forms' crossover (the port's
+    sweeps take the kernel on the card; the [R, N] form is its plain
+    version, the loop their reference);
 69. NEE for textured lights: ``presets.image_light_scene(
     textured_light=True)`` (fused: K1 and K2) and with ``box=True``
     (non-fused: K1, no K2) against the fixture's JAX radiance, then a
@@ -423,7 +424,33 @@ Phases (each prints a line before the next starts):
     ``random_spheres`` frames (one frame key): the one ladder against
     chunks of 2^21 and 2^20, and ``-B`` (one ladder) at the three tiers'
     thresholds against 0.35 for every tier, each pair equal bit for bit,
-    in 5 rounds of A, B, B, A, with readbacks and segments a frame.
+    in 5 rounds of A, B, B, A, with readbacks and segments a frame;
+74. the box and media kernel (``csrc/box_media_nearest.cu``) against the
+    plain [R, N] forms, (t, idx) of each kind bit for bit, on
+    ``final_full``'s 3,686,400 camera rays and one non-fused bounce's
+    scattered rays, ``cornell`` (boxes) and ``cornell_smoke`` (box media)
+    camera rays, a ragged 2^20 + 3, one box and one medium, 1000 boxes and
+    500 media (several shared-memory tiles, masked entries) and each kind
+    alone; the kernel's time (alone and with the flights' plain launches),
+    the plain forms' and the bound (``box_media_kernel.yardsticks``: 84
+    operations a (ray, box) pair, 114 a (ray, medium) pair, at 33.5 T/s)
+    on ``final_full``'s two ray sets; the winners' t recomputed under
+    autograd == the kernel's; ``trace_fast_diff`` of
+    ``torch_port_util.marble_smoke_scene`` through the kernels == through
+    the [R, N] forms (radiance bit for bit, every box and media leaf's
+    gradient within relative L2 1e-5);
+75. the turbulence kernel (``csrc/turb.cu``) against ``fast_turb_c``
+    masked by the winners' noise texture, bit for bit, on the points of
+    ``final_full``'s camera and scattered hits (and a ragged 2^20 + 3 of
+    each), with the kernel's, the plain version's and the bound's times
+    (``turb_kernel.yardsticks``: 1708 operations a noise lane), and both
+    kernels' ptxas registers and spills;
+76. ``final_full`` at 1280x720x4, depth 10, plain and ``--nee --rr 3``:
+    5 rounds of general, fast, fast, general (``render_frame`` against
+    ``render_frame_fast``, the route ``auto`` takes), device launches a
+    bounce of both and of one fast frame through the plain sweeps and
+    turbulence (the parent's route), and the kernels' launches: both
+    kernels and K3 launched, no K2, no plain version.
 
 Before the kernels line, ``[t]`` gives the seconds of each phase (each
 line's time since the line before it, summed by phase).
@@ -508,7 +535,11 @@ numbers. K3 carries ``final_full_fast_launches`` (phase 65's 5 frames),
 ``final_full_fast`` and ``final_full_nee`` (phases 65-66), K6
 ``fixed_order`` (phase 70), and ``bvh_traverse`` phase 67's launches and
 times, phase 68's sweeps and crossover and phase 69's textured-light
-runs. Then
+runs. The ``box_media_nearest`` and ``noise_turb`` entries (no TPU kernel;
+``library_ms`` null: no PyTorch call computes either) carry the launches
+of phase 76's fast frames, phase 74's and 75's numbers (``final_full``'s
+camera rays at the top level, every case under ``cases``), registers,
+and (``box_media_nearest``) phase 76's and 67's frames. Then
 comes the ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.
 Any failure raises: the script then exits non-zero and prints no result.
 """
@@ -671,7 +702,8 @@ def rel_l2(a, b) -> float:
 
 def reset_counts(k1, k2, k7) -> None:
     """Every launch and plain-call counter of the kernel wrappers to 0."""
-    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import box_media_kernel, bvh_kernel
+    from pathtrace_tpu_torch.ops import turb_kernel
     from pathtrace_tpu_torch.tools import bf16_probe, split_probe
     from pathtrace_tpu_torch.utils import threefry
 
@@ -684,6 +716,9 @@ def reset_counts(k1, k2, k7) -> None:
     threefry.LAUNCHES = threefry.PLAIN_CALLS = 0
     bvh_kernel.LAUNCHES = bvh_kernel.PLAIN_CALLS = 0
     bvh_kernel.WIDE_LAUNCHES = bvh_kernel.WIDE_PLAIN_CALLS = 0
+    box_media_kernel.LAUNCHES = box_media_kernel.PLAIN_CALLS = 0
+    turb_kernel.LAUNCHES = turb_kernel.PLAIN_CALLS = 0
+    turb_kernel.BWD_PLAIN_CALLS = 0
     bf16_probe.LAUNCHES = bf16_probe.PLAIN_CALLS = 0
     for kind in ("SPLIT", "MINOR", "MAJOR"):
         setattr(split_probe, f"{kind}_LAUNCHES", 0)
@@ -691,8 +726,11 @@ def reset_counts(k1, k2, k7) -> None:
 
 
 def read_counts(k1, k2, k7) -> dict:
-    """Launches per kernel, and the plain versions' calls summed."""
+    """Launches per kernel, the plain versions' calls summed, and the
+    turbulence's backwards (plain by design: no backward kernel)."""
+    from pathtrace_tpu_torch.ops import box_media_kernel as bm
     from pathtrace_tpu_torch.ops import bvh_kernel as bvh
+    from pathtrace_tpu_torch.ops import turb_kernel as tb
     from pathtrace_tpu_torch.tools import bf16_probe as p1
     from pathtrace_tpu_torch.tools import split_probe as p24
     from pathtrace_tpu_torch.utils import threefry as tf
@@ -703,7 +741,10 @@ def read_counts(k1, k2, k7) -> dict:
             "P2": p24.SPLIT_LAUNCHES, "P3": p24.MINOR_LAUNCHES,
             "P4": p24.MAJOR_LAUNCHES, "threefry": tf.LAUNCHES,
             "bvh": bvh.LAUNCHES, "bvh_wide": bvh.WIDE_LAUNCHES,
+            "box_media": bm.LAUNCHES, "turb": tb.LAUNCHES,
+            "turb_bwd_plain": tb.BWD_PLAIN_CALLS,
             "plain": (bvh.PLAIN_CALLS + bvh.WIDE_PLAIN_CALLS + k1.PLAIN_CALLS
+                      + bm.PLAIN_CALLS + tb.PLAIN_CALLS
                       + k2.PLAIN_CALLS + k1.BWD_PLAIN_CALLS
                       + k1.FLAT_PLAIN_CALLS + k1.HIER_PLAIN_CALLS
                       + k1.MOVING_PLAIN_CALLS + k7.PLAIN_CALLS
@@ -2008,7 +2049,9 @@ def parent_k6(tree: str):
     """The parent tree's K6 (its ``csrc/sphere_nearest_bwd.cu``, the
     per-sphere sums by atomics), built alone with this package's flags
     into ``build/k6_parent``, as a function of K6's wrapper arguments; or
-    None when ``tree`` has no such source."""
+    None when ``tree`` has no such source or the same one as this tree
+    (nothing to time in turns; the launcher's arguments are the atomic
+    K6's, which a parent with the fixed-order K6 does not take)."""
     import ctypes
 
     import torch
@@ -2017,7 +2060,10 @@ def parent_k6(tree: str):
 
     src = os.path.join(tree, "pathtrace_tpu_torch", "csrc",
                        "sphere_nearest_bwd.cu")
-    if not os.path.isfile(src):
+    own = os.path.join(ROOT, "pathtrace_tpu_torch", "csrc",
+                       "sphere_nearest_bwd.cu")
+    if not os.path.isfile(src) or open(src, "rb").read() == open(
+            own, "rb").read():
         return None
     out_dir = os.path.join(ROOT, "build", "k6_parent")
     os.makedirs(out_dir, exist_ok=True)
@@ -2078,6 +2124,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     from pathtrace_tpu_torch.models import bvh as pbvh
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import box_media_kernel as bmk
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import intersect_box as ib
     from pathtrace_tpu_torch.ops.lights import build_light_table
@@ -2085,6 +2132,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     from pathtrace_tpu_torch.render import compaction, progressive
     from pathtrace_tpu_torch.render.frame import generate_primary_rays
     from pathtrace_tpu_torch.tools import profile_step
+    from pathtrace_tpu_torch.tools.profile_step import device_launches
     from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
     from torch_port_util import DEPTH10_BUDGET, check_slice_contract
 
@@ -2153,7 +2201,8 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
           f"{prof['peak_gib']:.3f} GiB; K3 {c65['K3']} launches over "
           f"{frames65} frames; launches {c65}; top {top} ({smi})")
     if (rc != 0 or c65["K3"] <= 0 or c65["K1"] or c65["K2"] or c65["plain"]
-            or c65["threefry"] <= 0):
+            or c65["threefry"] <= 0 or c65["box_media"] <= 0
+            or c65["turb"] <= 0):
         raise AssertionError("[65] final_full's fast frame failed its checks")
     gw, gh, gs, gd = 64, 48, 8, 8
     golden = torch.from_numpy(np.load(os.path.join(
@@ -2212,6 +2261,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
           f"{nee_ms[0]:.2f}), {int(res.ray_count)} segments, "
           f"{res.readbacks} readbacks; launches {c66f} ({smi})")
     if (c66f["K3"] <= 0 or c66f["K2"] or c66f["plain"]
+            or c66f["box_media"] <= 0 or c66f["turb"] <= 0
             or not bool(torch.isfinite(res.image).all())):
         raise AssertionError("[66] final_full --nee failed its checks")
     out["final_full_nee"] = {"fixture_share_outside": share66,
@@ -2256,15 +2306,19 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
             ms_, img_ = timed(old if which == "old" else new)
             (t_old if which == "old" else t_new).append(ms_)
     img_old = img_
+    per_bounce67 = {"fast": device_launches(new) / (DEPTH + 1),
+                    "compacted": device_launches(old) / (DEPTH + 1)}
     phase(f"[67] final_full -B {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH} in "
           f"turns (5 rounds of compacted, fast, fast, compacted): fast with "
           f"the tree median {float(np.median(t_new)):.2f} ms "
           f"{[round(x, 1) for x in t_new]}, compacted median "
           f"{float(np.median(t_old)):.2f} ms {[round(x, 1) for x in t_old]}; "
           f"image means {float(img_new.mean()):.6f} / "
-          f"{float(img_old.mean()):.6f}; launches of a fast frame {c67} "
-          f"({smi})")
+          f"{float(img_old.mean()):.6f}; device launches a bounce "
+          f"{ {k: round(v, 1) for k, v in per_bounce67.items()} }; launches "
+          f"of a fast frame {c67} ({smi})")
     if (c67["bvh"] <= 0 or c67["K3"] or c67["K2"] or c67["plain"]
+            or c67["turb"] <= 0 or c67["box_media"]
             or not bool(torch.isfinite(img_new).all())):
         raise AssertionError("[67] final_full -B failed its checks")
     # the tree's frame against the frame without it at phase 65's key and
@@ -2290,6 +2344,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     out["final_full_bvh"] = {
         "fast_ms": t_new, "fast_median_ms": float(np.median(t_new)),
         "compacted_ms": t_old, "compacted_median_ms": float(np.median(t_old)),
+        "launches_per_bounce": per_bounce67,
         "launches": c67, "share_outside_no_tree": share_b,
         "share_outside_golden": share_bg}
     del sdev, img_new, img_old, sc_dev, img_tree
@@ -2302,6 +2357,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     del ro, rd
     R = planes[0].shape[0]
     R_late = 131_072  # a late rung of the ladder
+    rays68 = torch.stack(planes)
 
     def first(prims, n):
         return dataclasses.replace(prims, **{
@@ -2333,14 +2389,27 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
                 prims = first(media_all, n)
                 loop_fn, rn_fn = ib.media_nearest, ib.media_nearest_rn
                 extra = (u_all[:n],)
+            op68 = (bmk.pack_operand(prims, None) if kind_ == "boxes"
+                    else bmk.pack_operand(None, prims))
+            pick = 0 if kind_ == "boxes" else 1
+
+            def kernel(rays_, *x):
+                return bmk.box_media_nearest(op68, rays_, *x)[pick]
+
             a = loop_fn(prims, *planes, *extra)
             b = rn_fn(prims, *planes, *extra)
+            c = kernel(rays68, *extra)
             same = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            same_k = torch.equal(a[0], c[0]) and torch.equal(a[1], c[1])
             hits = float((a[0] < 1e30).float().mean())
-            del a, b
+            del a, b, c
             late = [p_[:R_late] for p_ in planes]
             late_x = tuple(x[:, :R_late] for x in extra)
-            row = {"equal": same, "hits": hits,
+            late68 = rays68[:, :R_late].contiguous()
+            row = {"equal": same, "kernel_equal": same_k, "hits": hits,
+                   "kernel_ms": median_ms(lambda: kernel(rays68, *extra), 5),
+                   "kernel_late_ms": median_ms(
+                       lambda: kernel(late68, *late_x), 5),
                    "loop_ms": median_ms(lambda: loop_fn(prims, *planes,
                                                         *extra), 2),
                    "rn_ms": median_ms(lambda: rn_fn(prims, *planes, *extra),
@@ -2350,14 +2419,16 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
                    "rn_late_ms": median_ms(lambda: rn_fn(prims, *late,
                                                          *late_x), 2)}
             sweep[kind_][n] = row
-            phase(f"[68] {kind_} N={n}: [R, N] == loop bit for bit: {same} "
-                  f"(hit share {hits:.3f}); {R} rays: loop "
-                  f"{row['loop_ms']:.3f} ms, [R, N] {row['rn_ms']:.3f} ms; "
+            phase(f"[68] {kind_} N={n}: [R, N] == loop bit for bit: {same}, "
+                  f"kernel == loop: {same_k} (hit share {hits:.3f}); {R} "
+                  f"rays: loop {row['loop_ms']:.3f} ms, [R, N] "
+                  f"{row['rn_ms']:.3f} ms, kernel {row['kernel_ms']:.4f} ms; "
                   f"{R_late} rays: loop {row['loop_late_ms']:.3f} ms, [R, N] "
-                  f"{row['rn_late_ms']:.3f} ms")
-            if not same:
+                  f"{row['rn_late_ms']:.3f} ms, kernel "
+                  f"{row['kernel_late_ms']:.4f} ms")
+            if not (same and same_k):
                 raise AssertionError(f"[68] {kind_} N={n}: the [R, N] form "
-                                     "differs from the loop")
+                                     "or the kernel differs from the loop")
     del u_all
     cross = {}
     for kind_, rows in sweep.items():
@@ -2369,8 +2440,8 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
                 "loop_faster_at": loop_wins, "rn_faster_at": rn_wins,
                 "crossover": min(rn_wins) if rn_wins else None}
     phase(f"[68] crossover (the smallest N where the [R, N] form is at least "
-          f"as fast): {json.dumps(cross)}; the port sweeps in the [R, N] "
-          f"form at every N ({smi})")
+          f"as fast): {json.dumps(cross)}; the port sweeps through the "
+          f"kernel on the card, the [R, N] form on the CPU ({smi})")
     out["sweeps"] = {"rows": sweep, "crossover": cross}
 
     # ---- 69: NEE for textured lights, on the fused and non-fused routes ----
@@ -2465,7 +2536,8 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
                   f"{'shared' if row['launch'][1] else 'device'} memory; "
                   f"kernel {[round(x, 4) for x in new_ms]} ms, parent "
                   + (f"{[round(x, 4) for x in old_ms]} ms (in turns)"
-                     if old_ms else f"not timed (no tree at {PARENT_TREE})")
+                     if old_ms else f"not timed (no tree at {PARENT_TREE}, "
+                     f"or its K6 source is this tree's)")
                   + f" ({smi})")
             if not (repeat and per_ray) or sph > K6_SPHERE_RTOL:
                 raise AssertionError(f"[70] K6 {pname} {label} failed")
@@ -2744,6 +2816,344 @@ def wide_phases(dev, smi: str, k1, k2, k7) -> dict:
     return out
 
 
+def box_turb_phases(dev, smi: str, k1, k2, k7, build_log: str) -> dict:
+    """Phases 74-76: the box and media sweep's kernel
+    (``csrc/box_media_nearest.cu``) and the turbulence's (``csrc/turb.cu``)
+    against their plain versions, and ``final_full``'s routes in turns.
+    Returns the two kernels' rows of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.config import MAX_T, MIN_T
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.types import TEX_NOISE, SceneFeatures
+    from pathtrace_tpu_torch.ops import box_media_kernel as bmk
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import intersect_box as ib
+    from pathtrace_tpu_torch.ops import turb_kernel as tk
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.render.frame import (
+        generate_primary_rays, render_frame,
+    )
+    from pathtrace_tpu_torch.tools import nearest_bench as nb
+    from pathtrace_tpu_torch.tools.profile_step import device_launches
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
+    from torch_port_util import (
+        diff_box_media_grads, many_boxes_and_media, plain_box_media_and_turb,
+    )
+    from torch_port_util import rel_l2 as rel_l2_np
+
+    R = WIDTH * HEIGHT * SAMPLES
+    scene, cam = presets.from_name("final_full", WIDTH / HEIGHT)
+    sdev = scene.to(dev)
+    feats = SceneFeatures.from_scene(sdev)
+    tables = fp.prep_tables(sdev, feats)
+    n_med = sdev.media.count
+    ro, rd, tm = generate_primary_rays(cam, WIDTH, HEIGHT, SAMPLES,
+                                       PRNGKey(0), device=dev)
+    ro, rd, tm = ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)
+    lane, alive = fp.lane_ids(R, dev)
+    st0 = fp.FastState(ro=ro, rd=rd, time=tm, radiance=torch.zeros_like(ro),
+                       throughput=torch.ones_like(ro), alive=alive,
+                       lane=lane)
+    with torch.no_grad():  # one non-fused bounce: the scattered rays
+        st1, _ = fp.fast_bounce(tables.table, tables.soa, sdev, st0, 7, 0,
+                                DEPTH, feats, tables=tables)
+    sets = {"camera": (ro, rd, 0), "scattered": (st1.ro, st1.rd, 1)}
+
+    def rays_of(label):
+        ro_, rd_, depth = sets[label]
+        return (torch.cat([ro_.T, rd_.T]).contiguous(),
+                torch.stack(fp.media_uniforms(lane, 7, depth, n_med, 8)))
+
+    def first(prims, n):
+        return dataclasses.replace(prims, **{
+            f.name: getattr(prims, f.name)[:n]
+            for f in dataclasses.fields(prims)})
+
+    def plain_pair(op, rays, u):
+        return ((ib.box_nearest_rn(op.boxes, *rays)
+                 if op.boxes is not None else None),
+                (ib.media_nearest_rn(op.media, *rays, u)
+                 if op.media is not None else None))
+
+    # ---- 74: the box and media kernel against the plain [R, N] forms ----
+    cam_rays, cam_u = rays_of("camera")
+    sc_rays, sc_u = rays_of("scattered")
+    cases = [("final_full camera", tables.box_media, cam_rays, cam_u),
+             ("final_full scattered", tables.box_media, sc_rays, sc_u)]
+    for cname in ("cornell", "cornell_smoke"):
+        sc_, cm_ = presets.from_name(cname, WIDTH / HEIGHT)
+        sc_ = sc_.to(dev)
+        f_ = SceneFeatures.from_scene(sc_)
+        ro_, rd_, _ = generate_primary_rays(cm_, WIDTH, HEIGHT, SAMPLES,
+                                            PRNGKey(0), device=dev)
+        cases.append((
+            f"{cname} camera",
+            bmk.box_media_operand(sc_, f_),
+            torch.cat([ro_.reshape(R, 3).T, rd_.reshape(R, 3).T]).contiguous(),
+            (torch.stack(fp.media_uniforms(lane, 7, 0, sc_.media.count, 8))
+             if f_.has_media else None)))
+        del ro_, rd_
+    rag = (1 << 20) + 3
+    with torch.no_grad():
+        t_b, i_b = ib.box_nearest_rn(sdev.boxes, *cam_rays)
+        j = int(torch.mode(i_b[t_b < 1e30]).values)
+        one_box = dataclasses.replace(sdev.boxes, **{
+            f.name: getattr(sdev.boxes, f.name)[j:j + 1]
+            for f in dataclasses.fields(sdev.boxes)})
+        del t_b, i_b
+    many = many_boxes_and_media(1000, 500).to(dev)
+    n_many = 1 << 18
+    cases += [
+        ("final_full ragged 2^20 + 3", tables.box_media,
+         cam_rays[:, :rag].contiguous(), cam_u[:, :rag].contiguous()),
+        ("final_full N = 1 (its most hit box, its first medium)",
+         bmk.pack_operand(one_box, first(sdev.media, 1)), cam_rays,
+         cam_u[:1].contiguous()),
+        ("1000 boxes, 500 media (3 box tiles, 2 media tiles)",
+         bmk.pack_operand(many.boxes, many.media),
+         cam_rays[:, :n_many].contiguous(),
+         torch.rand((500, n_many), device=dev, generator=torch.Generator(
+             device=dev).manual_seed(74))),
+        ("final_full boxes, no media", bmk.pack_operand(sdev.boxes, None),
+         cam_rays, None),
+        ("final_full media, no boxes", bmk.pack_operand(None, sdev.media),
+         cam_rays, cam_u)]
+    rows74, max_err, all_equal = {}, 0.0, True
+    for name, op, rays, u in cases:
+        kern = bmk.box_media_nearest(op, rays, u)
+        plain = plain_pair(op, rays, u)
+        row = {"rays": rays.shape[1],
+               "boxes": op.boxes.count if op.boxes is not None else 0,
+               "media": op.media.count if op.media is not None else 0}
+        equal = True
+        for kind_, a, b in (("box", *(x[0] for x in (kern, plain))),
+                            ("media", *(x[1] for x in (kern, plain)))):
+            if b is None:
+                equal = equal and a is None
+                continue
+            eq = torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            equal = equal and eq
+            max_err = max(max_err, float((a[0].double() - b[0].double())
+                                         .abs().max()))
+            row[f"{kind_}_hit_share"] = float((b[0] < 1e30).float().mean())
+        row["equal"] = equal
+        all_equal = all_equal and equal
+        del kern, plain
+        if name.startswith("final_full") and name.endswith(("camera",
+                                                            "scattered")):
+            flights = bmk.media_flights(op.media.density, u)
+            row["ms"] = median_ms(lambda: bmk._launch(op, rays, flights,
+                                                      MIN_T, MAX_T), 10)
+            row["wrapper_ms"] = median_ms(
+                lambda: bmk.box_media_nearest(op, rays, u), 10)
+            row["plain_ms"] = median_ms(lambda: plain_pair(op, rays, u), 2)
+            row.update(bmk.yardsticks(rays.shape[1], row["boxes"],
+                                      row["media"]))
+            del flights
+        rows74[name] = row
+        phase(f"[74] box/media kernel == plain [R, N] forms (t, idx) bit for "
+              f"bit on {name} ({row['rays']} rays, {row['boxes']} boxes, "
+              f"{row['media']} media): {equal}; hit shares "
+              f"{ {k: round(v, 4) for k, v in row.items() if 'hit' in k} }"
+              + (f"; kernel {row['ms']:.4f} ms (with the flights' plain "
+                 f"launches {row['wrapper_ms']:.4f}), plain {row['plain_ms']:.3f} "
+                 f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                 f"{row['bound_ms'] / row['ms']:.1%} of it) ({smi})"
+                 if "ms" in row else ""))
+        if not equal:
+            raise AssertionError(f"[74] {name}: the kernel differs from the "
+                                 "plain version")
+    del cases, many
+    # the winners' t recomputed where autograd needs it == the kernel's t
+    ro_g = ro.clone().requires_grad_(True)
+    kb, km = bmk.box_media_nearest(tables.box_media, cam_rays, cam_u)
+    gb, gm = bmk.box_media_hits(tables.box_media, ro_g, rd, cam_u)
+    recompute_equal = (gb[0].requires_grad and torch.equal(gb[0].detach(), kb[0])
+                       and torch.equal(gm[0].detach(), km[0])
+                       and torch.equal(gb[1], kb[1])
+                       and torch.equal(gm[1], km[1]))
+    del ro_g, kb, km, gb, gm
+    # trace_fast_diff's gradients through the kernels == the [R, N] forms'
+    launches, turb_bwd = bmk.LAUNCHES, tk.BWD_PLAIN_CALLS
+    rad, grads = diff_box_media_grads(dev, size=64)
+    diff_launches = bmk.LAUNCHES - launches
+    turb_bwd = tk.BWD_PLAIN_CALLS - turb_bwd
+    with plain_box_media_and_turb():
+        rad_p, grads_p = diff_box_media_grads(dev, size=64)
+    grad_rel = {n_: rel_l2_np(grads[n_].cpu().numpy(), g_.cpu().numpy())
+                for n_, g_ in grads_p.items()}
+    diff_ok = (torch.equal(rad, rad_p) and max(grad_rel.values()) <= 1e-5
+               and diff_launches > 0
+               and float(grads["boxes.p0"].abs().max()) > 0.0
+               and float(grads["media.density"].abs().max()) > 0.0)
+    phase(f"[74] recomputed winners' t == the kernel's (final_full camera "
+          f"rays, under autograd): {recompute_equal}; trace_fast_diff of the "
+          f"marble-smoke scene (64x64, depth 4) through the kernel "
+          f"({diff_launches} launches; the turbulence's plain backward on "
+          f"its masked-in lanes {turb_bwd} times) == through the [R, N] "
+          f"forms: radiance "
+          f"bit for bit {torch.equal(rad, rad_p)}, gradients rel L2 "
+          f"{ {k: float(f'{v:.3e}') for k, v in grad_rel.items()} }")
+    if not (recompute_equal and diff_ok):
+        raise AssertionError("[74] the recomputed t or the diff gradients "
+                             "differ")
+    del rad, rad_p, grads, grads_p
+
+    # ---- 75: the turbulence kernel against fast_turb_c ----
+    rows75 = {}
+    with torch.no_grad():
+        for label in ("camera", "scattered"):
+            ro_, rd_, depth = sets[label]
+            t_, attrs = fp.nearest_hit_attrs(
+                tables.table, tables.soa, sdev, ro_, rd_, tm, feats,
+                fp.media_uniforms(lane, 7, depth, n_med, 8),
+                box_media=tables.box_media)
+            point = (ro_ + torch.where(t_ < MAX_T, t_, 0.0)[:, None]
+                     * rd_).contiguous()
+            mask = attrs[:, 3] == float(TEX_NOISE)
+            del t_, attrs
+            # a ragged window of lanes around the first that wears the noise
+            lo = max(0, min(int(mask.nonzero()[0]) - rag // 2, R - rag))
+            for sub_label, p_, m_ in ((label, point, mask),
+                                      (f"{label} ragged 2^20 + 3",
+                                       point[lo:lo + rag], mask[lo:lo + rag])):
+                got = tk.noise_turb(p_, m_)
+                ref = tk.turb_plain(p_, m_)
+                equal = torch.equal(got.view(torch.int32),
+                                    ref.view(torch.int32))
+                row = {"lanes": p_.shape[0], "noise_lanes": int(m_.sum()),
+                       "equal": equal,
+                       "max_abs_err": float((got - ref).abs().max())}
+                if sub_label == label:
+                    row["ms"] = median_ms(lambda: tk.noise_turb(p_, m_), 20)
+                    row["plain_ms"] = median_ms(
+                        lambda: tk.turb_plain(p_, m_), 2)
+                    row.update(tk.yardsticks(p_.shape[0], row["noise_lanes"]))
+                rows75[sub_label] = row
+                phase(f"[75] turbulence kernel == fast_turb_c bit for bit on "
+                      f"{sub_label} ({row['lanes']} lanes, "
+                      f"{row['noise_lanes']} wear the noise): {equal}"
+                      + (f"; kernel {row['ms']:.4f} ms, plain "
+                         f"{row['plain_ms']:.3f} ms, bound "
+                         f"{row['bound_ms']:.4f} ms ({row['bound_by']}) "
+                         f"({smi})" if "ms" in row else ""))
+                if not equal or row["noise_lanes"] <= 0:
+                    raise AssertionError(f"[75] {sub_label}: the turbulence "
+                                         "kernel differs")
+            del point, mask
+    regs = {"box_media_nearest": kernel_registers(
+                build_log, "box_media_nearest_kernelI"),
+            "turb": next(iter(nb.ptxas_usage("turb_kernel").values()), None)}
+    phase(f"[75] ptxas: {regs}")
+    del st0, st1, cam_rays, cam_u, sc_rays, sc_u
+
+    # ---- 76: final_full's routes in turns ----
+    lights = build_light_table(sdev)
+    nee_kw = {"nee_lights": lights, "rr_start": RR_START}
+
+    def fast(nee, k_):
+        return fp.render_frame_fast(sdev, cam, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                                    fold_in(PRNGKey(0), k_), k_, feats,
+                                    **(nee_kw if nee else {})).image
+
+    def general(nee, k_):
+        return render_frame(sdev, cam, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                            fold_in(PRNGKey(0), k_), features=feats,
+                            **(nee_kw if nee else {}))[0]
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        img_ = fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), img_
+
+    def peak_gib(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated(dev) / 2**30
+
+    frames76 = {}
+    launches76 = {"box_media": 0, "turb": 0}
+    for label, nee in (("final_full", False),
+                       (f"final_full --nee --rr {RR_START}", True)):
+        fast(nee, 0), general(nee, 0)  # warm-up
+        t_fast, t_gen, counts = [], [], []
+        for r_ in range(5):
+            for which in ("general", "fast", "fast", "general"):
+                if which == "fast":
+                    reset_counts(k1, k2, k7)
+                    ms_, img_ = timed(lambda: fast(nee, r_))
+                    counts.append(read_counts(k1, k2, k7))
+                    t_fast.append(ms_)
+                else:
+                    ms_, img_ = timed(lambda: general(nee, r_))
+                    t_gen.append(ms_)
+                if not bool(torch.isfinite(img_).all()):
+                    raise AssertionError(f"[76] {label}: a frame is not finite")
+        per_bounce = {
+            "fast": device_launches(lambda: fast(nee, 9)) / (DEPTH + 1),
+            "general": device_launches(lambda: general(nee, 9)) / (DEPTH + 1)}
+        peak = {"fast": peak_gib(lambda: fast(nee, 9)),
+                "general": peak_gib(lambda: general(nee, 9))}
+        before_ms = None
+        if not nee:  # one frame of the parent's route (~13,600 launches a bounce)
+            plain_route = "fast, plain sweeps and turbulence (the parent's route)"
+            with plain_box_media_and_turb():
+                before_ms, _ = timed(lambda: fast(nee, 9))
+                per_bounce[plain_route] = (device_launches(lambda: fast(nee, 9))
+                                           / (DEPTH + 1))
+                peak[plain_route] = peak_gib(lambda: fast(nee, 9))
+        c_ = counts[-1]
+        plain = sum(c["plain"] for c in counts)
+        row = {"fast_ms": t_fast, "fast_median_ms": float(np.median(t_fast)),
+               "general_ms": t_gen,
+               "general_median_ms": float(np.median(t_gen)),
+               "fast_over_general": float(np.median(t_fast)
+                                          / np.median(t_gen)),
+               "launches_per_bounce": per_bounce, "peak_gib": peak,
+               "plain_before_ms": before_ms,
+               "launches_a_frame": c_, "plain_calls": plain}
+        frames76[label] = row
+        for key_ in launches76:
+            launches76[key_] += sum(c[key_] for c in counts)
+        phase(f"[76] {label} {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH}, 5 "
+              f"rounds of general, fast, fast, general: fast median "
+              f"{row['fast_median_ms']:.2f} ms {[round(x, 1) for x in t_fast]}, "
+              f"general median {row['general_median_ms']:.2f} ms "
+              f"{[round(x, 1) for x in t_gen]} (fast / general "
+              f"{row['fast_over_general']:.3f}); device launches a bounce "
+              f"{ {k: round(v, 1) for k, v in per_bounce.items()} }, peak GiB "
+              f"{ {k: round(v, 3) for k, v in peak.items()} }; "
+              + (f"one fast frame through the plain sweeps and turbulence "
+                 f"{before_ms:.1f} ms; " if before_ms is not None else "")
+              + f"launches of a fast frame {c_}, plain calls over the fast "
+              f"frames {plain} ({smi})")
+        if (plain or c_["box_media"] <= 0 or c_["turb"] <= 0
+                or c_["K3"] <= 0 or c_["K2"]):
+            raise AssertionError(f"[76] {label}: the fast frames did not run "
+                                 "through the kernels alone")
+    return {
+        "box_media": {"cases": rows74, "max_abs_err": max_err,
+                      "all_equal": all_equal,
+                      "recompute_equal": recompute_equal,
+                      "diff_grad_rel_l2": grad_rel,
+                      "diff_launches": diff_launches,
+                      "registers": regs["box_media_nearest"],
+                      "launches": launches76["box_media"]},
+        "turb": {"cases": rows75, "registers": regs["turb"],
+                 "launches": launches76["turb"]},
+        "frames": frames76}
+
+
 def main() -> int:
     import torch
 
@@ -2762,9 +3172,7 @@ def main() -> int:
     from pathtrace_tpu_torch.ops import intersect_kernel as k1
     from pathtrace_tpu_torch.ops import megakernel as k7
     from pathtrace_tpu_torch.ops import shade_kernel as k2
-    from pathtrace_tpu_torch.ops.intersect_box import (
-        box_nearest_rn, media_nearest_rn,
-    )
+    from pathtrace_tpu_torch.ops.box_media_kernel import box_media_nearest
     from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.tools import _probe
@@ -3865,13 +4273,10 @@ def main() -> int:
         phase(f"[29] {cname} NEE tail at depth 0: {int(shadow)} shadow rays "
               f"of {R} lanes ({int(ealive.sum())} alive after K2)")
         pieces = {"rect sweep": lambda: rect_nearest(ctables.rects, *rays)}
-        if ctables.boxes is not None:
-            pieces["box sweep"] = lambda: box_nearest_rn(ctables.boxes,
-                                                         *rays)
-        if ctables.media is not None:
-            pieces["media sweep (with its draws)"] = lambda: (
-                media_nearest_rn(ctables.media, *rays, fp.media_uniforms(
-                    cst0.lane, 7, 0, ctables.media.count, 8)))
+        pieces["box/media kernel (with the media's draws)"] = lambda: (
+            box_media_nearest(ctables.box_media, rays, fp.media_uniforms(
+                cst0.lane, 7, 0, ctables.box_media.media.count, 8)
+                if ctables.box_media.media is not None else None))
         pieces["NEE tail"] = lambda: fp.nee_tail(
             ctables, ct0, cidx0, est0, eout, ealive, 7, 0, cfeats)
         pieces["bounce"] = lambda: fp.fast_bounce_fused(
@@ -4689,6 +5094,9 @@ def main() -> int:
     nf = nonfused_phases(dev, smi, k1, k2, k7)
     wide = wide_phases(dev, smi, k1, k2, k7)
     wide_main = wide["scenes"]["random_spheres"]["camera"]
+    bt = box_turb_phases(dev, smi, k1, k2, k7, build_log)
+    bm_main = bt["box_media"]["cases"]["final_full camera"]
+    tb_main = bt["turb"]["cases"]["camera"]
     drv_launches = {
         "adaptive_launches": {n_: r_["launches"] for n_, r_ in
                               drv["adaptive"].items()},
@@ -4897,6 +5305,38 @@ def main() -> int:
          "visits": wide_main["mean_visits"],
          "registers": wide["registers"], "scenes": wide["scenes"],
          "frames": wide["frames"], "ladder": wide["ladder"],
+         "library_ms": None},
+        {"name": "box_media_nearest", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/box_media_nearest.cu",
+         "replaces": "pathtrace_tpu/ops/intersect.py:445 box_nearest and "
+                     ":606 media_nearest (XLA [R, N] sweeps; no TPU kernel)",
+         "launches": bt["box_media"]["launches"],
+         "max_abs_err": bt["box_media"]["max_abs_err"],
+         **{k: bm_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "issue_ceiling_ms", "bytes_ms",
+                                    "wrapper_ms")},
+         "ms_scattered": bt["box_media"]["cases"]["final_full scattered"][
+             "ms"],
+         "registers": bt["box_media"]["registers"],
+         "cases": bt["box_media"]["cases"],
+         "recompute_equal": bt["box_media"]["recompute_equal"],
+         "diff_grad_rel_l2": bt["box_media"]["diff_grad_rel_l2"],
+         "final_full_frames": bt["frames"],
+         "final_full_bvh": nf["final_full_bvh"],
+         "library_ms": None},
+        {"name": "noise_turb", "route": "cuda",
+         "source": "pathtrace_tpu_torch/csrc/turb.cu",
+         "replaces": "pathtrace_tpu/ops/fastpath.py:460-497 fast_turb_c "
+                     "(XLA, in fast_bounce; no TPU kernel)",
+         "launches": bt["turb"]["launches"],
+         "max_abs_err": max(r_["max_abs_err"]
+                            for r_ in bt["turb"]["cases"].values()),
+         **{k: tb_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "issue_ceiling_ms", "bytes_ms",
+                                    "noise_lanes", "lanes")},
+         "ms_scattered": bt["turb"]["cases"]["scattered"]["ms"],
+         "registers": bt["turb"]["registers"],
+         "cases": bt["turb"]["cases"],
          "library_ms": None},
         *[{"name": f"sum_{name.split('_')[0]} ({pid}, split probe)",
            "route": "cuda", "source": "pathtrace_tpu_torch/csrc/split_probe.cu",

@@ -145,6 +145,18 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,         # t_out, gid_out, visits or NULL
         _c_void_p,                               # stream
     ],
+    "pt_box_media_nearest": [
+        _c_void_p, _c_longlong, _c_int,          # rays [6, R], row stride, R
+        _c_void_p, _c_int,                       # box records, n_boxes
+        _c_void_p, _c_int,                       # media records, n_media
+        _c_void_p, _c_float, _c_float,           # flights, t_min, t_max
+        _c_void_p, _c_void_p,                    # box t, idx
+        _c_void_p, _c_void_p, _c_void_p,         # media t, idx, stream
+    ],
+    "pt_noise_turb": [
+        _c_void_p, _c_void_p, _c_int,            # points [n, 3], mask, n
+        _c_void_p, _c_void_p,                    # out, stream
+    ],
     "pt_cuda_error_string": [_c_int],
 }
 

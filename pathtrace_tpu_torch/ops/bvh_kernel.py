@@ -64,6 +64,7 @@ import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
 from pathtrace_tpu_torch.models.types import MEDIUM_SPHERE
+from pathtrace_tpu_torch.ops.box_media_kernel import media_flights as _flights
 
 LAUNCHES = 0     # kernel launches (CUDA tensors)
 PLAIN_CALLS = 0  # calls the wrapper served with the plain version (CPU)
@@ -274,11 +275,8 @@ def media_flights(op: TreeOperand, uniforms) -> Optional[torch.Tensor]:
     """[n_media, R] free-flight distances ``-log(max(u, 1e-38)) /
     density`` of the media's uniforms (a list of [R], or [n_media, R]),
     the form the reference's leaf test computes; None without media."""
-    if not op.flags & F_MEDIA:
-        return None
-    u = uniforms if torch.is_tensor(uniforms) else torch.stack(list(uniforms))
-    return (-torch.log(torch.clamp(u, min=1e-38))
-            / op.density[:, None]).contiguous()
+    return (_flights(op.density, uniforms) if op.flags & F_MEDIA
+            else None)
 
 
 # ---------------------------------------------------------------------------

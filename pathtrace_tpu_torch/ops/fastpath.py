@@ -108,7 +108,6 @@ import torch
 
 from pathtrace_tpu_torch.config import MAX_T, MIN_T
 from pathtrace_tpu_torch.models.types import (
-    Boxes,
     Media,
     Rects,
     Scene,
@@ -124,6 +123,7 @@ from pathtrace_tpu_torch.models.types import (
     TEX_IMAGE,
     TEX_NOISE,
 )
+from pathtrace_tpu_torch.ops.turb_kernel import noise_turb
 from pathtrace_tpu_torch.ops.intersect_kernel import (
     TILE_N,
     CullBoxes,
@@ -135,8 +135,11 @@ from pathtrace_tpu_torch.ops.intersect_kernel import (
     sphere_nearest_culled,
     sphere_nearest_moving,
 )
-from pathtrace_tpu_torch.ops.intersect_box import (
-    box_nearest_rn, media_nearest_rn,
+from pathtrace_tpu_torch.ops.box_media_kernel import (
+    BoxMediaOperand,
+    box_media_hits,
+    box_media_nearest,
+    box_media_operand,
 )
 from pathtrace_tpu_torch.ops.intersect_rect import (
     RECT_ROWS,
@@ -571,15 +574,21 @@ class FastTables(NamedTuple):
     rows: TableRows       # where the rect, box and medium blocks start
     cull: Optional[CullBoxes] = None  # the culls' boxes (None: K1)
     rects: Optional[Rects] = None     # the rect sweep's rects (rect scenes)
-    boxes: Optional[Boxes] = None     # the box sweep's boxes (box scenes)
-    media: Optional[Media] = None     # the media sweep's media (media scenes)
     lights: Optional[LightTable] = None  # NEE's light table (host)
     light_rgb: Optional[torch.Tensor] = None  # [3, L] light emission
     atlas: Optional[torch.Tensor] = None  # [H, W, 3] image atlas (images)
     bvh: Optional[TreeOperand] = None  # -B: the scene tree's operand
+    # the box and media sweep's records and primitives (box and media
+    # scenes; the media's count from its ``media``)
+    box_media: Optional[BoxMediaOperand] = None
     # NEE lights whose texture is not a constant: (scene, features, the
     # lights' texture ids on the device), for texture_value
     light_tex: Optional[tuple] = None
+
+
+def _media(tables: FastTables) -> Optional[Media]:
+    """The media of the tables' scene (None without)."""
+    return tables.box_media.media if tables.box_media is not None else None
 
 
 def table_rows(scene: Scene, features: SceneFeatures) -> TableRows:
@@ -683,13 +692,12 @@ def prep_tables(scene: Scene, features: SceneFeatures,
         rows=table_rows(scene, features),
         cull=boxes,
         rects=scene.rects if features.has_rects else None,
-        boxes=scene.boxes if features.has_boxes else None,
-        media=scene.media if features.has_media else None,
         lights=lights,
         light_rgb=light_rgb,
         atlas=atlas,
         bvh=(bvh.operand(scene, features, bvh_offsets, sky4.device)
              if bvh is not None else None),
+        box_media=box_media_operand(scene, features),
         light_tex=light_tex,
     )
 
@@ -812,11 +820,10 @@ def nearest_t_only(tables: FastTables, rays: torch.Tensor,
         t, _ = sphere_nearest(tables.soa, rays, MIN_T, MAX_T)
     if tables.rects is not None:
         t = torch.minimum(t, rect_nearest(tables.rects, *rays)[0])
-    if tables.boxes is not None:
-        t = torch.minimum(t, box_nearest_rn(tables.boxes, *rays)[0])
-    if tables.media is not None:
-        t = torch.minimum(t,
-                          media_nearest_rn(tables.media, *rays, med_u)[0])
+    if tables.box_media is not None:
+        for hit in box_media_nearest(tables.box_media, rays, med_u):
+            if hit is not None:
+                t = torch.minimum(t, hit[0])
     return t
 
 
@@ -867,8 +874,9 @@ def nee_tail(tables: FastTables, t: torch.Tensor, idx: torch.Tensor,
     ldist, lpdf, nee_mask, is_lam = sh.dist, sh.pdf, sh.mask, sh.is_lam
     zero = torch.zeros_like(t)
     med_u = None
-    if tables.media is not None:
-        n_media = tables.media.count
+    media = _media(tables)
+    if media is not None:
+        n_media = media.count
         med_u = media_uniforms(state_in.lane, seed, depth, n_media,
                                8 + n_media)
     s_t = nearest_t_only(tables, sh.rays, state_in.time, features, med_u)
@@ -923,14 +931,15 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
     ``8 + j``), which media scenes must pass. With a tree in the tables
     (``-B``) its traversal replaces all of these, and the winners' global
     ids map to their table rows (:func:`_gid_to_table_row`)."""
-    if tables.media is not None and seed is None:
+    media = _media(tables)
+    if media is not None and seed is None:
         raise ValueError("closest_hit: a media scene needs the bounce "
                          "seed (the free-flight draws)")
     if tables.bvh is not None:
         flights = None
-        if tables.media is not None:
+        if media is not None:
             flights = media_flights(tables.bvh, media_uniforms(
-                state.lane, seed, depth, tables.media.count, 8))
+                state.lane, seed, depth, media.count, 8))
         t, gid = bvh_traverse(tables.bvh, state.planes[:6], state.time,
                               flights, MIN_T, MAX_T)
         return t, _gid_to_table_row(gid, tables.bvh.offsets, tables.rows)
@@ -947,14 +956,14 @@ def closest_hit(tables: FastTables, state: FastStateP, depth: int,
     rays = state.planes[:6]
     if tables.rects is not None:
         t, idx = merge_rects(tables.rects, rays, t, idx, tables.rows.rect)
-    if tables.boxes is not None:
-        t, idx = merge_winner(t, idx, *box_nearest_rn(tables.boxes, *rays),
-                              tables.rows.box)
-    if tables.media is not None:
-        med_u = media_uniforms(state.lane, seed, depth, tables.media.count, 8)
-        t, idx = merge_winner(
-            t, idx, *media_nearest_rn(tables.media, *rays, med_u),
-            tables.rows.media)
+    if tables.box_media is not None:
+        med_u = (media_uniforms(state.lane, seed, depth, media.count, 8)
+                 if media is not None else None)
+        box, med = box_media_nearest(tables.box_media, rays, med_u)
+        if box is not None:
+            t, idx = merge_winner(t, idx, *box, tables.rows.box)
+        if med is not None:
+            t, idx = merge_winner(t, idx, *med, tables.rows.media)
     return t, idx
 
 
@@ -1452,20 +1461,23 @@ class FastState(NamedTuple):
 def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                       ro: torch.Tensor, rd: torch.Tensor, time: torch.Tensor,
                       features: SceneFeatures, med_u=None,
-                      bvh: Optional[TreeOperand] = None):
+                      bvh: Optional[TreeOperand] = None, *,
+                      box_media: Optional[BoxMediaOperand]):
     """Closest hit over every kind of the scene, differentiable in t, and
     the winner's attribute row by one row gather from ``table`` (the
     blocks of :func:`winner_table`): (t [R], attrs [R, K]). Twin of the
     reference's ``nearest_hit_attrs`` (``fastpath.py:242``): the spheres
     through ``SphereNearest`` (K1, or K3 for moving spheres, which pass
     their motion leaves and the rays' time; a scene without spheres has
-    no sweep), then the rects, boxes and media in plain PyTorch (the
-    media at the free-flight uniforms ``med_u``; boxes and media in the
-    [R, N] form), each kind
+    no sweep), then the rects in plain PyTorch, the boxes and media by
+    :func:`~pathtrace_tpu_torch.ops.box_media_kernel.box_media_hits` (its
+    kernel on the card; the media at the free-flight uniforms ``med_u``)
+    on ``box_media``, the trace's records (None without either), each kind
     winning only when strictly nearer. Nothing here writes in place, so
-    autograd reaches every kind's leaves. ``bvh`` (a render's tree
-    operand, ``-B``): its traversal is the closest hit instead, with no
-    gradient, and the winners' ids map to their table rows."""
+    autograd reaches every kind's leaves (the box and media winners' t
+    recomputed at their idx). ``bvh`` (a render's tree operand, ``-B``):
+    its traversal is the closest hit instead, with no gradient, and the
+    winners' ids map to their table rows."""
     f = features
     if bvh is not None:
         t, gid = bvh_traverse(bvh, torch.cat([ro.T, rd.T]).contiguous(),
@@ -1485,12 +1497,12 @@ def nearest_hit_attrs(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     rays = (*ro.unbind(1), *rd.unbind(1))
     if f.has_rects:
         t, idx = merge_rects(scene.rects, rays, t, idx, rows.rect)
-    if f.has_boxes:
-        t, idx = merge_winner(t, idx, *box_nearest_rn(scene.boxes, *rays),
-                              rows.box)
-    if f.has_media:
-        t, idx = merge_winner(t, idx, *media_nearest_rn(scene.media, *rays,
-                                                        med_u), rows.media)
+    if box_media is not None:
+        box, med = box_media_hits(box_media, ro, rd, med_u)
+        if box is not None:
+            t, idx = merge_winner(t, idx, *box, rows.box)
+        if med is not None:
+            t, idx = merge_winner(t, idx, *med, rows.media)
     return t, table.index_select(0, idx.long())
 
 
@@ -1558,7 +1570,8 @@ def _diff_image_rgb(scene: Scene, attrs: torch.Tensor, point: torch.Tensor,
 def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
                 state: FastState, seed: int, depth: int, max_depth: int,
                 features: SceneFeatures, tables: Optional[FastTables] = None,
-                rr_start: int = 0):
+                rr_start: int = 0,
+                box_media: Optional[BoxMediaOperand] = None):
     """One bounce on [R, 3] state: the twin of the reference's
     ``fast_bounce`` (``fastpath.py:549-895``), the differentiable trace's
     bounce and the render path's non-fused one: the media's free-flight
@@ -1579,14 +1592,18 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
     the BSDF side's weight in ``emit_scale``, which scales the next hit's
     emission. ``rr_start`` > 0: Russian roulette from that depth (draw
     7). With ``tables`` it returns (state, shadow rays traced: a device
-    int64, or 0 without lights), else the state."""
+    int64, or 0 without lights), else the state. Without ``tables``,
+    ``box_media`` brings the trace's box and media records
+    (:func:`~pathtrace_tpu_torch.ops.box_media_kernel.box_media_operand`;
+    None in a scene with neither)."""
     f = features
     nee = tables is not None and tables.lights is not None
     med_u = (media_uniforms(state.lane, seed, depth, scene.media.count, 8)
              if f.has_media else None)
     t, attrs = nearest_hit_attrs(
         table, soa, scene, state.ro, state.rd, state.time, f, med_u,
-        bvh=tables.bvh if tables is not None else None)
+        bvh=tables.bvh if tables is not None else None,
+        box_media=tables.box_media if tables is not None else box_media)
     hit = t < _INF
     t_safe = torch.where(hit, t, 0.0)
     point = state.ro + t_safe[:, None] * state.rd
@@ -1628,11 +1645,13 @@ def fast_bounce(table: torch.Tensor, soa: torch.Tensor, scene: Scene,
         rgb = torch.where((tex_kind == float(TEX_CHECKER))[:, None], checker,
                           rgb)
     if f.has_noise:
+        # the turbulence only where the winner wears the noise (its kernel
+        # on the card)
+        is_noise = tex_kind == float(TEX_NOISE)
         marble = 0.5 * (1.0 + torch.sin(
             attrs[:, 13] * point[:, 2]
-            + 10.0 * fast_turb_c(point[:, 0], point[:, 1], point[:, 2])))
-        rgb = torch.where((tex_kind == float(TEX_NOISE))[:, None],
-                          marble[:, None], rgb)
+            + 10.0 * noise_turb(point, is_noise)))
+        rgb = torch.where(is_noise[:, None], marble[:, None], rgb)
     if f.has_image:
         img_rgb = _diff_image_rgb(scene, attrs, point, normal, t_safe, box, f)
         rgb = torch.where((tex_kind == float(TEX_IMAGE))[:, None], img_rgb,
@@ -1835,6 +1854,7 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         _check_atlas(scene)
     table = winner_table(scene, features)
     soa = build_sphere_soa(scene, motion=features.has_motion)
+    box_media = box_media_operand(scene, features)
     R = ro.shape[0]
     dev = ro.device
     lane, alive = lane_ids(R, dev, lane_offset, alive_limit)
@@ -1849,5 +1869,5 @@ def trace_fast_diff(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     for depth in range(max_depth + 1):
         segs = segs + state.alive.sum()
         state = fast_bounce(table, soa, scene, state, seed, depth, max_depth,
-                            features)
+                            features, box_media=box_media)
     return state.radiance, segs

@@ -21,12 +21,13 @@ normal, UV, material) is built by gathers from its index.
   frames, so their winners merge with the world-space kinds'. Normals
   map back by the inverse transpose; UV stays in object space.
 - World-space rects take the plane-loop sweep of
-  :mod:`~pathtrace_tpu_torch.ops.intersect_rect`; boxes and media the
-  [R, N] form of :mod:`~pathtrace_tpu_torch.ops.intersect_box`
-  (``box_nearest_rn``, ``media_nearest_rn``: its plane loop's bits).
-  Each gives the reference's [R, N] winners (ascending-index running
-  minimum with a strict ``<`` is the first-minimum argmin). A medium's
-  free flight takes the caller's [R, n_media] uniforms.
+  :mod:`~pathtrace_tpu_torch.ops.intersect_rect`; boxes and media
+  :func:`~pathtrace_tpu_torch.ops.box_media_kernel.box_media_hits` (the
+  kernel of ``csrc/box_media_nearest.cu`` on the card, the [R, N] form of
+  :mod:`~pathtrace_tpu_torch.ops.intersect_box` on the CPU: the same
+  bits). Each gives the reference's [R, N] winners (ascending-index
+  running minimum with a strict ``<`` is the first-minimum argmin). A
+  medium's free flight takes the caller's [R, n_media] uniforms.
 
 A miss has t = MAX_T; its record's point is the ray origin (t taken as 0,
 which keeps every miss lane finite for reverse mode).
@@ -48,8 +49,8 @@ from pathtrace_tpu_torch.models.types import (
     Spheres,
 )
 from pathtrace_tpu_torch.ops import intersect_kernel as ik
-from pathtrace_tpu_torch.ops.intersect_box import (
-    box_nearest_rn, media_nearest_rn,
+from pathtrace_tpu_torch.ops.box_media_kernel import (
+    BoxMediaOperand, box_media_hits,
 )
 from pathtrace_tpu_torch.ops.intersect_rect import rect_nearest
 
@@ -372,12 +373,15 @@ def _miss_record(ro: torch.Tensor) -> HitRecord:
 
 def intersect_scene(scene: Scene, ro, rd, time, media_uniforms,
                     soa: Optional[torch.Tensor], features: SceneFeatures,
-                    differentiable: bool = False) -> HitRecord:
+                    differentiable: bool = False, *,
+                    box_media: Optional[BoxMediaOperand]) -> HitRecord:
     """The closest hit across every primitive kind of ``scene`` for the
     rays (ro, rd [R, 3], time [R]), with its record. ``media_uniforms``:
     [R, n_media] free-flight uniforms (media scenes); ``soa``: the sphere
     kernels' operand; ``differentiable``: the spheres go through
-    ``SphereNearest`` (K6 backward). Absent kinds are skipped."""
+    ``SphereNearest`` (K6 backward); ``box_media``: the box and media
+    sweep's records (``integrator.prep_tables``'; None without either).
+    Absent kinds are skipped."""
     f = features
     rec = None
     if f.has_spheres:
@@ -389,13 +393,16 @@ def intersect_scene(scene: Scene, ro, rd, time, media_uniforms,
         t, idx = rect_hits(scene.rects, ro, rd)
         nxt = rect_record(scene.rects, t, idx, ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
+    if box_media is not None:
+        box, med = box_media_hits(
+            box_media, ro, rd,
+            media_uniforms.T if f.has_media else None)
     if f.has_boxes:
-        t, idx = box_nearest_rn(scene.boxes, *_planes(ro, rd))
+        t, idx = box
         nxt = box_record(scene.boxes, t, idx.long(), ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
     if f.has_media:
-        t, idx = media_nearest_rn(scene.media, *_planes(ro, rd),
-                                  media_uniforms.T)
+        t, idx = med
         nxt = media_record(scene.media, t, idx.long(), ro, rd)
         rec = nxt if rec is None else _select_record(rec.t <= t, rec, nxt)
     return _miss_record(ro) if rec is None else rec

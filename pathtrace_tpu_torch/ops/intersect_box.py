@@ -11,11 +11,13 @@ once on [Rc, N]). The two forms compute each pair in the same operations
 in the same order and pick the same winner (an ascending-``j`` running
 minimum with a strict ``<`` is ``torch.argmin``'s first minimum), so they
 give the same (t, idx) bit for bit; the [R, N] form only launches fewer,
-larger operations. Every sweep of the port takes the [R, N] form, at any
-count: on the H100 it beat the loop at every count from 2 to 400 boxes
-and media, at full width and at a late rung of the ladder, except 400
-media at full width, which no preset has (``chip_smoke.py`` phase 68).
-The loop stays as its bit-for-bit reference. The reference sweeps
+larger operations. The [R, N] form is the plain version of the box and
+media kernel (:mod:`~pathtrace_tpu_torch.ops.box_media_kernel`,
+``csrc/box_media_nearest.cu``), which the port's sweeps take: on the CPU
+that module runs this form, on the card the kernel, with the same bits.
+Its per-pair candidates (:func:`box_candidate`, :func:`media_candidate`)
+broadcast, so that module recomputes a winner's t under autograd with
+them too. The loop stays as their bit-for-bit reference. The reference sweeps
 boxes and media in XLA, not in a Pallas kernel; here they are PyTorch
 element-wise operations, on any device, and autograd flows through both
 forms (the [R, N] form's t is a gather at the argmin).
@@ -139,27 +141,68 @@ def _rn_chunks(R: int, n: int):
     return [(lo, min(lo + step, R)) for lo in range(0, R, step)]
 
 
-def _slab_rn(p0, p1, ofw, rox, roy, roz, rdx, rdy, rdz):
-    """:func:`_slab` of [Rc] rays against every primitive at once:
-    (t_enter, t_exit) [Rc, N], each pair in :func:`_slab`'s operations and
+def _slab_rn(p0, p1, ofw, ro, rd):
+    """:func:`_slab`, broadcasting: the rays' planes ``ro``, ``rd`` (three
+    each) against primitives whose ``p0``, ``p1`` [..., 3] and ``ofw``
+    [..., 3, 4] broadcast with them, as every primitive at once ([Rc, 1]
+    rays, [N] primitives: [Rc, N]) or each ray's own primitive ([R] and
+    [R]): (t_enter, t_exit), each pair in :func:`_slab`'s operations and
     order (one axis at a time, so fewer temporaries are live)."""
-    ro = (rox[:, None], roy[:, None], roz[:, None])
-    rd = (rdx[:, None], rdy[:, None], rdz[:, None])
     tn = tf = None
     for r in range(3):
-        m = ofw[None, :, r]
+        m = ofw[..., r, :]
         ro_o = m[..., 0] * ro[0] + m[..., 1] * ro[1] + m[..., 2] * ro[2] \
             + m[..., 3]
         rd_o = m[..., 0] * rd[0] + m[..., 1] * rd[1] + m[..., 2] * rd[2]
         d = torch.where(torch.abs(rd_o) < 1e-12, 1e-12, rd_o)
         rcp = 1.0 / d
-        d0 = (p0[None, :, r] - ro_o) * rcp
-        d1 = (p1[None, :, r] - ro_o) * rcp
+        d0 = (p0[..., r] - ro_o) * rcp
+        d1 = (p1[..., r] - ro_o) * rcp
         lo = torch.minimum(d0, d1)
         hi = torch.maximum(d0, d1)
         tn = lo if tn is None else torch.maximum(tn, lo)
         tf = hi if tf is None else torch.minimum(tf, hi)
     return tn, tf
+
+
+def box_candidate(p0, p1, ofw, mask, ro, rd, t_min: float = MIN_T,
+                  t_max: float = MAX_T):
+    """The [R, N] form's candidate t of each (ray, box) pair, broadcasting
+    as :func:`_slab_rn` (``mask`` as ``p0[..., 0]``): the entry face, the
+    exit face of a ray that starts inside, else ``MAX_T``."""
+    tn, tf = _slab_rn(p0, p1, ofw, ro, rd)
+    crosses = (tf > tn) & mask
+    enter_ok = crosses & (tn > t_min) & (tn < t_max)
+    exit_ok = crosses & (tn <= t_min) & (tf > t_min) & (tf < t_max)
+    return torch.where(enter_ok, tn, torch.where(exit_ok, tf, _INF))
+
+
+def media_candidate(p0, p1, ofw, r2, is_sphere, mask, density, ro, rd, u,
+                    t_min: float = MIN_T, t_max: float = MAX_T):
+    """The [R, N] form's candidate t of each (ray, medium) pair,
+    broadcasting as :func:`_slab_rn` (the squared radius ``r2``,
+    ``is_sphere``, ``mask`` and ``density`` as ``p0[..., 0]``; ``u`` the
+    pair's uniform): the free-flight hit inside the boundary interval,
+    else ``MAX_T``."""
+    tn, tf = _slab_rn(p0, p1, ofw, ro, rd)
+    box_crosses = tf > tn
+    ocx, ocy, ocz = (ro[k] - p0[..., k] for k in range(3))
+    a = rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2]
+    b = ocx * rd[0] + ocy * rd[1] + ocz * rd[2]
+    c = ocx * ocx + ocy * ocy + ocz * ocz - r2
+    del ocx, ocy, ocz
+    disc = b * b - a * c
+    sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
+    t1 = torch.where(is_sphere, (-b - sq) / a, tn)
+    t2 = torch.where(is_sphere, (-b + sq) / a, tf)
+    crosses = torch.where(is_sphere, disc > 0.0, box_crosses) & mask
+    t1 = torch.clamp(t1, min=t_min)
+    t2 = torch.clamp(t2, max=t_max)
+    ok = crosses & (t1 < t2)
+    t1 = torch.clamp(t1, min=0.0)
+    hit_dist = -torch.log(torch.clamp(u, min=1e-38)) / density
+    inside = hit_dist < (t2 - t1)
+    return torch.where(ok & inside, t1 + hit_dist, _INF)
 
 
 def _first_min(cand: torch.Tensor):
@@ -176,22 +219,22 @@ def _cat(parts, R: int, like: torch.Tensor):
     return torch.cat(ts), torch.cat(idxs)
 
 
+def _chunk(planes, lo: int, hi: int):
+    """Rays ``lo:hi`` of three planes, as [Rc, 1] columns."""
+    return tuple(x[lo:hi, None] for x in planes)
+
+
 def box_nearest_rn(boxes: Boxes, rox, roy, roz, rdx, rdy, rdz,
                    t_min: float = MIN_T, t_max: float = MAX_T):
     """:func:`box_nearest` on [Rc, N] (the reference's ``box_nearest``):
     the same (t [R] f32, idx [R] int32) bit for bit."""
     R, N = rox.shape[0], boxes.count
-    mask = boxes.mask[None, :]
     parts = []
     for lo, hi in _rn_chunks(R, N):
-        tn, tf = _slab_rn(boxes.p0, boxes.p1, boxes.obj_from_world,
-                          rox[lo:hi], roy[lo:hi], roz[lo:hi],
-                          rdx[lo:hi], rdy[lo:hi], rdz[lo:hi])
-        crosses = (tf > tn) & mask
-        enter_ok = crosses & (tn > t_min) & (tn < t_max)
-        exit_ok = crosses & (tn <= t_min) & (tf > t_min) & (tf < t_max)
-        parts.append(_first_min(
-            torch.where(enter_ok, tn, torch.where(exit_ok, tf, _INF))))
+        parts.append(_first_min(box_candidate(
+            boxes.p0, boxes.p1, boxes.obj_from_world, boxes.mask,
+            _chunk((rox, roy, roz), lo, hi), _chunk((rdx, rdy, rdz), lo, hi),
+            t_min, t_max)))
     return _cat(parts, R, rox)
 
 
@@ -202,36 +245,13 @@ def media_nearest_rn(media: Media, rox, roy, roz, rdx, rdy, rdz, uniforms,
     ``uniforms[j]`` is medium ``j``'s [R] uniform, as the loop takes
     them."""
     R, N = rox.shape[0], media.count
-    p0 = media.p0
-    r2 = (media.radius * media.radius)[None, :]
-    is_sphere = (media.kind == MEDIUM_SPHERE)[None, :]
-    mask = media.mask[None, :]
-    density = media.density[None, :]
+    r2 = media.radius * media.radius
+    is_sphere = media.kind == MEDIUM_SPHERE
     parts = []
     for lo, hi in _rn_chunks(R, N):
-        ro = (rox[lo:hi], roy[lo:hi], roz[lo:hi])
-        rd = (rdx[lo:hi], rdy[lo:hi], rdz[lo:hi])
-        tn, tf = _slab_rn(p0, media.p1, media.obj_from_world, *ro, *rd)
-        box_crosses = tf > tn
-        ocx, ocy, ocz = (ro[k][:, None] - p0[None, :, k] for k in range(3))
-        a = (rd[0] * rd[0] + rd[1] * rd[1] + rd[2] * rd[2])[:, None]
-        b = (ocx * rd[0][:, None] + ocy * rd[1][:, None]
-             + ocz * rd[2][:, None])
-        c = ocx * ocx + ocy * ocy + ocz * ocz - r2
-        del ocx, ocy, ocz
-        disc = b * b - a * c
-        sq = torch.sqrt(torch.where(disc > 0.0, disc, 1.0))
-        t1 = torch.where(is_sphere, (-b - sq) / a, tn)
-        t2 = torch.where(is_sphere, (-b + sq) / a, tf)
-        crosses = torch.where(is_sphere, disc > 0.0, box_crosses) & mask
-        t1 = torch.clamp(t1, min=t_min)
-        t2 = torch.clamp(t2, max=t_max)
-        ok = crosses & (t1 < t2)
-        t1 = torch.clamp(t1, min=0.0)
         u = torch.stack([uniforms[j][lo:hi] for j in range(N)], dim=1)
-        hit_dist = -torch.log(torch.clamp(u, min=1e-38)) / density
-        inside = hit_dist < (t2 - t1)
-        parts.append(_first_min(
-            torch.where(ok & inside, t1 + hit_dist, _INF)))
+        parts.append(_first_min(media_candidate(
+            media.p0, media.p1, media.obj_from_world, r2, is_sphere,
+            media.mask, media.density, _chunk((rox, roy, roz), lo, hi),
+            _chunk((rdx, rdy, rdz), lo, hi), u, t_min, t_max)))
     return _cat(parts, R, rox)
-

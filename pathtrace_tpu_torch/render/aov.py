@@ -53,9 +53,10 @@ def render_aovs(scene: Scene, camera, width: int, height: int,
     ro, rd, time = ro.reshape(R, 3), rd.reshape(R, 3), time.reshape(R)
     med_u = (threefry.uniform(kmed, (R, scene.media.count), dev)
              if f.has_media else None)
-    soa = prep_tables(scene, f).soa
+    tables = prep_tables(scene, f)
     with torch.no_grad():
-        rec = isect.intersect_scene(scene, ro, rd, time, med_u, soa, f)
+        rec = isect.intersect_scene(scene, ro, rd, time, med_u, tables.soa,
+                                    f, box_media=tables.box_media)
         tex_id = scene.materials.tex_id[rec.mat_id]
         hit3 = rec.hit[..., None]
         safe_p = torch.where(hit3, rec.point, torch.zeros_like(rec.point))

@@ -54,6 +54,9 @@ from pathtrace_tpu_torch.models.types import (
     SceneFeatures,
 )
 from pathtrace_tpu_torch.ops import bsdf
+from pathtrace_tpu_torch.ops.box_media_kernel import (
+    BoxMediaOperand, box_media_operand,
+)
 from pathtrace_tpu_torch.ops import intersect as isect
 from pathtrace_tpu_torch.ops import lights as plights
 from pathtrace_tpu_torch.ops.texture import texture_value
@@ -78,16 +81,19 @@ def sky_color(scene: Scene, rd: torch.Tensor) -> torch.Tensor:
 
 class GeneralTables(NamedTuple):
     """Per-trace operands: the sphere kernels' operand (None without
-    world-space spheres) and the NEE lights' texture ids on the device."""
+    world-space spheres), the NEE lights' texture ids on the device and
+    the box and media sweep's records (None without boxes and media)."""
 
     soa: Optional[torch.Tensor]
     light_tex: Optional[torch.Tensor]
+    box_media: Optional[BoxMediaOperand] = None
 
 
 def prep_tables(scene: Scene, features: SceneFeatures,
                 nee_lights: Optional[plights.LightTable] = None) -> GeneralTables:
     """The operands of a trace, on the scene's device: K1's [5, N] (K3's
-    [12, N] in a scene with moving spheres) from the scene's spheres."""
+    [12, N] in a scene with moving spheres) from the scene's spheres, and
+    the box and media records."""
     from pathtrace_tpu_torch.ops.fastpath import build_sphere_soa
 
     soa = None
@@ -97,7 +103,8 @@ def prep_tables(scene: Scene, features: SceneFeatures,
     if nee_lights is not None:
         light_tex = torch.from_numpy(nee_lights.tex_id.astype("int64")).to(
             scene.sky.device)
-    return GeneralTables(soa=soa, light_tex=light_tex)
+    return GeneralTables(soa=soa, light_tex=light_tex,
+                         box_media=box_media_operand(scene, features))
 
 
 class WavefrontState(NamedTuple):
@@ -168,7 +175,8 @@ def _bounce(scene: Scene, tables: GeneralTables, state: WavefrontState,
         rec = intersect_fn(scene, ro, rd, time, sub(med_u))
     else:
         rec = isect.intersect_scene(scene, ro, rd, time, sub(med_u),
-                                    tables.soa, f, differentiable)
+                                    tables.soa, f, differentiable,
+                                    box_media=tables.box_media)
     sc = bsdf.scatter(scene, rec, rd, sub(scat_u), f)
 
     alive_f = alive.to(ro.dtype)[..., None]
@@ -199,7 +207,8 @@ def _bounce(scene: Scene, tables: GeneralTables, state: WavefrontState,
                 srec = intersect_fn(scene, safe_p, wi, time, sub(smed_u))
             else:
                 srec = isect.intersect_scene(scene, safe_p, wi, time,
-                                             sub(smed_u), tables.soa, f)
+                                             sub(smed_u), tables.soa, f,
+                                             box_media=tables.box_media)
         # unoccluded unless something lands strictly before the sample
         unoccluded = ~(srec.hit & (srec.t < ldist * (1.0 - 1e-3)))
         light_p = safe_p + wi * ldist[..., None]

@@ -28,9 +28,7 @@ from pathtrace_tpu_torch.config import MAX_T
 from pathtrace_tpu_torch.models.types import Scene, SceneFeatures
 from pathtrace_tpu_torch.ops import bsdf
 from pathtrace_tpu_torch.ops import intersect as isect
-from pathtrace_tpu_torch.ops.intersect_box import (
-    box_nearest_rn, media_nearest_rn,
-)
+from pathtrace_tpu_torch.ops.box_media_kernel import box_media_nearest
 from pathtrace_tpu_torch.render.integrator import prep_tables
 from pathtrace_tpu_torch.utils import threefry
 
@@ -119,7 +117,8 @@ def print_ray_trace(scene: Scene, camera: Camera, max_depth: int,
     f = SceneFeatures.from_scene(scene)
     key = threefry.PRNGKey(seed)
     ro, rd, time = _center_ray(camera, threefry.fold_in(key, 0), dev)
-    soa = prep_tables(scene, f).soa
+    tables = prep_tables(scene, f)
+    soa, box_media = tables.soa, tables.box_media
     planes = isect._planes
 
     log(f"center ray: origin={_np(ro)[0]} dir={_np(rd)[0]}")
@@ -137,13 +136,16 @@ def print_ray_trace(scene: Scene, camera: Camera, max_depth: int,
                     scene.spheres, soa, ro, rd, time, f.has_motion)
             if f.has_rects:
                 candidates["rect"] = isect.rect_hits(scene.rects, ro, rd)
-            if f.has_boxes:
-                candidates["box"] = box_nearest_rn(scene.boxes,
-                                                   *planes(ro, rd))
-            if f.has_media:
-                candidates["media"] = media_nearest_rn(
-                    scene.media, *planes(ro, rd), med_u.T)
-            rec = isect.intersect_scene(scene, ro, rd, time, med_u, soa, f)
+            if f.has_boxes or f.has_media:
+                box, med = box_media_nearest(
+                    box_media, torch.stack(planes(ro, rd)),
+                    med_u.T if f.has_media else None)
+                if box is not None:
+                    candidates["box"] = box
+                if med is not None:
+                    candidates["media"] = med
+            rec = isect.intersect_scene(scene, ro, rd, time, med_u, soa, f,
+                                        box_media=box_media)
             sc = bsdf.scatter(scene, rec, rd, scat_u, f)
 
         for kind, (t, i) in candidates.items():

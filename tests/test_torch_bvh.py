@@ -275,10 +275,14 @@ def test_traversal_matches_brute_sweep(name):
     ro, rd, tm, med_u = scene_rays(name)
     if name == "instanced":  # no fast path: the general path's sweep
         from pathtrace_tpu_torch.ops import intersect as isect
+        from pathtrace_tpu_torch.ops.box_media_kernel import (
+            box_media_operand,
+        )
 
         rec = isect.intersect_scene(scene, torch.from_numpy(ro),
                                     torch.from_numpy(rd), torch.from_numpy(tm),
-                                    None, None, feats)
+                                    None, None, feats,
+                                    box_media=box_media_operand(scene, feats))
         t_b = rec.t.numpy()
         hit = t_b < 1e30
         np.testing.assert_array_equal(t < 1e30, hit)

@@ -322,9 +322,10 @@ def test_intersect_records_match_jax(name):
     jscene, ro, rd, tm, med_u = _record_case(name)
     scene = _port_scene(jscene)  # through scene_from_numpy, instances too
     feats, jfeats = SceneFeatures.from_scene(scene), JFeatures.from_scene(jscene)
-    soa = integrator.prep_tables(scene, feats).soa
+    tables = integrator.prep_tables(scene, feats)
     rec = intersect.intersect_scene(scene, _t(ro), _t(rd), _t(tm), _t(med_u),
-                                    soa, feats)
+                                    tables.soa, feats,
+                                    box_media=tables.box_media)
     ref = _jax_intersect()(jscene, jnp.asarray(ro), jnp.asarray(rd),
                            jnp.asarray(tm), jnp.asarray(med_u),
                            features=jfeats)

@@ -746,3 +746,130 @@ def assert_trace_lines_match(lines, ref_lines):
                                    err_msg=f"{a!r} vs {b!r}")
         np.testing.assert_allclose(fa, fb, rtol=1e-4, atol=1e-4,
                                    err_msg=f"{a!r} vs {b!r}")
+
+
+def many_boxes_and_media(n_boxes: int, n_media: int, seed: int = 0):
+    """A scene of ``n_boxes`` rotated boxes and ``n_media`` media (every
+    third a sphere, the others rotated slabs) over ``final_full``'s floor
+    (x, z in [-100, 500], y in [0, 300]), the 5th of each masked: more than
+    one shared-memory tile of the box and media kernel (480 boxes, 400
+    media a tile) at the counts the card phases take."""
+    from pathtrace_tpu_torch.models.build import (
+        SceneBuilder, affine_from_axis_angle,
+    )
+
+    g = np.random.default_rng(seed)
+    b = SceneBuilder()
+    iso = b.constant_texture((0.7, 0.7, 0.7))
+    mat = b.lambertian_color((0.5, 0.5, 0.5))
+    lo, hi = (-100.0, 0.0, -100.0), (500.0, 300.0, 500.0)
+    for _ in range(n_boxes):
+        p0 = g.uniform(lo, hi)
+        xf = affine_from_axis_angle(g.normal(size=3), float(g.uniform(0, 90)),
+                                    g.uniform(-20.0, 20.0, 3))
+        b.box(tuple(p0), tuple(p0 + g.uniform(5.0, 40.0, 3)), mat, xf)
+    for i in range(n_media):
+        c = g.uniform(lo, hi)
+        dens = float(g.uniform(1e-3, 5e-2))
+        if i % 3 == 0:
+            b.medium_sphere(tuple(c), float(g.uniform(10.0, 60.0)), dens, iso)
+        else:
+            xf = affine_from_axis_angle(g.normal(size=3),
+                                        float(g.uniform(0.0, 90.0)),
+                                        g.uniform(-20.0, 20.0, 3))
+            b.medium_box(tuple(c - 30.0), tuple(c + 30.0), dens, iso, xf)
+    scene = b.finish()
+    if n_boxes > 4:
+        scene.boxes.mask[4] = False
+    if n_media > 4:
+        scene.media.mask[4] = False
+    return scene
+
+
+@contextlib.contextmanager
+def plain_box_media_and_turb():
+    """Within the block the fast and general paths sweep boxes and media
+    through the plain [R, N] forms (under autograd: t a gather at the
+    argmin) and take the plain masked turbulence, on any device: the
+    route before their kernels, for comparisons on the card."""
+    from pathtrace_tpu_torch.config import MAX_T, MIN_T
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.ops import intersect as isect
+    from pathtrace_tpu_torch.ops import intersect_box as ib
+    from pathtrace_tpu_torch.ops import turb_kernel
+
+    def nearest(op, rays, uniforms=None, t_min=MIN_T, t_max=MAX_T):
+        box = (ib.box_nearest_rn(op.boxes, *rays, t_min=t_min, t_max=t_max)
+               if op.boxes is not None else None)
+        med = (ib.media_nearest_rn(op.media, *rays, uniforms, t_min=t_min,
+                                   t_max=t_max)
+               if op.media is not None else None)
+        return box, med
+
+    def hits(op, ro, rd, uniforms=None, t_min=MIN_T, t_max=MAX_T):
+        return nearest(op, (*ro.unbind(1), *rd.unbind(1)), uniforms, t_min,
+                       t_max)
+
+    saved = (fp.box_media_nearest, fp.box_media_hits, fp.noise_turb,
+             isect.box_media_hits)
+    fp.box_media_nearest, fp.box_media_hits = nearest, hits
+    fp.noise_turb, isect.box_media_hits = turb_kernel.turb_plain, hits
+    try:
+        yield
+    finally:
+        (fp.box_media_nearest, fp.box_media_hits, fp.noise_turb,
+         isect.box_media_hits) = saved
+
+
+def marble_smoke_scene(aspect: float = 1.0):
+    """``cornell_smoke``'s room with a marble (noise-textured) box in place
+    of the first smoke box, the second a grey fog, and a smoke sphere:
+    the hit points on boxes and in media move the marble's colour, so a
+    differentiable trace gives the box and media leaves a gradient through
+    their t (constant albedos give none)."""
+    import numpy as _np
+
+    from pathtrace_tpu_torch.models import presets
+    from pathtrace_tpu_torch.models.build import SceneBuilder
+
+    b = SceneBuilder(perlin_rng=_np.random.default_rng(0))
+    presets._cornell_walls(b, (7.0, 7.0, 7.0),
+                           (113.0, 443.0, 127.0, 432.0, 554.0))
+    b.box((0.0, 0.0, 0.0), (165.0, 165.0, 165.0),
+          b.lambertian(b.noise_texture(0.05)), presets._box1_xform())
+    b.medium_box((0.0, 0.0, 0.0), (165.0, 330.0, 165.0), 0.02,
+                 b.constant_texture((0.6, 0.6, 0.6)), presets._box2_xform())
+    b.medium_sphere((380.0, 330.0, 200.0), 90.0, 0.05,
+                    b.constant_texture((0.9, 0.9, 0.9)))
+    b.sky = (0.4, 0.4, 0.4)  # paths out of the open side carry light too
+    return b.finish(), presets._cornell_camera(aspect)
+
+
+def diff_box_media_grads(device, size: int = 32):
+    """(radiance [R, 3], {leaf: gradient}) of ``trace_fast_diff`` (depth
+    4, one sample a pixel of a ``size`` square film) of
+    :func:`marble_smoke_scene` on ``device``, for a fixed weighting of
+    the radiance, with respect to the boxes' and media's geometry and
+    the media's density."""
+    import torch
+
+    from pathtrace_tpu_torch.models.types import SceneFeatures
+    from pathtrace_tpu_torch.ops import fastpath as fp
+    from pathtrace_tpu_torch.parallel.inverse import split_scene
+    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.utils.threefry import PRNGKey
+
+    scene, cam = marble_smoke_scene()
+    scene = scene.to(device)
+    feats = SceneFeatures.from_scene(scene)
+    ro, rd, tm = generate_primary_rays(cam, size, size, 1, PRNGKey(3),
+                                       device=device)
+    rays = (ro.reshape(-1, 3), rd.reshape(-1, 3), tm.reshape(-1))
+    w = torch.rand((rays[0].shape[0], 3), device=device,
+                   generator=torch.Generator(device=device).manual_seed(1))
+    params, rebuild, names = split_scene(
+        scene, lambda p: p.startswith(("boxes.", "media."))
+        and p.endswith(("p0", "p1", "obj_from_world", "density")))
+    rad, _ = fp.trace_fast_diff(rebuild(params), *rays, 7, 4, feats)
+    grads = torch.autograd.grad((w * rad).sum(), params)
+    return rad.detach(), dict(zip(names, grads))
