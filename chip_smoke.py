@@ -285,15 +285,21 @@ Phases (each prints a line before the next starts):
     SAH tree;
 49. the traversal kernel (``csrc/bvh_traverse.cu``) against its plain
     version on the 1280x720x4 camera rays and one bounce of scattered rays
-    (through K2 from the tree's winners; ``final_full``'s through the
-    general bounce) of ``random_spheres``, ``random``,
-    ``random_spheres_xl``, ``cornell``, ``cornell_smoke`` and
-    ``final_full``: t, gid and the nodes each ray visits equal bit for
-    bit; the kernel's median time, the plain version's, mean and max
-    visits, the leaf tests by kind, the bound
-    (``ops/bvh_kernel.yardsticks``: 24 operations a visit and 18-80 a leaf
-    test at the 33.5 T/s issue rate, against the rays' bytes, the
-    results' and the operand's) and ptxas's registers;
+    (``tools/bvh_bench.traverse_sets``: through K2 from the tree's
+    winners; ``final_full``'s through the general bounce) of
+    ``random_spheres``, ``random``, ``random_spheres_xl``, ``cornell``,
+    ``cornell_smoke`` and ``final_full``: t, gid and the nodes each ray
+    visits equal bit for bit; the kernel's median time, and its time in
+    turns against the parent tree's kernel (``build/parent``'s source,
+    built alone beside the package's build; 5 rounds of parent, this,
+    this, parent, 10 launches a turn queued behind a device sleep, so the
+    events time the device), the plain version's, mean and max visits,
+    the leaf tests by kind, the bound (``ops/bvh_kernel.yardsticks``: 24
+    operations a visit
+    and 18-80 a leaf test at the 33.5 T/s issue rate, against the rays'
+    bytes, the results' and the operand's), the launch
+    (``pt_bvh_traverse_plan``: grid and instance) and ptxas's registers
+    of each instance; without a parent tree the kernel is timed alone;
 50. ``cli.main`` with ``-B`` renders ``random_spheres`` and
     ``random_spheres_xl`` at 1280x720, 4 spp, depth 10, 3 frames (the
     traversal kernel and K2 launched, no K1, K4, K5 or plain version),
@@ -301,7 +307,11 @@ Phases (each prints a line before the next starts):
     patched high: K1 over every sphere; xl's tile order would rename the
     lanes, hence their samples): frame times, launches a frame,
     readbacks, and the ``-B`` image against the brute one within the
-    per-pixel budget of its 12 samples;
+    per-pixel budget of its 12 samples; then both scenes' ``-B`` frames
+    (``render_frame_fast``) in turns against the same frames through the
+    parent tree's traversal and turbulence kernels (5 rounds of parent,
+    this, this, parent; ``frames_in_turns``), the images equal bit for
+    bit;
 51. ``config4_1024spp_bvh``'s schedule (``random_spheres`` 200x100, 128
     spp a frame x 8 frames, depth 10) through ``cli.main`` with and without
     ``-B``: seconds to 1024 spp, Mrays/s;
@@ -309,8 +319,8 @@ Phases (each prints a line before the next starts):
     1280x720x4, depth 10 (compacted + BVH: the traversal kernel, no K2,
     no plain version; ``auto`` takes the fast path, phase 67) and a
     profiled compacted frame (device busy, launches a bounce); ``cornell_smoke -B --nee --rr 3`` (3 frames: the traversal
-    kernel for the bounces and the shadow rays, and K2) and a profiled
-    frame;
+    kernel for the bounces and the shadow rays, and K2), a profiled
+    frame, and its frames in turns against the parent tree's kernels;
 53. the device-only fast trace (``fastpath.trace_fast_device``: every
     bounce over every lane, no readback, compaction or cull) of
     ``random_spheres`` (K1) and ``random`` (K3) at 1280x720x4, depth 10:
@@ -386,7 +396,9 @@ Phases (each prints a line before the next starts):
 67. ``final_full -B``: ``render_frame_fast`` with the tree as the
     non-fused bounce's provider (the traversal kernel, no K3, no K2) in
     turns against ``render_frame_compacted`` with the tree (the route of
-    ``--mode compacted``), 5 rounds of compacted, fast, fast, compacted;
+    ``--mode compacted``), 5 rounds of compacted, fast, fast, compacted,
+    then the fast frame in turns against the parent tree's traversal and
+    turbulence kernels;
 68. the [R, N] box and media sweeps (``intersect_box.box_nearest_rn``,
     ``media_nearest_rn``) and the box and media kernel against the plane
     loops for N = 2, 4, 8, 16, 32, 64 and 400 (``final_full``'s first N
@@ -442,7 +454,11 @@ Phases (each prints a line before the next starts):
 75. the turbulence kernel (``csrc/turb.cu``) against ``fast_turb_c``
     masked by the winners' noise texture, bit for bit, on the points of
     ``final_full``'s camera and scattered hits (and a ragged 2^20 + 3 of
-    each), with the kernel's, the plain version's and the bound's times
+    each; and on the camera hits' points with no noise lane, every lane
+    noise and one noise lane, each twice), with the kernel's time, its
+    time in turns against the parent tree's kernel (5 rounds of parent,
+    this, this, parent, 20 launches a turn queued behind a device
+    sleep), the plain version's and the bound's
     (``turb_kernel.yardsticks``: 1708 operations a noise lane), and both
     kernels' ptxas registers and spills;
 76. ``final_full`` at 1280x720x4, depth 10, plain and ``--nee --rr 3``:
@@ -1095,12 +1111,11 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
     from pathtrace_tpu_torch.models import bvh as pbvh
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
-    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import _cuda_build, bvh_kernel
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.render import compaction
-    from pathtrace_tpu_torch.render import integrator as gint
-    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.tools import bvh_bench as bb
     from pathtrace_tpu_torch.tools import nearest_bench as nb
     from pathtrace_tpu_torch.utils import native
     from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
@@ -1146,92 +1161,81 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
                                  "or differs from the numpy SAH tree")
     out["trees"] = trees
 
-    # ---- 49: the traversal kernel against its plain version ----
+    # ---- 49: the traversal kernel against its plain version, and in turns
+    # against the parent tree's (build/parent, when present) ----
     regs = nb.ptxas_usage("bvh_traverse_kernel")
-    regs = next(iter(regs.values()), None)
-    phase(f"[49] bvh_traverse_kernel registers and spills (ptxas): {regs}")
+    phase(f"[49] bvh_traverse_kernel registers and spills by instance "
+          f"(ptxas): {regs}")
+    parent = parent_kernels()
+    lib = _cuda_build.library()
+    fns = {"new": bb.traverse_fn(lib)}
+    if parent is not None:
+        fns = {"parent": bb.traverse_fn(parent["libs"]["bvh"]), **fns}
+        phase(f"[49] the parent tree's kernel ({parent['sources']['bvh']}), "
+              f"built alone: "
+              f"{nb.ptxas_usage('bvh_traverse', parent['logs']['bvh'])}")
+    else:
+        phase(f"[49] no parent tree at {PARENT_TREE}: the kernel is timed "
+              "alone")
     scenes49 = {}
     max_err = 0.0
-    for name in ("random_spheres", "random", "random_spheres_xl", "cornell",
-                 "cornell_smoke", "final_full"):
-        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
-        feats_ = SceneFeatures.from_scene(scene_)
-        flat, _, offsets = pbvh.build_scene_bvh(scene_)
-        sdev = scene_.to(dev)
-        op = flat.operand(sdev, feats_, offsets, dev)
-        n_media = sdev.media.count if feats_.has_media else 0
-        ro, rd, tm = generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
-                                           PRNGKey(0), device=dev)
-        st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
-        lane = st0.lane
-        sets = {}
-
-        def flights_at(depth):
-            if not feats_.has_media:
-                return None
-            return bvh_kernel.media_flights(op, fp.media_uniforms(
-                lane, 7, depth, n_media, 8))
-
-        sets["camera"] = (st0.planes[:6], st0.time, flights_at(0))
-        if fp.fastpath_refusal(feats_, sdev) is None:
-            tables = fp.prep_tables(sdev, feats_, bvh=flat,
-                                    bvh_offsets=offsets)
-            t_, idx_ = fp.closest_hit(tables, st0, 0, feats_, 7)
-            planes, _ = k2.shade_from_winners(
-                tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
-                st0.lane, 7, 0, DEPTH, tables.sky4, fp.feature_flags(feats_),
-                atlas=tables.atlas)
-            rays1 = planes[:6].contiguous()
-        else:  # final_full: the general bounce it renders through
-            fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats_)
-            gt = gint.prep_tables(sdev, feats_)
-            st1 = gint._bounce(sdev, gt, gint._initial_state(
-                ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
-                PRNGKey(7), DEPTH, feats_, intersect_fn=fn)
-            rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
-        sets["scattered"] = (rays1, st0.time, flights_at(1))
-        runs = {}
-        for label, (rays, time_, fl) in sets.items():
-            t, gid, vis = bvh_kernel.bvh_traverse(op, rays, time_, fl,
-                                                  visits=True)
-            tp, gp, vp, tests = bvh_kernel.bvh_traverse_plain(
-                op, rays, time_, fl, stats=True)
+    for name, label, op, rays, time_, fl, n_media in bb.traverse_sets(dev):
+        R = rays.shape[1]
+        t, gid, vis = bvh_kernel.bvh_traverse(op, rays, time_, fl,
+                                              visits=True)
+        tp, gp, vp, tests = bvh_kernel.bvh_traverse_plain(
+            op, rays, time_, fl, stats=True)
+        torch.cuda.synchronize()
+        same = (torch.equal(t, tp) and torch.equal(gid, gp)
+                and torch.equal(vis, vp))
+        if "parent" in fns:
+            tq, gq, vq = fns["parent"](op, rays, time_, fl)
             torch.cuda.synchronize()
-            same = (torch.equal(t, tp) and torch.equal(gid, gp)
-                    and torch.equal(vis, vp))
-            hit = t < 1e30
-            err = (float((t[hit] - tp[hit]).abs().max()) if bool(hit.any())
-                   else 0.0)
-            max_err = max(max_err, err)
-            ms = median_ms(lambda: bvh_kernel.bvh_traverse(op, rays, time_,
-                                                           fl), 10)
-            plain_ms = median_ms(lambda: bvh_kernel.bvh_traverse_plain(
-                op, rays, time_, fl), 1)
-            ys = bvh_kernel.yardsticks(op, R, vp, tests, n_media)
-            runs[label] = {
-                "rays": R, "hit_share": float(hit.float().mean()),
-                "equal": same, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": ys["bound_ms"],
-                "bound_by": ys["bound_by"],
-                "issue_ceiling_ms": ys["issue_ceiling_ms"],
-                "bytes_ms": ys["bytes_ms"],
-                "share_of_bound": ys["bound_ms"] / ms,
-                "mean_visits": ys["mean_visits"],
-                "max_visits": ys["max_visits"],
-                "leaf_tests": ys["leaf_tests"], "library_ms": None}
-            phase(f"[49] {name} {label}: {R} rays, hit "
-                  f"{runs[label]['hit_share']:.4f}, t, gid and visits equal "
-                  f"to plain: {same}; kernel {ms:.4f} ms (median of 10), "
-                  f"plain {plain_ms:.1f} ms, bound {ys['bound_ms']:.4f} ms "
-                  f"({ys['bound_by']}; {ys['bound_ms'] / ms:.1%} of it), "
-                  f"visits mean {ys['mean_visits']:.2f} max "
-                  f"{ys['max_visits']}, leaf tests {ys['leaf_tests']} ({smi})")
-            if not same:
-                raise AssertionError(f"{name} {label}: the traversal kernel "
-                                     "differs from its plain version")
-        scenes49[name] = {"nodes": flat.n_nodes, "node_rows": op.node_rows,
-                          "flags": op.flags, **runs}
-        del sdev, op, st0, sets, rays1
+            same_parent = (torch.equal(tq, tp) and torch.equal(gq, gp)
+                           and torch.equal(vq, vp))
+        else:
+            same_parent = None
+        hit = t < 1e30
+        err = (float((t[hit] - tp[hit]).abs().max()) if bool(hit.any())
+               else 0.0)
+        max_err = max(max_err, err)
+        ms = median_ms(lambda: bvh_kernel.bvh_traverse(op, rays, time_, fl),
+                       10)
+        plain_ms = median_ms(lambda: bvh_kernel.bvh_traverse_plain(
+            op, rays, time_, fl), 1)
+        turns = bb.in_turns({k: (lambda f=f_: f(op, rays, time_, fl))
+                             for k, f_ in fns.items()}, 5, 10)
+        ys = bvh_kernel.yardsticks(op, R, vp, tests, n_media)
+        plan = bb.traverse_plan(lib, op, R)
+        med = {k: bb.median(v) for k, v in turns.items()}
+        row = {
+            "rays": R, "hit_share": float(hit.float().mean()),
+            "equal": same, "parent_equal": same_parent, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "turns_ms": turns,
+            "turns_median_ms": med, "parent_ms": med.get("parent"),
+            "bound_ms": ys["bound_ms"], "bound_by": ys["bound_by"],
+            "issue_ceiling_ms": ys["issue_ceiling_ms"],
+            "bytes_ms": ys["bytes_ms"],
+            "share_of_bound": ys["bound_ms"] / med["new"],
+            "mean_visits": ys["mean_visits"], "max_visits": ys["max_visits"],
+            "leaf_tests": ys["leaf_tests"], "plan": plan, "library_ms": None}
+        phase(f"[49] {name} {label}: {R} rays, hit {row['hit_share']:.4f}, "
+              f"t, gid and visits equal to plain: {same} (the parent's: "
+              f"{same_parent}); kernel {ms:.4f} ms (median of 10); in turns "
+              f"(5 rounds of {', '.join(list(fns) + list(fns)[::-1])}, 10 "
+              f"launches a turn, queued behind a device sleep) "
+              f"{json.dumps({k: round(v, 4) for k, v in med.items()})} ms; "
+              f"plain {plain_ms:.1f} ms; bound {ys['bound_ms']:.4f} ms "
+              f"({ys['bound_by']}; {row['share_of_bound']:.1%} of it); launch "
+              f"{plan} (no tree in shared memory); visits mean "
+              f"{ys['mean_visits']:.2f} max {ys['max_visits']}, leaf tests "
+              f"{ys['leaf_tests']} ({smi})")
+        if not same or same_parent is False:
+            raise AssertionError(f"{name} {label}: the traversal kernel "
+                                 "differs from its plain version")
+        scenes49.setdefault(name, {"nodes": op.n_nodes,
+                                   "node_rows": op.node_rows,
+                                   "flags": op.flags})[label] = row
     out["scenes"] = scenes49
     out["registers"] = regs
     out["max_abs_err"] = max_err
@@ -1292,6 +1296,20 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
             if share > budget or not np.isfinite(a).all():
                 raise AssertionError(f"{name}: the -B frames leave the brute "
                                      "frames")
+    # the -B frames in turns against the parent tree's kernels
+    for name in ("random_spheres", "random_spheres_xl"):
+        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
+        feats_ = SceneFeatures.from_scene(scene_)
+        flat, _, offsets = pbvh.build_scene_bvh(scene_)
+        sdev, cdev = scene_.to(dev), cam_.to(dev)
+        key = fold_in(PRNGKey(0), 2)
+        phase(f"[50] {name} -B, render_frame_fast {WIDTH}x{HEIGHT}x{SAMPLES} "
+              f"depth {DEPTH}:")
+        cli_runs[f"{name} -B"]["turns"] = frames_in_turns(
+            "50", lambda: fp.render_frame_fast(
+                sdev, cdev, WIDTH, HEIGHT, SAMPLES, DEPTH, key, 7, feats_,
+                bvh=flat, bvh_offsets=offsets).image, smi)
+        del sdev, cdev
     out["cli"] = cli_runs
 
     # ---- 51: config4_1024spp_bvh's schedule beside its brute twin ----
@@ -1399,6 +1417,13 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
               f"(idle {1.0 - busy_ms / wall_ms:.1%}), {n_launch} device "
               f"launches (~{n_launch / (DEPTH + 1):.0f} a bounce); top {top} "
               f"({smi})")
+        phase(f"[52] cornell_smoke -B --nee --rr {RR_START}, "
+              f"render_frame_fast:")
+        gen["cornell_smoke_nee"]["turns"] = frames_in_turns(
+            "52", lambda: fp.render_frame_fast(
+                sdev, cam_, WIDTH, HEIGHT, SAMPLES, DEPTH,
+                fold_in(PRNGKey(0), 3), 3, feats_, nee_lights=lights,
+                rr_start=RR_START, bvh=flat, bvh_offsets=offsets).image, smi)
         del sdev
     out["general"] = gen
     return out
@@ -2045,6 +2070,99 @@ NONFUSED_FIXTURE = os.path.join(ROOT, "tests", "goldens",
                                 "torch_port_nonfused.npz")
 
 
+_PARENT_BUILD: dict = {}
+
+
+def start_parent_kernels() -> None:
+    """Start building the parent tree's traversal and turbulence kernels
+    (``build/parent``'s ``bvh_traverse.cu`` and ``turb.cu``, each alone,
+    ``tools/bvh_bench.standalone``) beside the package's build, when that
+    tree holds other sources than this one's."""
+    import threading
+
+    from pathtrace_tpu_torch.tools import bvh_bench as bb
+
+    sources = bb.tree_sources(PARENT_TREE)
+    own = bb.tree_sources(ROOT)
+    if not all(os.path.isfile(p_) for p_ in sources.values()) or all(
+            open(sources[k], "rb").read() == open(own[k], "rb").read()
+            for k in sources):
+        return
+
+    def build():
+        try:
+            built = bb.standalone({f"parent_{k}": (src, [])
+                                   for k, src in sources.items()})
+            _PARENT_BUILD["result"] = {
+                "libs": {k: built[f"parent_{k}"][0] for k in sources},
+                "logs": {k: built[f"parent_{k}"][1] for k in sources},
+                "sources": sources}
+        except Exception as exc:  # re-raised by parent_kernels
+            _PARENT_BUILD["error"] = exc
+
+    _PARENT_BUILD["thread"] = threading.Thread(target=build)
+    _PARENT_BUILD["thread"].start()
+
+
+def parent_kernels():
+    """The parent tree's two kernels started by
+    :func:`start_parent_kernels` ({"libs", "logs", "sources"}), or None
+    when there is no such tree; a failed build raises."""
+    thread = _PARENT_BUILD.get("thread")
+    if thread is None:
+        return None
+    thread.join()
+    if "error" in _PARENT_BUILD:
+        raise _PARENT_BUILD["error"]
+    return _PARENT_BUILD["result"]
+
+
+def frames_in_turns(tag: str, frame, smi: str, rounds: int = 5) -> dict:
+    """``frame()`` (a full frame, returning its image) timed with CUDA
+    events in turns against the same frame through the parent tree's
+    traversal and turbulence kernels (``rounds`` rounds of parent, this
+    tree, this tree, parent), the images of both equal bit for bit; this
+    tree alone when there is no parent tree."""
+    import numpy as np
+    import torch
+
+    from pathtrace_tpu_torch.tools import bvh_bench as bb
+
+    parent = parent_kernels()
+
+    def timed(which):
+        ctx = (bb.parent_kernels(parent["libs"], parent["sources"])
+               if which == "parent" else contextlib.nullcontext())
+        with ctx:
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            img = frame()
+            end.record()
+            end.synchronize()
+        return start.elapsed_time(end), img
+
+    order = ("parent", "new", "new", "parent") if parent else ("new",)
+    imgs = {k: timed(k)[1] for k in dict.fromkeys(order)}  # warm-up
+    times = {k: [] for k in imgs}
+    for _ in range(rounds):
+        for which in order:
+            times[which].append(timed(which)[0])
+    equal = (torch.equal(imgs["new"], imgs["parent"]) if parent else None)
+    row = {f"{k}_ms": v for k, v in times.items()}
+    row.update({f"{k}_median_ms": float(np.median(v))
+                for k, v in times.items()})
+    row["equal_to_parent"] = equal
+    phase(f"[{tag}] in turns ({rounds} rounds of {', '.join(order)}): "
+          + "; ".join(f"{k} median {row[k + '_median_ms']:.2f} ms "
+                      f"{[round(x, 2) for x in v]}" for k, v in times.items())
+          + f"; images equal to the parent's kernels' {equal} ({smi})")
+    if equal is False:
+        raise AssertionError(f"[{tag}] the frame differs through the "
+                             "parent's kernels")
+    return row
+
+
 def parent_k6(tree: str):
     """The parent tree's K6 (its ``csrc/sphere_nearest_bwd.cu``, the
     per-sphere sums by atomics), built alone with this package's flags
@@ -2321,6 +2439,9 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
             or c67["turb"] <= 0 or c67["box_media"]
             or not bool(torch.isfinite(img_new).all())):
         raise AssertionError("[67] final_full -B failed its checks")
+    phase("[67] final_full -B fast, against the parent tree's traversal and "
+          "turbulence kernels:")
+    turns67 = frames_in_turns("67", new, smi)
     # the tree's frame against the frame without it at phase 65's key and
     # size (the card's, and JAX's golden), within the golden pixel budget
     sc_dev = sc_.to(dev)
@@ -2346,7 +2467,7 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
         "compacted_ms": t_old, "compacted_median_ms": float(np.median(t_old)),
         "launches_per_bounce": per_bounce67,
         "launches": c67, "share_outside_no_tree": share_b,
-        "share_outside_golden": share_bg}
+        "share_outside_golden": share_bg, "turns": turns67}
     del sdev, img_new, img_old, sc_dev, img_tree
 
     # ---- 68: the [R, N] sweeps against the plane loops: the crossover ----
@@ -2829,10 +2950,12 @@ def box_turb_phases(dev, smi: str, k1, k2, k7, build_log: str) -> dict:
     from pathtrace_tpu_torch.config import MAX_T, MIN_T
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import TEX_NOISE, SceneFeatures
+    from pathtrace_tpu_torch.ops import _cuda_build
     from pathtrace_tpu_torch.ops import box_media_kernel as bmk
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import intersect_box as ib
     from pathtrace_tpu_torch.ops import turb_kernel as tk
+    from pathtrace_tpu_torch.tools import bvh_bench as bb
     from pathtrace_tpu_torch.ops.lights import build_light_table
     from pathtrace_tpu_torch.render.frame import (
         generate_primary_rays, render_frame,
@@ -3003,8 +3126,18 @@ def box_turb_phases(dev, smi: str, k1, k2, k7, build_log: str) -> dict:
                              "differ")
     del rad, rad_p, grads, grads_p
 
-    # ---- 75: the turbulence kernel against fast_turb_c ----
+    # ---- 75: the turbulence kernel against fast_turb_c, and in turns
+    # against the parent tree's (build/parent, when present) ----
     rows75 = {}
+    parent = parent_kernels()
+    tfns = {"new": bb.turb_fn(_cuda_build.library(),
+                              bb.tree_sources(ROOT)["turb"])}
+    if parent is not None:
+        tfns = {"parent": bb.turb_fn(parent["libs"]["turb"],
+                                     parent["sources"]["turb"]), **tfns}
+        phase(f"[75] the parent tree's kernel ({parent['sources']['turb']}), "
+              f"built alone: "
+              f"{nb.ptxas_usage('turb_cu', parent['logs']['turb'])}")
     with torch.no_grad():
         for label in ("camera", "scattered"):
             ro_, rd_, depth = sets[label]
@@ -3033,21 +3166,64 @@ def box_turb_phases(dev, smi: str, k1, k2, k7, build_log: str) -> dict:
                     row["plain_ms"] = median_ms(
                         lambda: tk.turb_plain(p_, m_), 2)
                     row.update(tk.yardsticks(p_.shape[0], row["noise_lanes"]))
+                    # in turns against the parent tree's kernel
+                    turns = bb.in_turns({k: (lambda f=f_: f(p_, m_))
+                                         for k, f_ in tfns.items()}, 5, 20)
+                    row["turns_ms"] = turns
+                    row["turns_median_ms"] = {k: bb.median(v)
+                                              for k, v in turns.items()}
+                    row["parent_ms"] = row["turns_median_ms"].get("parent")
+                    if "parent" in tfns:
+                        same_parent = torch.equal(
+                            tfns["parent"](p_, m_).view(torch.int32),
+                            ref.view(torch.int32))
+                        if not same_parent:
+                            raise AssertionError(f"[75] {label}: the parent's "
+                                                 "kernel differs")
                 rows75[sub_label] = row
                 phase(f"[75] turbulence kernel == fast_turb_c bit for bit on "
                       f"{sub_label} ({row['lanes']} lanes, "
                       f"{row['noise_lanes']} wear the noise): {equal}"
-                      + (f"; kernel {row['ms']:.4f} ms, plain "
-                         f"{row['plain_ms']:.3f} ms, bound "
+                      + (f"; kernel {row['ms']:.4f} ms (the wrapper, median "
+                         f"of 20), in turns (5 rounds of "
+                         f"{', '.join(list(tfns) + list(tfns)[::-1])}, 20 "
+                         f"launches a turn, queued behind a device sleep) "
+                         f"{json.dumps({k: round(v, 4) for k, v in row['turns_median_ms'].items()})} "
+                         f"ms; plain {row['plain_ms']:.3f} ms, bound "
                          f"{row['bound_ms']:.4f} ms ({row['bound_by']}) "
                          f"({smi})" if "ms" in row else ""))
                 if not equal or row["noise_lanes"] <= 0:
                     raise AssertionError(f"[75] {sub_label}: the turbulence "
                                          "kernel differs")
+            if label == "camera":
+                # the mask's edges: no noise lane, every lane, one lane
+                one = torch.zeros_like(mask)
+                one[int(mask.nonzero()[0])] = True
+                for edge, m_ in (("no noise lane", torch.zeros_like(mask)),
+                                 ("every lane noise", torch.ones_like(mask)),
+                                 ("one noise lane", one)):
+                    got = tk.noise_turb(point, m_)
+                    again = tk.noise_turb(point, m_)
+                    ref = tk.turb_plain(point, m_)
+                    equal = (torch.equal(got.view(torch.int32),
+                                         ref.view(torch.int32))
+                             and torch.equal(again.view(torch.int32),
+                                             got.view(torch.int32)))
+                    rows75[f"camera, {edge}"] = {
+                        "lanes": R, "noise_lanes": int(m_.sum()),
+                        "equal": equal,
+                        "max_abs_err": float((got - ref).abs().max())}
+                    phase(f"[75] turbulence kernel == fast_turb_c bit for bit "
+                          f"on the camera hits' points, {edge} ({R} lanes), "
+                          f"twice: {equal}")
+                    if not equal:
+                        raise AssertionError(f"[75] {edge}: the turbulence "
+                                             "kernel differs")
+                    del got, again, ref
             del point, mask
     regs = {"box_media_nearest": kernel_registers(
                 build_log, "box_media_nearest_kernelI"),
-            "turb": next(iter(nb.ptxas_usage("turb_kernel").values()), None)}
+            "turb": nb.ptxas_usage("turb_cu", build_log)}
     phase(f"[75] ptxas: {regs}")
     del st0, st1, cam_rays, cam_u, sc_rays, sc_u
 
@@ -3213,6 +3389,9 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     phase(f"[1] nvidia-smi: {smi}")
 
+    # the parent tree's traversal and turbulence kernels (phases 49, 50,
+    # 52, 67 and 75 time them in turns) build beside the package's library
+    start_parent_kernels()
     info = _cuda_build.build()
     # a library built earlier from the same sources keeps its log beside it
     build_log = info.log or (info.path.parent / "build.log").read_text()
@@ -5278,7 +5457,9 @@ def main() -> int:
          "max_abs_err": bvh["max_abs_err"],
          **{k: bvh_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                      "issue_ceiling_ms", "bytes_ms",
-                                     "mean_visits", "max_visits")},
+                                     "mean_visits", "max_visits",
+                                     "parent_ms", "turns_median_ms",
+                                     "plan")},
          "registers": bvh["registers"], "scenes": bvh["scenes"],
          "trees": bvh["trees"], "native_build_s": bvh["native_build_s"],
          "sharded_cli_launches": mesh_cli["random_spheres -B"]["launches"][
@@ -5333,7 +5514,8 @@ def main() -> int:
                             for r_ in bt["turb"]["cases"].values()),
          **{k: tb_main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                     "issue_ceiling_ms", "bytes_ms",
-                                    "noise_lanes", "lanes")},
+                                    "noise_lanes", "lanes", "parent_ms",
+                                    "turns_median_ms")},
          "ms_scattered": bt["turb"]["cases"]["scattered"]["ms"],
          "registers": bt["turb"]["registers"],
          "cases": bt["turb"]["cases"],

@@ -153,9 +153,11 @@ _SIGNATURES = {
         _c_void_p, _c_void_p,                    # box t, idx
         _c_void_p, _c_void_p, _c_void_p,         # media t, idx, stream
     ],
+    "pt_bvh_traverse_plan": [_c_int, _c_int, _c_void_p],  # R, flags, int[3]
+    "pt_noise_turb_plan": [_c_int, _c_void_p],  # n, int[4]
     "pt_noise_turb": [
         _c_void_p, _c_void_p, _c_int,            # points [n, 3], mask, n
-        _c_void_p, _c_void_p,                    # out, stream
+        _c_void_p, _c_void_p, _c_void_p,         # out, list [n], stream
     ],
     "pt_cuda_error_string": [_c_int],
 }

@@ -51,8 +51,11 @@ bound. The reference's straggler slicing of the wide loop
 Bound on the card: issue slots, not bytes. With ``-fmad=false`` a box
 test is ~24 instructions and a leaf test 25-60; the reads are two node
 rows a visit (L2-resident: ~975 nodes on the cover scene, ~8,200 on xl)
-and 28 bytes a ray in and 8 out. The simple kernel is latency-bound
-first: a visit's two loads depend on the last visit's escape.
+and 28 bytes a ray in and 8 out. The kernel keeps each warp's lanes in
+lock-step, as the reference's loop keeps the wavefront: neighbouring rays
+visit the same nodes at the same step, so a node's rows are one broadcast
+load. It has an instance for trees of inline static spheres alone and one
+for inline moving spheres alone (:func:`traverse_plan` mirrors the pick).
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ WIDE_LAUNCHES = 0     # the same for the wide tree's kernel
 WIDE_PLAIN_CALLS = 0
 
 _INF = float(MAX_T)
-THREADS = 128    # threads a block, one ray a thread
+THREADS = 128    # threads a block of the flat kernel, one ray a thread
 PRIM_W = 24      # floats a primitive record (rows of 4: 3 data, 3 affine)
 AFFINE = 12      # first float of a record's obj_from_world (3x4 row-major)
 
@@ -796,6 +799,26 @@ def _launch(op, rays, time, flights, t_min, t_max, visits):
             _cuda_build.check(code, "bvh_traverse launch")
             LAUNCHES += 1
     return (t_out, g_out, v_out) if visits else (t_out, g_out)
+
+
+# the flat kernel's instances (csrc/bvh_traverse.cu kinds_of)
+INSTANCE_ANY, INSTANCE_SPHERES, INSTANCE_MOVING_SPHERES = 0, 1, 2
+
+
+def traverse_plan(n_rays: int, flags: int) -> dict:
+    """The launch ``pt_bvh_traverse`` makes for ``n_rays`` rays of a tree
+    with operand ``flags`` (``pt_bvh_traverse_plan`` gives the C side's):
+    one thread a ray in blocks of :data:`THREADS`, and the instance, one
+    for inline static spheres alone, one for inline moving spheres alone,
+    the general one for every other set of kinds."""
+    if flags == F_INLINE | F_SPHERES:
+        instance = INSTANCE_SPHERES
+    elif flags == F_INLINE | F_SPHERES | F_MOTION:
+        instance = INSTANCE_MOVING_SPHERES
+    else:
+        instance = INSTANCE_ANY
+    return {"blocks": -(-n_rays // THREADS) if n_rays > 0 else 0,
+            "threads": THREADS, "instance": instance}
 
 
 def yardsticks(op: TreeOperand, R: int, visits: torch.Tensor,

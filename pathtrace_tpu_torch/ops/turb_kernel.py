@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import torch
 
+THREADS = 256    # threads a block of both passes (csrc/turb.cu)
+LIST_LANES = 4   # lanes a thread of the list pass
 LAUNCHES = 0     # kernel launches (CUDA tensors)
 PLAIN_CALLS = 0  # forwards the plain version served (CPU tensors)
 BWD_PLAIN_CALLS = 0  # backwards (the plain version's, on any device)
@@ -50,8 +52,11 @@ def _launch(point: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     R = point.shape[0]
     out = torch.empty(R, dtype=torch.float32, device=point.device)
     if R:
+        # the list of masked-in lanes, filled on the card
+        lanes = torch.empty(R, dtype=torch.int32, device=point.device)
         code = _cuda_build.library().pt_noise_turb(
             point.data_ptr(), mask.data_ptr(), R, out.data_ptr(),
+            lanes.data_ptr(),
             torch.cuda.current_stream(point.device).cuda_stream)
         _cuda_build.check(code, "noise_turb launch")
         LAUNCHES += 1
@@ -96,6 +101,16 @@ def noise_turb(point: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"noise_turb takes points [R, 3] and a mask [R], got "
                          f"{tuple(point.shape)} and {tuple(mask.shape)}")
     return NoiseTurb.apply(point, mask)
+
+
+def launch_plan(n: int, sms: int, per_sm: int) -> dict:
+    """The grids ``pt_noise_turb`` launches for ``n`` lanes on a card of
+    ``sms`` SMs where ``per_sm`` octave blocks fit (the occupancy the C
+    side asks the runtime for; ``pt_noise_turb_plan`` gives it): the list
+    pass four lanes a thread; the octave pass every resident block, no more
+    than ``n`` listed lanes at eight threads each could fill."""
+    return {"list_blocks": -(-n // (THREADS * LIST_LANES)),
+            "octave_blocks": max(1, min(sms * per_sm, -(-8 * n // THREADS)))}
 
 
 def yardsticks(R: int, noise_lanes: int) -> dict:

@@ -322,14 +322,15 @@ def k2_yardsticks(table, flags: int, idx, t, atlas=None) -> dict:
                                 else None)}
 
 
-def ptxas_usage(marker: str) -> dict:
+def ptxas_usage(marker: str, log: Optional[str] = None) -> dict:
     """{mangled kernel name: {"registers", "spill_stores", "spill_loads"}}
-    of this checkout's kernels whose name holds ``marker``, from ptxas's
-    output in the library's build log."""
+    of the kernels whose name holds ``marker``, from ptxas's output in
+    ``log`` (by default this checkout's library's build log)."""
     from pathtrace_tpu_torch.ops import _cuda_build
 
-    info = _cuda_build.build()
-    log = info.log or (info.path.parent / "build.log").read_text()
+    if log is None:
+        info = _cuda_build.build()
+        log = info.log or (info.path.parent / "build.log").read_text()
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
