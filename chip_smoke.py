@@ -420,18 +420,27 @@ Phases (each prints a line before the next starts):
     deterministic algorithms) from one state bit for bit; the example's
     ``--geometry`` 4 steps == 2 + checkpoint + 2 bit for bit;
 71. the wide-node tree's traversal kernel (``csrc/bvh_wide_traverse.cu``)
-    against its plain version (t, gid and visits bit for bit) and against
-    the flat tree's kernel ((t, gid) bit for bit) on 3,686,400 camera
-    rays and one bounce of scattered rays of ``random_spheres``, xl,
-    ``random`` (motion, ``leaf_m`` 4), ``cornell_smoke`` (media leaves)
-    and ``final_full``: both kernels' medians, the plain version's time,
-    nodes and visits a ray of both trees, the bound
-    (``bvh_kernel.wide_yardsticks``) and the kernel's share of it, and its
-    registers;
-72. full-width frames (1280x720x4, depth 10) of ``random_spheres`` and
-    xl through ``render_frame_fast(bvh=wide)`` equal the flat tree's bit
-    for bit, timed in turns; the wide kernel and K2 launched, no K1, no
-    flat traversal, no plain version;
+    on phase 49's 12 sets (``tools/bvh_bench.run_wide``), its trees
+    widened from the same flat tree at ``leaf_m`` 2, 4 and 8 (static
+    spheres) or 2 and 4 (moving; the scenes without spheres at their one
+    width): at every width t, gid and visits equal the plain version's and
+    (t, gid) the flat kernel's bit for bit, through the wrapper (one
+    launch, no plain call) and through the parent tree's wide kernel
+    (``build/parent``, built alone, when its source differs); then every
+    (build, width) and the flat kernel in turns (5 rounds, 10 launches a
+    turn queued behind a device sleep): medians, bound
+    (``bvh_kernel.wide_yardsticks``) and share of it, visits a ray of both
+    trees, the share of a warp's visit slots used, sphere slots a leaf
+    visit, the launch plan, ptxas's registers and spills; the fastest
+    width of each class (static spheres, moving spheres, general) and
+    whether it beats the flat kernel on every set of its class;
+72. the ``-B`` frames (1280x720x4, depth 10; ``render_frame_fast`` with a
+    tree) of ``random_spheres``, xl, ``random``, ``final_full`` and
+    ``cornell_smoke --nee --rr 3`` through the flat tree and through the
+    wide tree at its class's fastest width from phase 71, in turns (5
+    rounds of flat, wide, wide, flat), the images and segments equal bit
+    for bit; the wide kernel launched, no flat traversal, no K1, no plain
+    version;
 73. the interleaved ladder: ``tools/ladder_ab.run_pairs`` on full-width
     ``random_spheres`` frames (one frame key): the one ladder against
     chunks of 2^21 and 2^20, and ``-B`` (one ladder) at the three tiers'
@@ -1166,7 +1175,7 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
     regs = nb.ptxas_usage("bvh_traverse_kernel")
     phase(f"[49] bvh_traverse_kernel registers and spills by instance "
           f"(ptxas): {regs}")
-    parent = parent_kernels()
+    parent = parent_kernels("bvh")
     lib = _cuda_build.library()
     fns = {"new": bb.traverse_fn(lib)}
     if parent is not None:
@@ -1175,8 +1184,8 @@ def bvh_phases(dev, smi: str, k1, k2, k7, profiled) -> dict:
               f"built alone: "
               f"{nb.ptxas_usage('bvh_traverse', parent['logs']['bvh'])}")
     else:
-        phase(f"[49] no parent tree at {PARENT_TREE}: the kernel is timed "
-              "alone")
+        phase(f"[49] no parent tree at {PARENT_TREE}, or its kernel's "
+              "source is this tree's: the kernel is timed alone")
     scenes49 = {}
     max_err = 0.0
     for name, label, op, rays, time_, fl, n_media in bb.traverse_sets(dev):
@@ -2075,18 +2084,18 @@ _PARENT_BUILD: dict = {}
 
 def start_parent_kernels() -> None:
     """Start building the parent tree's traversal and turbulence kernels
-    (``build/parent``'s ``bvh_traverse.cu`` and ``turb.cu``, each alone,
-    ``tools/bvh_bench.standalone``) beside the package's build, when that
-    tree holds other sources than this one's."""
+    (``build/parent``'s ``bvh_traverse.cu``, ``bvh_wide_traverse.cu`` and
+    ``turb.cu``, each alone, ``tools/bvh_bench.standalone``) beside the
+    package's build: those of its sources that differ from this tree's."""
     import threading
 
     from pathtrace_tpu_torch.tools import bvh_bench as bb
 
-    sources = bb.tree_sources(PARENT_TREE)
     own = bb.tree_sources(ROOT)
-    if not all(os.path.isfile(p_) for p_ in sources.values()) or all(
-            open(sources[k], "rb").read() == open(own[k], "rb").read()
-            for k in sources):
+    sources = {k: p_ for k, p_ in bb.tree_sources(PARENT_TREE).items()
+               if os.path.isfile(p_)
+               and open(p_, "rb").read() != open(own[k], "rb").read()}
+    if not sources:
         return
 
     def build():
@@ -2104,17 +2113,19 @@ def start_parent_kernels() -> None:
     _PARENT_BUILD["thread"].start()
 
 
-def parent_kernels():
-    """The parent tree's two kernels started by
-    :func:`start_parent_kernels` ({"libs", "logs", "sources"}), or None
-    when there is no such tree; a failed build raises."""
+def parent_kernels(key=None):
+    """The parent tree's kernels started by :func:`start_parent_kernels`
+    ({"libs", "logs", "sources"}, keyed "bvh", "wide", "turb"), or None
+    when there is no such tree or, given ``key``, when that kernel's
+    source is this tree's; a failed build raises."""
     thread = _PARENT_BUILD.get("thread")
     if thread is None:
         return None
     thread.join()
     if "error" in _PARENT_BUILD:
         raise _PARENT_BUILD["error"]
-    return _PARENT_BUILD["result"]
+    res = _PARENT_BUILD["result"]
+    return None if key is not None and key not in res["libs"] else res
 
 
 def frames_in_turns(tag: str, frame, smi: str, rounds: int = 5) -> dict:
@@ -2128,7 +2139,8 @@ def frames_in_turns(tag: str, frame, smi: str, rounds: int = 5) -> dict:
 
     from pathtrace_tpu_torch.tools import bvh_bench as bb
 
-    parent = parent_kernels()
+    # the frames launch the flat traversal and the turbulence
+    parent = parent_kernels("bvh") or parent_kernels("turb")
 
     def timed(which):
         ctx = (bb.parent_kernels(parent["libs"], parent["sources"])
@@ -2731,150 +2743,101 @@ def nonfused_phases(dev, smi: str, k1, k2, k7) -> dict:
     return out
 
 
+# the widths phase 71 measures beside the reference's defaults (8 static,
+# 4 moving): leaf_m of static-sphere trees, of moving-sphere trees
+WIDE_LEAF_M = (2, 4, 8)
+WIDE_LEAF_M_MOTION = (2, 4)
+# phase 72's -B frames: (preset, NEE, roulette's first depth)
+WIDE_FRAMES = (("random_spheres", False, 0), ("random_spheres_xl", False, 0),
+               ("random", False, 0), ("final_full", False, 0),
+               ("cornell_smoke", True, 3))
+
+
 def wide_phases(dev, smi: str, k1, k2, k7) -> dict:
-    """Phases 71-73: the wide-node tree's traversal kernel against its
-    plain version and the flat tree's kernel, full-width frames through
-    either tree, and the interleaved ladder. Returns the numbers the
+    """Phases 71-73: the wide-node tree's traversal kernel at each leaf
+    width against its plain version, the flat tree's kernel and the
+    parent tree's wide kernel, in turns; the ``-B`` frames through either
+    tree, in turns; the interleaved ladder. Returns the numbers the
     kernels line carries."""
     import torch
 
     from pathtrace_tpu_torch.models import bvh as pbvh
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
-    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import _cuda_build, bvh_kernel
     from pathtrace_tpu_torch.ops import fastpath as fp
-    from pathtrace_tpu_torch.render import integrator as gint
-    from pathtrace_tpu_torch.render.frame import generate_primary_rays
+    from pathtrace_tpu_torch.ops.lights import build_light_table
+    from pathtrace_tpu_torch.tools import bvh_bench as bb
     from pathtrace_tpu_torch.tools import ladder_ab
-    from pathtrace_tpu_torch.tools import nearest_bench as nb
     from pathtrace_tpu_torch.utils.threefry import PRNGKey, fold_in
 
     out = {}
-    R = WIDTH * HEIGHT * SAMPLES
 
-    # ---- 71: the wide kernel against its plain version and the flat one
-    regs = next(iter(nb.ptxas_usage("bvh_wide_traverse_kernel").values()),
-                None)
-    phase(f"[71] bvh_wide_traverse_kernel registers and spills (ptxas): "
-          f"{regs}")
-    scenes = {}
-    max_err = 0.0
-    for name in ("random_spheres", "random_spheres_xl", "random",
-                 "cornell_smoke", "final_full"):
-        scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
-        feats_ = SceneFeatures.from_scene(scene_)
-        flat, _, offsets = pbvh.build_scene_bvh(scene_)
-        t0 = time.perf_counter()
-        wide = pbvh.widen_flat_bvh(flat, scene_, offsets, features=feats_)
-        widen_s = time.perf_counter() - t0
-        sdev = scene_.to(dev)
-        op_f = flat.operand(sdev, feats_, offsets, dev)
-        op_w = wide.operand(sdev, feats_, offsets, dev)
-        n_media = sdev.media.count if feats_.has_media else 0
-        ro, rd, tm = generate_primary_rays(cam_, WIDTH, HEIGHT, SAMPLES,
-                                           PRNGKey(0), device=dev)
-        st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
-
-        def flights_at(depth):
-            if not feats_.has_media:
-                return None
-            return bvh_kernel.media_flights(op_w, fp.media_uniforms(
-                st0.lane, 7, depth, n_media, 8))
-
-        if fp.fused_refusal(feats_, sdev) is None:
-            tables = fp.prep_tables(sdev, feats_, bvh=flat,
-                                    bvh_offsets=offsets)
-            t_, idx_ = fp.closest_hit(tables, st0, 0, feats_, 7)
-            planes, _ = k2.shade_from_winners(
-                tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
-                st0.lane, 7, 0, DEPTH, tables.sky4, fp.feature_flags(feats_),
-                atlas=tables.atlas)
-            rays1 = planes[:6].contiguous()
-            del tables, planes
-        else:  # final_full: the general bounce's scattered rays
-            fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats_)
-            gt = gint.prep_tables(sdev, feats_)
-            st1 = gint._bounce(sdev, gt, gint._initial_state(
-                ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
-                PRNGKey(7), DEPTH, feats_, intersect_fn=fn)
-            rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
-            del gt, st1
-        sets = {"camera": (st0.planes[:6], st0.time, flights_at(0)),
-                "scattered": (rays1, st0.time, flights_at(1))}
-        runs = {}
-        for label, (rays, time_, fl) in sets.items():
-            t, gid, vis = bvh_kernel.bvh_traverse(op_w, rays, time_, fl,
-                                                  visits=True)
-            tf_, gf, vf = bvh_kernel.bvh_traverse(op_f, rays, time_, fl,
-                                                  visits=True)
-            tp, gp, vp, tests = bvh_kernel.wide_traverse_plain(
-                op_w, rays, time_, fl, stats=True)
-            torch.cuda.synchronize()
-            same_plain = (torch.equal(t, tp) and torch.equal(gid, gp)
-                          and torch.equal(vis, vp))
-            same_flat = torch.equal(t, tf_) and torch.equal(gid, gf)
-            hit = t < 1e30
-            err = (float((t[hit] - tp[hit]).abs().max()) if bool(hit.any())
-                   else 0.0)
-            max_err = max(max_err, err)
-            ms = median_ms(lambda: bvh_kernel.bvh_traverse(op_w, rays, time_,
-                                                           fl), 10)
-            flat_ms = median_ms(lambda: bvh_kernel.bvh_traverse(
-                op_f, rays, time_, fl), 10)
-            t0 = time.perf_counter()
-            bvh_kernel.wide_traverse_plain(op_w, rays, time_, fl)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            ys = bvh_kernel.wide_yardsticks(op_w, R, vp, tests, n_media)
-            runs[label] = {
-                "rays": R, "hit_share": float(hit.float().mean()),
-                "equal_to_plain": same_plain, "equal_to_flat": same_flat,
-                "max_abs_err": err, "ms": ms, "flat_ms": flat_ms,
-                "plain_ms": plain_ms, "bound_ms": ys["bound_ms"],
-                "bound_by": ys["bound_by"],
-                "issue_ceiling_ms": ys["issue_ceiling_ms"],
-                "bytes_ms": ys["bytes_ms"],
-                "share_of_bound": ys["bound_ms"] / ms,
-                "mean_visits": ys["mean_visits"],
-                "max_visits": ys["max_visits"],
-                "flat_mean_visits": float(vf.double().mean()),
-                "flat_max_visits": int(vf.max()),
-                "leaf_tests": ys["leaf_tests"], "library_ms": None}
-            phase(f"[71] {name} {label}: {R} rays, hit "
-                  f"{runs[label]['hit_share']:.4f}; t, gid, visits equal to "
-                  f"plain: {same_plain}; (t, gid) equal to the flat kernel: "
-                  f"{same_flat}; wide {ms:.4f} ms, flat {flat_ms:.4f} ms "
-                  f"(medians of 10; wide/flat {ms / flat_ms:.3f}), plain "
-                  f"{plain_ms:.1f} ms, bound {ys['bound_ms']:.4f} ms "
-                  f"({ys['bound_by']}; {ys['bound_ms'] / ms:.1%} of it); "
-                  f"visits a ray wide {ys['mean_visits']:.2f} (max "
-                  f"{ys['max_visits']}) against flat "
-                  f"{runs[label]['flat_mean_visits']:.2f} (max "
-                  f"{runs[label]['flat_max_visits']}); leaf tests "
-                  f"{ys['leaf_tests']} ({smi})")
-            if not (same_plain and same_flat):
-                raise AssertionError(f"{name} {label}: the wide kernel "
-                                     "differs from its plain version or "
-                                     "from the flat kernel")
-        scenes[name] = {"nodes": wide.n_nodes, "flat_nodes": flat.n_nodes,
-                        "leaf_m": wide.leaf_m, "node_rows": op_w.node_rows,
-                        "widen_s": widen_s, **runs}
-        phase(f"[71] {name}: wide tree {wide.n_nodes} nodes (leaf_m "
-              f"{wide.leaf_m}, {op_w.node_rows} float4 rows a node, widened "
-              f"in {widen_s:.3f} s) against the flat tree's {flat.n_nodes}")
-        del sdev, op_f, op_w, st0, sets, rays1
-    out["scenes"] = scenes
+    # ---- 71: the wide kernel at each width against its plain version,
+    # the flat kernel and the parent tree's wide kernel, in turns ----
+    info = _cuda_build.build()
+    builds = {"new": (None, info.log or (info.path.parent
+                                         / "build.log").read_text())}
+    parent = parent_kernels("wide")
+    if parent is not None:
+        builds = {"parent": (parent["libs"]["wide"], parent["logs"]["wide"]),
+                  **builds}
+        phase(f"[71] the parent tree's wide kernel "
+              f"({parent['sources']['wide']}), built alone")
+    else:
+        phase(f"[71] no parent tree at {PARENT_TREE}, or its wide kernel's "
+              "source is this tree's: timed against the flat kernel alone")
+    res = bb.run_wide(builds, WIDE_LEAF_M, WIDE_LEAF_M_MOTION, 5, 10, dev,
+                      log=lambda ln: phase(f"[71] {ln} ({smi})"),
+                      time_plain=("random_spheres camera",))
+    regs = res["registers"]
+    phase(f"[71] registers and spills (ptxas): {json.dumps(regs)}")
+    # the width each class's sets take least time at, summed over its sets
+    classes = {"static": ("random_spheres", "random_spheres_xl"),
+               "moving": ("random",), "general": ("final_full",)}
+    best, verdict = {}, {}
+    for cls, names in classes.items():
+        rows = [e for k, e in res["sets"].items() if k.split()[0] in names]
+        widths = list(rows[0]["widths"])
+        best[cls] = min(widths, key=lambda m: sum(
+            e["widths"][m]["median_ms"]["new"] for e in rows))
+        verdict[cls] = {
+            "leaf_m": best[cls],
+            "wide_ms": [e["widths"][best[cls]]["median_ms"]["new"]
+                        for e in rows],
+            "flat_ms": [e["flat_median_ms"] for e in rows]}
+        verdict[cls]["wide_beats_flat_on_every_set"] = all(
+            w < f for w, f in zip(verdict[cls]["wide_ms"],
+                                  verdict[cls]["flat_ms"]))
+    slower = [f"{k} leaf_m {m}" for k, e in res["sets"].items()
+              for m, row in e["widths"].items()
+              if "parent" in row["median_ms"]
+              and row["median_ms"]["new"] > row["median_ms"]["parent"]]
+    phase(f"[71] the fastest width a class, its medians against the flat "
+          f"kernel's: {json.dumps(verdict)}; sets where the kernel is slower "
+          f"than the parent tree's: {slower or 'none'} ({smi})")
+    out["run"] = res
     out["registers"] = regs
-    out["max_abs_err"] = max_err
+    out["best_leaf_m"] = best
+    out["verdict"] = verdict
+    out["slower_than_parent"] = slower
 
-    # ---- 72: full-width frames through either tree, in turns ----
+    # ---- 72: the -B frames through either tree, in turns ----
     frames = {}
-    for name in ("random_spheres", "random_spheres_xl"):
+    for name, nee, rr in WIDE_FRAMES:
         scene_, cam_ = presets.from_name(name, WIDTH / HEIGHT)
         feats_ = SceneFeatures.from_scene(scene_)
         flat, _, offsets = pbvh.build_scene_bvh(scene_)
-        wide = pbvh.widen_flat_bvh(flat, scene_, offsets, features=feats_)
+        flags = flat.operand(scene_, feats_, offsets, "cpu").flags
+        cls = {bvh_kernel.INSTANCE_SPHERES: "static",
+               bvh_kernel.INSTANCE_MOVING_SPHERES: "moving"}.get(
+                   bvh_kernel.traverse_plan(1, flags)["instance"],
+                   "general")
+        leaf_m = best[cls] if feats_.has_spheres else None
+        wide = pbvh.widen_flat_bvh(flat, scene_, offsets, features=feats_,
+                                   leaf_m=leaf_m)
         sdev, cdev = scene_.to(dev), cam_.to(dev)
+        lights = build_light_table(sdev) if nee else None
         key = fold_in(PRNGKey(0), 2)
         trees = {"flat": flat, "wide": wide}
 
@@ -2882,47 +2845,48 @@ def wide_phases(dev, smi: str, k1, k2, k7) -> dict:
             start, end = (torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True))
             start.record()
-            res = fp.render_frame_fast(sdev, cdev, WIDTH, HEIGHT, SAMPLES,
-                                       DEPTH, key, 7, feats_,
-                                       bvh=trees[tree], bvh_offsets=offsets)
+            res_ = fp.render_frame_fast(sdev, cdev, WIDTH, HEIGHT, SAMPLES,
+                                        DEPTH, key, 7, feats_,
+                                        nee_lights=lights, rr_start=rr,
+                                        bvh=trees[tree], bvh_offsets=offsets)
             end.record()
             end.synchronize()
-            return start.elapsed_time(end), res
+            return start.elapsed_time(end), res_
 
         imgs, counts = {}, {}
         for tree in ("flat", "wide"):   # warm-up, the images, the launches
             reset_counts(k1, k2, k7)
-            _, res = frame(tree)
+            _, res_ = frame(tree)
             counts[tree] = read_counts(k1, k2, k7)
-            imgs[tree] = (res.image, int(res.ray_count), res.readbacks)
+            imgs[tree] = (res_.image, int(res_.ray_count), res_.readbacks)
         times = {"flat": [], "wide": []}
-        for _ in range(3):
+        for _ in range(5):
             for tree in ("flat", "wide", "wide", "flat"):
                 times[tree].append(frame(tree)[0])
         same = (torch.equal(imgs["flat"][0], imgs["wide"][0])
                 and imgs["flat"][1] == imgs["wide"][1])
         c = counts["wide"]
-        entry = {"equal": same, "segments": imgs["wide"][1],
-                 "readbacks": imgs["wide"][2], "launches": c,
-                 "flat_launches": counts["flat"],
-                 **{f"{t}_ms": times[t] for t in times},
-                 **{f"{t}_median_ms": float(sorted(times[t])[len(times[t])
-                                                              // 2])
-                    for t in times}}
-        frames[name] = entry
-        phase(f"[72] {name} {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH}: wide "
-              f"frame == flat frame bit for bit: {same}; {imgs['wide'][1]} "
-              f"segments, {imgs['wide'][2]} readbacks; in turns (3 rounds of "
-              f"flat, wide, wide, flat): wide "
-              f"{[round(x, 2) for x in times['wide']]} ms (median "
-              f"{entry['wide_median_ms']:.2f}), flat "
-              f"{[round(x, 2) for x in times['flat']]} (median "
-              f"{entry['flat_median_ms']:.2f}); launches of the wide frame "
-              f"{c} ({smi})")
-        if (not same or c["bvh_wide"] <= 0 or c["K2"] <= 0 or c["K1"]
-                or c["bvh"] or c["plain"]):
-            raise AssertionError(f"{name}: the wide frame failed its checks")
-        del sdev, cdev
+        med = {t: bb.median(v) for t, v in times.items()}
+        label = f"{name}{' --nee --rr 3' if nee else ''} -B"
+        frames[label] = {
+            "leaf_m": wide.leaf_m, "equal": same,
+            "segments": imgs["wide"][1], "readbacks": imgs["wide"][2],
+            "launches": c, "flat_launches": counts["flat"],
+            **{f"{t}_ms": times[t] for t in times},
+            **{f"{t}_median_ms": med[t] for t in med}}
+        phase(f"[72] {label} {WIDTH}x{HEIGHT}x{SAMPLES} depth {DEPTH}, the "
+              f"wide tree at leaf_m {wide.leaf_m}: image == the flat tree's "
+              f"bit for bit: {same}; {imgs['wide'][1]} segments, "
+              f"{imgs['wide'][2]} readbacks; in turns (5 rounds of flat, "
+              f"wide, wide, flat): wide median {med['wide']:.2f} ms "
+              f"{[round(x, 2) for x in times['wide']]}, flat median "
+              f"{med['flat']:.2f} {[round(x, 2) for x in times['flat']]} "
+              f"(wide / flat {med['wide'] / med['flat']:.3f}); launches of "
+              f"the wide frame {c} ({smi})")
+        if (not same or c["bvh_wide"] <= 0 or c["bvh"] or c["K1"]
+                or c["plain"]):
+            raise AssertionError(f"{label}: the wide frame failed its checks")
+        del sdev, cdev, trees, wide
     out["frames"] = frames
 
     # ---- 73: the interleaved ladder and -B's thresholds, in turns ----
@@ -3129,7 +3093,7 @@ def box_turb_phases(dev, smi: str, k1, k2, k7, build_log: str) -> dict:
     # ---- 75: the turbulence kernel against fast_turb_c, and in turns
     # against the parent tree's (build/parent, when present) ----
     rows75 = {}
-    parent = parent_kernels()
+    parent = parent_kernels("turb")
     tfns = {"new": bb.turb_fn(_cuda_build.library(),
                               bb.tree_sources(ROOT)["turb"])}
     if parent is not None:
@@ -5272,7 +5236,9 @@ def main() -> int:
     drv = driver_phases(dev, k1, k2, k7)
     nf = nonfused_phases(dev, smi, k1, k2, k7)
     wide = wide_phases(dev, smi, k1, k2, k7)
-    wide_main = wide["scenes"]["random_spheres"]["camera"]
+    wide_sets = wide["run"]["sets"]
+    # the reference's width of a static-sphere tree
+    wide_main = wide_sets["random_spheres camera"]["widths"][8]
     bt = box_turb_phases(dev, smi, k1, k2, k7, build_log)
     bm_main = bt["box_media"]["cases"]["final_full camera"]
     tb_main = bt["turb"]["cases"]["camera"]
@@ -5476,15 +5442,26 @@ def main() -> int:
          "source": "pathtrace_tpu_torch/csrc/bvh_wide_traverse.cu",
          "replaces": "pathtrace_tpu/models/bvh.py:978 (wide_scene_nearest, "
                      "an XLA while_loop; no TPU kernel)",
-         "launches": wide["frames"]["random_spheres"]["launches"]["bvh_wide"],
-         "max_abs_err": wide["max_abs_err"],
-         **{k: wide_main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "issue_ceiling_ms",
-                                      "bytes_ms", "mean_visits", "max_visits",
-                                      "flat_ms", "flat_mean_visits")},
-         "ms_scattered": wide["scenes"]["random_spheres"]["scattered"]["ms"],
-         "visits": wide_main["mean_visits"],
-         "registers": wide["registers"], "scenes": wide["scenes"],
+         "launches": wide["frames"]["random_spheres -B"]["launches"][
+             "bvh_wide"],
+         "max_abs_err": max(r_["wrapper"]["max_abs_err"]
+                            for e_ in wide_sets.values()
+                            for r_ in e_["widths"].values()),
+         "leaf_m": 8, "ms": wide_main["median_ms"]["new"],
+         "parent_ms": wide_main["median_ms"].get("parent"),
+         **{k: wide_main[k] for k in ("plain_ms", "bound_ms", "bound_by",
+                                      "mean_visits", "max_visits",
+                                      "warp_use")},
+         "flat_ms": wide_sets["random_spheres camera"]["flat_median_ms"],
+         "ms_scattered": wide_sets["random_spheres scattered"]["widths"][8][
+             "median_ms"]["new"],
+         "medians": {k: {m: r_["median_ms"] for m, r_ in e_["widths"].items()}
+                     for k, e_ in wide_sets.items()},
+         "flat_medians": {k: e_["flat_median_ms"]
+                          for k, e_ in wide_sets.items()},
+         "registers": wide["registers"], "best_leaf_m": wide["best_leaf_m"],
+         "verdict": wide["verdict"],
+         "slower_than_parent": wide["slower_than_parent"],
          "frames": wide["frames"], "ladder": wide["ladder"],
          "library_ms": None},
         {"name": "box_media_nearest", "route": "cuda",

@@ -23,6 +23,28 @@ constexpr int F_BOXES = 16;
 constexpr int F_MEDIA = 32;
 constexpr int F_RECT_INST = 64;
 
+// the leaf kinds a traversal instance tests: every kind the flags name,
+// or only inline spheres, static or moving; the flat and the wide kernel
+// pick their instance by this one rule (ops/bvh_kernel.py traverse_plan)
+enum Kinds { kAny = 0, kSpheres = 1, kMovingSpheres = 2 };
+
+int kinds_of(int flags) {
+  if (flags == (F_INLINE | F_SPHERES)) return kSpheres;
+  if (flags == (F_INLINE | F_SPHERES | F_MOTION)) return kMovingSpheres;
+  return kAny;
+}
+
+// a traversal's launch for n_rays rays, one thread a ray in blocks of
+// threads, of a tree with these flags: out[0] blocks, out[1] threads a
+// block, out[2] the instance (0 every kind, 1 inline static spheres, 2
+// inline moving spheres)
+int traverse_plan(int n_rays, int flags, int threads, int* out) {
+  out[0] = n_rays > 0 ? (n_rays + threads - 1) / threads : 0;
+  out[1] = threads;
+  out[2] = kinds_of(flags);
+  return 0;
+}
+
 __device__ __forceinline__ float nmin(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));

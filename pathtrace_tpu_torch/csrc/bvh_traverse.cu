@@ -53,16 +53,6 @@ namespace {
 
 constexpr int kThreads = 128;
 
-// the leaf kinds an instance tests: every kind the flags name, or only
-// inline spheres, static or moving
-enum Kinds { kAny = 0, kSpheres = 1, kMovingSpheres = 2 };
-
-int kinds_of(int flags) {
-  if (flags == (F_INLINE | F_SPHERES)) return kSpheres;
-  if (flags == (F_INLINE | F_SPHERES | F_MOTION)) return kMovingSpheres;
-  return kAny;
-}
-
 template <int kKinds>
 __global__ void __launch_bounds__(kThreads)
 bvh_traverse_kernel(const float* __restrict__ rays, long long stride,
@@ -145,13 +135,9 @@ bvh_traverse_kernel(const float* __restrict__ rays, long long stride,
 }  // namespace
 
 // the launch of pt_bvh_traverse for n_rays rays of a tree with these
-// flags: out[0] blocks, out[1] threads a block, out[2] the instance
-// (0 every kind, 1 inline static spheres, 2 inline moving spheres)
+// flags (bvh_leaf.cuh traverse_plan)
 extern "C" int pt_bvh_traverse_plan(int n_rays, int flags, int* out) {
-  out[0] = n_rays > 0 ? (n_rays + kThreads - 1) / kThreads : 0;
-  out[1] = kThreads;
-  out[2] = kinds_of(flags);
-  return 0;
+  return traverse_plan(n_rays, flags, kThreads, out);
 }
 
 extern "C" int pt_bvh_traverse(const float* rays, long long stride,

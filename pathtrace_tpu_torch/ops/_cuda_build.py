@@ -154,6 +154,7 @@ _SIGNATURES = {
         _c_void_p, _c_void_p, _c_void_p,         # media t, idx, stream
     ],
     "pt_bvh_traverse_plan": [_c_int, _c_int, _c_void_p],  # R, flags, int[3]
+    "pt_bvh_wide_traverse_plan": [_c_int, _c_int, _c_void_p],
     "pt_noise_turb_plan": [_c_int, _c_void_p],  # n, int[4]
     "pt_noise_turb": [
         _c_void_p, _c_void_p, _c_int,            # points [n, 3], mask, n

@@ -40,9 +40,11 @@ float32 sqrt that the kernel's IEEE ``sqrtf`` gives).
 
 The wide-node tree (``models.bvh.WideBVH``, the reference's
 ``wide_scene_nearest``, ``:978-1101``) has its own operand
-(:func:`wide_operand`), plain version (:func:`wide_traverse_plain`) and
-kernel (``csrc/bvh_wide_traverse.cu``), with the same leaf tests
-(``csrc/bvh_leaf.cuh``) and the same (t, gid) as the flat tree's;
+(:func:`wide_operand`: the pack's rows, with each leaf's filled slots and
+kind in the header), plain version (:func:`wide_traverse_plain`) and
+kernel (``csrc/bvh_wide_traverse.cu``: the flat kernel's instances, by
+the rule :func:`traverse_plan` mirrors), with the leaf tests of
+``csrc/bvh_leaf.cuh`` and the same (t, gid) as the flat tree's;
 :func:`bvh_traverse` takes either operand. Its counts are
 ``WIDE_LAUNCHES`` and ``WIDE_PLAIN_CALLS``; :func:`wide_yardsticks` is its
 bound. The reference's straggler slicing of the wide loop
@@ -88,17 +90,23 @@ F_BOXES = 16
 F_MEDIA = 32
 F_RECT_INST = 64  # rect leaves map the ray to object space
 
+# a wide leaf's kind, header column 3 (csrc/bvh_wide_traverse.cu LeafKind)
+WIDE_KIND_SPHERE, WIDE_KIND_RECT, WIDE_KIND_BOX, WIDE_KIND_MEDIUM = 0, 1, 2, 3
+
 # per-visit and per-leaf-test operations (one instruction each under
 # -fmad=false), for the issue bound; sqrt and a division count 1
 OPS_VISIT = 24
 OPS_LEAF = {"sphere": 24, "sphere_inst": 50, "rect": 18, "rect_inst": 42,
             "box": 58, "media": 80}
 # the wide tree: an inner visit tests two child boxes and picks the next
-# node, a leaf visit reads its slots' ids; a sphere slot's test is the
-# inline leaf's (with motion 8 more for the lerp)
+# node (2 x 24 + 6), a leaf visit reads its header and moves on (6); a
+# sphere slot whose discriminant is positive takes the inline leaf's test
+# (24), one whose is not stops after the discriminant (18); with motion
+# each slot 8 more for the lerp
 OPS_WIDE_INNER = 54
-OPS_WIDE_LEAF = 12
-OPS_WIDE_SLOT_MOVING = 32
+OPS_WIDE_LEAF = 6
+OPS_WIDE_SLOT_MISS = 18
+OPS_WIDE_MOTION = 8
 
 
 class TreeOperand(NamedTuple):
@@ -181,7 +189,11 @@ def wide_operand(wide, scene, features, offsets, device) -> WideOperand:
     primitives, on ``device``. The pack's rows are re-laid for 16-byte
     loads, its int columns moved as int32 bits:
 
-    * columns 0-3: nav (inner: the right child; leaf: -1), escape, 0, 0;
+    * columns 0-3: nav (inner: the right child; leaf: -1), escape, and
+      the port's own header fields: the leaf's filled slots (a prefix of
+      its ``leaf_m``; 0 at an inner node) and its kind (``WIDE_KIND_*`` of
+      its first slot's id; -1 at an inner node), which the kernel's loop
+      and branch read instead of the ids;
     * inner, columns 4-15: the left child's box (min xyz, max xyz), then
       the right child's;
     * leaf, columns 4 .. 4 + MP: the slots' global ids (-1 empty; MP the
@@ -210,6 +222,9 @@ def wide_operand(wide, scene, features, offsets, device) -> WideOperand:
     leaf = ~inner
     nodes_i[leaf, 4:base] = -1
     nodes_i[leaf, 4:4 + lm] = pack_i[leaf, 2:2 + lm]
+    ids = pack_i[:, 2:2 + lm]
+    nodes_i[:, 2] = np.where(leaf, (ids >= 0).sum(axis=1), 0)
+    nodes_i[:, 3] = np.where(leaf, wide_leaf_kind(ids[:, 0], offsets), -1)
     for m in range(lm):
         src = 2 + lm + m * sd
         dst = base + m * SD
@@ -221,6 +236,16 @@ def wide_operand(wide, scene, features, offsets, device) -> WideOperand:
         prims=prims, density=density, n_nodes=M,
         offsets=(off_s, off_r, off_b, off_m), flags=flags, leaf_m=lm,
         slot_base=base, slot_f=SD)
+
+
+def wide_leaf_kind(gid: np.ndarray, offsets) -> np.ndarray:
+    """The ``WIDE_KIND_*`` of leaves whose first slot holds global id
+    ``gid``: a sphere leaf holds spheres only, any other leaf one
+    primitive (``models.bvh.widen_flat_bvh``)."""
+    _, off_r, off_b, off_m = (int(o) for o in offsets)
+    return np.select([gid < off_r, gid < off_b, gid < off_m],
+                     [WIDE_KIND_SPHERE, WIDE_KIND_RECT, WIDE_KIND_BOX],
+                     WIDE_KIND_MEDIUM).astype(np.int32)
 
 
 def _flags(scene, features) -> int:
@@ -328,9 +353,11 @@ def _root_pick(t0, t1, valid, best_t, t_min):
     return torch.where(t0_ok, t0, torch.where(t1_ok, t1, _INF))
 
 
-def _leaf_sphere_inline(row, o, d, tm, best_t, t_min, motion, base=8):
+def _leaf_sphere_inline(row, o, d, tm, best_t, t_min, motion, base=8,
+                        crosses=False):
     """The unit-direction sphere test of a sphere inline in ``row`` from
-    column ``base``: centre, radius, then delta, time0 and inv_dt."""
+    column ``base``: centre, radius, then delta, time0 and inv_dt. With
+    ``crosses`` also whether the discriminant is positive."""
     c = [row[:, base], row[:, base + 1], row[:, base + 2]]
     r = row[:, base + 3]
     if motion:
@@ -341,7 +368,8 @@ def _leaf_sphere_inline(row, o, d, tm, best_t, t_min, motion, base=8):
     cc = oc[0] * oc[0] + oc[1] * oc[1] + oc[2] * oc[2] - r * r
     disc = b * b - cc
     sq = _sqrt(torch.where(disc > 0.0, disc, 1.0))
-    return _root_pick(-b - sq, -b + sq, disc > 0.0, best_t, t_min)
+    cand = _root_pick(-b - sq, -b + sq, disc > 0.0, best_t, t_min)
+    return (cand, disc > 0.0) if crosses else cand
 
 
 def _leaf_sphere_instanced(rec, o, d, tm, best_t, t_min, motion):
@@ -607,17 +635,19 @@ def wide_traverse_plain(op: WideOperand, rays: torch.Tensor,
     unsliced), each step over the rays still inside the tree. One row a
     ray a step: at an inner node both child boxes are tested against the
     running best t and the ray moves to the left child if it is hit
-    (pre-order), else the right one, else the escape; at a leaf each
-    slot's inline sphere is tested in slot order (the unit-direction test
-    of the flat tree's inline leaf), then a non-sphere leaf's one
-    primitive through its record; a leaf moves to its escape. Arguments
-    and returns as :func:`bvh_traverse_plain`'s; ``stats`` counts inner
-    visits (``"inner"``), leaf visits (``"leaf"``), sphere slots tested
-    (``"sphere"``) and other leaf tests by kind."""
+    (pre-order), else the right one, else the escape; at a leaf of
+    sphere kind each filled slot's inline sphere is tested in slot order
+    (the unit-direction test of the flat tree's inline leaf), at a leaf of
+    another kind its one primitive through its record (the header's slot
+    count and kind, as the kernel reads them); a leaf moves to its
+    escape. Arguments and returns as :func:`bvh_traverse_plain`'s;
+    ``stats`` counts inner visits (``"inner"``), leaf visits (``"leaf"``),
+    sphere slots tested with a positive discriminant (``"sphere"``) and
+    without (``"sphere_miss"``, which the kernel stops before the square
+    root), and other leaf tests by kind."""
     dev = rays.device
     R = rays.shape[1]
     M = op.n_nodes
-    off_r = op.offsets[1]
     fl = op.flags
     motion = bool(fl & F_MOTION)
     nodes = op.nodes
@@ -632,7 +662,7 @@ def wide_traverse_plain(op: WideOperand, rays: torch.Tensor,
     best_i = torch.zeros(R, dtype=torch.int32, device=dev)
     visits = torch.zeros(R, dtype=torch.int32, device=dev)
     tests = {k: torch.zeros(R, dtype=torch.int32, device=dev)
-             for k in ("inner", "leaf", *OPS_LEAF)}
+             for k in ("inner", "leaf", "sphere_miss", *OPS_LEAF)}
 
     def child_hit(box, o, rc, bt, b):
         d0 = [(box[:, b + k] - o[k]) * rc[k] for k in range(3)]
@@ -667,6 +697,8 @@ def wide_traverse_plain(op: WideOperand, rays: torch.Tensor,
             r_ = live[leaf]
             row = nodes[cur[leaf]]
             row_i = row.view(torch.int32)
+            count, kind = row_i[:, 2], row_i[:, 3]
+            spheres = kind == WIDE_KIND_SPHERE
             bt = best_t[r_]
             bi = best_i[r_]
             if fl & F_SPHERES:
@@ -675,19 +707,23 @@ def wide_traverse_plain(op: WideOperand, rays: torch.Tensor,
                 tm = time[r_] if motion else None
                 for m in range(op.leaf_m):
                     gid = row_i[:, 4 + m]
-                    valid = (gid >= 0) & (gid < off_r)
+                    valid = spheres & (m < count)
                     if not bool(valid.any()):
                         continue
-                    c = _leaf_sphere_inline(row, o, d, tm, bt, t_min, motion,
-                                            base=op.slot_base + m * op.slot_f)
+                    c, crosses = _leaf_sphere_inline(
+                        row, o, d, tm, bt, t_min, motion,
+                        base=op.slot_base + m * op.slot_f, crosses=True)
                     c = torch.where(valid, c, _INF)
                     better = c < bt
                     bt = torch.where(better, c, bt)
                     bi = torch.where(better, gid, bi)
                     if stats:
-                        tests["sphere"][r_] += valid.to(torch.int32)
+                        tests["sphere"][r_] += (valid & crosses).to(
+                            torch.int32)
+                        tests["sphere_miss"][r_] += (valid & ~crosses).to(
+                            torch.int32)
             gid0 = row_i[:, 4]
-            other = torch.nonzero(gid0 >= off_r).flatten()
+            other = torch.nonzero(~spheres).flatten()
             if other.numel():
                 best_t[r_], best_i[r_] = bt, bi
                 ray = r_[other]
@@ -801,13 +837,15 @@ def _launch(op, rays, time, flights, t_min, t_max, visits):
     return (t_out, g_out, v_out) if visits else (t_out, g_out)
 
 
-# the flat kernel's instances (csrc/bvh_traverse.cu kinds_of)
+# the flat and wide kernels' instances (csrc/bvh_leaf.cuh kinds_of)
 INSTANCE_ANY, INSTANCE_SPHERES, INSTANCE_MOVING_SPHERES = 0, 1, 2
 
 
 def traverse_plan(n_rays: int, flags: int) -> dict:
-    """The launch ``pt_bvh_traverse`` makes for ``n_rays`` rays of a tree
-    with operand ``flags`` (``pt_bvh_traverse_plan`` gives the C side's):
+    """The launch ``pt_bvh_traverse`` and ``pt_bvh_wide_traverse`` make
+    for ``n_rays`` rays of a tree with operand ``flags``
+    (``pt_bvh_traverse_plan`` and ``pt_bvh_wide_traverse_plan`` give the C
+    side's, ``csrc/bvh_leaf.cuh`` ``traverse_plan``):
     one thread a ray in blocks of :data:`THREADS`, and the instance, one
     for inline static spheres alone, one for inline moving spheres alone,
     the general one for every other set of kinds."""
@@ -828,36 +866,30 @@ def yardsticks(op: TreeOperand, R: int, visits: torch.Tensor,
     plain version's counts): operations at one instruction each over the
     33.5 T/s issue rate, against the bytes of rays in, results out, node
     rows and records read once."""
-    from pathtrace_tpu_torch.tools._probe import HBM_BYTES_PER_S, ISSUE_PER_S
-
     ops = OPS_VISIT * int(visits.sum()) + sum(
         OPS_LEAF[k] * int(v.sum()) for k, v in tests.items())
-    nbytes = (R * (24 + (4 if op.flags & F_MOTION else 0) + 4 * n_media + 8)
-              + op.nodes.numel() * 4 + op.prims.numel() * 4)
-    ops_ms = ops / ISSUE_PER_S * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "issue_ceiling_ms": ops_ms, "bytes_ms": bytes_ms,
-            "operations": ops, "bytes": nbytes,
-            "mean_visits": float(visits.double().mean()),
-            "max_visits": int(visits.max()) if R else 0,
-            "leaf_tests": {k: int(v.sum()) for k, v in tests.items()
-                           if int(v.sum())}}
+    return _bound(op, R, visits, tests, n_media, ops)
 
 
 def wide_yardsticks(op: WideOperand, R: int, visits: torch.Tensor,
                     tests: dict, n_media: int = 0) -> dict:
     """:func:`yardsticks` for the wide traversal, from its plain version's
     counts: ``OPS_WIDE_INNER`` an inner visit, ``OPS_WIDE_LEAF`` a leaf
-    visit, a sphere slot's test (24, or ``OPS_WIDE_SLOT_MOVING``) and
-    other leaf tests at ``OPS_LEAF``, over the 33.5 T/s issue rate."""
-    from pathtrace_tpu_torch.tools._probe import HBM_BYTES_PER_S, ISSUE_PER_S
-
-    slot = OPS_WIDE_SLOT_MOVING if op.flags & F_MOTION else OPS_LEAF["sphere"]
-    per = {"inner": OPS_WIDE_INNER, "leaf": OPS_WIDE_LEAF, "sphere": slot}
+    visit, a sphere slot's test (``OPS_LEAF["sphere"]`` with a positive
+    discriminant, else ``OPS_WIDE_SLOT_MISS``; ``OPS_WIDE_MOTION`` more
+    with motion) and other leaf tests at ``OPS_LEAF``."""
+    lerp = OPS_WIDE_MOTION if op.flags & F_MOTION else 0
+    per = {"inner": OPS_WIDE_INNER, "leaf": OPS_WIDE_LEAF,
+           "sphere": OPS_LEAF["sphere"] + lerp,
+           "sphere_miss": OPS_WIDE_SLOT_MISS + lerp}
     ops = sum(per.get(k, OPS_LEAF.get(k, 0)) * int(v.sum())
               for k, v in tests.items())
+    return _bound(op, R, visits, tests, n_media, ops)
+
+
+def _bound(op, R, visits, tests, n_media, ops) -> dict:
+    from pathtrace_tpu_torch.tools._probe import HBM_BYTES_PER_S, ISSUE_PER_S
+
     nbytes = (R * (24 + (4 if op.flags & F_MOTION else 0) + 4 * n_media + 8)
               + op.nodes.numel() * 4 + op.prims.numel() * 4)
     ops_ms = ops / ISSUE_PER_S * 1e3

@@ -1,9 +1,11 @@
-"""The flat BVH traversal kernel (``csrc/bvh_traverse.cu``) and the
-turbulence kernel (``csrc/turb.cu``) on the card, against their plain
-versions and against another tree's build of the same sources, timed in
-turns.
+"""The flat and wide BVH traversal kernels (``csrc/bvh_traverse.cu``,
+``csrc/bvh_wide_traverse.cu``) and the turbulence kernel
+(``csrc/turb.cu``) on the card, against their plain versions and against
+another tree's build of the same sources, timed in turns.
 
     python -m pathtrace_tpu_torch.tools.bvh_bench --what traverse --parent build/parent
+    python -m pathtrace_tpu_torch.tools.bvh_bench --what wide --parent build/parent
+    python -m pathtrace_tpu_torch.tools.bvh_bench --what wide --leaf-m 1,2,4,8
     python -m pathtrace_tpu_torch.tools.bvh_bench --what turb --parent build/parent
 
 ``traverse`` runs the six scenes of ``chip_smoke.py``'s phase 49
@@ -17,7 +19,16 @@ events time the device alone, and the tool prints each build's median,
 the profiler's device time (by pass for the turbulence), the bound
 (``bvh_kernel.yardsticks``) and the launch plan (grid, instance).
 ``turb`` does the same for the turbulence on ``final_full``'s camera and
-scattered hits.
+scattered hits. ``wide`` runs the same 12 sets through wide trees widened
+from the same flat tree at each ``--leaf-m`` (static spheres) or
+``--leaf-m-motion`` (moving ones; the scenes without spheres at their one
+width): each build at each width must equal the wide plain version (t,
+gid, visits) and the flat kernel (t, gid) bit for bit, then every (build,
+width) and the flat kernel run in turns; it prints each one's median,
+share of its bound (``bvh_kernel.wide_yardsticks``), visits a ray, the
+share of a warp's visit slots its lanes use, the sphere slots tested a
+leaf visit and the share of them whose discriminant is positive, the
+launch plan and ptxas's registers and spills.
 
 The builds are this checkout's library (``new``) and, with ``--parent
 DIR``, that tree's source built alone (``DIR/pathtrace_tpu_torch/csrc``,
@@ -25,7 +36,8 @@ e.g. the parent commit unpacked with ``git archive`` into
 ``build/parent``) into ``build/bvh_bench/parent/`` with the package's
 flags. A parent turbulence source without the list argument is called
 with the parent's signature. ``chip_smoke.py`` uses :func:`standalone`,
-:func:`traverse_sets`, :func:`in_turns` and :func:`parent_kernels`.
+:func:`traverse_sets`, :func:`in_turns`, :func:`run_wide` and
+:func:`parent_kernels`.
 """
 
 from __future__ import annotations
@@ -109,6 +121,38 @@ def traverse_fn(lib) -> Callable:
     return run
 
 
+def wide_fn(lib) -> Callable:
+    """``run(op, rays, time, flights) -> (t, gid, visits)`` through the
+    ``pt_bvh_wide_traverse`` of ``lib`` (a wide tree's operand)."""
+    import torch
+
+    from pathtrace_tpu_torch.config import MAX_T, MIN_T
+    from pathtrace_tpu_torch.ops import _cuda_build
+
+    fn = lib.pt_bvh_wide_traverse
+    fn.argtypes = _cuda_build._SIGNATURES["pt_bvh_wide_traverse"]
+    fn.restype = ctypes.c_int
+
+    def run(op, rays, time, flights):
+        R = rays.shape[1]
+        dev = rays.device
+        t = torch.empty(R, dtype=torch.float32, device=dev)
+        g = torch.empty(R, dtype=torch.int32, device=dev)
+        v = torch.empty(R, dtype=torch.int32, device=dev)
+        _, off_r, off_b, off_m = op.offsets
+        code = fn(rays.data_ptr(), rays.stride(0), R, _vp(time),
+                  op.nodes.data_ptr(), op.n_nodes, op.node_rows, op.leaf_m,
+                  op.slot_base, op.slot_f, op.prims.data_ptr(), _vp(flights),
+                  off_r, off_b, off_m, op.flags, float(MIN_T), float(MAX_T),
+                  t.data_ptr(), g.data_ptr(), v.data_ptr(),
+                  torch.cuda.current_stream(dev).cuda_stream)
+        if code:
+            raise RuntimeError(f"pt_bvh_wide_traverse failed ({code})")
+        return t, g, v
+
+    return run
+
+
 def turb_fn(lib, source: str) -> Callable:
     """``run(point, mask) -> [R]`` through the ``pt_noise_turb`` of
     ``lib``, called with or without the list's scratch as ``source``
@@ -136,32 +180,58 @@ def turb_fn(lib, source: str) -> Callable:
     return run
 
 
-def traverse_plan(lib, op, R: int) -> Optional[dict]:
-    """The launch ``lib``'s ``pt_bvh_traverse_plan`` gives for ``op`` and
-    ``R`` rays (None for a build without one)."""
-    if not hasattr(lib, "pt_bvh_traverse_plan"):
+def traverse_plan(lib, op, R: int,
+                  entry: str = "pt_bvh_traverse_plan") -> Optional[dict]:
+    """The launch ``lib``'s ``pt_bvh_traverse_plan`` (or ``entry``, e.g.
+    ``pt_bvh_wide_traverse_plan``) gives for ``op`` and ``R`` rays (None
+    for a build without one)."""
+    if not hasattr(lib, entry):
         return None
     out = (ctypes.c_int * 3)()
-    fn = lib.pt_bvh_traverse_plan
+    fn = getattr(lib, entry)
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     code = fn(R, op.flags, ctypes.addressof(out))
     if code:
-        raise RuntimeError(f"pt_bvh_traverse_plan failed ({code})")
+        raise RuntimeError(f"{entry} failed ({code})")
     return dict(zip(("blocks", "threads", "instance"), list(out)))
 
 
 def traverse_sets(dev, names: Sequence[str] = SCENES):
     """Yield (scene, label, operand, rays [6, R], time, flights, n_media)
-    for each scene's camera rays and once-scattered rays at 1280x720x4:
-    K2's bounce where the fast path takes the scene, the general bounce
-    through the tree for ``final_full``."""
+    for each scene's camera rays and once-scattered rays at 1280x720x4
+    (:func:`scene_rays`)."""
+    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import fastpath as fp
+
+    for name in names:
+        sr = scene_rays(name, dev)
+        op, st0 = sr["flat_op"], sr["st0"]
+
+        def flights_at(depth):
+            if not sr["feats"].has_media:
+                return None
+            return bvh_kernel.media_flights(op, fp.media_uniforms(
+                st0.lane, 7, depth, sr["n_media"], 8))
+
+        yield name, "camera", op, st0.planes[:6], st0.time, flights_at(0), \
+            sr["n_media"]
+        yield name, "scattered", op, sr["rays1"], st0.time, flights_at(1), \
+            sr["n_media"]
+        del sr, op, st0
+
+
+def scene_rays(name: str, dev) -> dict:
+    """A preset at 1280x720x4: {"scene", "feats", "flat", "offsets",
+    "sdev" (the scene on ``dev``), "flat_op", "n_media", "st0" (the camera
+    rays' state), "rays1" (the once-scattered rays [6, R]: K2's bounce
+    where the fast path takes the scene, the general bounce through the
+    tree for ``final_full``)}."""
     import torch
 
     from pathtrace_tpu_torch.models import bvh as pbvh
     from pathtrace_tpu_torch.models import presets
     from pathtrace_tpu_torch.models.types import SceneFeatures
-    from pathtrace_tpu_torch.ops import bvh_kernel
     from pathtrace_tpu_torch.ops import fastpath as fp
     from pathtrace_tpu_torch.ops import shade_kernel as k2
     from pathtrace_tpu_torch.render import integrator as gint
@@ -169,46 +239,34 @@ def traverse_sets(dev, names: Sequence[str] = SCENES):
     from pathtrace_tpu_torch.utils.threefry import PRNGKey
 
     R = W * H * S
-    for name in names:
-        scene, cam = presets.from_name(name, W / H)
-        feats = SceneFeatures.from_scene(scene)
-        flat, _, offsets = pbvh.build_scene_bvh(scene)
-        sdev = scene.to(dev)
-        op = flat.operand(sdev, feats, offsets, dev)
-        n_media = sdev.media.count if feats.has_media else 0
-        ro, rd, tm = generate_primary_rays(cam, W, H, S, PRNGKey(0),
-                                           device=dev)
-        st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3),
-                            tm.reshape(R))
-
-        def flights_at(depth):
-            if not feats.has_media:
-                return None
-            return bvh_kernel.media_flights(op, fp.media_uniforms(
-                st0.lane, 7, depth, n_media, 8))
-
-        yield name, "camera", op, st0.planes[:6], st0.time, flights_at(0), \
-            n_media
-        if fp.fastpath_refusal(feats, sdev) is None:
-            tables = fp.prep_tables(sdev, feats, bvh=flat,
-                                    bvh_offsets=offsets)
-            t_, idx_ = fp.closest_hit(tables, st0, 0, feats, 7)
-            planes, _ = k2.shade_from_winners(
-                tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
-                st0.lane, 7, 0, D, tables.sky4, fp.feature_flags(feats),
-                atlas=tables.atlas)
-            rays1 = planes[:6].contiguous()
-            del tables, planes
-        else:  # final_full: the general bounce it renders through
-            fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats)
-            gt = gint.prep_tables(sdev, feats)
-            st1 = gint._bounce(sdev, gt, gint._initial_state(
-                ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
-                PRNGKey(7), D, feats, intersect_fn=fn)
-            rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
-            del gt, st1
-        yield name, "scattered", op, rays1, st0.time, flights_at(1), n_media
-        del sdev, op, st0, rays1
+    scene, cam = presets.from_name(name, W / H)
+    feats = SceneFeatures.from_scene(scene)
+    flat, _, offsets = pbvh.build_scene_bvh(scene)
+    sdev = scene.to(dev)
+    op = flat.operand(sdev, feats, offsets, dev)
+    n_media = sdev.media.count if feats.has_media else 0
+    ro, rd, tm = generate_primary_rays(cam, W, H, S, PRNGKey(0), device=dev)
+    st0 = fp.make_state(ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R))
+    if fp.fastpath_refusal(feats, sdev) is None:
+        tables = fp.prep_tables(sdev, feats, bvh=flat, bvh_offsets=offsets)
+        t_, idx_ = fp.closest_hit(tables, st0, 0, feats, 7)
+        planes, _ = k2.shade_from_winners(
+            tables.table, idx_, t_, st0.planes, st0.time, st0.alive,
+            st0.lane, 7, 0, D, tables.sky4, fp.feature_flags(feats),
+            atlas=tables.atlas)
+        rays1 = planes[:6].contiguous()
+        del tables, planes
+    else:  # final_full: the general bounce it renders through
+        fn = pbvh.make_bvh_intersect_fn(flat, offsets, feats)
+        gt = gint.prep_tables(sdev, feats)
+        st1 = gint._bounce(sdev, gt, gint._initial_state(
+            ro.reshape(R, 3), rd.reshape(R, 3), tm.reshape(R)),
+            PRNGKey(7), D, feats, intersect_fn=fn)
+        rays1 = torch.cat([st1.ro.T, st1.rd.T]).contiguous()
+        del gt, st1
+    return {"scene": scene, "feats": feats, "flat": flat, "offsets": offsets,
+            "sdev": sdev, "flat_op": op, "n_media": n_media, "st0": st0,
+            "rays1": rays1}
 
 
 # device cycles a turn's launches queue behind (~0.1 ms a launch at the
@@ -296,18 +354,20 @@ class _Proxy:
 @contextlib.contextmanager
 def parent_kernels(libs: dict, sources: dict):
     """Within the block every call of the package's traversal and
-    turbulence wrappers launches the builds in ``libs`` (``{"bvh": CDLL,
-    "turb": CDLL}``, from ``sources``' files) instead of this checkout's:
-    a frame through the parent tree's two kernels and this tree's
-    everything else."""
+    turbulence wrappers launches the builds in ``libs`` (any of ``{"bvh":
+    CDLL, "wide": CDLL, "turb": CDLL}``, from ``sources``' files) instead
+    of this checkout's: a frame through the parent tree's kernels and this
+    tree's everything else."""
     from pathtrace_tpu_torch.ops import _cuda_build
 
     entries = {}
-    if "bvh" in libs:
-        fn = libs["bvh"].pt_bvh_traverse
-        fn.argtypes = _cuda_build._SIGNATURES["pt_bvh_traverse"]
-        fn.restype = ctypes.c_int
-        entries["pt_bvh_traverse"] = fn
+    for key, entry in (("bvh", "pt_bvh_traverse"),
+                       ("wide", "pt_bvh_wide_traverse")):
+        if key in libs:
+            fn = getattr(libs[key], entry)
+            fn.argtypes = _cuda_build._SIGNATURES[entry]
+            fn.restype = ctypes.c_int
+            entries[entry] = fn
     if "turb" in libs:
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn = libs["turb"].pt_noise_turb
@@ -330,9 +390,11 @@ def parent_kernels(libs: dict, sources: dict):
 
 
 def tree_sources(tree: str) -> dict:
-    """{"bvh": path, "turb": path} of a tree's two kernel sources."""
+    """{"bvh": path, "wide": path, "turb": path} of a tree's three kernel
+    sources."""
     csrc = os.path.join(tree, "pathtrace_tpu_torch", "csrc")
     return {"bvh": os.path.join(csrc, "bvh_traverse.cu"),
+            "wide": os.path.join(csrc, "bvh_wide_traverse.cu"),
             "turb": os.path.join(csrc, "turb.cu")}
 
 
@@ -378,10 +440,7 @@ def run_traverse(builds: dict, rounds: int, reps: int, dev,
         dev_ms = {k: device_ms(lambda f=fn: f(op, rays, tm, fl), reps)
                   for k, fn in fns.items()}
         ys = bvh_kernel.yardsticks(op, R, vp, tests, n_media)
-        # a warp of 32 consecutive rays lives as long as its longest ray:
-        # the share of its lanes' visit slots that visit a node
-        w = vp[:R // 32 * 32].view(-1, 32).double()
-        warp_use = float(w.sum() / (32.0 * w.max(dim=1).values.sum()))
+        use = warp_use(vp)
         plans = {k: traverse_plan(lib if lib is not None else lib_new, op, R)
                  for k, (lib, _) in builds.items()}
         row = {"rays": R, "nodes": op.n_nodes, "node_rows": op.node_rows,
@@ -389,7 +448,7 @@ def run_traverse(builds: dict, rounds: int, reps: int, dev,
                "median_ms": {k: median(v) for k, v in times.items()},
                "ms": times, "device_ms": dev_ms, "bound_ms": ys["bound_ms"],
                "bound_by": ys["bound_by"], "mean_visits": ys["mean_visits"],
-               "max_visits": ys["max_visits"], "warp_use": warp_use,
+               "max_visits": ys["max_visits"], "warp_use": use,
                "plans": plans}
         out[f"{name} {label}"] = row
         log(f"{name} {label}: equal {equal}; medians "
@@ -397,10 +456,169 @@ def run_traverse(builds: dict, rounds: int, reps: int, dev,
             f"device {dev_ms} ms; "
             f"bound {ys['bound_ms']:.4f} ({ys['bound_by']}); visits "
             f"{ys['mean_visits']:.2f} max {ys['max_visits']}, lanes busy "
-            f"{warp_use:.3f} of a warp's visit slots; plans {plans}")
+            f"{use:.3f} of a warp's visit slots; plans {plans}")
         if not all(equal.values()):
             raise AssertionError(f"{name} {label}: a build differs from the "
                                  "plain version")
+    return out
+
+
+def wide_sets(dev, leaf_ms: Sequence[int], leaf_ms_motion: Sequence[int],
+              names: Sequence[str] = SCENES):
+    """Yield (scene, label, flat operand, {leaf_m: (wide tree, operand)},
+    rays [6, R], time, flights, n_media) for :func:`traverse_sets`' sets,
+    the wide trees widened from the same flat tree at each width of
+    ``leaf_ms`` (static spheres) or ``leaf_ms_motion`` (moving spheres);
+    a scene without spheres at its one width."""
+    from pathtrace_tpu_torch.models import bvh as pbvh
+    from pathtrace_tpu_torch.ops import bvh_kernel
+    from pathtrace_tpu_torch.ops import fastpath as fp
+
+    for name in names:
+        sr = scene_rays(name, dev)
+        feats, fop, st0 = sr["feats"], sr["flat_op"], sr["st0"]
+        widths = ((leaf_ms_motion if feats.has_motion else leaf_ms)
+                  if feats.has_spheres else (None,))
+        wides = {}
+        for lm in widths:
+            w = pbvh.widen_flat_bvh(sr["flat"], sr["scene"], sr["offsets"],
+                                    features=feats, leaf_m=lm)
+            wides[w.leaf_m] = (w, w.operand(sr["sdev"], feats,
+                                            sr["offsets"], dev))
+
+        def flights_at(depth):
+            if not feats.has_media:
+                return None
+            return bvh_kernel.media_flights(fop, fp.media_uniforms(
+                st0.lane, 7, depth, sr["n_media"], 8))
+
+        yield (name, "camera", fop, wides, st0.planes[:6], st0.time,
+               flights_at(0), sr["n_media"])
+        yield (name, "scattered", fop, wides, sr["rays1"], st0.time,
+               flights_at(1), sr["n_media"])
+        del sr, fop, st0, wides
+
+
+def warp_use(visits) -> float:
+    """The share of a warp's visit slots its lanes use: a warp of 32
+    consecutive rays lives as long as its longest ray."""
+    R = visits.shape[0]
+    w = visits[:R // 32 * 32].view(-1, 32).double()
+    return float(w.sum() / (32.0 * w.max(dim=1).values.sum()))
+
+
+def run_wide(builds: dict, leaf_ms: Sequence[int],
+             leaf_ms_motion: Sequence[int], rounds: int, reps: int, dev,
+             log=print, names: Sequence[str] = SCENES,
+             time_plain: Sequence[str] = ()) -> dict:
+    """The 12 sets through every build of the wide kernel in ``builds``
+    ({name: (CDLL or None for this checkout's library, ptxas log)}) at
+    every width: (t, gid, visits) against the wide plain version and (t,
+    gid) against this checkout's flat kernel, bit for bit, and once
+    through the package's wrapper (``bvh_kernel.bvh_traverse``: one
+    launch, no plain call); then every (build, width) and the flat kernel
+    in turns. The sets named in ``time_plain`` (e.g. "random_spheres
+    camera") also time one plain call a width (``plain_ms``)."""
+    import time
+
+    import torch
+
+    from pathtrace_tpu_torch.ops import _cuda_build, bvh_kernel
+    from pathtrace_tpu_torch.tools.nearest_bench import ptxas_usage
+
+    lib_new = _cuda_build.library()
+    fns = {k: wide_fn(lib if lib is not None else lib_new)
+           for k, (lib, _) in builds.items()}
+    flat_run = traverse_fn(lib_new)
+    regs = {k: ptxas_usage("bvh_wide_traverse_kernel", lg)
+            for k, (_, lg) in builds.items()}
+    log(f"registers: {json.dumps(regs)}")
+    out = {"registers": regs, "sets": {}}
+    for name, label, fop, wides, rays, tm, fl, n_media in wide_sets(
+            dev, leaf_ms, leaf_ms_motion, names):
+        R = rays.shape[1]
+        tf, gf, vf = flat_run(fop, rays, tm, fl)
+        calls, widths, ok = {}, {}, True
+        for lm, (wide, op) in wides.items():
+            tp, gp, vp, tests = bvh_kernel.wide_traverse_plain(
+                op, rays, tm, fl, stats=True)
+            equal, equal_flat = {}, {}
+            for k, fn in fns.items():
+                t, g, v = fn(op, rays, tm, fl)
+                torch.cuda.synchronize()
+                equal[k] = bool(torch.equal(t, tp) and torch.equal(g, gp)
+                                and torch.equal(v, vp))
+                equal_flat[k] = bool(torch.equal(t, tf)
+                                     and torch.equal(g, gf))
+                ok = ok and equal[k] and equal_flat[k]
+                calls[f"{k}@{lm}"] = (lambda f=fn, o=op:
+                                      f(o, rays, tm, fl))
+            launches = (bvh_kernel.WIDE_LAUNCHES, bvh_kernel.WIDE_PLAIN_CALLS)
+            t, g, v = bvh_kernel.bvh_traverse(op, rays, tm, fl, visits=True)
+            torch.cuda.synchronize()
+            hit = tp < 1e30
+            wrapper = {"equal": bool(torch.equal(t, tp) and torch.equal(g, gp)
+                                     and torch.equal(v, vp)),
+                       "max_abs_err": (float((t[hit] - tp[hit]).abs().max())
+                                       if bool(hit.any()) else 0.0),
+                       "launches": bvh_kernel.WIDE_LAUNCHES - launches[0],
+                       "plain_calls": (bvh_kernel.WIDE_PLAIN_CALLS
+                                       - launches[1])}
+            ok = ok and wrapper["equal"] and wrapper["launches"] == 1 \
+                and wrapper["plain_calls"] == 0
+            plain_ms = None
+            if f"{name} {label}" in time_plain:
+                t0 = time.perf_counter()
+                bvh_kernel.wide_traverse_plain(op, rays, tm, fl)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+            ys = bvh_kernel.wide_yardsticks(op, R, vp, tests, n_media)
+            leaf_visits = int(tests["leaf"].sum())
+            slots = int(tests["sphere"].sum() + tests["sphere_miss"].sum())
+            widths[lm] = {
+                "nodes": wide.n_nodes, "node_rows": op.node_rows,
+                "equal": equal, "equal_to_flat": equal_flat,
+                "wrapper": wrapper, "plain_ms": plain_ms,
+                "hit_share": float(hit.float().mean()),
+                "bound_ms": ys["bound_ms"], "bound_by": ys["bound_by"],
+                "mean_visits": ys["mean_visits"],
+                "max_visits": ys["max_visits"], "warp_use": warp_use(vp),
+                "slots_a_leaf_visit": slots / max(leaf_visits, 1),
+                "slots_crossed": int(tests["sphere"].sum()) / max(slots, 1),
+                "leaf_tests": ys["leaf_tests"],
+                "plan": traverse_plan(lib_new, op, R,
+                                      "pt_bvh_wide_traverse_plan")}
+        calls["flat"] = lambda: flat_run(fop, rays, tm, fl)
+        times = in_turns(calls, rounds, reps)
+        med = {k: median(v) for k, v in times.items()}
+        for lm, row in widths.items():
+            row["median_ms"] = {k: med[f"{k}@{lm}"] for k in fns}
+            row["share_of_bound"] = {k: row["bound_ms"] / v
+                                     for k, v in row["median_ms"].items()}
+        entry = {"rays": R, "flat_nodes": fop.n_nodes,
+                 "flat_mean_visits": float(vf.double().mean()),
+                 "flat_warp_use": warp_use(vf), "flat_median_ms": med["flat"],
+                 "ms": times, "widths": widths}
+        out["sets"][f"{name} {label}"] = entry
+        for lm, row in widths.items():
+            log(f"{name} {label} leaf_m {lm}: {row['nodes']} nodes of "
+                f"{row['node_rows']} rows; equal to plain {row['equal']}, "
+                f"to the flat kernel {row['equal_to_flat']}; medians "
+                f"{ {k: round(v, 4) for k, v in row['median_ms'].items()} } "
+                f"ms against the flat kernel's {med['flat']:.4f}; wrapper "
+                f"{row['wrapper']}; plain {row['plain_ms']} ms; bound "
+                f"{row['bound_ms']:.4f} ({row['bound_by']}; share "
+                f"{ {k: round(v, 3) for k, v in row['share_of_bound'].items()} }"
+                f"); visits {row['mean_visits']:.2f} (max "
+                f"{row['max_visits']}) against the flat tree's "
+                f"{entry['flat_mean_visits']:.2f}; a warp's visit slots used "
+                f"{row['warp_use']:.3f} (flat {entry['flat_warp_use']:.3f}); "
+                f"sphere slots a leaf visit {row['slots_a_leaf_visit']:.2f} "
+                f"({row['slots_crossed']:.3f} with a positive discriminant); "
+                f"plan {row['plan']}")
+        if not ok:
+            raise AssertionError(f"{name} {label}: a wide build differs from "
+                                 "the plain version or the flat kernel")
     return out
 
 
@@ -498,13 +716,18 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--what", choices=("traverse", "turb"),
+    ap.add_argument("--what", choices=("traverse", "wide", "turb"),
                     default="traverse")
     ap.add_argument("--parent", default=None,
                     help="a tree whose kernel source is built alone")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None, help="write the JSON here too")
+    ap.add_argument("--leaf-m", default="2,4,8",
+                    help="wide: the widths of static-sphere trees")
+    ap.add_argument("--leaf-m-motion", default="2,4",
+                    help="wide: the widths of moving-sphere trees")
+    ap.add_argument("--scenes", default=",".join(SCENES))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bvh_bench: no CUDA device", file=sys.stderr)
@@ -512,8 +735,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     dev = torch.device("cuda")
     smi = _smi()
     print(f"card: {smi}", flush=True)
-    key = "bvh" if args.what == "traverse" else "turb"
-    own = tree_sources(_ROOT)[key]
+    key = {"traverse": "bvh"}.get(args.what, args.what)
     specs, sources = {}, {}
     if args.parent:
         sources["parent"] = tree_sources(args.parent)[key]
@@ -529,6 +751,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     log = lambda s: print(s, flush=True)  # noqa: E731
     if args.what == "traverse":
         res = run_traverse(builds, args.rounds, args.reps, dev, log=log)
+    elif args.what == "wide":
+        widths = [[int(x) for x in a.split(",")]
+                  for a in (args.leaf_m, args.leaf_m_motion)]
+        res = run_wide(builds, *widths, args.rounds, args.reps, dev, log=log,
+                       names=args.scenes.split(","))
     else:
         res = run_turb(builds, sources, args.rounds, args.reps, dev, log=log)
     line = json.dumps({"what": args.what, "card": smi, "sets": res})

@@ -17,11 +17,14 @@ sphere test's products into FMAs and parts on 8-503 of the 2048 rays'
 t (the winners stay equal).
 
 * The pack: the port's ``widen_flat_bvh`` equals JAX's bit for bit, the
-  int columns compared as int32; on ``random_spheres`` (``leaf_m`` 8) it
-  has at most a quarter of the flat tree's nodes.
+  int columns compared as int32, at the default widths and at the others
+  the card measured (``WIDTHS``: ``leaf_m`` 2 and 4 static, 2 moving; the
+  fixture's ``pack.<scene>.m<leaf_m>``); on ``random_spheres`` (``leaf_m``
+  8) it has at most a quarter of the flat tree's nodes. The operand's
+  header (slots filled, leaf kind) agrees with the pack's ids.
 * The plain traversal: bit for bit the port's flat traversal and the
-  fixture's JAX (t, gid), from the port's tree and from JAX's pack carried
-  in by ``convert.wide_bvh_from_numpy``.
+  fixture's JAX (t, gid), from the port's tree at every width and from
+  JAX's pack carried in by ``convert.wide_bvh_from_numpy``.
 * The fast path: frames through the wide tree equal frames through the
   flat one bit for bit (64x32, 2 spp, depth 8), compaction changes no
   bit, and the general path's ``make_bvh_intersect_fn`` gives the same
@@ -62,6 +65,13 @@ SCENES = ("random_spheres", "random", "cornell", "cornell_smoke",
           "simple_light")
 FRAME_SCENES = ("random_spheres", "simple_light", "cornell_smoke")
 N_RAYS = 2048
+# the widths the card measured beside each scene's default
+WIDTHS = {"random_spheres": (2, 4), "random": (2,)}
+# (scene, leaf_m) cases: each scene at its default width (None), then the
+# widths above; the default cases keep the scene's name as their id
+WIDTH_CASES = ([pytest.param(n, None, id=n) for n in SCENES]
+               + [pytest.param(n, m, id=f"{n}-m{m}")
+                  for n, ms in WIDTHS.items() for m in ms])
 
 
 @pytest.fixture(scope="module")
@@ -75,11 +85,16 @@ def _scene(name, aspect=1.0):
 
 
 @functools.lru_cache(maxsize=None)
-def _trees(name):
+def _trees(name, leaf_m=None):
     scene, _, feats = _scene(name)
     flat, _, offsets = pbvh.build_scene_bvh(scene)
-    wide = pbvh.widen_flat_bvh(flat, scene, offsets, features=feats)
+    wide = pbvh.widen_flat_bvh(flat, scene, offsets, features=feats,
+                               leaf_m=leaf_m)
     return scene, feats, flat, wide, offsets
+
+
+def _pack_key(name, leaf_m):
+    return f"pack.{name}" if leaf_m is None else f"pack.{name}.m{leaf_m}"
 
 
 def _rays(ref, name):
@@ -97,13 +112,43 @@ def _bits(x):
 # the pack
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", SCENES)
-def test_pack_equals_jax(ref, name):
-    _, _, _, wide, _ = _trees(name)
-    assert wide.leaf_m == int(ref[f"leaf_m.{name}"])
+@pytest.mark.parametrize("name,leaf_m", WIDTH_CASES)
+def test_pack_equals_jax(ref, name, leaf_m):
+    _, _, _, wide, _ = _trees(name, leaf_m)
+    assert wide.leaf_m == (int(ref[f"leaf_m.{name}"]) if leaf_m is None
+                           else leaf_m)
     assert wide.has_motion == bool(ref[f"has_motion.{name}"])
     np.testing.assert_array_equal(_bits(wide.pack.numpy()),
-                                  _bits(ref[f"pack.{name}"]))
+                                  _bits(ref[_pack_key(name, leaf_m)]))
+
+
+@pytest.mark.parametrize("name,leaf_m", WIDTH_CASES)
+def test_operand_header_agrees_with_pack(name, leaf_m):
+    """The operand's header columns 2-3: a leaf's filled slots (its ids
+    >= 0, a prefix) and its kind (its first id's, by the offsets); 0 and
+    -1 at an inner node."""
+    scene, feats, _, wide, offsets = _trees(name, leaf_m)
+    op = wide.operand(scene, feats, offsets, "cpu")
+    head = op.nodes.view(torch.int32)[:, :4].numpy()
+    p = wide.pack.numpy().view(np.int32)
+    ids = p[:, 2:2 + wide.leaf_m]
+    leaf = p[:, 0] < 0
+    np.testing.assert_array_equal(head[:, :2], p[:, :2])
+    filled = (ids >= 0).sum(axis=1)
+    np.testing.assert_array_equal(head[leaf, 2], filled[leaf])
+    # the filled slots are a prefix
+    assert ((ids[leaf] >= 0)
+            == (np.arange(wide.leaf_m) < filled[leaf, None])).all()
+    _, off_r, off_b, off_m = offsets
+    g = ids[leaf, 0]
+    kind = np.where(g < off_r, bvh_kernel.WIDE_KIND_SPHERE,
+                    np.where(g < off_b, bvh_kernel.WIDE_KIND_RECT,
+                             np.where(g < off_m, bvh_kernel.WIDE_KIND_BOX,
+                                      bvh_kernel.WIDE_KIND_MEDIUM)))
+    np.testing.assert_array_equal(head[leaf, 3], kind)
+    # a leaf of another kind holds one primitive
+    assert (head[leaf, 2][kind != bvh_kernel.WIDE_KIND_SPHERE] == 1).all()
+    assert (head[~leaf, 2] == 0).all() and (head[~leaf, 3] == -1).all()
 
 
 def test_collapses_nodes():
@@ -135,9 +180,9 @@ def test_leaf_m_defaults_and_escapes():
 # the plain traversal
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", SCENES)
-def test_plain_traversal_equals_flat_and_jax(ref, name):
-    scene, feats, flat, wide, offsets = _trees(name)
+@pytest.mark.parametrize("name,leaf_m", WIDTH_CASES)
+def test_plain_traversal_equals_flat_and_jax(ref, name, leaf_m):
+    scene, feats, flat, wide, offsets = _trees(name, leaf_m)
     ro, rd, tm, med_u = _rays(ref, name)
     before = bvh_kernel.WIDE_PLAIN_CALLS
     t_w, g_w = pbvh.bvh_scene_nearest(wide, scene, ro, rd, tm, med_u,
@@ -198,12 +243,19 @@ def test_nan_rays_miss_and_stats():
     assert bool((visits[:32] == 1).all())  # the root, then its escape
     assert int(tests["inner"].sum() + tests["leaf"].sum()) == int(
         visits.sum())
+    # a slot tested with a positive discriminant pays the whole test, one
+    # without stops before the square root; both carry the lerp here
+    assert int(tests["sphere"].sum()) > 0
+    assert int(tests["sphere_miss"].sum()) > 0
     ys = bvh_kernel.wide_yardsticks(op, R, visits, tests)
     assert ys["bound_ms"] == max(ys["issue_ceiling_ms"], ys["bytes_ms"]) > 0
+    lerp = bvh_kernel.OPS_WIDE_MOTION
     assert ys["operations"] == (
         bvh_kernel.OPS_WIDE_INNER * int(tests["inner"].sum())
         + bvh_kernel.OPS_WIDE_LEAF * int(tests["leaf"].sum())
-        + bvh_kernel.OPS_WIDE_SLOT_MOVING * int(tests["sphere"].sum()))
+        + (bvh_kernel.OPS_LEAF["sphere"] + lerp) * int(tests["sphere"].sum())
+        + (bvh_kernel.OPS_WIDE_SLOT_MISS + lerp)
+        * int(tests["sphere_miss"].sum()))
 
 
 def test_instanced_scene_refused():
@@ -518,6 +570,9 @@ def write_fixture(path: str = FIXTURE) -> None:
         t, gid = jbvh.wide_scene_nearest(wide, js, ro, rd, tm, med_u,
                                          features=feats, offsets=offsets)
         out[f"pack.{name}"] = np.asarray(wide.pack)
+        for m in WIDTHS.get(name, ()):
+            out[f"pack.{name}.m{m}"] = np.asarray(jbvh.widen_flat_bvh(
+                flat, js, offsets, features=feats, leaf_m=m).pack)
         out[f"leaf_m.{name}"] = np.asarray(wide.leaf_m, np.int64)
         out[f"has_motion.{name}"] = np.asarray(wide.has_motion)
         out[f"t.{name}"], out[f"gid.{name}"] = np.asarray(t), np.asarray(gid)
